@@ -1,0 +1,112 @@
+// Device side of the blocked position spec (tpubloom/ops/hashing.py and
+// tpubloom/ops/blocked.py hold the spec; tpubloom_torch/ops/hashing.py and
+// tpubloom_torch/ops/blocked.py are the plain PyTorch versions these
+// functions are tested against, bit for bit).
+//
+//   h_a = murmur3_32(key, seed)            blk   = h_a mod n_blocks
+//   h_b = murmur3_32(key, seed ^ 0x9E3779B9)
+//   g_a = fnv1a_32(key)
+//   g_b = murmur3_32(key, seed ^ 0x85EBCA6B)
+//   chunk: bit_i = (pool >> (i*log2(b))) mod b, pool = h_b | g_a<<32 | g_b<<64
+//   ap:    bit_i = (g_a + i*(g_b|1)) mod b
+//
+// A key is L bytes (L a multiple of 4), zero past its true length, read as
+// little-endian u32 words.
+#pragma once
+
+#include <stdint.h>
+
+namespace tpubloom {
+
+constexpr uint32_t kC1 = 0xCC9E2D51u;
+constexpr uint32_t kC2 = 0x1B873593u;
+constexpr uint32_t kFmix1 = 0x85EBCA6Bu;
+constexpr uint32_t kFmix2 = 0xC2B2AE35u;
+constexpr uint32_t kFnvOffset = 0x811C9DC5u;
+constexpr uint32_t kFnvPrime = 0x01000193u;
+constexpr uint32_t kSeedXorHB = 0x9E3779B9u;
+constexpr uint32_t kSeedXorGB = 0x85EBCA6Bu;
+
+// The filter geometry and hash identity every kernel needs.
+struct BlockSpec {
+  uint64_t n_blocks;   // power of two
+  int block_bits;      // power of two
+  int log2_bits;       // log2(block_bits)
+  int k;               // positions per key
+  uint32_t seed;
+  int chunk;           // 1: "chunk" in-block hash, 0: "ap"
+};
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// MurmurHash3_x86_32 over the key's first `len` bytes (kw: its nw words;
+// as in the spec, bytes past the buffer never enter, but `len` does).
+__device__ __forceinline__ uint32_t murmur3_32(const uint32_t* __restrict__ kw,
+                                               int nw, int len, uint32_t seed) {
+  uint32_t h = seed;
+  for (int i = 0; i < nw && 4 * i < len; ++i) {
+    uint32_t kk = kw[i] * kC1;
+    kk = rotl32(kk, 15);
+    kk *= kC2;
+    h ^= kk;
+    if (len - 4 * i >= 4) {  // full block: rotate + scramble; tail: mix only
+      h = rotl32(h, 13);
+      h = h * 5u + 0xE6546B64u;
+    }
+  }
+  h ^= (uint32_t)len;
+  h ^= h >> 16;
+  h *= kFmix1;
+  h ^= h >> 13;
+  h *= kFmix2;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t fnv1a_32(const uint32_t* __restrict__ kw,
+                                             int nw, int len) {
+  uint32_t h = kFnvOffset;
+  for (int j = 0; j < len && j < 4 * nw; ++j) {
+    uint32_t byte = (kw[j >> 2] >> (8 * (j & 3))) & 0xFFu;
+    h = (h ^ byte) * kFnvPrime;
+  }
+  return h;
+}
+
+// The hashes one key needs: its block and the in-block hash pool.
+struct KeyHash {
+  uint64_t blk;
+  uint32_t hb, ga, gb;
+};
+
+__device__ __forceinline__ KeyHash hash_key(const uint32_t* __restrict__ kw,
+                                            int nw, int len, const BlockSpec& s) {
+  KeyHash h;
+  h.blk = (uint64_t)murmur3_32(kw, nw, len, s.seed) & (s.n_blocks - 1);
+  h.ga = fnv1a_32(kw, nw, len);
+  h.gb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorGB);
+  h.hb = s.chunk ? murmur3_32(kw, nw, len, s.seed ^ kSeedXorHB) : 0u;
+  return h;
+}
+
+// In-block position i of a key (0 <= i < k).
+__device__ __forceinline__ uint32_t inblock_bit(int i, const KeyHash& h,
+                                                const BlockSpec& s) {
+  const uint32_t mask = (uint32_t)s.block_bits - 1u;
+  if (s.chunk) {
+    const int sh = i * s.log2_bits;
+    const int w = sh >> 5, off = sh & 31;
+    const uint32_t p0 = w == 0 ? h.hb : (w == 1 ? h.ga : h.gb);
+    uint32_t v = p0 >> off;
+    if (off + s.log2_bits > 32) {  // the slice straddles two pool words
+      const uint32_t p1 = w == 0 ? h.ga : h.gb;
+      v |= p1 << (32 - off);
+    }
+    return v & mask;
+  }
+  return (h.ga + (uint32_t)i * (h.gb | 1u)) & mask;
+}
+
+}  // namespace tpubloom

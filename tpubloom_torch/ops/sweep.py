@@ -1,0 +1,217 @@
+"""Kernel wrappers for the blocked filter's hot path, and the host-side
+double buffer.
+
+Mapping from the TPU kernels of ``tpubloom/ops/sweep.py``:
+
+* K3, ``_fat_kernel`` / ``fat_sweep_insert`` (driven by
+  ``apply_fat_updates``) -> :func:`blocked_insert`; its presence variant
+  (``PRES``, test-and-insert) -> :func:`blocked_query` then
+  :func:`blocked_insert` on the same stream (:func:`blocked_test_insert`).
+* K5, ``_fat_query_kernel`` / ``fat_sweep_query`` (driven by
+  ``apply_fat_query``) -> :func:`blocked_query`.
+
+Why the sweep algorithm is not carried over: the TPU sorts each batch by
+block, streams the whole filter through VMEM partition by partition and
+places updates with one-hot matmuls, because TPU HBM cannot do random
+read-modify-writes at speed (see the top of ``tpubloom/ops/sweep.py``).
+Hopper can: a key's block is one 64-byte row, read with vector loads or
+updated with ``atomicOr``. So the kernels here hash each key in place
+and touch only its row — no sort, no partition windows, and no overflow
+fallback, because nothing has a window to overflow. The results are the
+same bits: the same state after an insert, the same verdicts.
+
+Each wrapper takes ``(state, keys, lengths, config)``: ``state`` the
+filter's ``uint32`` storage (any shape holding ``n_blocks *
+words_per_block`` words; the fat and logical views are the same memory),
+``keys`` ``uint8[B, L]``, ``lengths`` ``int32[B]`` (negative = padding).
+A tensor on the CPU goes to the plain version in
+:mod:`tpubloom_torch.ops.blocked`; a CUDA tensor goes to the kernel, or
+the wrapper raises. It never falls back from one to the other.
+
+Every wrapper counts its kernel launches in :data:`LAUNCHES`, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpubloom_torch.ops import _build, blocked
+
+#: Kernel launches per wrapper since the last :func:`reset_launch_counts`
+#: (CUDA launches only; the plain versions are not counted).
+LAUNCHES: dict[str, int] = {"blocked_query": 0, "blocked_insert": 0}
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "tpb_blocked_query": (
+        [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+         ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, _P],
+        ctypes.c_int,
+    ),
+    "tpb_blocked_insert": (
+        [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+         ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, _P],
+        ctypes.c_int,
+    ),
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _library() -> ctypes.CDLL:
+    return _build.load_library("blocked_bloom", _SIGNATURES)
+
+
+def _check(state, keys, lengths, config) -> None:
+    if keys.device != state.device or lengths.device != state.device:
+        raise ValueError(
+            f"state, keys and lengths must share a device "
+            f"({state.device}, {keys.device}, {lengths.device})"
+        )
+    if state.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {state.device}")
+    if state.dtype != torch.uint32:
+        raise TypeError(f"state must be uint32, got {state.dtype}")
+    if state.numel() != config.n_blocks * config.words_per_block:
+        raise ValueError(
+            f"state holds {state.numel()} words, the config needs "
+            f"{config.n_blocks * config.words_per_block}"
+        )
+    if keys.dtype != torch.uint8 or keys.dim() != 2 or keys.shape[1] % 4:
+        raise ValueError(f"keys must be uint8[B, L], L % 4 == 0; got {keys.dtype}{tuple(keys.shape)}")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (keys.shape[0],):
+        raise ValueError(f"lengths must be int32[{keys.shape[0]}], got {lengths.dtype}{tuple(lengths.shape)}")
+    if state.device.type == "cuda":
+        if not (state.is_contiguous() and keys.is_contiguous() and lengths.is_contiguous()):
+            raise ValueError("the CUDA kernels take contiguous tensors")
+        if state.data_ptr() % 16 or keys.data_ptr() % 4:
+            raise ValueError("state must be 16-byte and keys 4-byte aligned")
+
+
+def _spec_args(config):
+    return (
+        config.n_blocks, config.block_bits, config.k, config.seed,
+        1 if config.block_hash == "chunk" else 0,
+    )
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def blocked_query(state, keys, lengths, config) -> torch.Tensor:
+    """Membership of each key: ``bool[B]``, False where ``lengths < 0``.
+    ``state`` is only read."""
+    _check(state, keys, lengths, config)
+    if state.device.type == "cpu":
+        return blocked.blocked_query_plain(state, keys, lengths, config)
+    B, L = keys.shape
+    out = torch.empty((B,), dtype=torch.uint8, device=state.device)
+    if B:
+        with torch.cuda.device(state.device):
+            stream = torch.cuda.current_stream(state.device).cuda_stream
+            err = _library().tpb_blocked_query(
+                state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), B, L, *_spec_args(config), stream,
+            )
+        _raise_on(err, "blocked_query")
+        LAUNCHES["blocked_query"] += 1
+    return out.view(torch.bool)
+
+
+def blocked_insert(state, keys, lengths, config) -> None:
+    """Set every valid key's k bits in ``state``, in place."""
+    _check(state, keys, lengths, config)
+    if state.device.type == "cpu":
+        blocked.blocked_insert_plain(state, keys, lengths, config)
+        return
+    B, L = keys.shape
+    if not B:
+        return
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = _library().tpb_blocked_insert(
+            state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+            B, L, *_spec_args(config), stream,
+        )
+    _raise_on(err, "blocked_insert")
+    LAUNCHES["blocked_insert"] += 1
+
+
+def blocked_test_insert(state, keys, lengths, config) -> torch.Tensor:
+    """Test-and-insert: each key's membership BEFORE the batch
+    (within-batch duplicates all report the pre-batch state; padding
+    reports False), then the insert. Two launches in stream order: the
+    query finishes reading before the insert writes."""
+    present = blocked_query(state, keys, lengths, config)
+    blocked_insert(state, keys, lengths, config)
+    return present
+
+
+def record_fence(device: torch.device):
+    """A completion handle for the work queued so far on ``device``'s
+    current stream: a recorded CUDA event, or None on the CPU (whose
+    work is done when the call returns)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class InFlight:
+    """Depth-1 host-side double buffer.
+
+    A batching driver (a server's ingest coalescer, a bench loop) launches
+    batch N without waiting, parks ``(handle, payload)`` here, stages
+    batch N+1's host prep and H2D while N's kernel runs, and only then
+    calls :meth:`take`, which waits for N and hands back its payload. The
+    handle is a CUDA event from :func:`record_fence` (or None on the CPU);
+    PyTorch's asynchronous launches do the overlap, this class keeps the
+    bookkeeping and the fence in one place.
+    """
+
+    def __init__(self):
+        self._handle = None
+        self._payload = None
+
+    @property
+    def pending(self) -> bool:
+        return self._payload is not None
+
+    def put(self, handle, payload):
+        """Park one launched batch; returns the PREVIOUS batch's
+        ``(payload, fence_error)`` pair fenced (``(None, None)`` when
+        nothing was in flight) — see :meth:`take`."""
+        prev = self.take()
+        self._handle, self._payload = handle, payload
+        return prev
+
+    def take(self):
+        """Fence and return ``(payload, fence_error)`` — both None when
+        idle. A fence error (a kernel fault surfacing at the
+        synchronise) is RETURNED, not raised or swallowed: the caller must
+        fail the batch's waiters rather than ack work that never
+        happened."""
+        if self._payload is None:
+            return None, None
+        handle, payload = self._handle, self._payload
+        self._handle = self._payload = None
+        err = None
+        if handle is not None:
+            try:
+                handle.synchronize()
+            except RuntimeError as e:  # CUDA faults surface as RuntimeError
+                err = e
+        return payload, err

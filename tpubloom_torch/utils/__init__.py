@@ -1,0 +1,1 @@
+"""Part of tpubloom_torch (see the package docstring)."""
