@@ -54,7 +54,7 @@ from tpubloom_torch.params import blocked_fpr
 SEED = 20260
 LOG2M, K, BLOCK_BITS, KEY_LEN = 32, 7, 512, 16
 B = 1 << 23
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (HBM3) bandwidth
 OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (same table)
 # 32-bit integer operations per key, counted from blocked_bloom.cu at
 # L=16, k=7, W=16: three murmur3 passes of 4 blocks (11 ops each) plus

@@ -38,7 +38,7 @@ IDENTITY_FIELDS = (
     "kind", "topk",
 )
 
-#: Filter kinds with their own storage layout + kernels (ISSUE 19).
+#: Filter kinds with their own storage layout + kernels.
 #: "bloom" covers the whole pre-existing family (plain/counting/blocked/
 #: sharded/scalable); the sketch kinds plug in via tpubloom.sketch.registry.
 FILTER_KINDS = ("bloom", "cuckoo", "cms", "topk")
@@ -138,7 +138,7 @@ class FilterConfig:
     insert_path: str = "auto"
     query_path: str = "auto"
     block_hash: str = "auto"
-    #: Filter kind (ISSUE 19): "bloom" (the whole pre-existing family),
+    #: Filter kind: "bloom" (the whole pre-existing family),
     #: "cuckoo" (m = fingerprint slots, k = candidate buckets per key),
     #: "cms" (m = row width in counters, k = rows), or "topk" (a CMS that
     #: additionally maintains a host-side top-`topk` heavy-hitter heap).
