@@ -4,9 +4,12 @@
     python3 chip_smoke.py            # from the repository root, one card
 
 It builds the CUDA kernels from ``tpubloom_torch/csrc`` and drives the
-port's main path — a BlockedBloomFilter at m=2^32, k=7, block_bits=512
-(512 MiB of state), 16-byte keys, batches of 2^23 — through the entry
-points a user calls. Phases, one JSON line each:
+port's two paths through the entry points a user calls: the main path, a
+BlockedBloomFilter at m=2^32, k=7, block_bits=512 (512 MiB of state),
+16-byte keys, batches of 2^23; and the counting path, a
+BlockedCountingBloomFilter at BASELINE config 4 (m=2^30 counters, k=7,
+block_bits=512, 512 MiB of state, batches of 2^22, the parameters of
+benchmarks/counting_rate.py). Phases, one JSON line each:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
@@ -26,7 +29,27 @@ points a user calls. Phases, one JSON line each:
    least time the card could take for the same work (``bound_ms``);
 6. end to end: host-clock time of whole ``insert_packed`` /
    ``include_packed`` calls at B=2^23 and of a test-and-insert of 2^16
-   Python ``bytes`` keys, split by the port's phase spans.
+   Python ``bytes`` keys, split by the port's phase spans;
+7. counting kernel vs plain: at config 4, an insert, a delete and a
+   query of a batch of old keys, fresh keys, a quarter of the batch one
+   repeated key and tail padding, through each counting kernel and its
+   plain version from the same state (tolerance 0); again with the state
+   as its logical ``[NB, W]`` view, and with ``block_hash="ap"`` at
+   m=2^26 counters;
+8. counting path: ``insert_packed`` / ``include_packed`` of 2^22 keys,
+   ``delete_batch`` of 2^16 of them as ``bytes`` and ``include_batch``,
+   and a fresh filter that returns to all-zero words after inserting and
+   deleting the same 2^22 keys, with the launch counts after each step;
+9. counting times: CUDA events around each of ≥ 40 warmed launches of
+   the insert, the delete (alternating, on the same batches, as
+   benchmarks/counting_rate.py does), the query, and the insert and
+   delete of a skewed batch, beside the bound and the plain versions;
+10. counting end to end: as phase 6, for the counting path's
+   ``insert_packed`` / ``include_packed`` at B=2^22 and a
+   ``delete_batch`` of 2^16 Python ``bytes`` keys;
+11. checkpoint round trip: ``snapshot_blob`` -> ``restore_blob`` of a
+   counting filter at m=2^24 counters (cut from 2^30: the numpy CRC32C's
+   carry chain is a Python loop over 8-byte blocks).
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -46,9 +69,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpubloom_torch import BlockedBloomFilter, FilterConfig
+from tpubloom_torch import BlockedBloomFilter, BlockedCountingBloomFilter, FilterConfig
+from tpubloom_torch import checkpoint
 from tpubloom_torch.obs import context as obs
-from tpubloom_torch.ops import _build, blocked, sweep
+from tpubloom_torch.ops import _build, blocked, counting, sweep
 from tpubloom_torch.params import blocked_fpr
 
 SEED = 20260
@@ -62,6 +86,17 @@ OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (same table)
 # slices (4 each), 28; then the query's mask build (k·W selects) and test
 # (2·W), 256, or the insert's per-word merge (k² compares), ~100.
 OPS_QUERY, OPS_INSERT = 162 + 64 + 28 + 256, 162 + 64 + 28 + 100
+# counting (blocked_counting.cu, k=7, 128 counters a block, W=16): the
+# same hashing (254); the update's per-word merge (k² compares, 49) and,
+# per distinct touched word (~5.8 a key), the 8-nibble saturating apply
+# (~6 ops a nibble) and the compare, ~50 each; the query's word select
+# (k·W, 112) and nibble tests (4 each, 28)
+OPS_COUNT_UPDATE, OPS_COUNT_QUERY = 254 + 49 + 290, 254 + 112 + 28
+# BASELINE config 4, as benchmarks/counting_rate.py:31-42 sets it; the
+# `ap` comparison and the checkpoint round trip are cut (see their phases)
+LOG2M_COUNTING, B_COUNTING = 30, 1 << 22
+LOG2M_COUNTING_AP, B_COUNTING_AP = 26, 1 << 20
+LOG2M_CHECKPOINT, B_CHECKPOINT = 24, 1 << 20
 M32 = 0xFFFFFFFF
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 RECORD: dict = {}
@@ -108,6 +143,13 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least ms the card could take: the larger of bytes over the
+    memory rate and operations over the rate of their type."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def phase_device() -> dict:
@@ -254,8 +296,8 @@ def phase_main_path(rng) -> tuple[dict, BlockedBloomFilter]:
     launches = sweep.launch_counts()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    for name, count in launches.items():
-        check(count > 0, f"{name} launched on the main path")
+    for name in ("blocked_insert", "blocked_query"):
+        check(launches[name] > 0, f"{name} launched on the main path")
     # an FPR the model can be held to needs a fuller filter: m=2^26 at 2^23 keys
     small = BlockedBloomFilter(FilterConfig(m=1 << 26, k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS))
     small.insert_packed(rows(rng, B))
@@ -300,11 +342,6 @@ def phase_times(f: BlockedBloomFilter, rng) -> dict:
     in_bytes = B * KEY_LEN + B * 4
     q_bytes = in_bytes + B + rows_touched * row_bytes
     i_bytes = in_bytes + 2 * rows_touched * row_bytes
-
-    def bound(nbytes, ops):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
-        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
     qb, qby = bound(q_bytes, OPS_QUERY * B)
     ib, iby = bound(i_bytes, OPS_INSERT * B)
     out = {
@@ -321,19 +358,12 @@ def phase_times(f: BlockedBloomFilter, rng) -> dict:
     return out
 
 
-def phase_end_to_end(f: BlockedBloomFilter, rng, times: dict) -> None:
+def time_calls(calls) -> dict:
     """Host-clock time of whole entry-point calls, split by the port's
     own phase spans (host_prep / h2d / kernel / kernel_query / d2h, each
     fenced inside an active request context), and the share of it the
-    kernels keep the card busy (kernel ms from the CUDA-event times)."""
-    big = rows(rng, B)
-    small = [bytes(r) for r in rows(rng, 1 << 16)]
-    calls = (
-        ("insert_packed", B, lambda: f.insert_packed(big), times["blocked_insert"]["ms"]),
-        ("include_packed", B, lambda: f.include_packed(big), times["blocked_query"]["ms"]),
-        ("test_and_insert_bytes_keys", len(small),
-         lambda: f.insert_batch(small, return_presence=True), None),
-    )
+    kernels keep the card busy (kernel ms from the CUDA-event times).
+    ``calls``: (name, keys, fn, kernel ms or None)."""
     out = {}
     for name, n, fn, kernel_ms in calls:
         fn()  # warm
@@ -348,7 +378,257 @@ def phase_end_to_end(f: BlockedBloomFilter, rng, times: dict) -> None:
         best = min(r["total_ms"] for r in runs)
         out[name] = {"keys": n, "runs": runs,
                      "device_busy_share": None if kernel_ms is None else kernel_ms / best}
-    emit("end_to_end", **out)
+    return out
+
+
+def phase_end_to_end(f: BlockedBloomFilter, rng, times: dict) -> None:
+    big = rows(rng, B)
+    small = [bytes(r) for r in rows(rng, 1 << 16)]
+    emit("end_to_end", **time_calls((
+        ("insert_packed", B, lambda: f.insert_packed(big), times["blocked_insert"]["ms"]),
+        ("include_packed", B, lambda: f.include_packed(big), times["blocked_query"]["ms"]),
+        ("test_and_insert_bytes_keys", len(small),
+         lambda: f.insert_batch(small, return_presence=True), None),
+    )))
+
+
+def phase_counting_end_to_end(f: BlockedCountingBloomFilter, rng, times: dict) -> None:
+    """The counting path's whole calls: packed insert and query at
+    B=2^22, and a delete of 2^16 Python ``bytes`` keys (the counting
+    filter deletes only through ``delete_batch``)."""
+    big = rows(rng, B_COUNTING)
+    small = [bytes(r) for r in rows(rng, 1 << 16)]
+    emit("counting_end_to_end", **time_calls((
+        ("insert_packed", B_COUNTING, lambda: f.insert_packed(big),
+         times["blocked_counting_update"]["ms"]),
+        ("include_packed", B_COUNTING, lambda: f.include_packed(big),
+         times["blocked_counting_query"]["ms"]),
+        ("delete_bytes_keys", len(small), lambda: f.delete_batch(small), None),
+    )))
+
+
+def counting_config(log2m: int, **kw) -> FilterConfig:
+    return FilterConfig(m=1 << log2m, k=K, key_len=KEY_LEN, counting=True,
+                        block_bits=BLOCK_BITS, **kw)
+
+
+def equal_words(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def skewed_batch(rng, old: torch.Tensor, batch: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Keys already counted (the first quarter), one key repeated over
+    the second quarter, fresh keys, and tail padding; returns (keys,
+    lengths, padded entries)."""
+    dev = old.device
+    keys = torch.from_numpy(rows(rng, batch)).to(dev)
+    keys[: batch // 4] = old[: batch // 4]
+    keys[batch // 4 : batch // 2] = keys[batch // 4].clone()
+    lengths = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
+    n_pad = max(1, batch // 1024)
+    lengths[-n_pad:] = -1
+    keys[-n_pad:] = 0
+    return keys, lengths, n_pad
+
+
+def counting_vs_plain(cfg: FilterConfig, batch: int, rng, view: str) -> dict:
+    """Populate with kernel batches, then insert, delete and query the
+    same skewed batch through the counting kernels and their plain
+    versions, from the same state; ``view`` "storage" passes the filter's
+    own (fat) storage, "logical" its [NB, W] view of the same words."""
+    dev = torch.device("cuda")
+    f = BlockedCountingBloomFilter(cfg, dev)
+    state = f.words if view == "storage" else f.words.view(cfg.n_blocks, cfg.words_per_block)
+    full = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
+    for _ in range(3):
+        prev = torch.from_numpy(rows(rng, batch)).to(dev)
+        sweep.blocked_counting_update(state, prev, full, cfg, increment=True)
+    keys, lengths, n_pad = skewed_batch(rng, prev, batch)
+    s_kernel, s_plain = clone_u32(state), clone_u32(state)
+    errs = {}
+    for op, increment in (("insert", True), ("delete", False)):
+        sweep.blocked_counting_update(s_kernel, keys, lengths, cfg, increment=increment)
+        counting.blocked_counting_update_plain(s_plain, keys, lengths, cfg, increment=increment)
+        torch.cuda.synchronize()
+        errs[f"{op}_state_err"] = max_abs_err(s_kernel, s_plain)
+        check(equal_words(s_kernel, s_plain), f"counting {op} state ({view}, {cfg.block_hash})")
+        if increment:
+            hot = sweep.blocked_counting_query(s_kernel, keys[batch // 4 : batch // 4 + 1], full[:1], cfg)
+            errs["hot_key_present_after_insert"] = bool(hot[0])
+    probe = torch.cat([prev[: batch // 2], torch.from_numpy(rows(rng, batch // 2)).to(dev)])
+    q_kernel = sweep.blocked_counting_query(s_kernel, probe, lengths, cfg)
+    q_plain = counting.blocked_counting_query_plain(s_kernel, probe, lengths, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(q_kernel, q_plain), f"counting query verdicts ({view}, {cfg.block_hash})")
+    check(errs["hot_key_present_after_insert"], "the repeated key is present after its insert")
+    out = {
+        "view": view, "state_shape": list(state.shape), "block_hash": cfg.block_hash,
+        "log2m": cfg.m.bit_length() - 1, "batch": batch, "padded": n_pad, **errs,
+        "query_err": max_abs_err(q_kernel, q_plain),
+        "query_hits_old_half": int(q_kernel[: batch // 2].sum()),
+        "query_hits_fresh_half": int(q_kernel[batch // 2 :].sum()),
+    }
+    del f, state, s_kernel, s_plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_counting_kernel_vs_plain(rng) -> dict:
+    runs = [
+        counting_vs_plain(counting_config(LOG2M_COUNTING), B_COUNTING, rng, "storage"),
+        counting_vs_plain(counting_config(LOG2M_COUNTING), B_COUNTING, rng, "logical"),
+        counting_vs_plain(counting_config(LOG2M_COUNTING_AP, block_hash="ap"), B_COUNTING_AP,
+                          rng, "storage"),
+    ]
+    errs = {"blocked_counting_update": max(max(r["insert_state_err"], r["delete_state_err"]) for r in runs),
+            "blocked_counting_query": max(r["query_err"] for r in runs)}
+    emit("counting_kernel_vs_plain", runs=runs, max_abs_err=errs, tolerance=0,
+         cut=f"ap run at m=2^{LOG2M_COUNTING_AP} counters, B={B_COUNTING_AP}: "
+             "for the plain version's time only")
+    return errs
+
+
+def phase_counting_path(rng) -> tuple[dict, BlockedCountingBloomFilter]:
+    cfg = counting_config(LOG2M_COUNTING)
+    sweep.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = {}
+    f = BlockedCountingBloomFilter(cfg)  # no device: the card
+    check(f.words.is_cuda, "default device is the card")
+    big = rows(rng, B_COUNTING)
+    check(f.insert_packed(big) == B_COUNTING, "insert_packed count")
+    steps["insert_packed"] = sweep.launch_counts()
+    check(f.include_packed(big).all(), "inserted keys all present")
+    steps["include_packed"] = sweep.launch_counts()
+    n_gone = B_COUNTING // 64  # 2^16 at config 4
+    gone = [bytes(r) for r in big[:n_gone]]
+    f.delete_batch(gone)
+    steps["delete_batch"] = sweep.launch_counts()
+    kept = [bytes(r) for r in big[n_gone : 2 * n_gone]]
+    after = f.include_batch(gone + kept)
+    steps["include_batch"] = sweep.launch_counts()
+    check(not after[:n_gone].any(), "deleted keys absent")
+    check(after[n_gone:].all() and f.include_packed(big[n_gone:]).all(), "the other keys still present")
+    check(f.n_inserted == B_COUNTING - n_gone, "n_inserted after the delete")
+    # a fresh filter that inserts and deletes the same keys is empty again
+    # (at λ = 0.5 keys a block no counter comes near 15)
+    g = BlockedCountingBloomFilter(cfg)
+    again = rows(rng, B_COUNTING)
+    g.insert_packed(again)
+    g.delete_batch([bytes(r) for r in again])
+    torch.cuda.synchronize()
+    check(not bool(g.words.view(torch.int32).any()), "insert then delete returns to all-zero words")
+    check(g.n_inserted == 0, "n_inserted back to 0")
+    launches = sweep.launch_counts()
+    seconds = time.perf_counter() - t0
+    for name in ("blocked_counting_update", "blocked_counting_query"):
+        check(launches[name] > 0, f"{name} launched on the counting path")
+    del g
+    torch.cuda.empty_cache()
+    emit("counting_path", launches=launches, launches_after_step=steps, seconds=seconds,
+         n_inserted=f.n_inserted, deleted=n_gone, stats=f.stats())
+    return launches, f
+
+
+def event_pairs_ms(ops: list, n: int, warm: int = 4) -> list[float]:
+    """Mean ms per launch of each op, timed by its own CUDA event pair,
+    over ``n`` rounds that run the ops in turn (after ``warm`` rounds)."""
+    for i in range(warm):
+        for op in ops:
+            op(i)
+    torch.cuda.synchronize()
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(len(ops) + 1)] for _ in range(n)]
+    for i in range(n):
+        evs[i][0].record()
+        for j, op in enumerate(ops):
+            op(i)
+            evs[i][j + 1].record()
+    torch.cuda.synchronize()
+    return [sum(evs[i][j].elapsed_time(evs[i][j + 1]) for i in range(n)) / n for j in range(len(ops))]
+
+
+def phase_counting_times(f: BlockedCountingBloomFilter, rng) -> dict:
+    cfg, dev, state = f.config, f.device, f.words
+    batches = [torch.from_numpy(rows(rng, B_COUNTING)).to(dev) for _ in range(4)]
+    lengths = torch.full((B_COUNTING,), KEY_LEN, dtype=torch.int32, device=dev)
+    skew, skew_len, _ = skewed_batch(rng, batches[0], B_COUNTING)
+
+    def upd(keys, lens, increment, st=state):
+        return lambda i: sweep.blocked_counting_update(st, keys(i), lens, cfg, increment=increment)
+
+    def plain(keys, lens, increment):
+        return lambda i: counting.blocked_counting_update_plain(state, keys(i), lens, cfg, increment=increment)
+
+    def batch(i):
+        return batches[i % 4]
+
+    # insert then delete the same batch, as benchmarks/counting_rate.py
+    # does: the state stays at its populated level
+    i_ms, d_ms = event_pairs_ms([upd(batch, lengths, True), upd(batch, lengths, False)], 40)
+    si_ms, sd_ms = event_pairs_ms([upd(lambda i: skew, skew_len, True),
+                                   upd(lambda i: skew, skew_len, False)], 40)
+    # the same kernel handed the logical [NB, W] view (K2's layout)
+    logical = state.view(cfg.n_blocks, cfg.words_per_block)
+    li_ms, ld_ms = event_pairs_ms([upd(batch, lengths, True, logical),
+                                   upd(batch, lengths, False, logical)], 40)
+    q_ms = cuda_ms(lambda i: sweep.blocked_counting_query(state, batches[i % 4], lengths, cfg), 40, warm=4)
+    ip_ms, dp_ms = event_pairs_ms([plain(batch, lengths, True), plain(batch, lengths, False)], 3, warm=1)
+    qp_ms = cuda_ms(lambda i: counting.blocked_counting_query_plain(state, batches[i % 4], lengths, cfg), 3, warm=1)
+    blk, cpos = blocked.block_positions(batches[0], lengths, n_blocks=cfg.n_blocks,
+                                        block_bits=cfg.counters_per_block, k=cfg.k, seed=cfg.seed,
+                                        block_hash=cfg.block_hash)
+    rows_touched = int(torch.unique(blk).numel())
+    words = cpos >> 3
+    distinct_words = int(sum((~(words[:, j : j + 1] == words[:, :j]).any(dim=1)).sum()
+                             for j in range(cfg.k)))
+    table = state.view(torch.int32).reshape(cfg.n_blocks, cfg.words_per_block)
+    lib_ms = cuda_ms(lambda i: torch.index_select(table, 0, blk), 40, warm=4)
+    row_bytes = cfg.words_per_block * 4
+    in_bytes = B_COUNTING * (KEY_LEN + 4)
+    u_bytes = in_bytes + 2 * rows_touched * row_bytes
+    q_bytes = in_bytes + B_COUNTING + rows_touched * row_bytes
+    ub, uby = bound(u_bytes, OPS_COUNT_UPDATE * B_COUNTING)
+    qb, qby = bound(q_bytes, OPS_COUNT_QUERY * B_COUNTING)
+    out = {
+        "batch": B_COUNTING, "rows_touched": rows_touched, "atomic_words": distinct_words,
+        "blocked_counting_update": {
+            "ms": i_ms, "delete_ms": d_ms, "skewed_insert_ms": si_ms, "skewed_delete_ms": sd_ms,
+            "logical_view_ms": li_ms, "logical_view_delete_ms": ld_ms,
+            "keys_per_s": B_COUNTING / i_ms * 1e3, "plain_ms": ip_ms, "plain_delete_ms": dp_ms,
+            "library_ms": None, "bound_ms": ub, "bound_by": uby, "bytes": u_bytes,
+            "share_of_bound": ub / i_ms, "cas_words_per_s": distinct_words / i_ms * 1e3,
+        },
+        "blocked_counting_query": {
+            "ms": q_ms, "keys_per_s": B_COUNTING / q_ms * 1e3, "plain_ms": qp_ms,
+            "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby, "bytes": q_bytes,
+            "share_of_bound": qb / q_ms,
+        },
+    }
+    emit("counting_times", **out)
+    return out
+
+
+def phase_checkpoint_roundtrip(rng) -> None:
+    cfg = counting_config(LOG2M_CHECKPOINT)
+    f = BlockedCountingBloomFilter(cfg)
+    keys = rows(rng, B_CHECKPOINT)
+    f.insert_packed(keys)
+    f.delete_batch([bytes(r) for r in keys[: 1 << 12]])
+    t0 = time.perf_counter()
+    key_name, seq, blob = checkpoint.snapshot_blob(f)
+    t1 = time.perf_counter()
+    g = checkpoint.restore_blob(blob)
+    t2 = time.perf_counter()
+    check(isinstance(g, BlockedCountingBloomFilter) and g.words.is_cuda, "restored on the card")
+    check(equal_words(f.words, g.words), "restored words equal")
+    probe = np.concatenate([keys[: 1 << 16], rows(rng, 1 << 16)])
+    check(np.array_equal(f.include_packed(probe), g.include_packed(probe)), "restored verdicts equal")
+    check(g.n_inserted == f.n_inserted and g._restored_seq == seq, "restored usage counters and seq")
+    emit("checkpoint_roundtrip", log2m=cfg.m.bit_length() - 1, key_name=key_name,
+         blob_bytes=len(blob), snapshot_s=t1 - t0, restore_s=t2 - t1,
+         cut=f"m=2^{LOG2M_CHECKPOINT} counters, not 2^{LOG2M_COUNTING}: the numpy CRC32C's "
+             "carry chain is a Python loop over 8-byte blocks, ~67 M iterations a checksum "
+             "at 512 MiB")
 
 
 def main() -> int:
@@ -359,19 +639,33 @@ def main() -> int:
     launches, f = phase_main_path(rng)
     times = phase_times(f, rng)
     phase_end_to_end(f, rng, times)
-    src = "tpubloom_torch/csrc/blocked_bloom.cu"
+    del f
+    torch.cuda.empty_cache()
+    c_errs = phase_counting_kernel_vs_plain(rng)
+    c_launches, cf = phase_counting_path(rng)
+    c_times = phase_counting_times(cf, rng)
+    phase_counting_end_to_end(cf, rng, c_times)
+    del cf
+    torch.cuda.empty_cache()
+    phase_checkpoint_roundtrip(rng)
     kernels = []
-    for name, replaces in (
-        ("blocked_insert", "tpubloom/ops/sweep.py:1463"),
-        ("blocked_query", "tpubloom/ops/sweep.py:2437"),
+    for name, src, replaces, lau, err, t in (
+        ("blocked_insert", "blocked_bloom.cu", "tpubloom/ops/sweep.py:1463", launches, errs, times),
+        ("blocked_query", "blocked_bloom.cu", "tpubloom/ops/sweep.py:2437", launches, errs, times),
+        # K4 (fat storage) and K2 (sweep.py:582, logical view): one kernel
+        ("blocked_counting_update", "blocked_counting.cu", "tpubloom/ops/sweep.py:1976",
+         c_launches, c_errs, c_times),
+        # no Pallas counterpart: the XLA gather fat_blocked_counting_membership
+        ("blocked_counting_query", "blocked_counting.cu", "tpubloom/ops/counting.py:115",
+         c_launches, c_errs, c_times),
     ):
-        t = times[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "name": name, "route": "cuda", "source": f"tpubloom_torch/csrc/{src}",
+            "replaces": replaces, "launches": lau[name], "max_abs_err": err[name],
+            "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
+            "bound_by": t[name]["bound_by"], "library_ms": t[name]["library_ms"],
         })
+    kernels[2]["also_replaces"] = "tpubloom/ops/sweep.py:582"
     RECORD["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpubloom_torch import BlockedBloomFilter, FilterConfig
-from tpubloom_torch.ops import blocked, sweep
+from tpubloom_torch import BlockedBloomFilter, BlockedCountingBloomFilter, FilterConfig
+from tpubloom_torch.ops import blocked, counting, sweep
 
 pytestmark = pytest.mark.gpu
 L = 16
@@ -64,7 +64,8 @@ def test_kernels_match_plain(cuda, block_bits, block_hash):
     q_p = blocked.blocked_query_plain(s_k, keys, lengths, cfg)
     assert torch.equal(q_k.cpu(), q_p.cpu())
     assert bool(q_k[lengths >= 0].all()) and not bool(q_k[lengths < 0].any())
-    assert sweep.launch_counts() == {"blocked_query": 2, "blocked_insert": 3}
+    assert sweep.launch_counts() == {"blocked_query": 2, "blocked_insert": 3,
+                                     "blocked_counting_update": 0, "blocked_counting_query": 0}
 
 
 def test_filter_on_card_matches_cpu(cuda):
@@ -97,3 +98,66 @@ def test_wrapper_rejects_bad_tensors(cuda):
         sweep.blocked_query(f.words, keys[:, :6], torch.zeros(64, dtype=torch.int32, device=cuda), cfg)
     with pytest.raises(ValueError):
         sweep.blocked_insert(f.words, keys.cpu(), torch.zeros(64, dtype=torch.int32), cfg)
+
+
+def _clone(t):
+    return t.view(torch.int32).clone().view(torch.uint32)
+
+
+@pytest.mark.parametrize(
+    "block_bits,block_hash",
+    [(512, "chunk"), (512, "ap"), (128, "chunk"), (1024, "chunk"), (4096, "ap")],
+)
+@pytest.mark.parametrize("view", ["storage", "logical"])
+def test_counting_kernels_match_plain(cuda, block_bits, block_hash, view):
+    """Insert, delete and query through the counting kernels and their
+    plain versions from the same state: old keys, within-batch
+    duplicates, a quarter of the batch one key (its counters saturate at
+    15, then floor at 0) and padding; the state as the filter's storage or
+    as its logical [NB, W] view."""
+    cfg = FilterConfig(m=1 << 22, k=7, key_len=L, counting=True, block_bits=block_bits,
+                       block_hash=block_hash)
+    rng = np.random.default_rng(block_bits + len(view))
+    f = BlockedCountingBloomFilter(cfg, cuda)
+    state = f.words if view == "storage" else f.words.view(cfg.n_blocks, cfg.words_per_block)
+    sweep.reset_launch_counts()
+    for _ in range(2):
+        prev, prev_len = _batch(rng, 4096, cuda)
+        sweep.blocked_counting_update(state, prev, prev_len, cfg, increment=True)
+    keys, lengths = _batch(rng, 4096, cuda)
+    keys[:500], lengths[:500] = prev[:500], prev_len[:500]  # keys already in
+    keys[1000:2024], lengths[1000:2024] = keys[1000].clone(), L  # one hot key
+    s_k, s_p = _clone(state), _clone(state)
+    for increment in (True, False):
+        sweep.blocked_counting_update(s_k, keys, lengths, cfg, increment=increment)
+        counting.blocked_counting_update_plain(s_p, keys, lengths, cfg, increment=increment)
+        torch.cuda.synchronize()
+        assert _equal_words(s_k, s_p)
+        if increment:
+            q_k = sweep.blocked_counting_query(s_k, keys, lengths, cfg)
+            q_p = counting.blocked_counting_query_plain(s_k, keys, lengths, cfg)
+            assert torch.equal(q_k.cpu(), q_p.cpu())
+            assert bool(q_k[lengths >= 0].all()) and not bool(q_k[lengths < 0].any())
+    assert not bool(sweep.blocked_counting_query(s_k, keys[1000:1001], lengths[1000:1001], cfg)[0])
+    assert sweep.launch_counts() == {"blocked_query": 0, "blocked_insert": 0,
+                                     "blocked_counting_update": 4, "blocked_counting_query": 2}
+
+
+def test_counting_filter_on_card_matches_cpu(cuda):
+    cfg = FilterConfig(m=1 << 20, k=7, key_len=L, counting=True, block_bits=512)
+    gpu, cpu = BlockedCountingBloomFilter(cfg), BlockedCountingBloomFilter(cfg, device="cpu")
+    assert gpu.words.is_cuda
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        keys = [rng.bytes(int(rng.integers(0, L + 1))) for _ in range(1500)]
+        gpu.insert_batch(keys + keys[:40] * 20)
+        cpu.insert_batch(keys + keys[:40] * 20)
+        rows = rng.integers(0, 256, (3000, L), dtype=np.uint8)
+        gpu.insert_packed(rows)
+        cpu.insert_packed(rows)
+        gpu.delete_batch(keys[:700])
+        cpu.delete_batch(keys[:700])
+        probe = np.concatenate([rows[:500], rng.integers(0, 256, (500, L), dtype=np.uint8)])
+        np.testing.assert_array_equal(gpu.include_packed(probe), cpu.include_packed(probe))
+        np.testing.assert_array_equal(gpu.include_batch(keys), cpu.include_batch(keys))
+    assert gpu.to_bytes() == cpu.to_bytes()

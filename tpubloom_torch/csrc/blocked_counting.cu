@@ -1,0 +1,272 @@
+// Blocked counting filter kernels for Hopper (sm_90a): update and query.
+//
+// The state is u32[n_blocks, W] packed 4-bit counters (W = block_bits / 32,
+// counters_per_block = 8 W; the fat [NB*W/128, 128] storage is the same
+// memory): counter c of a block is nibble c & 7 (bits 4*(c & 7) and up) of
+// word c >> 3 of the block's row. Keys are u8[B, L] (L a multiple of 4, zero
+// past each key's length), lengths i32[B], a negative length marking a
+// padding entry. Each thread owns one key: it hashes the key itself
+// (bloom_hash.cuh, with the spec's block_bits set to counters_per_block, as
+// tpubloom does for counting layouts) and touches only that key's one block.
+// The results are bit-identical to tpubloom's: the same counters after an
+// insert or a delete, the same verdicts from a query.
+//
+// Built by tpubloom_torch/ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// into a shared library with the plain C interface at the bottom of this
+// file, loaded with ctypes. Each entry launches on the caller's stream,
+// does not synchronise, allocates nothing, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bloom_hash.cuh"
+
+namespace tpubloom {
+
+constexpr int kCountThreads = 256;
+
+// ---------------------------------------------------------------------------
+// blocked_counting_update
+//
+// Replaces both TPU counting sweeps of tpubloom/ops/sweep.py:
+//   K4 `_fat_count_kernel` / `fat_sweep_counter` (sweep.py:1976, on the fat
+//      [NB/J, 128] storage, driven by `apply_fat_counter_updates`), and
+//   K2 `_count_kernel` / `sweep_counter_update` (sweep.py:582, on the
+//      logical [NB, W] view, driven by `apply_counter_updates`).
+// The fat and logical views are the same bytes on the card, so one kernel
+// covers both. The TPU sorts the batch by block, streams every partition of
+// the counters through VMEM and sums per-counter multiplicities with one-hot
+// matmuls, because its HBM cannot do random read-modify-writes; a window that
+// overflows under duplicate skew sends the whole batch to a scatter fallback
+// (sweep.py:2231-2253). Here each key updates its own row in place.
+//
+// Per key, for each distinct word its k counters touch, the thread builds
+// the per-nibble deltas in registers (one byte per nibble: a nibble's
+// multiplicity can reach k, so no k <= 15 limit applies), then runs an
+// atomicCAS loop on that word: read it, apply a nibble-wise saturating add
+// (insert) or flooring subtract (delete), CAS. A plain atomicAdd would carry
+// from one nibble into the next and could not saturate.
+//
+// Why the result is bit-identical to the one-clamp-per-batch rule of
+// tpubloom (ops/counting.py:10-14; sweep.py:2108-2111 clamps once against
+// the pre-batch value): a batch is all inserts or all deletes, so every
+// delta applied to a nibble has one sign. Saturating adds of non-negative
+// deltas, in any order, give min(15, old + sum of deltas); flooring
+// subtracts give max(0, old - sum). That is what counter_update computes
+// (and the TPU kernel's per-window clamp of the count at 16 changes nothing,
+// since 16 already saturates or floors any nibble). The order in which the
+// CASes land therefore does not matter.
+//
+// The CAS is skipped when the new word equals the word read: once a hot
+// key's counters are saturated (insert) or zero (delete), every further copy
+// of it only reads. This is what the TPU's scatter fallback did for
+// duplicate skew. The skip is safe even on a stale read: within one batch
+// every nibble moves in one direction only, so a nibble read at 15 (insert)
+// or 0 (delete) is still there.
+//
+// Bound: bytes. Per key L + 4 input bytes; each touched row is read once and
+// written once. At BASELINE config 4 (m = 2^30 counters, block_bits = 512,
+// n_blocks = 2^23, B = 2^22, lambda = 0.5 keys a block, ~3.30 M distinct rows)
+// that is ~84 MB + 3.30 M x 64 B x 2 = ~0.51 GB, ~0.15 ms at 3.35 TB/s. The
+// second floor is the L2 atomic rate: ~5.8 distinct words a key
+// (16 (1 - (15/16)^7)), ~24 M CAS a launch, each after a load.
+// ---------------------------------------------------------------------------
+
+// One word's update: nibble n of `w` moves by byte n of (dlo | dhi << 32),
+// saturating at 15 (increment) or flooring at 0.
+__device__ __forceinline__ uint32_t nibble_apply(uint32_t w, uint32_t dlo,
+                                                 uint32_t dhi, bool increment) {
+  uint32_t out = 0u;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const uint32_t v = (w >> (4 * n)) & 15u;
+    const uint32_t d = ((n < 4 ? dlo : dhi) >> (8 * (n & 3))) & 0xFFu;
+    const uint32_t r = increment ? min(15u, v + d) : (v > d ? v - d : 0u);
+    out |= r << (4 * n);
+  }
+  return out;
+}
+
+__global__ void __launch_bounds__(kCountThreads)
+blocked_counting_update_kernel(uint32_t* __restrict__ state,
+                               const uint8_t* __restrict__ keys,
+                               const int32_t* __restrict__ lengths, int64_t B,
+                               int L, int W, BlockSpec s, int increment) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  const int len = lengths[i];
+  if (len < 0) return;  // padding changes nothing
+  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  const KeyHash h = hash_key(kw, L / 4, len, s);
+  uint32_t* row = state + h.blk * W;
+  for (int j = 0; j < s.k; ++j) {
+    const uint32_t word = inblock_bit(j, h, s) >> 3;
+    bool seen = false;  // an earlier position already carried this word
+    for (int t = 0; t < j && !seen; ++t) seen = (inblock_bit(t, h, s) >> 3) == word;
+    if (seen) continue;
+    uint32_t dlo = 0u, dhi = 0u;  // one byte of multiplicity per nibble
+    for (int t = j; t < s.k; ++t) {
+      const uint32_t c = inblock_bit(t, h, s);
+      if ((c >> 3) != word) continue;
+      const uint32_t n = c & 7u;
+      if (n < 4) dlo += 1u << (8 * n);
+      else dhi += 1u << (8 * (n - 4));
+    }
+    uint32_t* p = row + word;
+    uint32_t old = __ldcg(p);  // from L2, where the atomics land
+    while (true) {
+      const uint32_t next = nibble_apply(old, dlo, dhi, increment != 0);
+      if (next == old) break;  // saturated / floored: nothing to write
+      const uint32_t seen_word = atomicCAS(p, old, next);
+      if (seen_word == old) break;
+      old = seen_word;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// blocked_counting_query
+//
+// No Pallas counterpart: tpubloom computes blocked-counting membership with
+// an XLA gather (`fat_blocked_counting_membership`, ops/counting.py:115-140;
+// `blocked_counting_membership`, :97-112). A variant of blocked_query's row
+// kernel (blocked_bloom.cu): the key's row is read with W/4 16-byte __ldg's,
+// issued before the position arithmetic, and the key is present when each
+// of its k nibbles is non-zero. Padding answers False.
+//
+// Bound: bytes. Per key L + 4 input bytes and one verdict byte out, and its
+// row read once: at config 4, B = 2^22, ~84 MB + 4 MB + 3.30 M x 64 B =
+// ~0.30 GB, ~0.09 ms at 3.35 TB/s. The rows are random 64-byte reads, so the
+// card's random-sector rate is the real floor, as for blocked_query.
+// ---------------------------------------------------------------------------
+
+template <int W>
+__global__ void __launch_bounds__(kCountThreads)
+blocked_counting_query_row_kernel(const uint32_t* __restrict__ state,
+                                  const uint8_t* __restrict__ keys,
+                                  const int32_t* __restrict__ lengths,
+                                  uint8_t* __restrict__ out, int64_t B, int L,
+                                  BlockSpec s) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  const int len = lengths[i];
+  if (len < 0) {
+    out[i] = 0;
+    return;
+  }
+  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  const KeyHash h = hash_key(kw, L / 4, len, s);
+  const uint4* row = reinterpret_cast<const uint4*>(state + h.blk * W);
+  uint32_t r[W];
+#pragma unroll
+  for (int c = 0; c < W / 4; ++c) {
+    const uint4 v = __ldg(row + c);
+    r[4 * c + 0] = v.x;
+    r[4 * c + 1] = v.y;
+    r[4 * c + 2] = v.z;
+    r[4 * c + 3] = v.w;
+  }
+  bool hit = true;
+  for (int j = 0; j < s.k; ++j) {
+    const uint32_t c = inblock_bit(j, h, s);
+    const uint32_t word = c >> 3;
+    uint32_t v = 0u;
+#pragma unroll
+    for (int w = 0; w < W; ++w) v = (word == (uint32_t)w) ? r[w] : v;
+    hit &= ((v >> (4 * (c & 7u))) & 15u) != 0u;
+  }
+  out[i] = hit ? 1 : 0;
+}
+
+// Any W: each of the k counters' words is read on its own.
+__global__ void __launch_bounds__(kCountThreads)
+blocked_counting_query_word_kernel(const uint32_t* __restrict__ state,
+                                   const uint8_t* __restrict__ keys,
+                                   const int32_t* __restrict__ lengths,
+                                   uint8_t* __restrict__ out, int64_t B, int L,
+                                   int W, BlockSpec s) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  const int len = lengths[i];
+  if (len < 0) {
+    out[i] = 0;
+    return;
+  }
+  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  const KeyHash h = hash_key(kw, L / 4, len, s);
+  const uint32_t* row = state + h.blk * W;
+  bool hit = true;
+  for (int j = 0; j < s.k && hit; ++j) {
+    const uint32_t c = inblock_bit(j, h, s);
+    hit = ((__ldg(row + (c >> 3)) >> (4 * (c & 7u))) & 15u) != 0u;
+  }
+  out[i] = hit ? 1 : 0;
+}
+
+inline BlockSpec counting_spec(int64_t n_blocks, int counters_per_block, int k,
+                               uint32_t seed, int chunk) {
+  BlockSpec s;
+  s.n_blocks = (uint64_t)n_blocks;
+  s.block_bits = counters_per_block;  // the in-block position domain
+  s.log2_bits = 0;
+  while ((1 << s.log2_bits) < counters_per_block) ++s.log2_bits;
+  s.k = k;
+  s.seed = seed;
+  s.chunk = chunk;
+  return s;
+}
+
+inline unsigned counting_grid(int64_t B) {
+  return (unsigned)((B + kCountThreads - 1) / kCountThreads);
+}
+
+}  // namespace tpubloom
+
+// ---------------------------------------------------------------------------
+// Plain C interface (ctypes). Pointers are device pointers; `stream` is a
+// cudaStream_t. Each returns cudaGetLastError() after its launch.
+// ---------------------------------------------------------------------------
+
+extern "C" int tpb_blocked_counting_update(void* state, const void* keys,
+                                           const void* lengths, int64_t B,
+                                           int L, int64_t n_blocks,
+                                           int counters_per_block, int k,
+                                           uint32_t seed, int chunk,
+                                           int increment, void* stream) {
+  using namespace tpubloom;
+  if (B <= 0) return (int)cudaSuccess;
+  const BlockSpec s = counting_spec(n_blocks, counters_per_block, k, seed, chunk);
+  blocked_counting_update_kernel<<<counting_grid(B), kCountThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(state), static_cast<const uint8_t*>(keys),
+      static_cast<const int32_t*>(lengths), B, L, counters_per_block / 8, s,
+      increment);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpb_blocked_counting_query(const void* state, const void* keys,
+                                          const void* lengths, void* out,
+                                          int64_t B, int L, int64_t n_blocks,
+                                          int counters_per_block, int k,
+                                          uint32_t seed, int chunk,
+                                          void* stream) {
+  using namespace tpubloom;
+  if (B <= 0) return (int)cudaSuccess;
+  const BlockSpec s = counting_spec(n_blocks, counters_per_block, k, seed, chunk);
+  const int W = counters_per_block / 8;
+  auto st = static_cast<const uint32_t*>(state);
+  auto ky = static_cast<const uint8_t*>(keys);
+  auto ln = static_cast<const int32_t*>(lengths);
+  auto o = static_cast<uint8_t*>(out);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const unsigned g = counting_grid(B);
+  switch (W) {
+    case 4: blocked_counting_query_row_kernel<4><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
+    case 8: blocked_counting_query_row_kernel<8><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
+    case 16: blocked_counting_query_row_kernel<16><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
+    case 32: blocked_counting_query_row_kernel<32><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
+    default: blocked_counting_query_word_kernel<<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, W, s); break;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,12 +1,15 @@
-"""BlockedBloomFilter on PyTorch — the port's front-end class.
+"""The port's front-end classes: BlockedBloomFilter and
+BlockedCountingBloomFilter on PyTorch.
 
-The same surface as ``tpubloom.filter.BlockedBloomFilter``, restricted to
-the blocked, non-counting layout: ``insert_batch`` (optionally
-test-and-insert), ``include_batch``, the fixed-width ``insert_packed`` /
-``include_packed``, the staged ``stage_batch`` / ``launch_insert`` /
-``launch_query`` API, the device-array ``insert_arrays`` /
-``include_arrays``, ``clear``, ``words_logical``, ``to_bytes`` /
-``from_bytes``, ``stats`` and ``fill_ratio``.
+The same surfaces as ``tpubloom.filter.BlockedBloomFilter`` and
+``tpubloom.filter.BlockedCountingBloomFilter``: ``insert_batch``
+(optionally test-and-insert, bit filter only), ``include_batch``, the
+fixed-width ``insert_packed`` / ``include_packed``, the staged
+``stage_batch`` / ``launch_insert`` / ``launch_query`` API, the
+device-array ``insert_arrays`` / ``include_arrays``, ``clear``,
+``words_logical``, ``to_bytes`` / ``from_bytes`` and ``stats``; the bit
+filter adds ``fill_ratio`` and its FPR gauges, the counting filter
+``delete_batch`` / ``delete``.
 
 Device: the filter lives on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that argument the
@@ -17,8 +20,9 @@ plain versions.
 Storage: ``self.words`` is ``uint32[NB·W/128, 128]`` (the fat view of
 ``tpubloom.filter.blocked_device_shape``; the logical ``[NB, W]`` where
 the fat view does not divide), with the same row-major bytes as
-``tpubloom``'s. Inserts update it in place, where ``tpubloom`` donates
-the buffer to its jitted step.
+``tpubloom``'s: bits for the bit filter, packed 4-bit counters for the
+counting filter. Inserts and deletes update it in place, where
+``tpubloom`` donates the buffer to its jitted step.
 
 Batches: host batches are padded to the next power of two (minimum 64),
 as in ``tpubloom``; padded entries carry ``length = -1`` at the tail and
@@ -65,6 +69,14 @@ def blocked_device_shape(config: FilterConfig) -> tuple[int, int]:
     return (nb, w)
 
 
+def _zero_storage(config: FilterConfig, device: torch.device) -> torch.Tensor:
+    # zeros as int32 then viewed: uint32 is a storage type in torch, with
+    # few kernels of its own
+    return torch.zeros(
+        blocked_device_shape(config), dtype=torch.int32, device=device
+    ).view(torch.uint32)
+
+
 def resolve_device(device) -> torch.device:
     """The card unless the caller names a device; no card and no device
     is an error, never a quiet run on the CPU."""
@@ -81,8 +93,8 @@ def resolve_device(device) -> torch.device:
 class _FilterBase:
     """Shared packing / padding / batch plumbing.
 
-    Subclasses provide ``self.words`` and ``_insert`` / ``_test_insert`` /
-    ``_query`` over it, and inherit the whole batch + scalar API.
+    Subclasses provide ``self.words`` and ``_insert`` / ``_query`` over
+    it, and inherit the whole batch + scalar API.
     """
 
     def __init__(self, config: FilterConfig, device=None):
@@ -219,30 +231,33 @@ class _FilterBase:
         self.words.view(torch.int32).zero_()
         self.n_inserted = 0
 
+    # persistence (raw little-endian words, row-major — the same bytes as
+    # tpubloom's to_bytes for the same class)
+
+    def to_bytes(self) -> bytes:
+        return self._host_words().astype("<u4").tobytes()
+
+    @classmethod
+    def from_bytes(cls, config: FilterConfig, data: bytes, device=None):
+        f = cls(config, device)
+        f._set_words(np.frombuffer(data, dtype="<u4").astype(np.uint32))
+        return f
+
     # batch API (the north-star surface)
 
-    def insert_batch(
-        self, keys: Sequence[bytes | str], *, return_presence: bool = False
-    ):
-        """Insert a batch; with ``return_presence`` also report each key's
-        membership BEFORE the batch (test-and-insert — the reference Lua
-        add script's semantics). Within-batch duplicates all report the
-        pre-batch state."""
+    def _update_batch(self, keys: Sequence[bytes | str], update) -> int:
+        """Pack, stage and run one in-place update kernel over a batch;
+        returns the batch's key count."""
         keys_u8, lengths, B = self._pack_padded(keys)
         d_keys, d_lengths = self._stage_batch(keys_u8, lengths)
         with obs.phase("kernel"):
-            if return_presence:
-                present = self._test_insert(d_keys, d_lengths)
-            else:
-                self._insert(d_keys, d_lengths)
+            update(d_keys, d_lengths)
             if obs.current() is not None:
                 self._kernel_fence()
-        self.n_inserted += B
-        if not return_presence:
-            return None
-        with obs.phase("d2h"):
-            out = present.cpu().numpy()
-        return out[:B]
+        return B
+
+    def insert_batch(self, keys: Sequence[bytes | str]) -> None:
+        self.n_inserted += self._update_batch(keys, self._insert)
 
     def include_batch(self, keys: Sequence[bytes | str]) -> np.ndarray:
         keys_u8, lengths, B = self._pack_padded(keys)
@@ -294,6 +309,8 @@ class _FilterBase:
         )
 
     def fill_ratio(self) -> float:
+        if self.config.counting:
+            raise ValueError("fill_ratio is for plain/blocked filters")
         return self.bits_set() / self.config.m
 
     def estimated_fpr(self) -> float:
@@ -333,18 +350,34 @@ class BlockedBloomFilter(_FilterBase):
 
     def __init__(self, config: FilterConfig, device=None):
         if config.counting:
+            # a counting config reinterprets m as counters (4 bits each)
             raise ValueError(
-                "counting configs need the blocked counting filter, "
-                "which this package does not have yet"
+                "use BlockedCountingBloomFilter for counting configs"
             )
         if not config.block_bits:
             config = config.replace(block_bits=512)
         super().__init__(config, device)
-        # zeros as int32 then viewed: uint32 is a storage type in torch,
-        # with few kernels of its own
-        self.words = torch.zeros(
-            blocked_device_shape(config), dtype=torch.int32, device=self.device
-        ).view(torch.uint32)
+        self.words = _zero_storage(config, self.device)
+
+    def insert_batch(
+        self, keys: Sequence[bytes | str], *, return_presence: bool = False
+    ):
+        """Insert a batch; with ``return_presence`` also report each key's
+        membership BEFORE the batch (test-and-insert — the reference Lua
+        add script's semantics). Within-batch duplicates all report the
+        pre-batch state."""
+        if not return_presence:
+            return super().insert_batch(keys)
+        keys_u8, lengths, B = self._pack_padded(keys)
+        d_keys, d_lengths = self._stage_batch(keys_u8, lengths)
+        with obs.phase("kernel"):
+            present = self._test_insert(d_keys, d_lengths)
+            if obs.current() is not None:
+                self._kernel_fence()
+        self.n_inserted += B
+        with obs.phase("d2h"):
+            out = present.cpu().numpy()
+        return out[:B]
 
     def _insert(self, keys, lengths) -> None:
         sweep.blocked_insert(self.words, keys, lengths, self.config)
@@ -365,16 +398,54 @@ class BlockedBloomFilter(_FilterBase):
             **self._fpr_gauges(),
         }
 
-    # persistence (raw little-endian words, row-major — the same bytes as
-    # tpubloom.BlockedBloomFilter.to_bytes)
 
-    def to_bytes(self) -> bytes:
-        return self._host_words().astype("<u4").tobytes()
+class BlockedCountingBloomFilter(_FilterBase):
+    """Blocked (cache-line) counting filter — delete support at the
+    blocked layout's throughput.
 
-    @classmethod
-    def from_bytes(
-        cls, config: FilterConfig, data: bytes, device=None
-    ) -> "BlockedBloomFilter":
-        f = cls(config, device)
-        f._set_words(np.frombuffer(data, dtype="<u4").astype(np.uint32))
-        return f
+    All k 4-bit counters of a key live in one ``block_bits``-bit block
+    (``block_bits/4`` counters), so an update or a query touches one
+    contiguous row; on the card an insert or delete is one
+    ``blocked_counting_update`` launch (a saturating ``atomicCAS`` per
+    touched word), a query one ``blocked_counting_query``. ``m`` counts
+    COUNTERS. Increments clamp at 15, decrements floor at 0, one clamp per
+    batch against the pre-batch value — the semantics of
+    ``tpubloom.BlockedCountingBloomFilter``, bit for bit.
+    """
+
+    def __init__(self, config: FilterConfig, device=None):
+        if not config.counting:
+            config = config.replace(counting=True)
+        if not config.block_bits:
+            config = config.replace(block_bits=512)
+        if config.m >= (1 << 31):
+            raise ValueError("counting filters support m < 2^31")
+        super().__init__(config, device)
+        self.words = _zero_storage(config, self.device)
+
+    def _insert(self, keys, lengths) -> None:
+        sweep.blocked_counting_update(self.words, keys, lengths, self.config, increment=True)
+
+    def _delete(self, keys, lengths) -> None:
+        sweep.blocked_counting_update(self.words, keys, lengths, self.config, increment=False)
+
+    def _query(self, keys, lengths) -> torch.Tensor:
+        return sweep.blocked_counting_query(self.words, keys, lengths, self.config)
+
+    def delete_batch(self, keys: Sequence[bytes | str]) -> None:
+        """Remove one copy of each key: its counters drop by their
+        multiplicities, flooring at 0."""
+        B = self._update_batch(keys, self._delete)
+        self.n_inserted = max(0, self.n_inserted - B)
+
+    def delete(self, key: bytes | str) -> None:
+        self.delete_batch([key])
+
+    def stats(self) -> dict:
+        return {
+            "m": self.config.m,
+            "k": self.config.k,
+            "block_bits": self.config.block_bits,
+            "n_inserted": self.n_inserted,
+            "n_queried": self.n_queried,
+        }

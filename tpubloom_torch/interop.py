@@ -1,15 +1,16 @@
 """State carried between ``tpubloom`` and the port.
 
-Both packages hold a blocked filter as the same row-major little-endian
-``uint32`` words, so moving one across is a copy of its words and of its
-config's fields. The functions take plain dicts and numpy arrays, so
-this module needs nothing of ``tpubloom``:
+Both packages hold a blocked filter (bit or counting) as the same
+row-major little-endian ``uint32`` words, so moving one across is a copy
+of its words and of its config's fields. The functions take plain dicts
+and numpy arrays, so this module needs nothing of ``tpubloom``:
 
 * ``config_from_dict(tpubloom_filter.config.to_dict())``;
 * ``filter_from_words(tpubloom_filter.words_logical, config, device)``
   (or the words of a decoded ``to_bytes()`` blob);
 * ``words_to_numpy(port_filter)`` -> ``uint32[NB, W]``, which
-  ``tpubloom.BlockedBloomFilter.from_bytes(cfg, words.tobytes())`` takes.
+  ``tpubloom.BlockedBloomFilter.from_bytes(cfg, words.tobytes())`` (or
+  ``BlockedCountingBloomFilter.from_bytes`` for a counting config) takes.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from __future__ import annotations
 import numpy as np
 
 from tpubloom_torch.config import FilterConfig
-from tpubloom_torch.filter import BlockedBloomFilter
+from tpubloom_torch.filter import BlockedBloomFilter, BlockedCountingBloomFilter
+
+PortFilter = BlockedBloomFilter | BlockedCountingBloomFilter
 
 
 def config_from_dict(d: dict) -> FilterConfig:
@@ -32,10 +35,12 @@ def filter_from_words(
     device=None,
     *,
     n_inserted: int = 0,
-) -> BlockedBloomFilter:
+) -> PortFilter:
     """A port filter holding ``words_logical`` (``uint32[NB, W]`` or the
-    same words in any shape)."""
-    f = BlockedBloomFilter(config, device)
+    same words in any shape): a :class:`BlockedCountingBloomFilter` for a
+    counting config, else a :class:`BlockedBloomFilter`."""
+    cls = BlockedCountingBloomFilter if config.counting else BlockedBloomFilter
+    f = cls(config, device)
     expect = f.config.n_blocks * f.config.words_per_block
     words = np.asarray(words_logical, dtype=np.uint32)
     if words.size != expect:
@@ -45,6 +50,6 @@ def filter_from_words(
     return f
 
 
-def words_to_numpy(f: BlockedBloomFilter) -> np.ndarray:
+def words_to_numpy(f: PortFilter) -> np.ndarray:
     """The filter's words as ``uint32[NB, W]`` on the host."""
     return f.words_logical

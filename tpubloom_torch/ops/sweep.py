@@ -9,6 +9,14 @@ Mapping from the TPU kernels of ``tpubloom/ops/sweep.py``:
   :func:`blocked_insert` on the same stream (:func:`blocked_test_insert`).
 * K5, ``_fat_query_kernel`` / ``fat_sweep_query`` (driven by
   ``apply_fat_query``) -> :func:`blocked_query`.
+* K4, ``_fat_count_kernel`` / ``fat_sweep_counter`` (driven by
+  ``apply_fat_counter_updates``), and K2, ``_count_kernel`` /
+  ``sweep_counter_update`` (driven by ``apply_counter_updates``) ->
+  :func:`blocked_counting_update`: the two kernels differ only in the
+  view of the counters (fat or logical), which on the card are the same
+  bytes.
+* The blocked counting query, an XLA gather in ``tpubloom``
+  (``ops/counting.py``), -> :func:`blocked_counting_query`.
 
 Why the sweep algorithm is not carried over: the TPU sorts each batch by
 block, streams the whole filter through VMEM partition by partition and
@@ -25,8 +33,10 @@ filter's ``uint32`` storage (any shape holding ``n_blocks *
 words_per_block`` words; the fat and logical views are the same memory),
 ``keys`` ``uint8[B, L]``, ``lengths`` ``int32[B]`` (negative = padding).
 A tensor on the CPU goes to the plain version in
-:mod:`tpubloom_torch.ops.blocked`; a CUDA tensor goes to the kernel, or
-the wrapper raises. It never falls back from one to the other.
+:mod:`tpubloom_torch.ops.blocked` (bit filter) or
+:mod:`tpubloom_torch.ops.counting` (counting filter); a CUDA tensor goes
+to the kernel, or the wrapper raises. It never falls back from one to the
+other.
 
 Every wrapper counts its kernel launches in :data:`LAUNCHES`, so a run can
 show that its main path went through the kernels.
@@ -38,11 +48,14 @@ import ctypes
 
 import torch
 
-from tpubloom_torch.ops import _build, blocked
+from tpubloom_torch.ops import _build, blocked, counting
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`
 #: (CUDA launches only; the plain versions are not counted).
-LAUNCHES: dict[str, int] = {"blocked_query": 0, "blocked_insert": 0}
+LAUNCHES: dict[str, int] = {
+    "blocked_query": 0, "blocked_insert": 0,
+    "blocked_counting_update": 0, "blocked_counting_query": 0,
+}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -53,6 +66,19 @@ _SIGNATURES = {
     ),
     "tpb_blocked_insert": (
         [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+         ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, _P],
+        ctypes.c_int,
+    ),
+}
+_COUNTING_SIGNATURES = {
+    "tpb_blocked_counting_update": (
+        [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+         ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int,
+         ctypes.c_int, _P],
+        ctypes.c_int,
+    ),
+    "tpb_blocked_counting_query": (
+        [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
          ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, _P],
         ctypes.c_int,
     ),
@@ -72,7 +98,16 @@ def _library() -> ctypes.CDLL:
     return _build.load_library("blocked_bloom", _SIGNATURES)
 
 
-def _check(state, keys, lengths, config) -> None:
+def _counting_library() -> ctypes.CDLL:
+    return _build.load_library("blocked_counting", _COUNTING_SIGNATURES)
+
+
+def _check(state, keys, lengths, config, *, counters: bool = False) -> None:
+    if bool(config.counting) != counters:
+        raise ValueError(
+            f"{'counting' if config.counting else 'bit'}-filter config given "
+            f"to a {'counting' if counters else 'bit'}-filter kernel"
+        )
     if keys.device != state.device or lengths.device != state.device:
         raise ValueError(
             f"state, keys and lengths must share a device "
@@ -99,8 +134,11 @@ def _check(state, keys, lengths, config) -> None:
 
 
 def _spec_args(config):
+    """(n_blocks, in-block position domain, k, seed, chunk): the domain is
+    ``block_bits`` bits, or ``counters_per_block`` counters."""
+    domain = config.counters_per_block if config.counting else config.block_bits
     return (
-        config.n_blocks, config.block_bits, config.k, config.seed,
+        config.n_blocks, domain, config.k, config.seed,
         1 if config.block_hash == "chunk" else 0,
     )
 
@@ -157,6 +195,49 @@ def blocked_test_insert(state, keys, lengths, config) -> torch.Tensor:
     present = blocked_query(state, keys, lengths, config)
     blocked_insert(state, keys, lengths, config)
     return present
+
+
+def blocked_counting_update(state, keys, lengths, config, *, increment: bool) -> None:
+    """Add (``increment``) or subtract each valid key's counter
+    multiplicities at its k nibbles in ``state``, in place; nibbles
+    saturate at 15 and floor at 0. ``state`` is the counting filter's
+    storage, fat or logical ``[NB, W]`` view alike."""
+    _check(state, keys, lengths, config, counters=True)
+    if state.device.type == "cpu":
+        counting.blocked_counting_update_plain(state, keys, lengths, config, increment=increment)
+        return
+    B, L = keys.shape
+    if not B:
+        return
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = _counting_library().tpb_blocked_counting_update(
+            state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+            B, L, *_spec_args(config), 1 if increment else 0, stream,
+        )
+    _raise_on(err, "blocked_counting_update")
+    LAUNCHES["blocked_counting_update"] += 1
+
+
+def blocked_counting_query(state, keys, lengths, config) -> torch.Tensor:
+    """Counting membership of each key: ``bool[B]``, True where all k of
+    its counters are non-zero, False where ``lengths < 0``. ``state`` is
+    only read."""
+    _check(state, keys, lengths, config, counters=True)
+    if state.device.type == "cpu":
+        return counting.blocked_counting_query_plain(state, keys, lengths, config)
+    B, L = keys.shape
+    out = torch.empty((B,), dtype=torch.uint8, device=state.device)
+    if B:
+        with torch.cuda.device(state.device):
+            stream = torch.cuda.current_stream(state.device).cuda_stream
+            err = _counting_library().tpb_blocked_counting_query(
+                state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), B, L, *_spec_args(config), stream,
+            )
+        _raise_on(err, "blocked_counting_query")
+        LAUNCHES["blocked_counting_query"] += 1
+    return out.view(torch.bool)
 
 
 def record_fence(device: torch.device):
