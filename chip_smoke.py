@@ -4,12 +4,16 @@
     python3 chip_smoke.py            # from the repository root, one card
 
 It builds the CUDA kernels from ``tpubloom_torch/csrc`` and drives the
-port's two paths through the entry points a user calls: the main path, a
+port's three paths through the entry points a user calls: the main path, a
 BlockedBloomFilter at m=2^32, k=7, block_bits=512 (512 MiB of state),
-16-byte keys, batches of 2^23; and the counting path, a
+16-byte keys, batches of 2^23; the counting path, a
 BlockedCountingBloomFilter at BASELINE config 4 (m=2^30 counters, k=7,
 block_bits=512, 512 MiB of state, batches of 2^22, the parameters of
-benchmarks/counting_rate.py). Phases, one JSON line each:
+benchmarks/counting_rate.py); and the sharded path, a ShardedBloomFilter
+at BASELINE config 5 (m=2^36, k=7, block_bits=512, 64 shards, 8 GiB of
+state on one card, batches of 2^23, the parameters of
+benchmarks/run.py:269-305) and its counting twin, configs 4 x 5 (m=2^30
+counters over 64 shards, batches of 2^22). Phases, one JSON line each:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
@@ -49,7 +53,24 @@ benchmarks/counting_rate.py). Phases, one JSON line each:
    ``delete_batch`` of 2^16 Python ``bytes`` keys;
 11. checkpoint round trip: ``snapshot_blob`` -> ``restore_blob`` of a
    counting filter at m=2^24 counters (cut from 2^30: the numpy CRC32C's
-   carry chain is a Python loop over 8-byte blocks).
+   carry chain is a Python loop over 8-byte blocks);
+12. sharded kernel vs plain: at config 5, on one slot of all 64 shards and
+   on a slot of shards 16-31, an insert and a query of old keys, fresh
+   keys, within-batch duplicates and tail padding through each routed
+   kernel and its routed plain version from the same state (tolerance 0,
+   ``torch.equal`` on the card); then the routed counting kernels at
+   configs 4 x 5 for an insert, a delete and a query;
+13. sharded path: ``insert_packed`` / ``include_packed`` of 2^23 keys,
+   ``insert_batch`` / ``include_batch`` of Python ``bytes`` keys, a
+   replay that must report every key present, the FPR of fresh keys at
+   m=2^26 over 64 shards, the same batches through a 4-slot layout on the
+   same card (16 shards a slot) whose words must equal the 1-slot run's
+   shard for shard, and the counting twin with ``delete_batch`` — with the
+   launch counts after each step;
+14. sharded times: as phase 5 for the four routed kernels on the 1-slot
+   state;
+15. sharded end to end: as phase 6 for the 1-slot and the 4-slot filters
+   (the latter split into ``kernel_shard<i>`` phases).
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -70,9 +91,10 @@ import numpy as np
 import torch
 
 from tpubloom_torch import BlockedBloomFilter, BlockedCountingBloomFilter, FilterConfig
-from tpubloom_torch import checkpoint
+from tpubloom_torch import ShardedBloomFilter, checkpoint
 from tpubloom_torch.obs import context as obs
 from tpubloom_torch.ops import _build, blocked, counting, sweep
+from tpubloom_torch.ops.hashing import ShardRoute
 from tpubloom_torch.params import blocked_fpr
 
 SEED = 20260
@@ -97,6 +119,13 @@ OPS_COUNT_UPDATE, OPS_COUNT_QUERY = 254 + 49 + 290, 254 + 112 + 28
 LOG2M_COUNTING, B_COUNTING = 30, 1 << 22
 LOG2M_COUNTING_AP, B_COUNTING_AP = 26, 1 << 20
 LOG2M_CHECKPOINT, B_CHECKPOINT = 24, 1 << 20
+# BASELINE config 5, as benchmarks/run.py:269-305 sets it (--layout
+# blocked), and its counting twin, configs 4 x 5; nothing cut. The FPR
+# check runs at m=2^26 (λ=64 keys a block), where the model predicts
+# enough hits; the 4-slot layout lays 16 shards a slot on the same card.
+LOG2M_SHARDED, SHARDS, B_SHARDED = 36, 64, 1 << 23
+LOG2M_SHARDED_COUNTING, B_SHARDED_COUNTING = 30, 1 << 22
+LOG2M_SHARDED_FPR, N_SLOTS = 26, 4
 M32 = 0xFFFFFFFF
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 RECORD: dict = {}
@@ -116,13 +145,20 @@ def rows(rng: np.random.Generator, n: int) -> np.ndarray:
     return rng.integers(0, 256, (n, KEY_LEN), dtype=np.uint8)
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+def max_abs_err(a: torch.Tensor, b: torch.Tensor, step: int = 1 << 26) -> int:
     """Largest |a - b| over two tensors of the same integer values
-    (state words read as u32, verdicts as 0/1)."""
+    (state words read as u32, verdicts as 0/1), in slices so that the
+    int64 copies stay small on an 8 GiB state."""
     if a.dtype == torch.uint32:
-        a = a.view(torch.int32).to(torch.int64) & M32
-        b = b.view(torch.int32).to(torch.int64) & M32
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    a, b = a.reshape(-1), b.reshape(-1)
+    worst = 0
+    for s in range(0, a.numel(), step):
+        x, y = a[s : s + step].to(torch.int64), b[s : s + step].to(torch.int64)
+        if a.dtype == torch.int32:
+            x, y = x & M32, y & M32
+        worst = max(worst, int((x - y).abs().max()))
+    return worst
 
 
 def clone_u32(t: torch.Tensor) -> torch.Tensor:
@@ -631,6 +667,275 @@ def phase_checkpoint_roundtrip(rng) -> None:
              "at 512 MiB")
 
 
+def sharded_config(log2m: int, **kw) -> FilterConfig:
+    return FilterConfig(m=1 << log2m, k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS,
+                        shards=SHARDS, **kw)
+
+
+def slot_state(cfg: FilterConfig, route: ShardRoute) -> torch.Tensor:
+    n = route.shards_per_dev * cfg.n_blocks_per_shard * cfg.words_per_block
+    return torch.zeros(n, dtype=torch.int32, device=torch.device("cuda")).view(torch.uint32)
+
+
+def sharded_vs_plain(cfg: FilterConfig, route: ShardRoute, batch: int, rng) -> dict:
+    """Populate one slot's state with routed kernel inserts, then run the
+    same update(s) and query through the routed kernels and their routed
+    plain versions from the same state: the bit filter's insert, or the
+    counting filter's insert and delete (with a quarter of the batch one
+    repeated key)."""
+    dev = torch.device("cuda")
+    state = slot_state(cfg, route)
+    full = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
+    counting_cfg = bool(cfg.counting)
+    for _ in range(3):
+        prev = torch.from_numpy(rows(rng, batch)).to(dev)
+        if counting_cfg:
+            sweep.blocked_counting_update(state, prev, full, cfg, increment=True, route=route)
+        else:
+            sweep.blocked_insert(state, prev, full, cfg, route=route)
+    if counting_cfg:
+        keys, lengths, n_pad = skewed_batch(rng, prev, batch)
+    else:
+        fresh = torch.from_numpy(rows(rng, batch // 2)).to(dev)
+        keys = torch.cat([prev[: batch // 4], fresh, fresh[: batch // 4]]).contiguous()
+        lengths, n_pad = full.clone(), batch // 1024
+        lengths[-n_pad:] = -1
+        keys[-n_pad:] = 0
+    s_plain = clone_u32(state)  # the kernel updates `state` itself
+    owned = blocked.routed_blocks(keys, lengths, cfg, route,
+                                  block_bits=cfg.counters_per_block if counting_cfg
+                                  else cfg.block_bits)[0]
+    out = {"route": [route.n_shards, route.shard_lo, route.shards_per_dev],
+           "log2m": cfg.m.bit_length() - 1, "batch": batch, "padded": n_pad,
+           "owned": int(owned.sum()), "state_bytes": state.numel() * 4}
+    ops = (("insert", True), ("delete", False)) if counting_cfg else (("insert", True),)
+    for op, increment in ops:
+        if counting_cfg:
+            sweep.blocked_counting_update(state, keys, lengths, cfg, increment=increment, route=route)
+            counting.blocked_counting_update_plain(s_plain, keys, lengths, cfg,
+                                                   increment=increment, route=route)
+        else:
+            sweep.blocked_insert(state, keys, lengths, cfg, route=route)
+            blocked.blocked_insert_plain(s_plain, keys, lengths, cfg, route)
+        torch.cuda.synchronize()
+        out[f"{op}_state_err"] = max_abs_err(state, s_plain)
+        check(equal_words(state, s_plain), f"sharded {op} state {out['route']}")
+    del s_plain
+    probe = torch.cat([prev[: batch // 2], torch.from_numpy(rows(rng, batch // 2)).to(dev)])
+    if counting_cfg:
+        q_kernel = sweep.blocked_counting_query(state, probe, lengths, cfg, route=route)
+        q_plain = counting.blocked_counting_query_plain(state, probe, lengths, cfg, route)
+    else:
+        q_kernel = sweep.blocked_query(state, probe, lengths, cfg, route=route)
+        q_plain = blocked.blocked_query_plain(state, probe, lengths, cfg, route)
+    torch.cuda.synchronize()
+    check(torch.equal(q_kernel, q_plain), f"sharded query verdicts {out['route']}")
+    p_owned = blocked.routed_blocks(probe, lengths, cfg, route,
+                                    block_bits=cfg.counters_per_block if counting_cfg
+                                    else cfg.block_bits)[0]
+    check(not bool(q_kernel[~p_owned].any()), "keys the slot does not own answer False")
+    out.update(query_err=max_abs_err(q_kernel, q_plain),
+               query_hits_old_half=int(q_kernel[: batch // 2].sum()),
+               owned_old_half=int(p_owned[: batch // 2].sum()),
+               query_hits_fresh_half=int(q_kernel[batch // 2 :].sum()))
+    if not counting_cfg:
+        check(out["query_hits_old_half"] == out["owned_old_half"], "owned old keys present")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_kernel_vs_plain(rng) -> dict:
+    cfg5 = sharded_config(LOG2M_SHARDED)
+    cfg45 = sharded_config(LOG2M_SHARDED_COUNTING, counting=True)
+    one, quarter = ShardRoute(SHARDS, 0, SHARDS), ShardRoute(SHARDS, 16, SHARDS // N_SLOTS)
+    bits = [sharded_vs_plain(cfg5, r, B_SHARDED, rng) for r in (one, quarter)]
+    counts = [sharded_vs_plain(cfg45, r, B_SHARDED_COUNTING, rng)
+              for r in (one, ShardRoute(SHARDS, 48, SHARDS // N_SLOTS))]
+    errs = {
+        "sharded_blocked_insert": max(r["insert_state_err"] for r in bits),
+        "sharded_blocked_query": max(r["query_err"] for r in bits),
+        "sharded_blocked_counting_update": max(max(r["insert_state_err"], r["delete_state_err"])
+                                               for r in counts),
+        "sharded_blocked_counting_query": max(r["query_err"] for r in counts),
+    }
+    emit("sharded_kernel_vs_plain", config5=bits, configs4x5=counts, max_abs_err=errs, tolerance=0)
+    return errs
+
+
+def same_slots(one: ShardedBloomFilter, many: ShardedBloomFilter) -> bool:
+    """The many-slot filter's words equal the one-slot filter's, shard for
+    shard (compared on the card)."""
+    whole, spd = one.slot_words[0], many.shards_per_dev
+    return all(equal_words(whole[i * spd : (i + 1) * spd], w) for i, w in enumerate(many.slot_words))
+
+
+def phase_sharded_path(rng) -> tuple[dict, ShardedBloomFilter, ShardedBloomFilter, ShardedBloomFilter]:
+    cfg5 = sharded_config(LOG2M_SHARDED)
+    sweep.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = {}
+    f = ShardedBloomFilter(cfg5)  # no devices: one slot on the one card
+    check(len(f.slot_words) == 1 and f.slot_words[0].is_cuda, "default slots are the card")
+    big = rows(rng, B_SHARDED)
+    check(f.insert_packed(big) == B_SHARDED, "insert_packed count")
+    steps["insert_packed"] = sweep.launch_counts()
+    check(f.include_packed(big).all(), "packed replay all present")
+    steps["include_packed"] = sweep.launch_counts()
+    lens = rng.integers(0, KEY_LEN + 1, 10_000)
+    keys = [rng.bytes(int(n)) for n in lens] + [b"", b"a"]
+    f.insert_batch(keys)
+    steps["insert_batch"] = sweep.launch_counts()
+    check(f.include_batch(keys).all(), "bytes keys all present")
+    steps["include_batch"] = sweep.launch_counts()
+    fresh = rows(rng, B_SHARDED // 2)
+    probe = np.concatenate([big[: B_SHARDED // 2], fresh])
+    verdicts = f.include_packed(probe)
+    check(verdicts[: B_SHARDED // 2].all(), "old half of the probe present")
+    fpr_full = {"probes": len(fresh), "hits": int(verdicts[B_SHARDED // 2 :].sum())}
+    # the same batches through 4 slots on the same card: the same words
+    g = ShardedBloomFilter(cfg5, devices=["cuda"] * N_SLOTS)
+    g.insert_packed(big)
+    g.insert_batch(keys)
+    torch.cuda.synchronize()
+    check(same_slots(f, g), "4-slot words equal the 1-slot words shard for shard")
+    check(np.array_equal(g.include_packed(probe), verdicts), "4-slot verdicts equal")
+    check(g.include_batch(keys).all(), "4-slot bytes keys present")
+    steps["four_slots"] = sweep.launch_counts()
+    check((f.n_inserted, g.n_inserted) == (B_SHARDED + len(keys),) * 2, "n_inserted")
+    # an FPR the model can be held to needs a fuller filter
+    small = ShardedBloomFilter(sharded_config(LOG2M_SHARDED_FPR))
+    small.insert_packed(rows(rng, B_SHARDED))
+    fpr_small = fpr_check(small, rng, B_SHARDED)
+    del small
+    # the counting twin, configs 4 x 5, with a delete
+    cfg45 = sharded_config(LOG2M_SHARDED_COUNTING, counting=True)
+    fc, gc = ShardedBloomFilter(cfg45), ShardedBloomFilter(cfg45, devices=["cuda"] * N_SLOTS)
+    bigc = rows(rng, B_SHARDED_COUNTING)
+    n_gone = B_SHARDED_COUNTING // 64
+    gone = [bytes(r) for r in bigc[:n_gone]]
+    for c in (fc, gc):
+        c.insert_packed(bigc)
+        c.delete_batch(gone)
+    steps["counting"] = sweep.launch_counts()
+    torch.cuda.synchronize()
+    check(same_slots(fc, gc), "4-slot counters equal the 1-slot counters shard for shard")
+    probe_c = np.concatenate([bigc[: 2 * n_gone], rows(rng, n_gone)])
+    hits_c = fc.include_packed(probe_c)
+    check(np.array_equal(gc.include_packed(probe_c), hits_c), "4-slot counting verdicts equal")
+    check(not hits_c[:n_gone].any() and hits_c[n_gone : 2 * n_gone].all(),
+          "deleted keys absent, the others present")
+    check(fc.n_inserted == gc.n_inserted == B_SHARDED_COUNTING - n_gone, "counting n_inserted")
+    del gc
+    torch.cuda.synchronize()
+    launches = sweep.launch_counts()
+    seconds = time.perf_counter() - t0
+    for name in ("sharded_blocked_insert", "sharded_blocked_query",
+                 "sharded_blocked_counting_update", "sharded_blocked_counting_query"):
+        check(launches[name] > 0, f"{name} launched on the sharded path")
+    torch.cuda.empty_cache()
+    emit("sharded_path", launches=launches, launches_after_step=steps, seconds=seconds,
+         n_inserted=f.n_inserted, state_bytes=f.slot_words[0].numel() * 4,
+         fresh_hits_at_2_36=fpr_full, fpr_fuller=fpr_small,
+         counting={"n_inserted": fc.n_inserted, "deleted": n_gone,
+                   "probe_hits_fresh": int(hits_c[2 * n_gone :].sum())})
+    return launches, f, g, fc
+
+
+def sharded_rows(cfg: FilterConfig, route: ShardRoute, keys, lengths, domain: int):
+    _, row, pos = blocked.routed_blocks(keys, lengths, cfg, route, block_bits=domain)
+    return int(torch.unique(row).numel()), row, pos
+
+
+def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> dict:
+    cfg, state, route = f.config, f.slot_words[0], f.routes[0]
+    dev = state.device
+    batches = [torch.from_numpy(rows(rng, B_SHARDED)).to(dev) for _ in range(4)]
+    lengths = torch.full((B_SHARDED,), KEY_LEN, dtype=torch.int32, device=dev)
+    rows_touched, row, _ = sharded_rows(cfg, route, batches[0], lengths, cfg.block_bits)
+    q_ms = cuda_ms(lambda i: sweep.blocked_query(state, batches[i % 4], lengths, cfg, route=route), 40, warm=4)
+    i_ms = cuda_ms(lambda i: sweep.blocked_insert(state, batches[i % 4], lengths, cfg, route=route), 40, warm=4)
+    qp_ms = cuda_ms(lambda i: blocked.blocked_query_plain(state, batches[i % 4], lengths, cfg, route), 3, warm=1)
+    ip_ms = cuda_ms(lambda i: blocked.blocked_insert_plain(state, batches[i % 4], lengths, cfg, route), 3, warm=1)
+    table = state.view(torch.int32).reshape(-1, cfg.words_per_block)
+    lib_ms = cuda_ms(lambda i: torch.index_select(table, 0, row), 40, warm=4)
+    row_bytes = cfg.words_per_block * 4
+    in_bytes = B_SHARDED * (KEY_LEN + 4)
+    q_bytes = in_bytes + B_SHARDED + rows_touched * row_bytes
+    i_bytes = in_bytes + 2 * rows_touched * row_bytes
+    # the routing hash adds one murmur3 pass (~54 ops a key) to each kernel
+    qb, qby = bound(q_bytes, (OPS_QUERY + 54) * B_SHARDED)
+    ib, iby = bound(i_bytes, (OPS_INSERT + 54) * B_SHARDED)
+    del batches
+    # configs 4 x 5
+    ccfg, cstate, croute = fc.config, fc.slot_words[0], fc.routes[0]
+    cb = [torch.from_numpy(rows(rng, B_SHARDED_COUNTING)).to(dev) for _ in range(4)]
+    clen = torch.full((B_SHARDED_COUNTING,), KEY_LEN, dtype=torch.int32, device=dev)
+
+    def upd(increment):
+        return lambda i: sweep.blocked_counting_update(cstate, cb[i % 4], clen, ccfg,
+                                                       increment=increment, route=croute)
+
+    def plain(increment):
+        return lambda i: counting.blocked_counting_update_plain(cstate, cb[i % 4], clen, ccfg,
+                                                                increment=increment, route=croute)
+
+    ci_ms, cd_ms = event_pairs_ms([upd(True), upd(False)], 40)
+    cq_ms = cuda_ms(lambda i: sweep.blocked_counting_query(cstate, cb[i % 4], clen, ccfg, route=croute),
+                    40, warm=4)
+    cip_ms, cdp_ms = event_pairs_ms([plain(True), plain(False)], 3, warm=1)
+    cqp_ms = cuda_ms(lambda i: counting.blocked_counting_query_plain(cstate, cb[i % 4], clen, ccfg, croute),
+                     3, warm=1)
+    c_rows, c_row, cpos = sharded_rows(ccfg, croute, cb[0], clen, ccfg.counters_per_block)
+    words = cpos >> 3
+    distinct_words = int(sum((~(words[:, j : j + 1] == words[:, :j]).any(dim=1)).sum()
+                             for j in range(ccfg.k)))
+    ctable = cstate.view(torch.int32).reshape(-1, ccfg.words_per_block)
+    clib_ms = cuda_ms(lambda i: torch.index_select(ctable, 0, c_row), 40, warm=4)
+    c_in = B_SHARDED_COUNTING * (KEY_LEN + 4)
+    cu_bytes = c_in + 2 * c_rows * row_bytes
+    cq_bytes = c_in + B_SHARDED_COUNTING + c_rows * row_bytes
+    cub, cuby = bound(cu_bytes, (OPS_COUNT_UPDATE + 54) * B_SHARDED_COUNTING)
+    cqb, cqby = bound(cq_bytes, (OPS_COUNT_QUERY + 54) * B_SHARDED_COUNTING)
+    out = {
+        "batch": B_SHARDED, "rows_touched": rows_touched, "state_bytes": state.numel() * 4,
+        "sharded_blocked_query": {
+            "ms": q_ms, "keys_per_s": B_SHARDED / q_ms * 1e3, "plain_ms": qp_ms,
+            "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby, "bytes": q_bytes,
+            "share_of_bound": qb / q_ms},
+        "sharded_blocked_insert": {
+            "ms": i_ms, "keys_per_s": B_SHARDED / i_ms * 1e3, "plain_ms": ip_ms,
+            "library_ms": None, "bound_ms": ib, "bound_by": iby, "bytes": i_bytes,
+            "share_of_bound": ib / i_ms},
+        "counting_batch": B_SHARDED_COUNTING, "counting_rows_touched": c_rows,
+        "atomic_words": distinct_words,
+        "sharded_blocked_counting_update": {
+            "ms": ci_ms, "delete_ms": cd_ms, "keys_per_s": B_SHARDED_COUNTING / ci_ms * 1e3,
+            "plain_ms": cip_ms, "plain_delete_ms": cdp_ms, "library_ms": None,
+            "bound_ms": cub, "bound_by": cuby, "bytes": cu_bytes, "share_of_bound": cub / ci_ms,
+            "cas_words_per_s": distinct_words / ci_ms * 1e3},
+        "sharded_blocked_counting_query": {
+            "ms": cq_ms, "keys_per_s": B_SHARDED_COUNTING / cq_ms * 1e3, "plain_ms": cqp_ms,
+            "library_ms": clib_ms, "bound_ms": cqb, "bound_by": cqby, "bytes": cq_bytes,
+            "share_of_bound": cqb / cq_ms},
+    }
+    emit("sharded_times", **out)
+    return out
+
+
+def phase_sharded_end_to_end(f: ShardedBloomFilter, g: ShardedBloomFilter, rng, times: dict) -> None:
+    big = rows(rng, B_SHARDED)
+    ins, qry = times["sharded_blocked_insert"]["ms"], times["sharded_blocked_query"]["ms"]
+    emit("sharded_end_to_end", **time_calls((
+        ("insert_packed_1_slot", B_SHARDED, lambda: f.insert_packed(big), ins),
+        ("include_packed_1_slot", B_SHARDED, lambda: f.include_packed(big), qry),
+        # four launches a call, each routing the whole batch: not timed alone
+        ("insert_packed_4_slots", B_SHARDED, lambda: g.insert_packed(big), None),
+        ("include_packed_4_slots", B_SHARDED, lambda: g.include_packed(big), None),
+    )))
+
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -648,6 +953,13 @@ def main() -> int:
     del cf
     torch.cuda.empty_cache()
     phase_checkpoint_roundtrip(rng)
+    torch.cuda.empty_cache()
+    s_errs = phase_sharded_kernel_vs_plain(rng)
+    s_launches, sf, sg, sfc = phase_sharded_path(rng)
+    s_times = phase_sharded_times(sf, sfc, rng)
+    phase_sharded_end_to_end(sf, sg, rng, s_times)
+    del sf, sg, sfc
+    torch.cuda.empty_cache()
     kernels = []
     for name, src, replaces, lau, err, t in (
         ("blocked_insert", "blocked_bloom.cu", "tpubloom/ops/sweep.py:1463", launches, errs, times),
@@ -658,6 +970,18 @@ def main() -> int:
         # no Pallas counterpart: the XLA gather fat_blocked_counting_membership
         ("blocked_counting_query", "blocked_counting.cu", "tpubloom/ops/counting.py:115",
          c_launches, c_errs, c_times),
+        # K1, the sharded per-device insert (tpubloom/parallel/sharded.py:282,292)
+        ("sharded_blocked_insert", "blocked_bloom.cu", "tpubloom/ops/sweep.py:241",
+         s_launches, s_errs, s_times),
+        # K5 inside shard_map (sharded.py:348), the row gather otherwise
+        ("sharded_blocked_query", "blocked_bloom.cu", "tpubloom/ops/sweep.py:2437",
+         s_launches, s_errs, s_times),
+        # K2 (sharded.py:507,525) and K4 (:500) in the sharded counting loop
+        ("sharded_blocked_counting_update", "blocked_counting.cu", "tpubloom/ops/sweep.py:582",
+         s_launches, s_errs, s_times),
+        # the gathers fat_blocked_counting_membership / blocked_counting_membership in shard_map
+        ("sharded_blocked_counting_query", "blocked_counting.cu", "tpubloom/ops/counting.py:115",
+         s_launches, s_errs, s_times),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"tpubloom_torch/csrc/{src}",
@@ -666,6 +990,8 @@ def main() -> int:
             "bound_by": t[name]["bound_by"], "library_ms": t[name]["library_ms"],
         })
     kernels[2]["also_replaces"] = "tpubloom/ops/sweep.py:582"
+    kernels[4]["also_replaces"] = "tpubloom/ops/sweep.py:1463 (K3 at tpubloom/parallel/sharded.py:274)"
+    kernels[6]["also_replaces"] = "tpubloom/ops/sweep.py:1976 (K4 at tpubloom/parallel/sharded.py:500)"
     RECORD["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

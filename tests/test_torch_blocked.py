@@ -6,7 +6,10 @@ really select the fat kernels:
 * tpubloom_torch test-and-insert / insert vs K3 (``_fat_kernel`` through
   ``make_sweep_insert_fn(..., with_presence=True, storage_fat=True)``);
 * tpubloom_torch query vs K5 (``_fat_query_kernel`` through
-  ``make_sweep_query_fn(..., storage_fat=True)``).
+  ``make_sweep_query_fn(..., storage_fat=True)``);
+* tpubloom_torch test-and-insert vs K1's narrow presence branch
+  (``_kernel`` with ``PRES``, at m=2^22 and B=64, where the fat chooser
+  rejects the shape).
 
 All comparisons are exact (tolerance 0): state bytes and verdicts. Each
 interpret-mode call costs seconds on the CPU, so each runs once, in a
@@ -136,3 +139,33 @@ def test_query_matches_k5(k3, k5):
     np.testing.assert_array_equal(got, hits)
     assert got[: B // 2].all() and not got[B - N_PAD:].any()
     np.testing.assert_array_equal(st.numpy(), k3[0])  # the query writes nothing
+
+
+def test_test_insert_matches_k1_presence_branch():
+    """K1's narrow presence branch: at m=2^22 (NB=8192), k=7 and B=64 the
+    fat chooser rejects the shape, so ``make_sweep_insert_fn(...,
+    with_presence=True)`` runs ``_kernel`` with ``PRES`` on the logical
+    ``[NB, W]`` view (tpubloom/ops/sweep.py:2335-2389). The port's
+    test-and-insert gives the same state and pre-batch presence, for old
+    keys, fresh keys, within-batch duplicates and tail padding."""
+    nb, b, n_pad = 8192, 64, 8
+    jcfg = JConfig(m=nb * BB, k=K, key_len=L, block_bits=BB)
+    cfg = FilterConfig(m=nb * BB, k=K, key_len=L, block_bits=BB)
+    assert jsweep.choose_fat_params(nb, b, W, presence=True) is None
+    rng = np.random.default_rng(13)
+    pre = rng.integers(0, 256, (3000, L), dtype=np.uint8)
+    oracle = CPUBlockedBloomFilter(jcfg, use_native=False)
+    oracle.insert_batch([bytes(r) for r in pre])
+    fresh = rng.integers(0, 256, (32, L), dtype=np.uint8)
+    batch = np.concatenate([pre[:16], fresh, fresh[:16]])
+    lengths = np.full((b,), L, np.int32)
+    lengths[b - n_pad:] = -1
+    batch[b - n_pad:] = 0
+    fn = jsweep.make_sweep_insert_fn(jcfg, interpret=True, with_presence=True)
+    st, pres = fn(jnp.asarray(oracle.words), jnp.asarray(batch), jnp.asarray(lengths))
+    state = _t(oracle.words.copy())
+    present = sweep.blocked_test_insert(state, _t(batch), _t(lengths), cfg).numpy()
+    np.testing.assert_array_equal(state.numpy(), np.asarray(st))
+    np.testing.assert_array_equal(present, np.asarray(pres))
+    assert present[:16].all() and not present[b - n_pad:].any()
+    np.testing.assert_array_equal(present[16:24], present[48:56])  # duplicates: pre-batch state

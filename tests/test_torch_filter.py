@@ -238,7 +238,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     f.insert_batch([b"a", b"b"], return_presence=True)
     f.include_batch([b"a"])
     assert sweep.launch_counts() == dict.fromkeys(
-        ("blocked_query", "blocked_insert", "blocked_counting_update", "blocked_counting_query"), 0
+        ("blocked_query", "blocked_insert", "blocked_counting_update", "blocked_counting_query",
+         "sharded_blocked_query", "sharded_blocked_insert", "sharded_blocked_counting_update",
+         "sharded_blocked_counting_query"), 0
     )
     with pytest.raises(ValueError, match="share a device"):
         sweep.blocked_query(f.words, torch.zeros((4, L), dtype=torch.uint8, device="meta"),

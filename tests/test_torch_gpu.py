@@ -5,14 +5,19 @@ card:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
-All comparisons are exact (tolerance 0): state words and verdicts."""
+All comparisons are exact (tolerance 0): state words and verdicts. The
+routed (sharded) kernels run on one slot's state, for every slot of a
+1-slot and a 4-slot placement, so the ``shard_lo != 0`` branch runs too."""
 
 import numpy as np
 import pytest
 import torch
 
-from tpubloom_torch import BlockedBloomFilter, BlockedCountingBloomFilter, FilterConfig
+from tpubloom_torch import (
+    BlockedBloomFilter, BlockedCountingBloomFilter, FilterConfig, ShardedBloomFilter,
+)
 from tpubloom_torch.ops import blocked, counting, sweep
+from tpubloom_torch.ops.hashing import ShardRoute
 
 pytestmark = pytest.mark.gpu
 L = 16
@@ -37,6 +42,9 @@ def _batch(rng, n, dev, n_pad=37):
 
 def _equal_words(a, b):
     return torch.equal(a.view(torch.int32).cpu(), b.view(torch.int32).cpu())
+
+
+_NO_LAUNCH = dict.fromkeys(sweep.LAUNCHES, 0)
 
 
 @pytest.mark.parametrize(
@@ -64,8 +72,7 @@ def test_kernels_match_plain(cuda, block_bits, block_hash):
     q_p = blocked.blocked_query_plain(s_k, keys, lengths, cfg)
     assert torch.equal(q_k.cpu(), q_p.cpu())
     assert bool(q_k[lengths >= 0].all()) and not bool(q_k[lengths < 0].any())
-    assert sweep.launch_counts() == {"blocked_query": 2, "blocked_insert": 3,
-                                     "blocked_counting_update": 0, "blocked_counting_query": 0}
+    assert sweep.launch_counts() == {**_NO_LAUNCH, "blocked_query": 2, "blocked_insert": 3}
 
 
 def test_filter_on_card_matches_cpu(cuda):
@@ -139,8 +146,8 @@ def test_counting_kernels_match_plain(cuda, block_bits, block_hash, view):
             assert torch.equal(q_k.cpu(), q_p.cpu())
             assert bool(q_k[lengths >= 0].all()) and not bool(q_k[lengths < 0].any())
     assert not bool(sweep.blocked_counting_query(s_k, keys[1000:1001], lengths[1000:1001], cfg)[0])
-    assert sweep.launch_counts() == {"blocked_query": 0, "blocked_insert": 0,
-                                     "blocked_counting_update": 4, "blocked_counting_query": 2}
+    assert sweep.launch_counts() == {**_NO_LAUNCH, "blocked_counting_update": 4,
+                                     "blocked_counting_query": 2}
 
 
 def test_counting_filter_on_card_matches_cpu(cuda):
@@ -161,3 +168,110 @@ def test_counting_filter_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(gpu.include_packed(probe), cpu.include_packed(probe))
         np.testing.assert_array_equal(gpu.include_batch(keys), cpu.include_batch(keys))
     assert gpu.to_bytes() == cpu.to_bytes()
+
+
+def _slot_state(cfg, route, dev):
+    n = route.shards_per_dev * cfg.n_blocks_per_shard * cfg.words_per_block
+    return torch.zeros(n, dtype=torch.int32, device=dev).view(torch.uint32)
+
+
+@pytest.mark.parametrize("n_slots", [1, 4])
+@pytest.mark.parametrize(
+    "block_bits,block_hash", [(512, "chunk"), (512, "ap"), (128, "chunk"), (4096, "ap")],
+)
+def test_routed_kernels_match_plain(cuda, block_bits, block_hash, n_slots):
+    """The routed insert and query on each slot's state against their
+    routed plain versions: old keys, within-batch duplicates, padding,
+    and keys other slots own (which set nothing and answer False)."""
+    cfg = FilterConfig(m=1 << 24, k=7, key_len=L, block_bits=block_bits,
+                       block_hash=block_hash, shards=16)
+    rng = np.random.default_rng(block_bits + n_slots)
+    spd = 16 // n_slots
+    sweep.reset_launch_counts()
+    for i in range(n_slots):
+        route = ShardRoute(16, i * spd, spd)
+        state = _slot_state(cfg, route, cuda)
+        for _ in range(2):
+            prev, prev_len = _batch(rng, 4096, cuda)
+            sweep.blocked_insert(state, prev, prev_len, cfg, route=route)
+        keys, lengths = _batch(rng, 4096, cuda)
+        keys[:500], lengths[:500] = prev[:500], prev_len[:500]
+        s_k, s_p = _clone(state), _clone(state)
+        sweep.blocked_insert(s_k, keys, lengths, cfg, route=route)
+        blocked.blocked_insert_plain(s_p, keys, lengths, cfg, route)
+        torch.cuda.synchronize()
+        assert _equal_words(s_k, s_p)
+        q_k = sweep.blocked_query(s_k, keys, lengths, cfg, route=route)
+        q_p = blocked.blocked_query_plain(s_k, keys, lengths, cfg, route)
+        assert torch.equal(q_k.cpu(), q_p.cpu())
+        owned = blocked.routed_blocks(keys, lengths, cfg, route, block_bits=block_bits)[0]
+        assert bool(q_k[owned].all()) and not bool(q_k[~owned].any())
+        if n_slots > 1:
+            assert bool(owned.any()) and not bool(owned.all())
+    assert sweep.launch_counts() == {**_NO_LAUNCH, "sharded_blocked_insert": 3 * n_slots,
+                                     "sharded_blocked_query": n_slots}
+
+
+@pytest.mark.parametrize("n_slots", [1, 4])
+@pytest.mark.parametrize(
+    "block_bits,block_hash", [(512, "chunk"), (512, "ap"), (128, "chunk"), (4096, "ap")],
+)
+def test_routed_counting_kernels_match_plain(cuda, block_bits, block_hash, n_slots):
+    """The routed counting update (insert, then delete) and query on each
+    slot's state against their routed plain versions, with a hot key
+    (saturation at 15, then the floor at 0)."""
+    cfg = FilterConfig(m=1 << 24, k=7, key_len=L, counting=True, block_bits=block_bits,
+                       block_hash=block_hash, shards=16)
+    rng = np.random.default_rng(block_bits + 10 * n_slots)
+    spd = 16 // n_slots
+    sweep.reset_launch_counts()
+    for i in range(n_slots):
+        route = ShardRoute(16, i * spd, spd)
+        state = _slot_state(cfg, route, cuda)
+        prev, prev_len = _batch(rng, 4096, cuda)
+        sweep.blocked_counting_update(state, prev, prev_len, cfg, increment=True, route=route)
+        keys, lengths = _batch(rng, 4096, cuda)
+        keys[:500], lengths[:500] = prev[:500], prev_len[:500]
+        keys[1000:2024], lengths[1000:2024] = keys[1000].clone(), L  # one hot key
+        s_k, s_p = _clone(state), _clone(state)
+        for increment in (True, False):
+            sweep.blocked_counting_update(s_k, keys, lengths, cfg, increment=increment, route=route)
+            counting.blocked_counting_update_plain(s_p, keys, lengths, cfg, increment=increment,
+                                                   route=route)
+            torch.cuda.synchronize()
+            assert _equal_words(s_k, s_p)
+            q_k = sweep.blocked_counting_query(s_k, keys, lengths, cfg, route=route)
+            q_p = counting.blocked_counting_query_plain(s_k, keys, lengths, cfg, route)
+            assert torch.equal(q_k.cpu(), q_p.cpu())
+    assert sweep.launch_counts() == {**_NO_LAUNCH, "sharded_blocked_counting_update": 3 * n_slots,
+                                     "sharded_blocked_counting_query": 2 * n_slots}
+
+
+@pytest.mark.parametrize("counting_layout", [False, True])
+def test_sharded_filter_on_card_matches_cpu(cuda, counting_layout):
+    """ShardedBloomFilter on 4 slots of the card against 4 CPU slots and
+    one card slot: the same words and verdicts through every entry
+    point."""
+    cfg = FilterConfig(m=1 << 22, k=7, key_len=L, block_bits=512, shards=16,
+                       counting=counting_layout)
+    four, one = ShardedBloomFilter(cfg, devices=["cuda"] * 4), ShardedBloomFilter(cfg)
+    cpu = ShardedBloomFilter(cfg, devices=["cpu"] * 4)
+    assert all(w.is_cuda for w in four.slot_words + one.slot_words)
+    rng = np.random.default_rng(7)
+    sweep.reset_launch_counts()
+    keys = [rng.bytes(int(rng.integers(0, L + 1))) for _ in range(1500)]
+    rows = rng.integers(0, 256, (3000, L), dtype=np.uint8)
+    probe = np.concatenate([rows[:500], rng.integers(0, 256, (500, L), dtype=np.uint8)])
+    for f in (four, one, cpu):
+        f.insert_batch(keys)
+        f.insert_packed(rows)
+        if counting_layout:
+            f.delete_batch(keys[:700])
+    want = cpu.include_packed(probe)
+    for f in (four, one):
+        np.testing.assert_array_equal(f.include_packed(probe), want)
+        np.testing.assert_array_equal(f.include_batch(keys), cpu.include_batch(keys))
+        assert f.to_bytes() == cpu.to_bytes()
+    launches = sweep.launch_counts()
+    name = "sharded_blocked_counting_update" if counting_layout else "sharded_blocked_insert"
+    assert launches[name] == 5 * (3 if counting_layout else 2)

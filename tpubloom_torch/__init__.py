@@ -14,9 +14,15 @@ reference. This package imports ``torch`` and numpy, never JAX and never
     c = BlockedCountingBloomFilter(FilterConfig(m=1 << 30, k=7, counting=True))
     c.insert_batch([b"alpha"])
     c.delete_batch([b"alpha"])           # counting filters support delete
+
+    s = ShardedBloomFilter(FilterConfig(m=1 << 36, k=7, block_bits=512, shards=64))
+    s.insert_batch([b"alpha"])           # BASELINE config 5: 64 shards, 8 GiB
 """
 
 from tpubloom_torch.config import FilterConfig
 from tpubloom_torch.filter import BlockedBloomFilter, BlockedCountingBloomFilter
+from tpubloom_torch.parallel.sharded import ShardedBloomFilter
 
-__all__ = ["FilterConfig", "BlockedBloomFilter", "BlockedCountingBloomFilter"]
+__all__ = [
+    "FilterConfig", "BlockedBloomFilter", "BlockedCountingBloomFilter", "ShardedBloomFilter",
+]

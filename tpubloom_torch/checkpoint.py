@@ -1,5 +1,6 @@
 """Checkpoint blobs of the port's filters: the codec of ``tpubloom/checkpoint.py``
-for the kinds the port has, blocked and blocked counting.
+for the kinds the port has, blocked and blocked counting, on one device or
+sharded (``shards > 1``, :class:`~tpubloom_torch.parallel.sharded.ShardedBloomFilter`).
 
 A blob is format v2, byte for byte as ``tpubloom`` writes it::
 
@@ -9,13 +10,14 @@ The JSON header carries the filter's config (``FilterConfig.to_dict``),
 the sequence number, the payload format (``blocked_le_words`` or
 ``counting_le_words``: the state's row-major little-endian words), the
 wall-clock time, ``extra`` (``n_inserted`` / ``n_queried``), and the
-payload's length and CRC32C. v1 blobs (``TPUBLOOM1``, no CRC) still
+payload's length and CRC32C. A sharded filter's payload is its words
+shard-major (``tpubloom``'s global array). v1 blobs (``TPUBLOOM1``, no CRC) still
 decode. A blob of either package restores in the other; a
 :class:`FileSink` directory too, since the file names are the same
 (``<key_name>.<seq:012d>.ckpt``).
 
 Kinds the port does not have yet — flat (``redis_bitmap``), flat
-counting, ``scalable_stack``, the sketch kinds, ``shards > 1`` — raise
+counting, flat sharded, ``scalable_stack``, the sketch kinds — raise
 ``NotImplementedError`` naming the kind; nothing falls back.
 
 The snapshot copies the state on its device first and then to the host:
@@ -37,6 +39,7 @@ import torch
 
 from tpubloom_torch.config import FilterConfig, identity_mismatch
 from tpubloom_torch.filter import BlockedBloomFilter, BlockedCountingBloomFilter
+from tpubloom_torch.parallel.sharded import ShardedBloomFilter
 from tpubloom_torch.utils.crc32c import crc32c
 
 log = logging.getLogger("tpubloom_torch.checkpoint")
@@ -60,9 +63,9 @@ def _kind_name(config: FilterConfig) -> Optional[str]:
     else None."""
     if config.kind != "bloom":
         return f"kind={config.kind!r}"
-    if config.shards > 1:
-        return f"shards={config.shards}"
     if not config.block_bits:
+        if config.shards > 1:
+            return f"flat sharded (shards={config.shards})"
         return "flat counting" if config.counting else "flat (redis_bitmap)"
     return None
 
@@ -236,12 +239,13 @@ class FileSink:
         return dst
 
 
-def _device_snapshot(words: torch.Tensor) -> np.ndarray:
-    """Host copy of a filter's state, taken through a copy on its device:
-    the clone is queued on the current stream after every launch already
-    made, and no later launch can write it."""
-    snap = words.view(torch.int32).clone()
-    return snap.cpu().numpy().view(np.uint32)
+def _device_snapshot(tensors: list[torch.Tensor]) -> np.ndarray:
+    """Host copy of a filter's state (its tensors' words in order), taken
+    through a copy on their devices: each clone is queued on the current
+    stream after every launch already made, and no later launch can write
+    it."""
+    snaps = [t.view(torch.int32).clone() for t in tensors]
+    return np.concatenate([s.cpu().numpy().view(np.uint32).reshape(-1) for s in snaps])
 
 
 def _usage_extra(filter_obj) -> dict:
@@ -261,7 +265,7 @@ def snapshot_blob(
     millisecond clock, as in ``tpubloom``."""
     seq = seq if seq is not None else int(time.time() * 1000)
     full_extra = {**_usage_extra(filter_obj), **(extra or {})}
-    words = _device_snapshot(filter_obj.words)
+    words = _device_snapshot(filter_obj._state_tensors())
     blob = _serialize(filter_obj.config, seq, words, full_extra)
     return filter_obj.config.key_name, seq, blob
 
@@ -270,7 +274,8 @@ def restore_blob(blob: bytes, config: Optional[FilterConfig] = None, *, device=N
     """Rebuild a live filter from one in-memory blob (integrity-checked
     like any sink read). With no ``config`` the blob's own stored config
     is adopted. ``device`` as for the filter classes (the card unless
-    given)."""
+    given); a sharded filter (``shards > 1``) gets one slot on it, or
+    with no ``device`` one slot per visible card."""
     header, payload = _deserialize(blob)
     if config is None:
         config = FilterConfig.from_dict(header["config"])
@@ -348,13 +353,17 @@ def _build_filter(config: FilterConfig, header: dict, payload: bytes, device=Non
     kind = _kind_name(config)
     if kind is not None:
         raise _unsupported(kind)
-    cls = BlockedCountingBloomFilter if config.counting else BlockedBloomFilter
-    f = cls(config, device)
+    if config.shards > 1:
+        f = ShardedBloomFilter(config, None if device is None else [device])
+    else:
+        cls = BlockedCountingBloomFilter if config.counting else BlockedBloomFilter
+        f = cls(config, device)
     words = payload_to_words(config, header, payload)
-    if words.size != f.words.numel():
+    n_words = sum(t.numel() for t in f._state_tensors())
+    if words.size != n_words:
         raise ValueError(
             f"checkpoint payload holds {words.size} words, the config "
-            f"needs {f.words.numel()}"
+            f"needs {n_words}"
         )
     f._set_words(words)
     f._restored_seq = header["seq"]

@@ -8,6 +8,13 @@
 // key's one block. The results are bit-identical to tpubloom's: the same
 // filter state after an insert, the same verdicts from a query.
 //
+// Each kernel has a routed instantiation (kRouted = true) for the sharded
+// filter array (tpubloom/parallel/sharded.py): the state is then one slot's
+// shards, u32[shards_per_dev * n_blocks_per_shard, W]; the key's shard comes
+// from the routing hash (bloom_hash.cuh, route_key), and a key the slot does
+// not own sets nothing and answers False. The unrouted instantiation never
+// reads its RouteSpec (the last parameter) and compiles as before.
+//
 // Built by tpubloom_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a shared library with the plain C interface at the bottom of this
@@ -43,17 +50,25 @@ constexpr int kThreads = 256;
 // keeps every row load a full 16-byte vector (W/4 of them per key, issued
 // before the mask arithmetic so their latency overlaps it) and keeps one
 // thread per key so that the card has B independent rows in flight.
+//
+// sharded_blocked_query (kRouted = true) serves the sharded filter array's
+// membership: on the TPU K5 inside shard_map when a device holds one shard
+// (tpubloom/parallel/sharded.py:337-354), the row gather otherwise. Each
+// slot answers owned && hit; a key it does not own answers False without a
+// row read, and the slots' answers are ORed on the host side of the kernel
+// (the psum at sharded.py:362). Bound: bytes, as above, over the owned keys'
+// distinct rows; at config 5 (B = 2^23 over 2^27 blocks) ~0.7 GB, ~0.21 ms.
 // ---------------------------------------------------------------------------
 
 // W known at compile time (block_bits 128..1024): the whole row in
 // registers, all of its 16-byte loads issued at once.
-template <int W>
+template <int W, bool kRouted>
 __global__ void __launch_bounds__(kThreads)
 blocked_query_row_kernel(const uint32_t* __restrict__ state,
                          const uint8_t* __restrict__ keys,
                          const int32_t* __restrict__ lengths,
                          uint8_t* __restrict__ out, int64_t B, int L,
-                         BlockSpec s) {
+                         BlockSpec s, RouteSpec route) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const int len = lengths[i];
@@ -62,8 +77,17 @@ blocked_query_row_kernel(const uint32_t* __restrict__ state,
     return;
   }
   const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  uint64_t base = 0;  // the slot's first row of the key's shard
+  if constexpr (kRouted) {
+    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
+    if (local < 0) {  // not this slot's key: False, no row read
+      out[i] = 0;
+      return;
+    }
+    base = (uint64_t)local * s.n_blocks;
+  }
   const KeyHash h = hash_key(kw, L / 4, len, s);
-  const uint4* row = reinterpret_cast<const uint4*>(state + h.blk * W);
+  const uint4* row = reinterpret_cast<const uint4*>(state + (base + h.blk) * W);
   uint4 r[W / 4];
 #pragma unroll
   for (int c = 0; c < W / 4; ++c) r[c] = __ldg(row + c);
@@ -89,12 +113,13 @@ blocked_query_row_kernel(const uint32_t* __restrict__ state,
 
 // Any W (a multiple of 4; block_bits up to 4096): only the 16-byte chunks
 // of the row that the key's bits touch are loaded.
+template <bool kRouted>
 __global__ void __launch_bounds__(kThreads)
 blocked_query_chunk_kernel(const uint32_t* __restrict__ state,
                            const uint8_t* __restrict__ keys,
                            const int32_t* __restrict__ lengths,
                            uint8_t* __restrict__ out, int64_t B, int L, int W,
-                           BlockSpec s) {
+                           BlockSpec s, RouteSpec route) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const int len = lengths[i];
@@ -103,8 +128,17 @@ blocked_query_chunk_kernel(const uint32_t* __restrict__ state,
     return;
   }
   const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  uint64_t base = 0;
+  if constexpr (kRouted) {
+    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
+    if (local < 0) {
+      out[i] = 0;
+      return;
+    }
+    base = (uint64_t)local * s.n_blocks;
+  }
   const KeyHash h = hash_key(kw, L / 4, len, s);
-  const uint4* row = reinterpret_cast<const uint4*>(state + h.blk * W);
+  const uint4* row = reinterpret_cast<const uint4*>(state + (base + h.blk) * W);
   bool hit = true;
   for (int c = 0; c < W / 4 && hit; ++c) {
     uint32_t m0 = 0u, m1 = 0u, m2 = 0u, m3 = 0u;
@@ -153,20 +187,43 @@ blocked_query_chunk_kernel(const uint32_t* __restrict__ state,
 // k=7, W=16), so the L2 atomic rate is the second floor to watch. The design
 // merges a key's bits per word before issuing them, so it never issues more
 // than one atomic per word per key.
+//
+// sharded_blocked_insert (kRouted = true) replaces K1, `_kernel` /
+// `sweep_insert` (tpubloom/ops/sweep.py:241, driven by
+// `apply_blocked_updates`), where the TPU runs it: the per-device loop of
+// the sharded filter array (tpubloom/parallel/sharded.py:282,292), and the
+// fat K3 there (:274). The TPU routes the replicated batch, sorts the owned
+// keys and sweeps the device's block rows. Here each thread routes its key
+// first and returns before any other hash or atomic when the slot does not
+// own it, so a slot pays one murmur3 for every key of the batch and the
+// per-word merge and atomicOr only for its own. Row offsets are 64-bit
+// ((local * n_blocks_per_shard + blk) * W): at BASELINE config 5 one slot
+// holds 2^31 words (8 GiB). Bound: bytes, as above, over the owned keys'
+// distinct rows; at config 5 (B = 2^23 over 2^27 blocks, lambda = 1/16)
+// ~8.1 M rows, ~1.2 GB, ~0.36 ms at 3.35 TB/s. The rows are spread over
+// 8 GiB rather than 512 MiB, so TLB reach and DRAM page misses may weigh
+// more than they do for the single-device launch.
 // ---------------------------------------------------------------------------
 
+template <bool kRouted>
 __global__ void __launch_bounds__(kThreads)
 blocked_insert_kernel(uint32_t* __restrict__ state,
                       const uint8_t* __restrict__ keys,
                       const int32_t* __restrict__ lengths, int64_t B, int L,
-                      int W, BlockSpec s) {
+                      int W, BlockSpec s, RouteSpec route) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const int len = lengths[i];
   if (len < 0) return;  // padding sets nothing
   const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  uint64_t base = 0;  // the slot's first row of the key's shard
+  if constexpr (kRouted) {
+    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
+    if (local < 0) return;  // not this slot's key: no atomic at all
+    base = (uint64_t)local * s.n_blocks;
+  }
   const KeyHash h = hash_key(kw, L / 4, len, s);
-  uint32_t* row = state + h.blk * W;
+  uint32_t* row = state + (base + h.blk) * W;
   for (int j = 0; j < s.k; ++j) {
     const uint32_t word = inblock_bit(j, h, s) >> 5;
     bool seen = false;  // an earlier position already carried this word
@@ -198,6 +255,40 @@ inline unsigned grid_for(int64_t B) {
   return (unsigned)((B + kThreads - 1) / kThreads);
 }
 
+template <bool kRouted>
+int launch_query(const void* state, const void* keys, const void* lengths,
+                 void* out, int64_t B, int L, const BlockSpec& s,
+                 const RouteSpec& r, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  const int W = s.block_bits / 32;
+  auto st = static_cast<const uint32_t*>(state);
+  auto ky = static_cast<const uint8_t*>(keys);
+  auto ln = static_cast<const int32_t*>(lengths);
+  auto o = static_cast<uint8_t*>(out);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const unsigned g = grid_for(B);
+  switch (W) {
+    case 4: blocked_query_row_kernel<4, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+    case 8: blocked_query_row_kernel<8, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+    case 16: blocked_query_row_kernel<16, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+    case 32: blocked_query_row_kernel<32, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+    default: blocked_query_chunk_kernel<kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, W, s, r); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kRouted>
+int launch_insert(void* state, const void* keys, const void* lengths,
+                  int64_t B, int L, const BlockSpec& s, const RouteSpec& r,
+                  void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  blocked_insert_kernel<kRouted><<<grid_for(B), kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(state), static_cast<const uint8_t*>(keys),
+      static_cast<const int32_t*>(lengths), B, L, s.block_bits / 32, s, r);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tpubloom
 
 // ---------------------------------------------------------------------------
@@ -211,23 +302,9 @@ extern "C" int tpb_blocked_query(const void* state, const void* keys,
                                  int k, uint32_t seed, int chunk,
                                  void* stream) {
   using namespace tpubloom;
-  if (B <= 0) return (int)cudaSuccess;
-  const BlockSpec s = make_spec(n_blocks, block_bits, k, seed, chunk);
-  const int W = block_bits / 32;
-  auto st = static_cast<const uint32_t*>(state);
-  auto ky = static_cast<const uint8_t*>(keys);
-  auto ln = static_cast<const int32_t*>(lengths);
-  auto o = static_cast<uint8_t*>(out);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const unsigned g = grid_for(B);
-  switch (W) {
-    case 4: blocked_query_row_kernel<4><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
-    case 8: blocked_query_row_kernel<8><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
-    case 16: blocked_query_row_kernel<16><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
-    case 32: blocked_query_row_kernel<32><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
-    default: blocked_query_chunk_kernel<<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, W, s); break;
-  }
-  return (int)cudaGetLastError();
+  return launch_query<false>(state, keys, lengths, out, B, L,
+                             make_spec(n_blocks, block_bits, k, seed, chunk),
+                             RouteSpec{}, stream);
 }
 
 extern "C" int tpb_blocked_insert(void* state, const void* keys,
@@ -235,11 +312,40 @@ extern "C" int tpb_blocked_insert(void* state, const void* keys,
                                   int64_t n_blocks, int block_bits, int k,
                                   uint32_t seed, int chunk, void* stream) {
   using namespace tpubloom;
-  if (B <= 0) return (int)cudaSuccess;
-  const BlockSpec s = make_spec(n_blocks, block_bits, k, seed, chunk);
-  blocked_insert_kernel<<<grid_for(B), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(state), static_cast<const uint8_t*>(keys),
-      static_cast<const int32_t*>(lengths), B, L, block_bits / 32, s);
-  return (int)cudaGetLastError();
+  return launch_insert<false>(state, keys, lengths, B, L,
+                              make_spec(n_blocks, block_bits, k, seed, chunk),
+                              RouteSpec{}, stream);
+}
+
+// The routed entries: `state` is one slot's shards, `n_blocks` the block
+// count of one shard, and the slot holds shards [shard_lo, shard_lo +
+// shards_per_dev) of n_shards.
+extern "C" int tpb_sharded_blocked_query(const void* state, const void* keys,
+                                         const void* lengths, void* out,
+                                         int64_t B, int L, int64_t n_blocks,
+                                         int block_bits, int k, uint32_t seed,
+                                         int chunk, int64_t n_shards,
+                                         int64_t shard_lo,
+                                         int64_t shards_per_dev,
+                                         void* stream) {
+  using namespace tpubloom;
+  return launch_query<true>(state, keys, lengths, out, B, L,
+                            make_spec(n_blocks, block_bits, k, seed, chunk),
+                            make_route(n_shards, shard_lo, shards_per_dev),
+                            stream);
+}
+
+extern "C" int tpb_sharded_blocked_insert(void* state, const void* keys,
+                                          const void* lengths, int64_t B,
+                                          int L, int64_t n_blocks,
+                                          int block_bits, int k, uint32_t seed,
+                                          int chunk, int64_t n_shards,
+                                          int64_t shard_lo,
+                                          int64_t shards_per_dev,
+                                          void* stream) {
+  using namespace tpubloom;
+  return launch_insert<true>(state, keys, lengths, B, L,
+                             make_spec(n_blocks, block_bits, k, seed, chunk),
+                             make_route(n_shards, shard_lo, shards_per_dev),
+                             stream);
 }

@@ -11,6 +11,12 @@
 // The results are bit-identical to tpubloom's: the same counters after an
 // insert or a delete, the same verdicts from a query.
 //
+// As in blocked_bloom.cu, each kernel has a routed instantiation (kRouted =
+// true) for the sharded filter array: the state is one slot's shards,
+// n_blocks the block count of one shard, and a key the slot does not own
+// changes nothing and answers False. The unrouted instantiation never reads
+// its RouteSpec (the last parameter) and compiles as before.
+//
 // Built by tpubloom_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a shared library with the plain C interface at the bottom of this
@@ -71,6 +77,13 @@ constexpr int kCountThreads = 256;
 // that is ~84 MB + 3.30 M x 64 B x 2 = ~0.51 GB, ~0.15 ms at 3.35 TB/s. The
 // second floor is the L2 atomic rate: ~5.8 distinct words a key
 // (16 (1 - (15/16)^7)), ~24 M CAS a launch, each after a load.
+//
+// sharded_blocked_counting_update (kRouted = true) is the per-device update
+// of the sharded counting array (configs 4 x 5): K2 at
+// tpubloom/parallel/sharded.py:507,525 and K4 at :500. Each thread routes
+// its key first and returns before any atomic when the slot does not own it;
+// the CAS loop is unchanged. At configs 4 x 5 (m = 2^30 counters over 64
+// shards, B = 2^22) lambda is still 0.5, so the bound is config 4's.
 // ---------------------------------------------------------------------------
 
 // One word's update: nibble n of `w` moves by byte n of (dlo | dhi << 32),
@@ -88,18 +101,26 @@ __device__ __forceinline__ uint32_t nibble_apply(uint32_t w, uint32_t dlo,
   return out;
 }
 
+template <bool kRouted>
 __global__ void __launch_bounds__(kCountThreads)
 blocked_counting_update_kernel(uint32_t* __restrict__ state,
                                const uint8_t* __restrict__ keys,
                                const int32_t* __restrict__ lengths, int64_t B,
-                               int L, int W, BlockSpec s, int increment) {
+                               int L, int W, BlockSpec s, int increment,
+                               RouteSpec route) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const int len = lengths[i];
   if (len < 0) return;  // padding changes nothing
   const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  uint64_t base = 0;  // the slot's first row of the key's shard
+  if constexpr (kRouted) {
+    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
+    if (local < 0) return;  // not this slot's key: no atomic at all
+    base = (uint64_t)local * s.n_blocks;
+  }
   const KeyHash h = hash_key(kw, L / 4, len, s);
-  uint32_t* row = state + h.blk * W;
+  uint32_t* row = state + (base + h.blk) * W;
   for (int j = 0; j < s.k; ++j) {
     const uint32_t word = inblock_bit(j, h, s) >> 3;
     bool seen = false;  // an earlier position already carried this word
@@ -139,15 +160,21 @@ blocked_counting_update_kernel(uint32_t* __restrict__ state,
 // row read once: at config 4, B = 2^22, ~84 MB + 4 MB + 3.30 M x 64 B =
 // ~0.30 GB, ~0.09 ms at 3.35 TB/s. The rows are random 64-byte reads, so the
 // card's random-sector rate is the real floor, as for blocked_query.
+//
+// sharded_blocked_counting_query (kRouted = true) covers the sharded
+// counting membership (fat_blocked_counting_membership /
+// blocked_counting_membership inside shard_map, sharded.py:557-571): owned
+// && all counters non-zero, False without a row read for a key the slot
+// does not own.
 // ---------------------------------------------------------------------------
 
-template <int W>
+template <int W, bool kRouted>
 __global__ void __launch_bounds__(kCountThreads)
 blocked_counting_query_row_kernel(const uint32_t* __restrict__ state,
                                   const uint8_t* __restrict__ keys,
                                   const int32_t* __restrict__ lengths,
                                   uint8_t* __restrict__ out, int64_t B, int L,
-                                  BlockSpec s) {
+                                  BlockSpec s, RouteSpec route) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const int len = lengths[i];
@@ -156,8 +183,17 @@ blocked_counting_query_row_kernel(const uint32_t* __restrict__ state,
     return;
   }
   const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  uint64_t base = 0;
+  if constexpr (kRouted) {
+    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
+    if (local < 0) {  // not this slot's key: False, no row read
+      out[i] = 0;
+      return;
+    }
+    base = (uint64_t)local * s.n_blocks;
+  }
   const KeyHash h = hash_key(kw, L / 4, len, s);
-  const uint4* row = reinterpret_cast<const uint4*>(state + h.blk * W);
+  const uint4* row = reinterpret_cast<const uint4*>(state + (base + h.blk) * W);
   uint32_t r[W];
 #pragma unroll
   for (int c = 0; c < W / 4; ++c) {
@@ -180,12 +216,13 @@ blocked_counting_query_row_kernel(const uint32_t* __restrict__ state,
 }
 
 // Any W: each of the k counters' words is read on its own.
+template <bool kRouted>
 __global__ void __launch_bounds__(kCountThreads)
 blocked_counting_query_word_kernel(const uint32_t* __restrict__ state,
                                    const uint8_t* __restrict__ keys,
                                    const int32_t* __restrict__ lengths,
                                    uint8_t* __restrict__ out, int64_t B, int L,
-                                   int W, BlockSpec s) {
+                                   int W, BlockSpec s, RouteSpec route) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const int len = lengths[i];
@@ -194,8 +231,17 @@ blocked_counting_query_word_kernel(const uint32_t* __restrict__ state,
     return;
   }
   const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  uint64_t base = 0;
+  if constexpr (kRouted) {
+    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
+    if (local < 0) {
+      out[i] = 0;
+      return;
+    }
+    base = (uint64_t)local * s.n_blocks;
+  }
   const KeyHash h = hash_key(kw, L / 4, len, s);
-  const uint32_t* row = state + h.blk * W;
+  const uint32_t* row = state + (base + h.blk) * W;
   bool hit = true;
   for (int j = 0; j < s.k && hit; ++j) {
     const uint32_t c = inblock_bit(j, h, s);
@@ -221,6 +267,42 @@ inline unsigned counting_grid(int64_t B) {
   return (unsigned)((B + kCountThreads - 1) / kCountThreads);
 }
 
+template <bool kRouted>
+int launch_counting_update(void* state, const void* keys, const void* lengths,
+                           int64_t B, int L, const BlockSpec& s, int increment,
+                           const RouteSpec& r, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  blocked_counting_update_kernel<kRouted><<<counting_grid(B), kCountThreads, 0,
+                                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(state), static_cast<const uint8_t*>(keys),
+      static_cast<const int32_t*>(lengths), B, L, s.block_bits / 8, s,
+      increment, r);
+  return (int)cudaGetLastError();
+}
+
+template <bool kRouted>
+int launch_counting_query(const void* state, const void* keys,
+                          const void* lengths, void* out, int64_t B, int L,
+                          const BlockSpec& s, const RouteSpec& r,
+                          void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  const int W = s.block_bits / 8;  // block_bits is counters_per_block here
+  auto st = static_cast<const uint32_t*>(state);
+  auto ky = static_cast<const uint8_t*>(keys);
+  auto ln = static_cast<const int32_t*>(lengths);
+  auto o = static_cast<uint8_t*>(out);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const unsigned g = counting_grid(B);
+  switch (W) {
+    case 4: blocked_counting_query_row_kernel<4, kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+    case 8: blocked_counting_query_row_kernel<8, kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+    case 16: blocked_counting_query_row_kernel<16, kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+    case 32: blocked_counting_query_row_kernel<32, kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+    default: blocked_counting_query_word_kernel<kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, W, s, r); break;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tpubloom
 
 // ---------------------------------------------------------------------------
@@ -235,14 +317,10 @@ extern "C" int tpb_blocked_counting_update(void* state, const void* keys,
                                            uint32_t seed, int chunk,
                                            int increment, void* stream) {
   using namespace tpubloom;
-  if (B <= 0) return (int)cudaSuccess;
-  const BlockSpec s = counting_spec(n_blocks, counters_per_block, k, seed, chunk);
-  blocked_counting_update_kernel<<<counting_grid(B), kCountThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(state), static_cast<const uint8_t*>(keys),
-      static_cast<const int32_t*>(lengths), B, L, counters_per_block / 8, s,
-      increment);
-  return (int)cudaGetLastError();
+  return launch_counting_update<false>(
+      state, keys, lengths, B, L,
+      counting_spec(n_blocks, counters_per_block, k, seed, chunk), increment,
+      RouteSpec{}, stream);
 }
 
 extern "C" int tpb_blocked_counting_query(const void* state, const void* keys,
@@ -252,21 +330,35 @@ extern "C" int tpb_blocked_counting_query(const void* state, const void* keys,
                                           uint32_t seed, int chunk,
                                           void* stream) {
   using namespace tpubloom;
-  if (B <= 0) return (int)cudaSuccess;
-  const BlockSpec s = counting_spec(n_blocks, counters_per_block, k, seed, chunk);
-  const int W = counters_per_block / 8;
-  auto st = static_cast<const uint32_t*>(state);
-  auto ky = static_cast<const uint8_t*>(keys);
-  auto ln = static_cast<const int32_t*>(lengths);
-  auto o = static_cast<uint8_t*>(out);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const unsigned g = counting_grid(B);
-  switch (W) {
-    case 4: blocked_counting_query_row_kernel<4><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
-    case 8: blocked_counting_query_row_kernel<8><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
-    case 16: blocked_counting_query_row_kernel<16><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
-    case 32: blocked_counting_query_row_kernel<32><<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, s); break;
-    default: blocked_counting_query_word_kernel<<<g, kCountThreads, 0, cs>>>(st, ky, ln, o, B, L, W, s); break;
-  }
-  return (int)cudaGetLastError();
+  return launch_counting_query<false>(
+      state, keys, lengths, out, B, L,
+      counting_spec(n_blocks, counters_per_block, k, seed, chunk), RouteSpec{},
+      stream);
+}
+
+// The routed entries: `state` is one slot's shards, `n_blocks` the block
+// count of one shard, and the slot holds shards [shard_lo, shard_lo +
+// shards_per_dev) of n_shards.
+extern "C" int tpb_sharded_blocked_counting_update(
+    void* state, const void* keys, const void* lengths, int64_t B, int L,
+    int64_t n_blocks, int counters_per_block, int k, uint32_t seed, int chunk,
+    int increment, int64_t n_shards, int64_t shard_lo, int64_t shards_per_dev,
+    void* stream) {
+  using namespace tpubloom;
+  return launch_counting_update<true>(
+      state, keys, lengths, B, L,
+      counting_spec(n_blocks, counters_per_block, k, seed, chunk), increment,
+      make_route(n_shards, shard_lo, shards_per_dev), stream);
+}
+
+extern "C" int tpb_sharded_blocked_counting_query(
+    const void* state, const void* keys, const void* lengths, void* out,
+    int64_t B, int L, int64_t n_blocks, int counters_per_block, int k,
+    uint32_t seed, int chunk, int64_t n_shards, int64_t shard_lo,
+    int64_t shards_per_dev, void* stream) {
+  using namespace tpubloom;
+  return launch_counting_query<true>(
+      state, keys, lengths, out, B, L,
+      counting_spec(n_blocks, counters_per_block, k, seed, chunk),
+      make_route(n_shards, shard_lo, shards_per_dev), stream);
 }

@@ -10,6 +10,10 @@
 //   chunk: bit_i = (pool >> (i*log2(b))) mod b, pool = h_b | g_a<<32 | g_b<<64
 //   ap:    bit_i = (g_a + i*(g_b|1)) mod b
 //
+// Sharded filter array (tpubloom/parallel/sharded.py): a key belongs to
+// shard murmur3_32(key, seed ^ 0x517CC1B7) mod n_shards (a true mod), and
+// hashes into that shard with n_blocks = the shard's block count.
+//
 // A key is L bytes (L a multiple of 4), zero past its true length, read as
 // little-endian u32 words.
 #pragma once
@@ -26,8 +30,10 @@ constexpr uint32_t kFnvOffset = 0x811C9DC5u;
 constexpr uint32_t kFnvPrime = 0x01000193u;
 constexpr uint32_t kSeedXorHB = 0x9E3779B9u;
 constexpr uint32_t kSeedXorGB = 0x85EBCA6Bu;
+constexpr uint32_t kSeedXorRoute = 0x517CC1B7u;
 
-// The filter geometry and hash identity every kernel needs.
+// The filter geometry and hash identity every kernel needs. For a routed
+// (sharded) kernel n_blocks is the block count of ONE shard.
 struct BlockSpec {
   uint64_t n_blocks;   // power of two
   int block_bits;      // power of two
@@ -36,6 +42,24 @@ struct BlockSpec {
   uint32_t seed;
   int chunk;           // 1: "chunk" in-block hash, 0: "ap"
 };
+
+// The shards one slot's state holds: shards_per_dev shards from shard_lo
+// on, out of n_shards, shard-major (shard shard_lo + s is block rows
+// [s * n_blocks, (s + 1) * n_blocks) of the slot's state).
+struct RouteSpec {
+  uint32_t n_shards;
+  int64_t shard_lo;
+  int64_t shards_per_dev;
+};
+
+inline RouteSpec make_route(int64_t n_shards, int64_t shard_lo,
+                            int64_t shards_per_dev) {
+  RouteSpec r;
+  r.n_shards = (uint32_t)n_shards;
+  r.shard_lo = shard_lo;
+  r.shards_per_dev = shards_per_dev;
+  return r;
+}
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -89,6 +113,18 @@ __device__ __forceinline__ KeyHash hash_key(const uint32_t* __restrict__ kw,
   h.gb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorGB);
   h.hb = s.chunk ? murmur3_32(kw, nw, len, s.seed ^ kSeedXorHB) : 0u;
   return h;
+}
+
+// The key's shard relative to the slot (its 64-bit local shard row, so its
+// block row is local * n_blocks + blk), or -1 when the slot does not own
+// it. Callers skip padding (len < 0) before, which is never owned.
+__device__ __forceinline__ int64_t route_key(const uint32_t* __restrict__ kw,
+                                             int nw, int len, uint32_t seed,
+                                             const RouteSpec& r) {
+  const int64_t local =
+      (int64_t)(murmur3_32(kw, nw, len, seed ^ kSeedXorRoute) % r.n_shards) -
+      r.shard_lo;
+  return (local >= 0 && local < r.shards_per_dev) ? local : -1;
 }
 
 // In-block position i of a key (0 <= i < k).

@@ -168,7 +168,7 @@ class _FilterBase:
         with obs.phase("kernel"):
             self._insert(d_keys, d_lengths)
         self.n_inserted += B
-        return sweep.record_fence(self.device)
+        return self._completion()
 
     def launch_query(self, staged):
         """Launch the membership kernel on a staged batch; returns
@@ -180,10 +180,15 @@ class _FilterBase:
         self.n_queried += B
         return hits, B
 
+    def _completion(self):
+        """A handle with ``synchronize()`` for the device work queued so
+        far on the filter's state (None on the CPU)."""
+        return sweep.record_fence(self.device)
+
     def _kernel_fence(self) -> None:
         """Wait for the device work queued so far (under an active
         request context, so that the kernel phase covers real work)."""
-        fence = sweep.record_fence(self.device)
+        fence = self._completion()
         if fence is not None:
             fence.synchronize()
 
@@ -215,20 +220,39 @@ class _FilterBase:
             self.config.n_blocks, self.config.words_per_block
         )
 
+    def _state_tensors(self) -> list[torch.Tensor]:
+        """The tensors that hold the filter's state, in the order of its
+        bytes (one here; a sharded filter's slots)."""
+        return [self.words]
+
     def _host_words(self) -> np.ndarray:
         # copies go through the int32 view: uint32 is a storage type in
         # torch, with few kernels of its own on the card
-        return self.words.view(torch.int32).cpu().numpy().view(np.uint32)
+        return np.concatenate([
+            t.view(torch.int32).cpu().numpy().view(np.uint32).reshape(-1)
+            for t in self._state_tensors()
+        ])
 
     def _set_words(self, words) -> None:
         """Replace storage from an array of the same bytes (checkpoint
         restore, interop)."""
-        arr = np.array(words, dtype=np.uint32).reshape(self.words.shape)
-        self.words.view(torch.int32).copy_(torch.from_numpy(arr.view(np.int32)))
+        arr = np.array(words, dtype=np.uint32).reshape(-1)
+        tensors = self._state_tensors()
+        if arr.size != sum(t.numel() for t in tensors):
+            raise ValueError(
+                f"{arr.size} words given, the filter holds "
+                f"{sum(t.numel() for t in tensors)}"
+            )
+        off = 0
+        for t in tensors:
+            part = arr[off : off + t.numel()].reshape(t.shape)
+            t.view(torch.int32).copy_(torch.from_numpy(part.view(np.int32)))
+            off += t.numel()
 
     def clear(self) -> None:
         """Reference ``#clear`` — zero the array."""
-        self.words.view(torch.int32).zero_()
+        for t in self._state_tensors():
+            t.view(torch.int32).zero_()
         self.n_inserted = 0
 
     # persistence (raw little-endian words, row-major — the same bytes as
@@ -300,13 +324,16 @@ class _FilterBase:
     def bits_set(self) -> int:
         """Set bits in the state: a byte popcount table over its bytes,
         in slices so the index tensor stays small on a 512 MiB state."""
-        b = self.words.view(torch.uint8).reshape(-1)
-        lut = torch.tensor(_POPCOUNT8, dtype=torch.int64, device=self.device)
-        step = 1 << 26
-        return sum(
-            int(lut[b[s : s + step].to(torch.int64)].sum())
-            for s in range(0, b.numel(), step)
-        )
+        total = 0
+        for t in self._state_tensors():
+            b = t.view(torch.uint8).reshape(-1)
+            lut = torch.tensor(_POPCOUNT8, dtype=torch.int64, device=t.device)
+            step = 1 << 26
+            total += sum(
+                int(lut[b[s : s + step].to(torch.int64)].sum())
+                for s in range(0, b.numel(), step)
+            )
+        return total
 
     def fill_ratio(self) -> float:
         if self.config.counting:

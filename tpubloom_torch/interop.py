@@ -8,9 +8,9 @@ and numpy arrays, so this module needs nothing of ``tpubloom``:
 * ``config_from_dict(tpubloom_filter.config.to_dict())``;
 * ``filter_from_words(tpubloom_filter.words_logical, config, device)``
   (or the words of a decoded ``to_bytes()`` blob);
-* ``words_to_numpy(port_filter)`` -> ``uint32[NB, W]``, which
-  ``tpubloom.BlockedBloomFilter.from_bytes(cfg, words.tobytes())`` (or
-  ``BlockedCountingBloomFilter.from_bytes`` for a counting config) takes.
+* ``words_to_numpy(port_filter)`` -> ``uint32[NB, W]`` (``[shards, NBL,
+  W]`` for a sharded filter), which ``from_bytes(cfg, words.tobytes())`` of
+  the matching ``tpubloom`` class takes.
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ import numpy as np
 
 from tpubloom_torch.config import FilterConfig
 from tpubloom_torch.filter import BlockedBloomFilter, BlockedCountingBloomFilter
+from tpubloom_torch.parallel.sharded import ShardedBloomFilter
 
-PortFilter = BlockedBloomFilter | BlockedCountingBloomFilter
+PortFilter = BlockedBloomFilter | BlockedCountingBloomFilter | ShardedBloomFilter
 
 
 def config_from_dict(d: dict) -> FilterConfig:
@@ -37,10 +38,15 @@ def filter_from_words(
     n_inserted: int = 0,
 ) -> PortFilter:
     """A port filter holding ``words_logical`` (``uint32[NB, W]`` or the
-    same words in any shape): a :class:`BlockedCountingBloomFilter` for a
-    counting config, else a :class:`BlockedBloomFilter`."""
-    cls = BlockedCountingBloomFilter if config.counting else BlockedBloomFilter
-    f = cls(config, device)
+    same words in any shape): a :class:`ShardedBloomFilter` (one slot on
+    ``device``, or one per visible card) for ``shards > 1``, else a
+    :class:`BlockedCountingBloomFilter` for a counting config, else a
+    :class:`BlockedBloomFilter`."""
+    if config.shards > 1:
+        f = ShardedBloomFilter(config, None if device is None else [device])
+    else:
+        cls = BlockedCountingBloomFilter if config.counting else BlockedBloomFilter
+        f = cls(config, device)
     expect = f.config.n_blocks * f.config.words_per_block
     words = np.asarray(words_logical, dtype=np.uint32)
     if words.size != expect:

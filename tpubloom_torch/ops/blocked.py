@@ -98,14 +98,32 @@ def build_masks(bit: torch.Tensor, words_per_block: int) -> torch.Tensor:
     return mask
 
 
-def _positions(keys, lengths, config):
-    valid = lengths >= 0
-    blk, bit = block_positions(
+def routed_blocks(keys, lengths, config, route, *, block_bits: int):
+    """``(valid, blk, pos)``: whether each key sets and answers, its block
+    row in the state, and its k in-block positions (over ``block_bits``
+    positions).
+
+    With ``route=None`` the state is the whole filter (``n_blocks``
+    rows) and every non-padding key is valid. With a
+    :class:`~tpubloom_torch.ops.hashing.ShardRoute` the state is one
+    slot's shards (``shards_per_dev * n_blocks_per_shard`` rows): the key
+    hashes with ``n_blocks = n_blocks_per_shard``, and only keys the slot
+    owns are valid, at row ``local_row * n_blocks_per_shard + blk``
+    (``tpubloom/parallel/sharded.py`` ``_routed_blocks``)."""
+    nb = config.n_blocks if route is None else config.n_blocks_per_shard
+    blk, pos = block_positions(
         keys, lengths.clamp(min=0),
-        n_blocks=config.n_blocks, block_bits=config.block_bits,
+        n_blocks=nb, block_bits=block_bits,
         k=config.k, seed=config.seed, block_hash=config.block_hash,
     )
-    return valid, blk, bit
+    if route is None:
+        return lengths >= 0, blk, pos
+    local, owned = hashing.route_local(keys, lengths, route, config.seed)
+    return owned, blk + torch.where(owned, local, 0) * nb, pos
+
+
+def _positions(keys, lengths, config, route=None):
+    return routed_blocks(keys, lengths, config, route, block_bits=config.block_bits)
 
 
 def _words(state: torch.Tensor) -> torch.Tensor:
@@ -115,30 +133,38 @@ def _words(state: torch.Tensor) -> torch.Tensor:
 
 
 def blocked_query_plain(
-    state: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor, config
+    state: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor, config,
+    route=None,
 ) -> torch.Tensor:
     """Plain version of the ``blocked_query`` kernel: hash, build the
     masks, gather each key's row, AND-test. ``bool[B]``; entries with
-    ``lengths < 0`` answer False. ``state`` is never written."""
+    ``lengths < 0`` answer False. ``state`` is never written. With a
+    ``route`` (:func:`routed_blocks`), the plain version of the
+    ``sharded_blocked_query`` kernel: keys the slot does not own answer
+    False."""
     w = config.words_per_block
-    valid, blk, bit = _positions(keys, lengths, config)
+    valid, blk, bit = _positions(keys, lengths, config, route)
     masks = build_masks(bit, w)
-    rows = _words(state).reshape(config.n_blocks, w)[blk].to(torch.int64) & M32
+    rows = _words(state).reshape(-1, w)[blk].to(torch.int64) & M32
     return ((rows & masks) == masks).all(dim=-1) & valid
 
 
 def blocked_insert_plain(
-    state: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor, config
+    state: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor, config,
+    route=None,
 ) -> None:
     """Plain version of the ``blocked_insert`` kernel: set every valid
-    key's k bits in ``state``, in place.
+    key's k bits in ``state``, in place. With a ``route``
+    (:func:`routed_blocks`), the plain version of the
+    ``sharded_blocked_insert`` kernel: keys the slot does not own set
+    nothing.
 
     torch has no scatter-OR, so: take the global bit indices
     ``blk·block_bits + bit``, ``unique`` them, keep those not yet set,
     and ``index_put_(accumulate=True)`` their ``1 << (bit & 31)`` values
     into their words in int64 — a sum of distinct unset powers of two is
     their OR."""
-    valid, blk, bit = _positions(keys, lengths, config)
+    valid, blk, bit = _positions(keys, lengths, config, route)
     gbit = (blk[:, None] * config.block_bits + bit)[valid].reshape(-1)
     gbit = torch.unique(gbit)
     words = _words(state)

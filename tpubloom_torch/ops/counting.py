@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from tpubloom_torch.ops.blocked import _words, block_positions
+from tpubloom_torch.ops.blocked import _words, routed_blocks
 from tpubloom_torch.ops.hashing import M32
 
 
@@ -56,26 +56,23 @@ def counter_update_plain(
     words[uw] = (((new + (1 << 31)) & M32) - (1 << 31)).to(torch.int32)
 
 
-def _counter_positions(keys, lengths, config):
-    valid = lengths >= 0
-    blk, cpos = block_positions(
-        keys, lengths.clamp(min=0),
-        n_blocks=config.n_blocks, block_bits=config.counters_per_block,
-        k=config.k, seed=config.seed, block_hash=config.block_hash,
-    )
-    return valid, blk, cpos
+def _counter_positions(keys, lengths, config, route=None):
+    return routed_blocks(keys, lengths, config, route, block_bits=config.counters_per_block)
 
 
 def blocked_counting_update_plain(
     state: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor, config, *,
-    increment: bool,
+    increment: bool, route=None,
 ) -> None:
     """Plain version of the ``blocked_counting_update`` kernel: each valid
     key adds (``increment``) or subtracts its counters' multiplicities at
     the k nibbles of its block, saturating at 15 / flooring at 0, in
     place. ``state`` is the ``uint32`` storage in any shape (the fat and
-    logical views are the same words)."""
-    valid, blk, cpos = _counter_positions(keys, lengths, config)
+    logical views are the same words). With a ``route``
+    (``blocked.routed_blocks``), the plain version of the
+    ``sharded_blocked_counting_update`` kernel: keys the slot does not
+    own change nothing."""
+    valid, blk, cpos = _counter_positions(keys, lengths, config, route)
     gpos = blk[:, None] * config.counters_per_block + cpos
     counter_update_plain(
         _words(state), gpos.reshape(-1),
@@ -84,14 +81,17 @@ def blocked_counting_update_plain(
 
 
 def blocked_counting_query_plain(
-    state: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor, config
+    state: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor, config,
+    route=None,
 ) -> torch.Tensor:
     """Plain version of the ``blocked_counting_query`` kernel: ``bool[B]``,
     True where all k counters of the key are non-zero; entries with
-    ``lengths < 0`` answer False. ``state`` is never written."""
-    valid, blk, cpos = _counter_positions(keys, lengths, config)
+    ``lengths < 0`` answer False. ``state`` is never written. With a
+    ``route``, the plain version of ``sharded_blocked_counting_query``:
+    keys the slot does not own answer False."""
+    valid, blk, cpos = _counter_positions(keys, lengths, config, route)
     w = config.words_per_block
-    rows = _words(state).reshape(config.n_blocks, w)[blk].to(torch.int64) & M32
+    rows = _words(state).reshape(-1, w)[blk].to(torch.int64) & M32
     vals = torch.gather(rows, 1, cpos >> 3)
     cnt = (vals >> (4 * (cpos & 7))) & 15
     return (cnt > 0).all(dim=-1) & valid

@@ -19,11 +19,22 @@ u32 in its low 32 bits, masked with ``0xFFFFFFFF`` after each add, shift
 and multiply. Multiplies by a 32-bit constant are split into 16-bit
 halves so no intermediate leaves the int64 range.
 
+Routing (the sharded filter array)::
+
+  shard = murmur3_32(key, seed XOR 0x517CC1B7) mod n_shards
+
+a true ``mod`` (n_shards need not be a power of two), independent of the
+position hashes. A slot that holds shards ``[shard_lo, shard_lo +
+shards_per_dev)`` owns a key when its shard falls in that range; padding
+(``lengths < 0``) hashes as length 0 and is never owned.
+
 The flat-layout ``positions``/``split_*`` helpers come with the flat
 layout; the blocked layout needs only the base hashes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -40,6 +51,7 @@ _FNV_PRIME = 0x01000193
 # Seed derivation constants (part of the position spec above).
 SEED_XOR_HB = 0x9E3779B9
 SEED_XOR_GB = 0x85EBCA6B
+SEED_XOR_ROUTE = 0x517CC1B7
 
 M32 = 0xFFFFFFFF
 
@@ -125,3 +137,35 @@ def base_hashes(
     g_a = fnv1a_32(keys, lengths)
     g_b = murmur3_32(keys, lengths, seed ^ SEED_XOR_GB)
     return h_a, h_b, g_a, g_b
+
+
+def route_shards(
+    keys: torch.Tensor, lengths: torch.Tensor, n_shards: int, seed: int
+) -> torch.Tensor:
+    """Owning shard of each key: int64 ``[...]`` in ``[0, n_shards)``.
+    Negative lengths (padding) hash as length 0."""
+    h = murmur3_32(keys, lengths.clamp(min=0), seed ^ SEED_XOR_ROUTE)
+    return h % n_shards
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardRoute:
+    """The shards one slot of a sharded filter holds: ``shards_per_dev``
+    shards from ``shard_lo`` on, out of ``n_shards``. The slot's state is
+    those shards' block rows, shard-major: shard ``shard_lo + s`` is rows
+    ``[s * n_blocks_per_shard, (s + 1) * n_blocks_per_shard)``."""
+
+    n_shards: int
+    shard_lo: int
+    shards_per_dev: int
+
+
+def route_local(
+    keys: torch.Tensor, lengths: torch.Tensor, route: ShardRoute, seed: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(local_row, owned)``: each key's shard relative to the slot
+    (int64, meaningful only where owned) and whether the slot owns it
+    (False for padding)."""
+    local = route_shards(keys, lengths, route.n_shards, seed) - route.shard_lo
+    owned = (local >= 0) & (local < route.shards_per_dev) & (lengths >= 0)
+    return local, owned
