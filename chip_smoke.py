@@ -30,7 +30,14 @@ counters over 64 shards, batches of 2^22). Phases, one JSON line each:
    4 batches — with every kernel's launch count read after it;
 5. times: CUDA events over warmed launches at B=2^23 for each kernel,
    its plain version and the nearest single PyTorch call, beside the
-   least time the card could take for the same work (``bound_ms``);
+   least time the card could take for the same work (``bound_ms``).
+   The insert's ``ms`` is a fresh insert: each launch has its own event
+   pair, and before it, outside the pair, the state is restored from a
+   snapshot and the L2 cache flushed, so every timed launch sets the
+   bits of keys the filter does not hold yet, at the same fill;
+   ``replay_ms`` re-inserts batches the filter already holds (no bit
+   changes). Beside them, the distinct words and 32-byte sectors the
+   launch's keys touch (summed a key) and their rates;
 6. end to end: host-clock time of whole ``insert_packed`` /
    ``include_packed`` calls at B=2^23 and of a test-and-insert of 2^16
    Python ``bytes`` keys, split by the port's phase spans;
@@ -47,7 +54,8 @@ counters over 64 shards, batches of 2^22). Phases, one JSON line each:
 9. counting times: CUDA events around each of ≥ 40 warmed launches of
    the insert, the delete (alternating, on the same batches, as
    benchmarks/counting_rate.py does), the query, and the insert and
-   delete of a skewed batch, beside the bound and the plain versions;
+   delete of a skewed batch, beside the bound, the plain versions and
+   the update's touched words and sectors;
 10. counting end to end: as phase 6, for the counting path's
    ``insert_packed`` / ``include_packed`` at B=2^22 and a
    ``delete_batch`` of 2^16 Python ``bytes`` keys;
@@ -67,8 +75,8 @@ counters over 64 shards, batches of 2^22). Phases, one JSON line each:
    same card (16 shards a slot) whose words must equal the 1-slot run's
    shard for shard, and the counting twin with ``delete_batch`` — with the
    launch counts after each step;
-14. sharded times: as phase 5 for the four routed kernels on the 1-slot
-   state;
+14. sharded times: as phases 5 and 9 for the four routed kernels on the
+   1-slot state;
 15. sharded end to end: as phase 6 for the 1-slot and the 4-slot filters
    (the latter split into ``kernel_shard<i>`` phases).
 
@@ -76,12 +84,26 @@ Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
 exits non-zero without that line; it also fails when no CUDA device is
 present. The full record is written to ``chiprun_out/chip_smoke.json``.
+
+Two other modes compare kernel builds on one card:
+
+    python3 chip_smoke.py --times         # device, build, phases 5, 9, 14
+    python3 chip_smoke.py --ab DIR        # --times in DIR, here, here, DIR
+
+``--times`` fills the filters as the full run does before its timing
+phases and ends with one JSON line of the kernels' times. ``--ab`` copies
+this script into DIR (another checkout of the repository, for example a
+parent commit unpacked with ``git archive``), runs ``--times`` in DIR,
+here, here and DIR in turn, and writes the four runs to
+``chiprun_out/ab_times.json``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -127,6 +149,7 @@ LOG2M_SHARDED, SHARDS, B_SHARDED = 36, 64, 1 << 23
 LOG2M_SHARDED_COUNTING, B_SHARDED_COUNTING = 30, 1 << 22
 LOG2M_SHARDED_FPR, N_SLOTS = 26, 4
 M32 = 0xFFFFFFFF
+L2_FLUSH_BYTES = 128 << 20  # read between fresh launches: 2.5 x the H100's 50 MB L2
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 RECORD: dict = {}
 
@@ -181,6 +204,55 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
+def fresh_ms(state: torch.Tensor, launch, n: int, warm: int = 2) -> float:
+    """Mean ms of ``launch(i)`` over ``n`` launches (after ``warm``), each
+    timed by its own CUDA event pair on the state as it is when called:
+    before each launch, outside its pair, the state is restored from a
+    snapshot and the L2 cache is flushed by a read, so every launch
+    updates the same filter with keys it does not hold yet. The state is
+    left as it was."""
+    dst = state.view(torch.int32)
+    snap = dst.clone()
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=state.device)
+    pairs = []
+    for i in range(warm + n):
+        dst.copy_(snap)
+        flush.sum()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(i)
+        end.record()
+        if i >= warm:
+            pairs.append((start, end))
+    dst.copy_(snap)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / n
+
+
+def touched(rows: torch.Tensor, words: torch.Tensor, words_per_row: int,
+            valid: torch.Tensor) -> dict:
+    """Distinct words and distinct 32-byte sectors of each valid key's row
+    update, summed over the keys: the atomics an update launch issues
+    (one a word a key) and the L2 sector requests it needs when a key's
+    atomics to one sector go out together. ``rows`` int64[B], each key's
+    row in the state; ``words`` int64[B, k], the word of each of its k
+    positions within that row; ``valid`` bool[B]."""
+    g = (rows[:, None] * words_per_row + words)[valid]
+
+    def distinct(x: torch.Tensor) -> int:
+        x = x.sort(dim=1).values
+        return x.shape[0] + int((x[:, 1:] != x[:, :-1]).sum())
+
+    n = int(valid.sum())
+    w, s = distinct(g), distinct(g >> 3)  # 8 u32 words a sector
+    return {"keys": n, "words": w, "sectors": s,
+            "words_per_key": w / max(n, 1), "sectors_per_key": s / max(n, 1)}
+
+
+def rates(t: dict, ms: float) -> dict:
+    return {"words_per_s": t["words"] / ms * 1e3, "sectors_per_s": t["sectors"] / ms * 1e3}
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """The least ms the card could take: the larger of bytes over the
     memory rate and operations over the rate of their type."""
@@ -212,8 +284,19 @@ def phase_build() -> None:
     built = _build.build_all()
     logs = {n: (_build.BUILD_DIR / f"{n}.log").read_text() for n in built}
     emit("build", seconds=time.perf_counter() - t0, per_source=built,
-         ptxas={n: [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-                for n, log in logs.items()})
+         ptxas={n: ptxas_summary(log) for n, log in logs.items()})
+
+
+def ptxas_summary(log: str) -> dict:
+    """Each kernel's (mangled name's) registers, shared memory and spills,
+    from the ``-Xptxas -v`` lines of a build log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name] = f"{out.get(name, '')} {ln.split(':', 1)[-1].strip()}".strip()
+    return out
 
 
 def kernel_vs_plain(cfg: FilterConfig, batch: int, rng: np.random.Generator) -> dict:
@@ -355,23 +438,28 @@ def phase_main_path(rng) -> tuple[dict, BlockedBloomFilter]:
     return launches, f
 
 
-def touched_rows(f: BlockedBloomFilter, keys: torch.Tensor, lengths: torch.Tensor) -> tuple[int, torch.Tensor]:
+def touched_rows(f: BlockedBloomFilter, keys: torch.Tensor, lengths: torch.Tensor):
     c = f.config
-    blk, _ = blocked.block_positions(keys, lengths, n_blocks=c.n_blocks, block_bits=c.block_bits,
-                                     k=c.k, seed=c.seed, block_hash=c.block_hash)
-    return int(torch.unique(blk).numel()), blk
+    blk, pos = blocked.block_positions(keys, lengths, n_blocks=c.n_blocks, block_bits=c.block_bits,
+                                       k=c.k, seed=c.seed, block_hash=c.block_hash)
+    return int(torch.unique(blk).numel()), blk, pos
 
 
 def phase_times(f: BlockedBloomFilter, rng) -> dict:
     cfg, dev = f.config, f.device
-    batches = [torch.from_numpy(rows(rng, B)).to(dev) for _ in range(4)]
+    batches = [torch.from_numpy(rows(rng, B)).to(dev) for _ in range(8)]
+    old, fresh = batches[:4], batches[4:]
     lengths = torch.full((B,), KEY_LEN, dtype=torch.int32, device=dev)
-    rows_touched, blk = touched_rows(f, batches[0], lengths)
     state = f.words
-    q_ms = cuda_ms(lambda i: sweep.blocked_query(state, batches[i % 4], lengths, cfg), 40, warm=4)
-    i_ms = cuda_ms(lambda i: sweep.blocked_insert(state, batches[i % 4], lengths, cfg), 40, warm=4)
-    qp_ms = cuda_ms(lambda i: blocked.blocked_query_plain(state, batches[i % 4], lengths, cfg), 5, warm=1)
-    ip_ms = cuda_ms(lambda i: blocked.blocked_insert_plain(state, batches[i % 4], lengths, cfg), 5, warm=1)
+    q_ms = cuda_ms(lambda i: sweep.blocked_query(state, old[i % 4], lengths, cfg), 40, warm=4)
+    # re-inserts the four batches its warm-up launches inserted
+    replay_ms = cuda_ms(lambda i: sweep.blocked_insert(state, old[i % 4], lengths, cfg), 40, warm=4)
+    i_ms = fresh_ms(state, lambda i: sweep.blocked_insert(state, fresh[i % 4], lengths, cfg), 40)
+    qp_ms = cuda_ms(lambda i: blocked.blocked_query_plain(state, old[i % 4], lengths, cfg), 5, warm=1)
+    ip_ms = cuda_ms(lambda i: blocked.blocked_insert_plain(state, old[i % 4], lengths, cfg), 5, warm=1)
+    rows_touched, blk, _ = touched_rows(f, old[0], lengths)
+    _, fresh_blk, fresh_pos = touched_rows(f, fresh[0], lengths)
+    t = touched(fresh_blk, fresh_pos >> 5, cfg.words_per_block, lengths >= 0)
     table = state.view(torch.int32).reshape(cfg.n_blocks, cfg.words_per_block)
     lib_ms = cuda_ms(lambda i: torch.index_select(table, 0, blk), 40, warm=4)
     row_bytes = cfg.words_per_block * 4
@@ -381,13 +469,13 @@ def phase_times(f: BlockedBloomFilter, rng) -> dict:
     qb, qby = bound(q_bytes, OPS_QUERY * B)
     ib, iby = bound(i_bytes, OPS_INSERT * B)
     out = {
-        "batch": B, "rows_touched": rows_touched,
+        "batch": B, "rows_touched": rows_touched, "touched": t,
         "blocked_query": {"ms": q_ms, "keys_per_s": B / q_ms * 1e3, "plain_ms": qp_ms,
                           "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby,
                           "bytes": q_bytes, "share_of_bound": qb / q_ms},
-        "blocked_insert": {"ms": i_ms, "keys_per_s": B / i_ms * 1e3, "plain_ms": ip_ms,
-                           "library_ms": None, "bound_ms": ib, "bound_by": iby,
-                           "bytes": i_bytes, "share_of_bound": ib / i_ms},
+        "blocked_insert": {"ms": i_ms, "replay_ms": replay_ms, "keys_per_s": B / i_ms * 1e3,
+                           "plain_ms": ip_ms, "library_ms": None, "bound_ms": ib, "bound_by": iby,
+                           "bytes": i_bytes, "share_of_bound": ib / i_ms, **rates(t, i_ms)},
         "test_and_insert_ms": q_ms + i_ms,
     }
     emit("times", **out)
@@ -614,9 +702,7 @@ def phase_counting_times(f: BlockedCountingBloomFilter, rng) -> dict:
                                         block_bits=cfg.counters_per_block, k=cfg.k, seed=cfg.seed,
                                         block_hash=cfg.block_hash)
     rows_touched = int(torch.unique(blk).numel())
-    words = cpos >> 3
-    distinct_words = int(sum((~(words[:, j : j + 1] == words[:, :j]).any(dim=1)).sum()
-                             for j in range(cfg.k)))
+    t = touched(blk, cpos >> 3, cfg.words_per_block, lengths >= 0)
     table = state.view(torch.int32).reshape(cfg.n_blocks, cfg.words_per_block)
     lib_ms = cuda_ms(lambda i: torch.index_select(table, 0, blk), 40, warm=4)
     row_bytes = cfg.words_per_block * 4
@@ -626,13 +712,13 @@ def phase_counting_times(f: BlockedCountingBloomFilter, rng) -> dict:
     ub, uby = bound(u_bytes, OPS_COUNT_UPDATE * B_COUNTING)
     qb, qby = bound(q_bytes, OPS_COUNT_QUERY * B_COUNTING)
     out = {
-        "batch": B_COUNTING, "rows_touched": rows_touched, "atomic_words": distinct_words,
+        "batch": B_COUNTING, "rows_touched": rows_touched, "touched": t,
         "blocked_counting_update": {
             "ms": i_ms, "delete_ms": d_ms, "skewed_insert_ms": si_ms, "skewed_delete_ms": sd_ms,
             "logical_view_ms": li_ms, "logical_view_delete_ms": ld_ms,
             "keys_per_s": B_COUNTING / i_ms * 1e3, "plain_ms": ip_ms, "plain_delete_ms": dp_ms,
             "library_ms": None, "bound_ms": ub, "bound_by": uby, "bytes": u_bytes,
-            "share_of_bound": ub / i_ms, "cas_words_per_s": distinct_words / i_ms * 1e3,
+            "share_of_bound": ub / i_ms, **rates(t, i_ms),
         },
         "blocked_counting_query": {
             "ms": q_ms, "keys_per_s": B_COUNTING / q_ms * 1e3, "plain_ms": qp_ms,
@@ -843,8 +929,9 @@ def phase_sharded_path(rng) -> tuple[dict, ShardedBloomFilter, ShardedBloomFilte
 
 
 def sharded_rows(cfg: FilterConfig, route: ShardRoute, keys, lengths, domain: int):
-    _, row, pos = blocked.routed_blocks(keys, lengths, cfg, route, block_bits=domain)
-    return int(torch.unique(row).numel()), row, pos
+    """(distinct rows of the owned keys, each key's row, positions, owned)."""
+    owned, row, pos = blocked.routed_blocks(keys, lengths, cfg, route, block_bits=domain)
+    return int(torch.unique(row[owned]).numel()), row, pos, owned
 
 
 def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> dict:
@@ -852,9 +939,14 @@ def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> d
     dev = state.device
     batches = [torch.from_numpy(rows(rng, B_SHARDED)).to(dev) for _ in range(4)]
     lengths = torch.full((B_SHARDED,), KEY_LEN, dtype=torch.int32, device=dev)
-    rows_touched, row, _ = sharded_rows(cfg, route, batches[0], lengths, cfg.block_bits)
+    fresh = [torch.from_numpy(rows(rng, B_SHARDED)).to(dev) for _ in range(4)]
+    rows_touched, row, _, _ = sharded_rows(cfg, route, batches[0], lengths, cfg.block_bits)
+    _, fresh_row, fresh_pos, fresh_owned = sharded_rows(cfg, route, fresh[0], lengths, cfg.block_bits)
+    t = touched(fresh_row, fresh_pos >> 5, cfg.words_per_block, fresh_owned)
     q_ms = cuda_ms(lambda i: sweep.blocked_query(state, batches[i % 4], lengths, cfg, route=route), 40, warm=4)
-    i_ms = cuda_ms(lambda i: sweep.blocked_insert(state, batches[i % 4], lengths, cfg, route=route), 40, warm=4)
+    replay_ms = cuda_ms(lambda i: sweep.blocked_insert(state, batches[i % 4], lengths, cfg, route=route),
+                        40, warm=4)
+    i_ms = fresh_ms(state, lambda i: sweep.blocked_insert(state, fresh[i % 4], lengths, cfg, route=route), 40)
     qp_ms = cuda_ms(lambda i: blocked.blocked_query_plain(state, batches[i % 4], lengths, cfg, route), 3, warm=1)
     ip_ms = cuda_ms(lambda i: blocked.blocked_insert_plain(state, batches[i % 4], lengths, cfg, route), 3, warm=1)
     table = state.view(torch.int32).reshape(-1, cfg.words_per_block)
@@ -866,7 +958,7 @@ def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> d
     # the routing hash adds one murmur3 pass (~54 ops a key) to each kernel
     qb, qby = bound(q_bytes, (OPS_QUERY + 54) * B_SHARDED)
     ib, iby = bound(i_bytes, (OPS_INSERT + 54) * B_SHARDED)
-    del batches
+    del batches, fresh
     # configs 4 x 5
     ccfg, cstate, croute = fc.config, fc.slot_words[0], fc.routes[0]
     cb = [torch.from_numpy(rows(rng, B_SHARDED_COUNTING)).to(dev) for _ in range(4)]
@@ -886,10 +978,8 @@ def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> d
     cip_ms, cdp_ms = event_pairs_ms([plain(True), plain(False)], 3, warm=1)
     cqp_ms = cuda_ms(lambda i: counting.blocked_counting_query_plain(cstate, cb[i % 4], clen, ccfg, croute),
                      3, warm=1)
-    c_rows, c_row, cpos = sharded_rows(ccfg, croute, cb[0], clen, ccfg.counters_per_block)
-    words = cpos >> 3
-    distinct_words = int(sum((~(words[:, j : j + 1] == words[:, :j]).any(dim=1)).sum()
-                             for j in range(ccfg.k)))
+    c_rows, c_row, cpos, c_owned = sharded_rows(ccfg, croute, cb[0], clen, ccfg.counters_per_block)
+    ct = touched(c_row, cpos >> 3, ccfg.words_per_block, c_owned)
     ctable = cstate.view(torch.int32).reshape(-1, ccfg.words_per_block)
     clib_ms = cuda_ms(lambda i: torch.index_select(ctable, 0, c_row), 40, warm=4)
     c_in = B_SHARDED_COUNTING * (KEY_LEN + 4)
@@ -899,21 +989,22 @@ def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> d
     cqb, cqby = bound(cq_bytes, (OPS_COUNT_QUERY + 54) * B_SHARDED_COUNTING)
     out = {
         "batch": B_SHARDED, "rows_touched": rows_touched, "state_bytes": state.numel() * 4,
+        "touched": t,
         "sharded_blocked_query": {
             "ms": q_ms, "keys_per_s": B_SHARDED / q_ms * 1e3, "plain_ms": qp_ms,
             "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby, "bytes": q_bytes,
             "share_of_bound": qb / q_ms},
         "sharded_blocked_insert": {
-            "ms": i_ms, "keys_per_s": B_SHARDED / i_ms * 1e3, "plain_ms": ip_ms,
-            "library_ms": None, "bound_ms": ib, "bound_by": iby, "bytes": i_bytes,
-            "share_of_bound": ib / i_ms},
+            "ms": i_ms, "replay_ms": replay_ms, "keys_per_s": B_SHARDED / i_ms * 1e3,
+            "plain_ms": ip_ms, "library_ms": None, "bound_ms": ib, "bound_by": iby,
+            "bytes": i_bytes, "share_of_bound": ib / i_ms, **rates(t, i_ms)},
         "counting_batch": B_SHARDED_COUNTING, "counting_rows_touched": c_rows,
-        "atomic_words": distinct_words,
+        "counting_touched": ct,
         "sharded_blocked_counting_update": {
             "ms": ci_ms, "delete_ms": cd_ms, "keys_per_s": B_SHARDED_COUNTING / ci_ms * 1e3,
             "plain_ms": cip_ms, "plain_delete_ms": cdp_ms, "library_ms": None,
             "bound_ms": cub, "bound_by": cuby, "bytes": cu_bytes, "share_of_bound": cub / ci_ms,
-            "cas_words_per_s": distinct_words / ci_ms * 1e3},
+            **rates(ct, ci_ms)},
         "sharded_blocked_counting_query": {
             "ms": cq_ms, "keys_per_s": B_SHARDED_COUNTING / cq_ms * 1e3, "plain_ms": cqp_ms,
             "library_ms": clib_ms, "bound_ms": cqb, "bound_by": cqby, "bytes": cq_bytes,
@@ -935,31 +1026,14 @@ def phase_sharded_end_to_end(f: ShardedBloomFilter, g: ShardedBloomFilter, rng, 
     )))
 
 
+# The update kernels walk a warp's work list with a group of lanes a key;
+# the query kernels keep a thread a key.
+GROUP_DESIGN = ("blocked_insert", "blocked_counting_update",
+                "sharded_blocked_insert", "sharded_blocked_counting_update")
 
-def main() -> int:
-    dev = phase_device()
-    phase_build()
-    rng = np.random.default_rng(SEED)
-    errs = phase_kernel_vs_plain(rng)
-    launches, f = phase_main_path(rng)
-    times = phase_times(f, rng)
-    phase_end_to_end(f, rng, times)
-    del f
-    torch.cuda.empty_cache()
-    c_errs = phase_counting_kernel_vs_plain(rng)
-    c_launches, cf = phase_counting_path(rng)
-    c_times = phase_counting_times(cf, rng)
-    phase_counting_end_to_end(cf, rng, c_times)
-    del cf
-    torch.cuda.empty_cache()
-    phase_checkpoint_roundtrip(rng)
-    torch.cuda.empty_cache()
-    s_errs = phase_sharded_kernel_vs_plain(rng)
-    s_launches, sf, sg, sfc = phase_sharded_path(rng)
-    s_times = phase_sharded_times(sf, sfc, rng)
-    phase_sharded_end_to_end(sf, sg, rng, s_times)
-    del sf, sg, sfc
-    torch.cuda.empty_cache()
+
+def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
+                 s_launches, s_errs, s_times) -> list[dict]:
     kernels = []
     for name, src, replaces, lau, err, t in (
         ("blocked_insert", "blocked_bloom.cu", "tpubloom/ops/sweep.py:1463", launches, errs, times),
@@ -988,10 +1062,101 @@ def main() -> int:
             "replaces": replaces, "launches": lau[name], "max_abs_err": err[name],
             "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
             "bound_by": t[name]["bound_by"], "library_ms": t[name]["library_ms"],
+            "design": "lane group a key" if name in GROUP_DESIGN else "thread a key",
+            **({"replay_ms": t[name]["replay_ms"]} if "replay_ms" in t[name] else {}),
         })
     kernels[2]["also_replaces"] = "tpubloom/ops/sweep.py:582"
     kernels[4]["also_replaces"] = "tpubloom/ops/sweep.py:1463 (K3 at tpubloom/parallel/sharded.py:274)"
     kernels[6]["also_replaces"] = "tpubloom/ops/sweep.py:1976 (K4 at tpubloom/parallel/sharded.py:500)"
+    return kernels
+
+
+def times_only() -> dict:
+    """Phases 5, 9 and 14 alone, on filters filled as the full run fills
+    them before those phases: five batches of B in the main filter, one
+    batch in each of the others."""
+    rng = np.random.default_rng(SEED)
+    f = BlockedBloomFilter(FilterConfig(m=1 << LOG2M, k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS))
+    for _ in range(5):
+        f.insert_packed(rows(rng, B))
+    times = phase_times(f, rng)
+    del f
+    torch.cuda.empty_cache()
+    cf = BlockedCountingBloomFilter(counting_config(LOG2M_COUNTING))
+    cf.insert_packed(rows(rng, B_COUNTING))
+    c_times = phase_counting_times(cf, rng)
+    del cf
+    torch.cuda.empty_cache()
+    sf = ShardedBloomFilter(sharded_config(LOG2M_SHARDED))
+    sf.insert_packed(rows(rng, B_SHARDED))
+    sfc = ShardedBloomFilter(sharded_config(LOG2M_SHARDED_COUNTING, counting=True))
+    sfc.insert_packed(rows(rng, B_SHARDED_COUNTING))
+    s_times = phase_sharded_times(sf, sfc, rng)
+    return {"times": times, "counting_times": c_times, "sharded_times": s_times}
+
+
+def phase_ab(other: Path) -> None:
+    """``--times`` in ``other`` (with this script copied in), here, here
+    and ``other``, each in a process of its own on the same card; the
+    four runs' kernel times, touched counts and ptxas lines."""
+    here = Path(__file__).resolve()
+    shutil.copy(here, other / here.name)
+    runs = []
+    for label, tree in (("other", other), ("this", here.parent), ("this", here.parent), ("other", other)):
+        proc = subprocess.run([sys.executable, here.name, "--times"], cwd=tree,
+                              capture_output=True, text=True, timeout=1500)
+        if proc.returncode:
+            raise RuntimeError(f"--times in {tree} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])["times_only"]
+        runs.append({"tree": label, "path": str(tree), **run})
+        summary = {name: {k: v for k, v in run[phase][name].items()
+                          if k in ("ms", "replay_ms", "delete_ms", "share_of_bound")}
+                   for phase, name in (("times", "blocked_insert"), ("times", "blocked_query"),
+                                       ("counting_times", "blocked_counting_update"),
+                                       ("sharded_times", "sharded_blocked_insert"),
+                                       ("sharded_times", "sharded_blocked_counting_update"))}
+        emit("ab_run", tree=label, kernels=summary)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "ab_times.json").write_text(json.dumps(runs, indent=1))
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--times", action="store_true", help="device, build and the timing phases only")
+    ap.add_argument("--ab", type=Path, metavar="DIR",
+                    help="--times in DIR, here, here and DIR; writes chiprun_out/ab_times.json")
+    args = ap.parse_args(argv)
+    dev = phase_device()
+    if args.ab:
+        phase_ab(args.ab.resolve())
+        return 0
+    phase_build()
+    if args.times:
+        print(json.dumps({"times_only": {**times_only(), "build": RECORD["build"]}}), flush=True)
+        return 0
+    rng = np.random.default_rng(SEED)
+    errs = phase_kernel_vs_plain(rng)
+    launches, f = phase_main_path(rng)
+    times = phase_times(f, rng)
+    phase_end_to_end(f, rng, times)
+    del f
+    torch.cuda.empty_cache()
+    c_errs = phase_counting_kernel_vs_plain(rng)
+    c_launches, cf = phase_counting_path(rng)
+    c_times = phase_counting_times(cf, rng)
+    phase_counting_end_to_end(cf, rng, c_times)
+    del cf
+    torch.cuda.empty_cache()
+    phase_checkpoint_roundtrip(rng)
+    torch.cuda.empty_cache()
+    s_errs = phase_sharded_kernel_vs_plain(rng)
+    s_launches, sf, sg, sfc = phase_sharded_path(rng)
+    s_times = phase_sharded_times(sf, sfc, rng)
+    phase_sharded_end_to_end(sf, sg, rng, s_times)
+    del sf, sg, sfc
+    torch.cuda.empty_cache()
+    kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
+                           s_launches, s_errs, s_times)
     RECORD["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
@@ -1003,4 +1168,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

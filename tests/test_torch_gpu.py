@@ -7,7 +7,14 @@ card:
 
 All comparisons are exact (tolerance 0): state words and verdicts. The
 routed (sharded) kernels run on one slot's state, for every slot of a
-1-slot and a 4-slot placement, so the ``shard_lo != 0`` branch runs too."""
+1-slot and a 4-slot placement, so the ``shard_lo != 0`` branch runs too.
+
+The update kernels (insert, counting update) walk each warp's work list
+with a group of lanes a key: block_bits 128 to 1024 take the staged path
+with 4, 8, 16 and 32 lanes a key, 2048 and 4096 the wide path. Ragged
+batches leave partial warps and partial groups; the contention cases
+crowd thousands of keys into eight blocks; the mostly-unowned cases give
+a routed slot a batch of which it owns a few keys."""
 
 import numpy as np
 import pytest
@@ -16,7 +23,7 @@ import torch
 from tpubloom_torch import (
     BlockedBloomFilter, BlockedCountingBloomFilter, FilterConfig, ShardedBloomFilter,
 )
-from tpubloom_torch.ops import blocked, counting, sweep
+from tpubloom_torch.ops import blocked, counting, hashing, sweep
 from tpubloom_torch.ops.hashing import ShardRoute
 
 pytestmark = pytest.mark.gpu
@@ -49,7 +56,8 @@ _NO_LAUNCH = dict.fromkeys(sweep.LAUNCHES, 0)
 
 @pytest.mark.parametrize(
     "block_bits,block_hash",
-    [(512, "chunk"), (512, "ap"), (128, "chunk"), (1024, "chunk"), (4096, "ap")],
+    [(512, "chunk"), (512, "ap"), (128, "chunk"), (256, "chunk"), (1024, "chunk"),
+     (2048, "chunk"), (4096, "ap")],
 )
 def test_kernels_match_plain(cuda, block_bits, block_hash):
     cfg = FilterConfig(m=1 << 22, k=7, key_len=L, block_bits=block_bits, block_hash=block_hash)
@@ -113,7 +121,8 @@ def _clone(t):
 
 @pytest.mark.parametrize(
     "block_bits,block_hash",
-    [(512, "chunk"), (512, "ap"), (128, "chunk"), (1024, "chunk"), (4096, "ap")],
+    [(512, "chunk"), (512, "ap"), (128, "chunk"), (256, "ap"), (1024, "chunk"),
+     (2048, "chunk"), (4096, "ap")],
 )
 @pytest.mark.parametrize("view", ["storage", "logical"])
 def test_counting_kernels_match_plain(cuda, block_bits, block_hash, view):
@@ -175,10 +184,12 @@ def _slot_state(cfg, route, dev):
     return torch.zeros(n, dtype=torch.int32, device=dev).view(torch.uint32)
 
 
+_ROUTED_GEOMETRIES = [(512, "chunk"), (512, "ap"), (128, "chunk"), (256, "chunk"),
+                      (1024, "ap"), (2048, "chunk"), (4096, "ap")]
+
+
 @pytest.mark.parametrize("n_slots", [1, 4])
-@pytest.mark.parametrize(
-    "block_bits,block_hash", [(512, "chunk"), (512, "ap"), (128, "chunk"), (4096, "ap")],
-)
+@pytest.mark.parametrize("block_bits,block_hash", _ROUTED_GEOMETRIES)
 def test_routed_kernels_match_plain(cuda, block_bits, block_hash, n_slots):
     """The routed insert and query on each slot's state against their
     routed plain versions: old keys, within-batch duplicates, padding,
@@ -213,9 +224,7 @@ def test_routed_kernels_match_plain(cuda, block_bits, block_hash, n_slots):
 
 
 @pytest.mark.parametrize("n_slots", [1, 4])
-@pytest.mark.parametrize(
-    "block_bits,block_hash", [(512, "chunk"), (512, "ap"), (128, "chunk"), (4096, "ap")],
-)
+@pytest.mark.parametrize("block_bits,block_hash", _ROUTED_GEOMETRIES)
 def test_routed_counting_kernels_match_plain(cuda, block_bits, block_hash, n_slots):
     """The routed counting update (insert, then delete) and query on each
     slot's state against their routed plain versions, with a hot key
@@ -245,6 +254,105 @@ def test_routed_counting_kernels_match_plain(cuda, block_bits, block_hash, n_slo
             assert torch.equal(q_k.cpu(), q_p.cpu())
     assert sweep.launch_counts() == {**_NO_LAUNCH, "sharded_blocked_counting_update": 3 * n_slots,
                                      "sharded_blocked_counting_query": 2 * n_slots}
+
+
+def _update(state, keys, lengths, cfg, *, increment=True, route=None, plain=False):
+    """One update launch (or its plain version): the insert, or the
+    counting filter's insert / delete."""
+    if cfg.counting:
+        fn = counting.blocked_counting_update_plain if plain else sweep.blocked_counting_update
+        fn(state, keys, lengths, cfg, increment=increment, route=route)
+    elif plain:
+        blocked.blocked_insert_plain(state, keys, lengths, cfg, route)
+    else:
+        sweep.blocked_insert(state, keys, lengths, cfg, route=route)
+
+
+def _keys(rng, n, dev, n_pad=0):
+    keys = rng.integers(0, 256, (n, L), dtype=np.uint8)
+    lengths = rng.integers(0, L + 1, n).astype(np.int32)
+    if n_pad:
+        lengths[-n_pad:] = -1
+    keys[np.arange(L)[None, :] >= np.maximum(lengths, 0)[:, None]] = 0
+    return torch.from_numpy(keys).to(dev), torch.from_numpy(lengths).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4096 + 13])
+@pytest.mark.parametrize("block_bits", [128, 512, 4096])
+@pytest.mark.parametrize("counting_layout", [False, True])
+def test_update_kernels_ragged_batches(cuda, n, block_bits, counting_layout):
+    """Batches that leave partial warps (1, 31, 33 keys) and a partial
+    thread block, with padding at the tail where the batch has room."""
+    cfg = FilterConfig(m=1 << 20, k=7, key_len=L, counting=counting_layout, block_bits=block_bits)
+    rng = np.random.default_rng(n + block_bits)
+    state = torch.zeros(cfg.n_blocks * cfg.words_per_block, dtype=torch.int32, device=cuda).view(torch.uint32)
+    _update(state, *_keys(rng, 3000, cuda), cfg)
+    keys, lengths = _keys(rng, n, cuda, n_pad=n // 8)
+    s_k, s_p = _clone(state), _clone(state)
+    for increment in (True, False) if counting_layout else (True,):
+        _update(s_k, keys, lengths, cfg, increment=increment)
+        _update(s_p, keys, lengths, cfg, increment=increment, plain=True)
+        torch.cuda.synchronize()
+        assert _equal_words(s_k, s_p)
+        if increment:
+            assert n == 1 or not _equal_words(s_k, state)
+
+
+@pytest.mark.parametrize("block_hash", ["chunk", "ap"])
+@pytest.mark.parametrize("counting_layout", [False, True])
+def test_update_kernels_contention(cuda, block_hash, counting_layout):
+    """4096 distinct keys in 8 blocks of 512 bits (m = 2^12 bits, or
+    2^10 counters): every warp's groups race on the same rows. The
+    counting filter saturates at 15 on the insert, then a delete of other
+    keys floors counters at 0."""
+    m = (1 << 10) if counting_layout else (1 << 12)
+    cfg = FilterConfig(m=m, k=7, key_len=L, counting=counting_layout, block_bits=512,
+                       block_hash=block_hash)
+    assert cfg.n_blocks == 8
+    rng = np.random.default_rng(11)
+    s_k = torch.zeros(cfg.n_blocks * cfg.words_per_block, dtype=torch.int32, device=cuda).view(torch.uint32)
+    s_p = _clone(s_k)
+    for increment in (True, False) if counting_layout else (True,):
+        keys, lengths = _keys(rng, 4096, cuda)
+        _update(s_k, keys, lengths, cfg, increment=increment)
+        _update(s_p, keys, lengths, cfg, increment=increment, plain=True)
+        torch.cuda.synchronize()
+        assert _equal_words(s_k, s_p)
+        nib = (s_k.view(torch.int32).cpu().numpy().view(np.uint32)[:, None]
+               >> (4 * np.arange(8, dtype=np.uint32))) & 15
+        if not counting_layout:
+            assert bool((s_k.view(torch.int32) != 0).any())
+        else:
+            assert (nib == (15 if increment else 0)).sum() > 0
+
+
+@pytest.mark.parametrize("counting_layout", [False, True])
+def test_routed_update_mostly_unowned(cuda, counting_layout):
+    """A 4-slot placement (16 shards, 4 a slot) whose batch each slot owns
+    only a few keys of: the work list holds those few, and nothing else
+    of the slot's state changes."""
+    cfg = FilterConfig(m=1 << 24, k=7, key_len=L, counting=counting_layout, block_bits=512,
+                       shards=16)
+    rng = np.random.default_rng(12)
+    sweep.reset_launch_counts()
+    for slot in range(4):
+        route = ShardRoute(16, 4 * slot, 4)
+        keys, lengths = _keys(rng, 8192, "cpu")
+        owned = hashing.route_local(keys, lengths, route, cfg.seed)[1]
+        pick = torch.cat([torch.nonzero(~owned)[:, 0], torch.nonzero(owned)[:64, 0]])
+        pick = pick[torch.from_numpy(rng.permutation(pick.numel()))]
+        keys, lengths = keys[pick].contiguous().to(cuda), lengths[pick].contiguous().to(cuda)
+        state = _slot_state(cfg, route, cuda)
+        s_k, s_p = _clone(state), _clone(state)
+        for increment in (True, False) if counting_layout else (True,):
+            _update(s_k, keys, lengths, cfg, increment=increment, route=route)
+            _update(s_p, keys, lengths, cfg, increment=increment, route=route, plain=True)
+            torch.cuda.synchronize()
+            assert _equal_words(s_k, s_p)
+            if increment:
+                assert bool((s_k.view(torch.int32) != 0).any())
+    name = "sharded_blocked_counting_update" if counting_layout else "sharded_blocked_insert"
+    assert sweep.launch_counts() == {**_NO_LAUNCH, name: 4 * (2 if counting_layout else 1)}
 
 
 @pytest.mark.parametrize("counting_layout", [False, True])

@@ -3,10 +3,12 @@
 // Both take the filter state as u32[n_blocks, W] (W = block_bits / 32; the
 // fat [NB*W/128, 128] storage is the same memory), the keys as u8[B, L]
 // (L a multiple of 4, zero past each key's length) and the lengths as
-// i32[B], where a negative length marks a padding entry. Each thread owns
-// one key: it hashes the key itself (bloom_hash.cuh) and touches only that
-// key's one block. The results are bit-identical to tpubloom's: the same
-// filter state after an insert, the same verdicts from a query.
+// i32[B], where a negative length marks a padding entry. Each thread loads
+// and hashes one key (bloom_hash.cuh), and a key touches only its one
+// block: the query tests it in the key's own thread, the insert writes it
+// from a group of lanes (see blocked_insert). The results are
+// bit-identical to tpubloom's: the same filter state after an insert, the
+// same verdicts from a query.
 //
 // Each kernel has a routed instantiation (kRouted = true) for the sharded
 // filter array (tpubloom/parallel/sharded.py): the state is then one slot's
@@ -164,16 +166,16 @@ blocked_query_chunk_kernel(const uint32_t* __restrict__ state,
 // ---------------------------------------------------------------------------
 // blocked_insert
 //
-// Replaces the TPU insert sweep `_fat_kernel` / `fat_sweep_insert`
-// (tpubloom/ops/sweep.py), driven there by `apply_fat_updates`. The TPU
+// Replaces the TPU insert sweep K3, `_fat_kernel` / `fat_sweep_insert`
+// (tpubloom/ops/sweep.py:1463, driven by `apply_fat_updates`). The TPU
 // sorts the batch, streams every partition of the array through VMEM and
 // merges duplicate blocks with one-hot matmuls, because its HBM cannot do
-// random read-modify-writes. Hopper can: each key sets its bits with one
-// atomicOr per distinct word its k bits touch (at most k), in place. OR is
-// commutative and idempotent, so keys that share a block need no sort and
-// no merge, and the result does not depend on the order of the atomics.
-// The state is updated in place, where tpubloom's insert donates its
-// buffer to the jitted step (filter.py, `donate_argnums=0`).
+// random read-modify-writes. Hopper can: each key ORs its mask into its
+// one row with atomicOr, in place. OR is commutative and idempotent, so
+// keys that share a block need no sort and no merge, and the result does
+// not depend on the order of the atomics. The state is updated in place,
+// where tpubloom's insert donates its buffer to the jitted step
+// (filter.py, `donate_argnums=0`).
 //
 // Test-and-insert is blocked_query then blocked_insert on the same stream:
 // a single pass that read and then ORed would let a later key in the same
@@ -181,60 +183,109 @@ blocked_query_chunk_kernel(const uint32_t* __restrict__ state,
 // batch reports the state before the batch.
 //
 // Bound: bytes. Per key L + 4 input bytes; each touched row is read once
-// and written once. At the main path's shapes that is ~0.8 GB, ~0.24 ms at
-// 3.35 TB/s. As for the query, the rows are random sectors; in addition
-// the atomics are executed in L2, one per distinct word (~6.9 per key at
-// k=7, W=16), so the L2 atomic rate is the second floor to watch. The design
-// merges a key's bits per word before issuing them, so it never issues more
-// than one atomic per word per key.
+// and written once. At the main path's shapes (m = 2^32, W = 16, B = 2^23,
+// ~5.30 M distinct rows) that is ~0.85 GB, ~0.25 ms at 3.35 TB/s. The
+// atomics execute in L2, so the rate of L2 requests is the floor to
+// design for. A key's k = 7 bits touch 16 (1 - (15/16)^7) = ~5.82 distinct
+// words of its row, but only 2 (1 - 2^-7) = ~1.98 of its two 32-byte
+// sectors. With one thread a key (the first design) the 32 lanes of an
+// atomic instruction hit 32 unrelated rows, so each word was a request of
+// its own: ~5.82 a key, ~48.8 M a launch.
+//
+// Hence a lane group per key. Each lane loads and hashes one key (hash
+// once a key), computes its k positions and ORs them into its row's mask,
+// staged in shared memory ([threads][W + 4] words: 16-byte rows,
+// staggered so that the 16-byte zeroing stores of 8 lanes hit distinct
+// banks). A ballot of the lanes that hold a key to update is the warp's
+// work list (a routed slot lists only the keys it owns, so it pays
+// nothing for the others). The warp then walks the list with G = W lanes a
+// key, 32 / W keys a step: the key's row offset comes from its lane by
+// __shfl_sync, lane t of the group reads word t of the staged mask and
+// issues atomicOr on word t of the row when it is not 0. A key's atomics
+// leave in one instruction, on neighbouring addresses, ~1.98 sectors a
+// key. Staging the mask keeps the position arithmetic at once a key: a
+// group that recomputed all k positions in every lane from the broadcast
+// hash pool would spend ~20 integer operations a position a lane, ~1,100
+// lane operations a key at W = 16, about the time of the memory bound.
+//
+// W = 64 and 128 (block_bits 2048, 4096; the staging would not fit 48 KB)
+// take blocked_insert_wide_kernel: 32 lanes a key, lane t owns words t,
+// t + 32, ...; the key's row offset and hash pool are broadcast and each
+// lane computes the k positions itself.
 //
 // sharded_blocked_insert (kRouted = true) replaces K1, `_kernel` /
 // `sweep_insert` (tpubloom/ops/sweep.py:241, driven by
 // `apply_blocked_updates`), where the TPU runs it: the per-device loop of
 // the sharded filter array (tpubloom/parallel/sharded.py:282,292), and the
 // fat K3 there (:274). The TPU routes the replicated batch, sorts the owned
-// keys and sweeps the device's block rows. Here each thread routes its key
-// first and returns before any other hash or atomic when the slot does not
-// own it, so a slot pays one murmur3 for every key of the batch and the
-// per-word merge and atomicOr only for its own. Row offsets are 64-bit
-// ((local * n_blocks_per_shard + blk) * W): at BASELINE config 5 one slot
-// holds 2^31 words (8 GiB). Bound: bytes, as above, over the owned keys'
-// distinct rows; at config 5 (B = 2^23 over 2^27 blocks, lambda = 1/16)
-// ~8.1 M rows, ~1.2 GB, ~0.36 ms at 3.35 TB/s. The rows are spread over
-// 8 GiB rather than 512 MiB, so TLB reach and DRAM page misses may weigh
-// more than they do for the single-device launch.
+// keys and sweeps the device's block rows. Here each lane routes its key
+// first; a key the slot does not own costs one murmur3 and never enters
+// the work list. Row offsets are 64-bit ((local * n_blocks_per_shard +
+// blk) * W): at BASELINE config 5 one slot holds 2^31 words (8 GiB).
+// Bound: bytes, as above, over the owned keys' distinct rows; at config 5
+// (B = 2^23 over 2^27 blocks, lambda = 1/16) ~8.1 M rows, ~1.2 GB,
+// ~0.36 ms at 3.35 TB/s.
 // ---------------------------------------------------------------------------
+
+// W = 4, 8, 16, 32: a group of W lanes a key, the masks staged.
+template <int W, bool kRouted>
+__global__ void __launch_bounds__(kThreads)
+blocked_insert_row_kernel(uint32_t* __restrict__ state,
+                          const uint8_t* __restrict__ keys,
+                          const int32_t* __restrict__ lengths, int64_t B,
+                          int L, BlockSpec s, RouteSpec route) {
+  constexpr int kStride = W + 4;
+  __shared__ __align__(16) uint32_t stage[kThreads * kStride];
+  const LaneKey mine = lane_key<kRouted>(keys, lengths, B, L, W, s, route);
+  if (mine.valid) {
+    uint32_t* m = stage + threadIdx.x * kStride;
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c)
+      reinterpret_cast<uint4*>(m)[c] = make_uint4(0u, 0u, 0u, 0u);
+    for (int j = 0; j < s.k; ++j) {
+      const uint32_t b = inblock_bit(j, mine.h, s);
+      m[b >> 5] |= 1u << (b & 31);
+    }
+  }
+  __syncwarp();
+  const int lane = threadIdx.x & 31, sub = lane % W;
+  const uint32_t* warp_stage = stage + (threadIdx.x - lane) * kStride;
+  for (unsigned list = __ballot_sync(kFullMask, mine.valid); list;
+       list = next_step<32 / W>(list)) {
+    const int src = nth_lane<32 / W>(list, lane / W);
+    const uint64_t row = __shfl_sync(kFullMask, mine.row, src < 0 ? 0 : src);
+    if (src >= 0) {
+      const uint32_t m = warp_stage[src * kStride + sub];
+      if (m) atomicOr(state + row + sub, m);
+    }
+  }
+}
+
+// W = 64, 128: 32 lanes a key, kWideWords words a lane at most.
+constexpr int kWideWords = 4;  // block_bits <= 4096
 
 template <bool kRouted>
 __global__ void __launch_bounds__(kThreads)
-blocked_insert_kernel(uint32_t* __restrict__ state,
-                      const uint8_t* __restrict__ keys,
-                      const int32_t* __restrict__ lengths, int64_t B, int L,
-                      int W, BlockSpec s, RouteSpec route) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const int len = lengths[i];
-  if (len < 0) return;  // padding sets nothing
-  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
-  uint64_t base = 0;  // the slot's first row of the key's shard
-  if constexpr (kRouted) {
-    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
-    if (local < 0) return;  // not this slot's key: no atomic at all
-    base = (uint64_t)local * s.n_blocks;
-  }
-  const KeyHash h = hash_key(kw, L / 4, len, s);
-  uint32_t* row = state + (base + h.blk) * W;
-  for (int j = 0; j < s.k; ++j) {
-    const uint32_t word = inblock_bit(j, h, s) >> 5;
-    bool seen = false;  // an earlier position already carried this word
-    for (int t = 0; t < j && !seen; ++t) seen = (inblock_bit(t, h, s) >> 5) == word;
-    if (seen) continue;
-    uint32_t m = 0u;
-    for (int t = j; t < s.k; ++t) {
-      const uint32_t b = inblock_bit(t, h, s);
-      if ((b >> 5) == word) m |= 1u << (b & 31);
+blocked_insert_wide_kernel(uint32_t* __restrict__ state,
+                           const uint8_t* __restrict__ keys,
+                           const int32_t* __restrict__ lengths, int64_t B,
+                           int L, int W, BlockSpec s, RouteSpec route) {
+  const LaneKey mine = lane_key<kRouted>(keys, lengths, B, L, W, s, route);
+  const uint32_t lane = threadIdx.x & 31;
+  for (unsigned list = __ballot_sync(kFullMask, mine.valid); list;
+       list &= list - 1u) {
+    const LaneKey key = shfl_key(mine, __ffs(list) - 1);
+    uint32_t m[kWideWords];
+#pragma unroll
+    for (int u = 0; u < kWideWords; ++u) m[u] = 0u;
+    for (int j = 0; j < s.k; ++j) {
+      const uint32_t b = inblock_bit(j, key.h, s), w = b >> 5, one = 1u << (b & 31);
+#pragma unroll
+      for (int u = 0; u < kWideWords; ++u) m[u] |= (w == lane + 32u * u) ? one : 0u;
     }
-    atomicOr(row + word, m);
+#pragma unroll
+    for (int u = 0; u < kWideWords; ++u)
+      if (m[u]) atomicOr(state + key.row + lane + 32u * u, m[u]);
   }
 }
 
@@ -282,10 +333,19 @@ int launch_insert(void* state, const void* keys, const void* lengths,
                   int64_t B, int L, const BlockSpec& s, const RouteSpec& r,
                   void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  blocked_insert_kernel<kRouted><<<grid_for(B), kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(state), static_cast<const uint8_t*>(keys),
-      static_cast<const int32_t*>(lengths), B, L, s.block_bits / 32, s, r);
+  const int W = s.block_bits / 32;
+  auto st = static_cast<uint32_t*>(state);
+  auto ky = static_cast<const uint8_t*>(keys);
+  auto ln = static_cast<const int32_t*>(lengths);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const unsigned g = grid_for(B);
+  switch (W) {
+    case 4: blocked_insert_row_kernel<4, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, B, L, s, r); break;
+    case 8: blocked_insert_row_kernel<8, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, B, L, s, r); break;
+    case 16: blocked_insert_row_kernel<16, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, B, L, s, r); break;
+    case 32: blocked_insert_row_kernel<32, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, B, L, s, r); break;
+    default: blocked_insert_wide_kernel<kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, B, L, W, s, r); break;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -5,9 +5,10 @@
 // memory): counter c of a block is nibble c & 7 (bits 4*(c & 7) and up) of
 // word c >> 3 of the block's row. Keys are u8[B, L] (L a multiple of 4, zero
 // past each key's length), lengths i32[B], a negative length marking a
-// padding entry. Each thread owns one key: it hashes the key itself
-// (bloom_hash.cuh, with the spec's block_bits set to counters_per_block, as
-// tpubloom does for counting layouts) and touches only that key's one block.
+// padding entry. Each thread loads and hashes one key (bloom_hash.cuh, with
+// the spec's block_bits set to counters_per_block, as tpubloom does for
+// counting layouts), and a key touches only its one block: the query reads
+// it in the key's own thread, the update writes it from a group of lanes.
 // The results are bit-identical to tpubloom's: the same counters after an
 // insert or a delete, the same verdicts from a query.
 //
@@ -47,12 +48,14 @@ constexpr int kCountThreads = 256;
 // overflows under duplicate skew sends the whole batch to a scatter fallback
 // (sweep.py:2231-2253). Here each key updates its own row in place.
 //
-// Per key, for each distinct word its k counters touch, the thread builds
-// the per-nibble deltas in registers (one byte per nibble: a nibble's
-// multiplicity can reach k, so no k <= 15 limit applies), then runs an
+// Per touched word of a key's row, the kernel builds the per-nibble deltas
+// (the key's multiplicity at each of the word's 8 counters), then runs an
 // atomicCAS loop on that word: read it, apply a nibble-wise saturating add
 // (insert) or flooring subtract (delete), CAS. A plain atomicAdd would carry
-// from one nibble into the next and could not saturate.
+// from one nibble into the next and could not saturate. A delta is kept as
+// a nibble that saturates at 15: for a counter v in [0, 15], min(15, v + d)
+// and max(0, v - d) do not change when d is clamped at 15, so the
+// multiplicity of a key at one counter needs no k <= 15 limit.
 //
 // Why the result is bit-identical to the one-clamp-per-batch rule of
 // tpubloom (ops/counting.py:10-14; sweep.py:2108-2111 clamps once against
@@ -73,76 +76,130 @@ constexpr int kCountThreads = 256;
 //
 // Bound: bytes. Per key L + 4 input bytes; each touched row is read once and
 // written once. At BASELINE config 4 (m = 2^30 counters, block_bits = 512,
-// n_blocks = 2^23, B = 2^22, lambda = 0.5 keys a block, ~3.30 M distinct rows)
-// that is ~84 MB + 3.30 M x 64 B x 2 = ~0.51 GB, ~0.15 ms at 3.35 TB/s. The
-// second floor is the L2 atomic rate: ~5.8 distinct words a key
-// (16 (1 - (15/16)^7)), ~24 M CAS a launch, each after a load.
+// W = 16, n_blocks = 2^23, B = 2^22, lambda = 0.5 keys a block, ~3.30 M
+// distinct rows) that is ~84 MB + 3.30 M x 64 B x 2 = ~0.51 GB, ~0.15 ms at
+// 3.35 TB/s. The loads and CASes execute in L2, so the rate of L2 requests
+// is the floor to design for: a key's k = 7 counters touch
+// 16 (1 - (15/16)^7) = ~5.82 words of its row, in 2 (1 - 2^-7) = ~1.98 of
+// its two 32-byte sectors. With one thread a key (the first design) every
+// word was a load and a CAS of its own, ~24.4 M of each a launch.
+//
+// Hence the structure of blocked_insert (blocked_bloom.cu): each lane
+// hashes one key once and stages the nibble deltas of its row in shared
+// memory; the ballot of the keys to update (a routed slot's owned keys
+// only) is the warp's work list, walked with G = W lanes a key, 32 / W keys
+// a step. Lane t of a group reads the key's word t with __ldcg (from L2,
+// where the CASes land) when its delta is not 0, so the group's loads
+// leave in one instruction over ~1.98 sectors, then runs the CAS loop on
+// that word alone. The loops diverge; the next step's warp collectives
+// come after them. W = 64 and 128 (block_bits 2048, 4096) take the wide
+// kernel, 32 lanes a key, each lane computing the k positions from the
+// broadcast hash pool.
 //
 // sharded_blocked_counting_update (kRouted = true) is the per-device update
 // of the sharded counting array (configs 4 x 5): K2 at
-// tpubloom/parallel/sharded.py:507,525 and K4 at :500. Each thread routes
-// its key first and returns before any atomic when the slot does not own it;
-// the CAS loop is unchanged. At configs 4 x 5 (m = 2^30 counters over 64
-// shards, B = 2^22) lambda is still 0.5, so the bound is config 4's.
+// tpubloom/parallel/sharded.py:507,525 and K4 at :500. A key the slot does
+// not own costs the routing hash and never enters the work list. At
+// configs 4 x 5 (m = 2^30 counters over 64 shards, B = 2^22) lambda is
+// still 0.5, so the bound is config 4's.
 // ---------------------------------------------------------------------------
 
-// One word's update: nibble n of `w` moves by byte n of (dlo | dhi << 32),
-// saturating at 15 (increment) or flooring at 0.
-__device__ __forceinline__ uint32_t nibble_apply(uint32_t w, uint32_t dlo,
-                                                 uint32_t dhi, bool increment) {
+// One word's update: nibble n of `w` moves by nibble n of `d`, saturating
+// at 15 (increment) or flooring at 0.
+__device__ __forceinline__ uint32_t nibble_apply(uint32_t w, uint32_t d,
+                                                 bool increment) {
   uint32_t out = 0u;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    const uint32_t v = (w >> (4 * n)) & 15u;
-    const uint32_t d = ((n < 4 ? dlo : dhi) >> (8 * (n & 3))) & 0xFFu;
-    const uint32_t r = increment ? min(15u, v + d) : (v > d ? v - d : 0u);
+    const uint32_t v = (w >> (4 * n)) & 15u, dn = (d >> (4 * n)) & 15u;
+    const uint32_t r = increment ? min(15u, v + dn) : (v > dn ? v - dn : 0u);
     out |= r << (4 * n);
   }
   return out;
 }
 
+// Adds one to nibble c & 7 of the delta word `d`, saturating at 15.
+__device__ __forceinline__ uint32_t delta_add(uint32_t d, uint32_t c) {
+  const uint32_t sh = 4u * (c & 7u);
+  return d + ((((d >> sh) & 15u) < 15u) ? (1u << sh) : 0u);
+}
+
+// Applies the deltas `d` to word `p`: one load, then CAS until it lands or
+// nothing would change.
+__device__ __forceinline__ void counter_cas(uint32_t* p, uint32_t d,
+                                            bool increment) {
+  uint32_t old = __ldcg(p);
+  while (true) {
+    const uint32_t next = nibble_apply(old, d, increment);
+    if (next == old) break;  // saturated / floored: nothing to write
+    const uint32_t seen = atomicCAS(p, old, next);
+    if (seen == old) break;
+    old = seen;
+  }
+}
+
+// W = 4, 8, 16, 32: a group of W lanes a key, the deltas staged.
+template <int W, bool kRouted>
+__global__ void __launch_bounds__(kCountThreads)
+blocked_counting_update_row_kernel(uint32_t* __restrict__ state,
+                                   const uint8_t* __restrict__ keys,
+                                   const int32_t* __restrict__ lengths,
+                                   int64_t B, int L, BlockSpec s,
+                                   int increment, RouteSpec route) {
+  constexpr int kStride = W + 4;
+  __shared__ __align__(16) uint32_t stage[kCountThreads * kStride];
+  const LaneKey mine = lane_key<kRouted>(keys, lengths, B, L, W, s, route);
+  if (mine.valid) {
+    uint32_t* d = stage + threadIdx.x * kStride;
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c)
+      reinterpret_cast<uint4*>(d)[c] = make_uint4(0u, 0u, 0u, 0u);
+    for (int j = 0; j < s.k; ++j) {
+      const uint32_t c = inblock_bit(j, mine.h, s);
+      d[c >> 3] = delta_add(d[c >> 3], c);
+    }
+  }
+  __syncwarp();
+  const int lane = threadIdx.x & 31, sub = lane % W;
+  const uint32_t* warp_stage = stage + (threadIdx.x - lane) * kStride;
+  for (unsigned list = __ballot_sync(kFullMask, mine.valid); list;
+       list = next_step<32 / W>(list)) {
+    const int src = nth_lane<32 / W>(list, lane / W);
+    const uint64_t row = __shfl_sync(kFullMask, mine.row, src < 0 ? 0 : src);
+    if (src >= 0) {
+      const uint32_t d = warp_stage[src * kStride + sub];
+      if (d) counter_cas(state + row + sub, d, increment != 0);
+    }
+  }
+}
+
+// W = 64, 128: 32 lanes a key, kWideWords words a lane at most.
+constexpr int kWideWords = 4;  // block_bits <= 4096
+
 template <bool kRouted>
 __global__ void __launch_bounds__(kCountThreads)
-blocked_counting_update_kernel(uint32_t* __restrict__ state,
-                               const uint8_t* __restrict__ keys,
-                               const int32_t* __restrict__ lengths, int64_t B,
-                               int L, int W, BlockSpec s, int increment,
-                               RouteSpec route) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const int len = lengths[i];
-  if (len < 0) return;  // padding changes nothing
-  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
-  uint64_t base = 0;  // the slot's first row of the key's shard
-  if constexpr (kRouted) {
-    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
-    if (local < 0) return;  // not this slot's key: no atomic at all
-    base = (uint64_t)local * s.n_blocks;
-  }
-  const KeyHash h = hash_key(kw, L / 4, len, s);
-  uint32_t* row = state + (base + h.blk) * W;
-  for (int j = 0; j < s.k; ++j) {
-    const uint32_t word = inblock_bit(j, h, s) >> 3;
-    bool seen = false;  // an earlier position already carried this word
-    for (int t = 0; t < j && !seen; ++t) seen = (inblock_bit(t, h, s) >> 3) == word;
-    if (seen) continue;
-    uint32_t dlo = 0u, dhi = 0u;  // one byte of multiplicity per nibble
-    for (int t = j; t < s.k; ++t) {
-      const uint32_t c = inblock_bit(t, h, s);
-      if ((c >> 3) != word) continue;
-      const uint32_t n = c & 7u;
-      if (n < 4) dlo += 1u << (8 * n);
-      else dhi += 1u << (8 * (n - 4));
+blocked_counting_update_wide_kernel(uint32_t* __restrict__ state,
+                                    const uint8_t* __restrict__ keys,
+                                    const int32_t* __restrict__ lengths,
+                                    int64_t B, int L, int W, BlockSpec s,
+                                    int increment, RouteSpec route) {
+  const LaneKey mine = lane_key<kRouted>(keys, lengths, B, L, W, s, route);
+  const uint32_t lane = threadIdx.x & 31;
+  for (unsigned list = __ballot_sync(kFullMask, mine.valid); list;
+       list &= list - 1u) {
+    const LaneKey key = shfl_key(mine, __ffs(list) - 1);
+    uint32_t d[kWideWords];
+#pragma unroll
+    for (int u = 0; u < kWideWords; ++u) d[u] = 0u;
+    for (int j = 0; j < s.k; ++j) {
+      const uint32_t c = inblock_bit(j, key.h, s), w = c >> 3;
+#pragma unroll
+      for (int u = 0; u < kWideWords; ++u)
+        if (w == lane + 32u * u) d[u] = delta_add(d[u], c);
     }
-    uint32_t* p = row + word;
-    uint32_t old = __ldcg(p);  // from L2, where the atomics land
-    while (true) {
-      const uint32_t next = nibble_apply(old, dlo, dhi, increment != 0);
-      if (next == old) break;  // saturated / floored: nothing to write
-      const uint32_t seen_word = atomicCAS(p, old, next);
-      if (seen_word == old) break;
-      old = seen_word;
-    }
+#pragma unroll
+    for (int u = 0; u < kWideWords; ++u)
+      if (d[u]) counter_cas(state + key.row + lane + 32u * u, d[u], increment != 0);
   }
 }
 
@@ -272,11 +329,19 @@ int launch_counting_update(void* state, const void* keys, const void* lengths,
                            int64_t B, int L, const BlockSpec& s, int increment,
                            const RouteSpec& r, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  blocked_counting_update_kernel<kRouted><<<counting_grid(B), kCountThreads, 0,
-                                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(state), static_cast<const uint8_t*>(keys),
-      static_cast<const int32_t*>(lengths), B, L, s.block_bits / 8, s,
-      increment, r);
+  const int W = s.block_bits / 8;  // block_bits is counters_per_block here
+  auto st = static_cast<uint32_t*>(state);
+  auto ky = static_cast<const uint8_t*>(keys);
+  auto ln = static_cast<const int32_t*>(lengths);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const unsigned g = counting_grid(B);
+  switch (W) {
+    case 4: blocked_counting_update_row_kernel<4, kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, B, L, s, increment, r); break;
+    case 8: blocked_counting_update_row_kernel<8, kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, B, L, s, increment, r); break;
+    case 16: blocked_counting_update_row_kernel<16, kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, B, L, s, increment, r); break;
+    case 32: blocked_counting_update_row_kernel<32, kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, B, L, s, increment, r); break;
+    default: blocked_counting_update_wide_kernel<kRouted><<<g, kCountThreads, 0, cs>>>(st, ky, ln, B, L, W, s, increment, r); break;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -145,4 +145,83 @@ __device__ __forceinline__ uint32_t inblock_bit(int i, const KeyHash& h,
   return (h.ga + (uint32_t)i * (h.gb | 1u)) & mask;
 }
 
+// ---------------------------------------------------------------------------
+// Warp work lists, for the update kernels (blocked_insert,
+// blocked_counting_update): each lane hashes the one key it loads, a ballot
+// of the lanes that hold a key to update gives the warp's work list, and
+// the warp walks that list with G lanes a key, 32 / G keys a step, so that
+// a key's words go out from neighbouring lanes in one instruction. Every
+// lane reaches every warp collective: a lane without a key is a flag
+// (LaneKey::valid), never an early return.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// The key a lane loaded: whether it updates anything, the offset in words
+// of its row (64-bit: a routed slot can hold 2^31 words and more), and its
+// in-block hash pool.
+struct LaneKey {
+  bool valid;
+  uint64_t row;
+  KeyHash h;
+};
+
+// Key i = this thread's global index: invalid past the batch, for padding
+// (len < 0), and (kRouted) for a key the slot does not own, which costs
+// the routing hash and nothing else. W: words a row.
+template <bool kRouted>
+__device__ __forceinline__ LaneKey lane_key(const uint8_t* __restrict__ keys,
+                                            const int32_t* __restrict__ lengths,
+                                            int64_t B, int L, int W,
+                                            const BlockSpec& s,
+                                            const RouteSpec& route) {
+  LaneKey k{false, 0, KeyHash{0, 0u, 0u, 0u}};
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return k;
+  const int len = lengths[i];
+  if (len < 0) return k;
+  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  uint64_t base = 0;  // the slot's first row of the key's shard
+  if constexpr (kRouted) {
+    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
+    if (local < 0) return k;
+    base = (uint64_t)local * s.n_blocks;
+  }
+  k.h = hash_key(kw, L / 4, len, s);
+  k.row = (base + k.h.blk) * (uint64_t)W;
+  k.valid = true;
+  return k;
+}
+
+// The lane that holds the n-th (from 0) key of the work list `list`, or
+// -1 when the list holds n keys or fewer. n < kPerStep; the loop is
+// unrolled and predicated, so lanes with different n do not diverge.
+template <int kPerStep>
+__device__ __forceinline__ int nth_lane(unsigned list, int n) {
+#pragma unroll
+  for (int t = 0; t < kPerStep - 1; ++t)
+    if (t < n) list &= list - 1u;
+  return list ? __ffs(list) - 1 : -1;
+}
+
+// The work list without its kPerStep first keys (the step just taken).
+template <int kPerStep>
+__device__ __forceinline__ unsigned next_step(unsigned list) {
+#pragma unroll
+  for (int t = 0; t < kPerStep; ++t) list &= list - 1u;
+  return list;
+}
+
+// The key of lane `src` (0 <= src < 32), broadcast to the whole warp.
+__device__ __forceinline__ LaneKey shfl_key(const LaneKey& mine, int src) {
+  LaneKey k;
+  k.valid = true;
+  k.row = __shfl_sync(kFullMask, mine.row, src);
+  k.h.blk = 0;  // folded into row
+  k.h.hb = __shfl_sync(kFullMask, mine.h.hb, src);
+  k.h.ga = __shfl_sync(kFullMask, mine.h.ga, src);
+  k.h.gb = __shfl_sync(kFullMask, mine.h.gb, src);
+  return k;
+}
+
 }  // namespace tpubloom
