@@ -11,7 +11,8 @@ routed (sharded) kernels run on one slot's state, for every slot of a
 
 The update kernels (insert, counting update) walk each warp's work list
 with a group of lanes a key: block_bits 128 to 1024 take the staged path
-with 4, 8, 16 and 32 lanes a key, 2048 and 4096 the wide path. Ragged
+(W = block_bits / 32 lanes a key for the insert, W / 4 for the counting
+update's 16-byte CAS), 2048 and 4096 the wide path. Ragged
 batches leave partial warps and partial groups; the contention cases
 crowd thousands of keys into eight blocks; the mostly-unowned cases give
 a routed slot a batch of which it owns a few keys."""

@@ -48,9 +48,10 @@ constexpr int kCountThreads = 256;
 // overflows under duplicate skew sends the whole batch to a scatter fallback
 // (sweep.py:2231-2253). Here each key updates its own row in place.
 //
-// Per touched word of a key's row, the kernel builds the per-nibble deltas
-// (the key's multiplicity at each of the word's 8 counters), then runs an
-// atomicCAS loop on that word: read it, apply a nibble-wise saturating add
+// Per touched 16-byte quarter of a key's row, the kernel builds the
+// per-nibble deltas of its four words (the key's multiplicity at each of
+// their 32 counters), then runs a CAS loop on the quarter with Hopper's
+// 16-byte atomicCAS (sm_90): read it, apply a nibble-wise saturating add
 // (insert) or flooring subtract (delete), CAS. A plain atomicAdd would carry
 // from one nibble into the next and could not saturate. A delta is kept as
 // a nibble that saturates at 15: for a counter v in [0, 15], min(15, v + d)
@@ -67,7 +68,7 @@ constexpr int kCountThreads = 256;
 // since 16 already saturates or floors any nibble). The order in which the
 // CASes land therefore does not matter.
 //
-// The CAS is skipped when the new word equals the word read: once a hot
+// The CAS is skipped when the new quarter equals the one read: once a hot
 // key's counters are saturated (insert) or zero (delete), every further copy
 // of it only reads. This is what the TPU's scatter fallback did for
 // duplicate skew. The skip is safe even on a stale read: within one batch
@@ -80,21 +81,26 @@ constexpr int kCountThreads = 256;
 // distinct rows) that is ~84 MB + 3.30 M x 64 B x 2 = ~0.51 GB, ~0.15 ms at
 // 3.35 TB/s. The loads and CASes execute in L2, so the rate of L2 requests
 // is the floor to design for: a key's k = 7 counters touch
-// 16 (1 - (15/16)^7) = ~5.82 words of its row, in 2 (1 - 2^-7) = ~1.98 of
-// its two 32-byte sectors. With one thread a key (the first design) every
-// word was a load and a CAS of its own, ~24.4 M of each a launch.
+// 16 (1 - (15/16)^7) = ~5.82 words of its row, 4 (1 - (3/4)^7) = ~3.47 of
+// its four quarters and 2 (1 - 2^-7) = ~1.98 of its two 32-byte sectors.
+// With one thread a key (the first design) every word was a load and a
+// CAS of its own, ~24.4 M of each a launch.
 //
 // Hence the structure of blocked_insert (blocked_bloom.cu): each lane
 // hashes one key once and stages the nibble deltas of its row in shared
 // memory; the ballot of the keys to update (a routed slot's owned keys
-// only) is the warp's work list, walked with G = W lanes a key, 32 / W keys
-// a step. Lane t of a group reads the key's word t with __ldcg (from L2,
-// where the CASes land) when its delta is not 0, so the group's loads
-// leave in one instruction over ~1.98 sectors, then runs the CAS loop on
-// that word alone. The loops diverge; the next step's warp collectives
-// come after them. W = 64 and 128 (block_bits 2048, 4096) take the wide
-// kernel, 32 lanes a key, each lane computing the k positions from the
-// broadcast hash pool.
+// only) is the warp's work list, walked with G = W / 4 lanes a key, 32 / G
+// keys a step. Lane t of a group reads the key's quarter t with one
+// 16-byte __ldcg (from L2, where the CASes land) when its deltas are not
+// 0, so the group's loads leave in one instruction over ~1.98 sectors,
+// then runs the CAS loop on that quarter alone. The loops diverge; the
+// next step's warp collectives come after them. A word-CAS version of the
+// same kernel (W lanes a key, a 4-byte CAS a touched word) was slower on
+// uniform keys and faster when a quarter of the batch is one key (PERF.md
+// has both, on an H100); the counting path's batches are uniform. W = 64
+// and 128 (block_bits 2048, 4096) take the wide kernel: 32 lanes a key,
+// lane q owns quarter q and computes the k positions from the broadcast
+// hash pool.
 //
 // sharded_blocked_counting_update (kRouted = true) is the per-device update
 // of the sharded counting array (configs 4 x 5): K2 at
@@ -124,21 +130,24 @@ __device__ __forceinline__ uint32_t delta_add(uint32_t d, uint32_t c) {
   return d + ((((d >> sh) & 15u) < 15u) ? (1u << sh) : 0u);
 }
 
-// Applies the deltas `d` to word `p`: one load, then CAS until it lands or
-// nothing would change.
-__device__ __forceinline__ void counter_cas(uint32_t* p, uint32_t d,
-                                            bool increment) {
-  uint32_t old = __ldcg(p);
+// Applies the deltas `d` to the 16-byte quarter row `p` with Hopper's
+// 16-byte CAS: one load, then CAS until it lands or nothing would change.
+__device__ __forceinline__ void quad_cas(uint4* p, uint4 d, bool increment) {
+  uint4 old = __ldcg(p);
   while (true) {
-    const uint32_t next = nibble_apply(old, d, increment);
-    if (next == old) break;  // saturated / floored: nothing to write
-    const uint32_t seen = atomicCAS(p, old, next);
-    if (seen == old) break;
+    const uint4 next = make_uint4(nibble_apply(old.x, d.x, increment),
+                                  nibble_apply(old.y, d.y, increment),
+                                  nibble_apply(old.z, d.z, increment),
+                                  nibble_apply(old.w, d.w, increment));
+    if (next.x == old.x && next.y == old.y && next.z == old.z && next.w == old.w) break;
+    const uint4 seen = atomicCAS(p, old, next);
+    if (seen.x == old.x && seen.y == old.y && seen.z == old.z && seen.w == old.w) break;
     old = seen;
   }
 }
 
-// W = 4, 8, 16, 32: a group of W lanes a key, the deltas staged.
+// W = 4, 8, 16, 32: a group of W / 4 lanes a key, a 16-byte quarter row
+// a lane, the deltas staged.
 template <int W, bool kRouted>
 __global__ void __launch_bounds__(kCountThreads)
 blocked_counting_update_row_kernel(uint32_t* __restrict__ state,
@@ -146,7 +155,7 @@ blocked_counting_update_row_kernel(uint32_t* __restrict__ state,
                                    const int32_t* __restrict__ lengths,
                                    int64_t B, int L, BlockSpec s,
                                    int increment, RouteSpec route) {
-  constexpr int kStride = W + 4;
+  constexpr int kStride = W + 4, G = W / 4;
   __shared__ __align__(16) uint32_t stage[kCountThreads * kStride];
   const LaneKey mine = lane_key<kRouted>(keys, lengths, B, L, W, s, route);
   if (mine.valid) {
@@ -160,22 +169,22 @@ blocked_counting_update_row_kernel(uint32_t* __restrict__ state,
     }
   }
   __syncwarp();
-  const int lane = threadIdx.x & 31, sub = lane % W;
+  const int lane = threadIdx.x & 31, sub = lane % G;
   const uint32_t* warp_stage = stage + (threadIdx.x - lane) * kStride;
   for (unsigned list = __ballot_sync(kFullMask, mine.valid); list;
-       list = next_step<32 / W>(list)) {
-    const int src = nth_lane<32 / W>(list, lane / W);
+       list = next_step<32 / G>(list)) {
+    const int src = nth_lane<32 / G>(list, lane / G);
     const uint64_t row = __shfl_sync(kFullMask, mine.row, src < 0 ? 0 : src);
     if (src >= 0) {
-      const uint32_t d = warp_stage[src * kStride + sub];
-      if (d) counter_cas(state + row + sub, d, increment != 0);
+      const uint4 d = reinterpret_cast<const uint4*>(warp_stage + src * kStride)[sub];
+      if (d.x | d.y | d.z | d.w)
+        quad_cas(reinterpret_cast<uint4*>(state + row) + sub, d, increment != 0);
     }
   }
 }
 
-// W = 64, 128: 32 lanes a key, kWideWords words a lane at most.
-constexpr int kWideWords = 4;  // block_bits <= 4096
-
+// W = 64, 128: 32 lanes a key, lane q owning quarter row q (W / 4 <= 32
+// quarters, block_bits <= 4096).
 template <bool kRouted>
 __global__ void __launch_bounds__(kCountThreads)
 blocked_counting_update_wide_kernel(uint32_t* __restrict__ state,
@@ -188,18 +197,17 @@ blocked_counting_update_wide_kernel(uint32_t* __restrict__ state,
   for (unsigned list = __ballot_sync(kFullMask, mine.valid); list;
        list &= list - 1u) {
     const LaneKey key = shfl_key(mine, __ffs(list) - 1);
-    uint32_t d[kWideWords];
-#pragma unroll
-    for (int u = 0; u < kWideWords; ++u) d[u] = 0u;
+    uint32_t d[4] = {0u, 0u, 0u, 0u};
     for (int j = 0; j < s.k; ++j) {
-      const uint32_t c = inblock_bit(j, key.h, s), w = c >> 3;
+      const uint32_t c = inblock_bit(j, key.h, s);  // 32 counters a quarter
+      if ((c >> 5) != lane) continue;
 #pragma unroll
-      for (int u = 0; u < kWideWords; ++u)
-        if (w == lane + 32u * u) d[u] = delta_add(d[u], c);
+      for (int t = 0; t < 4; ++t)
+        if (((c >> 3) & 3u) == (uint32_t)t) d[t] = delta_add(d[t], c);
     }
-#pragma unroll
-    for (int u = 0; u < kWideWords; ++u)
-      if (d[u]) counter_cas(state + key.row + lane + 32u * u, d[u], increment != 0);
+    if (d[0] | d[1] | d[2] | d[3])
+      quad_cas(reinterpret_cast<uint4*>(state + key.row) + lane,
+               make_uint4(d[0], d[1], d[2], d[3]), increment != 0);
   }
 }
 
