@@ -30,7 +30,11 @@ counters over 64 shards, batches of 2^22). Phases, one JSON line each:
    4 batches — with every kernel's launch count read after it;
 5. times: CUDA events over warmed launches at B=2^23 for each kernel,
    its plain version and the nearest single PyTorch call, beside the
-   least time the card could take for the same work (``bound_ms``).
+   least time the card could take for the same work (``bound_ms``: bytes
+   over the memory rate, or 32-bit integer operations over the INT32
+   rate, whichever is larger). The query's ``ms`` is on keys the filter
+   does not hold, ``present_ms`` on keys it holds, and ``floor_ms`` the
+   bytes of a query that reads every key's row once (no row shared).
    The insert's ``ms`` is a fresh insert: each launch has its own event
    pair, and before it, outside the pair, the state is restored from a
    snapshot and the L2 cache flushed, so every timed launch sets the
@@ -76,7 +80,8 @@ counters over 64 shards, batches of 2^22). Phases, one JSON line each:
    shard for shard, and the counting twin with ``delete_batch`` — with the
    launch counts after each step;
 14. sharded times: as phases 5 and 9 for the four routed kernels on the
-   1-slot state;
+   1-slot state, and the routed query on the 4-slot layout's slot of
+   shards 16-31 (bound over the keys that slot owns);
 15. sharded end to end: as phase 6 for the 1-slot and the 4-slot filters
    (the latter split into ``kernel_shard<i>`` phases).
 
@@ -123,19 +128,23 @@ SEED = 20260
 LOG2M, K, BLOCK_BITS, KEY_LEN = 32, 7, 512, 16
 B = 1 << 23
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (HBM3) bandwidth
-OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (same table)
-# 32-bit integer operations per key, counted from blocked_bloom.cu at
-# L=16, k=7, W=16: three murmur3 passes of 4 blocks (11 ops each) plus
-# finalisation (10), ~162; fnv1a over 16 bytes (4 each), 64; k chunk
-# slices (4 each), 28; then the query's mask build (k·W selects) and test
-# (2·W), 256, or the insert's per-word merge (k² compares), ~100.
-OPS_QUERY, OPS_INSERT = 162 + 64 + 28 + 256, 162 + 64 + 28 + 100
-# counting (blocked_counting.cu, k=7, 128 counters a block, W=16): the
-# same hashing (254); the update's per-word merge (k² compares, 49) and,
-# per distinct touched word (~5.8 a key), the 8-nibble saturating apply
-# (~6 ops a nibble) and the compare, ~50 each; the query's word select
-# (k·W, 112) and nibble tests (4 each, 28)
-OPS_COUNT_UPDATE, OPS_COUNT_QUERY = 254 + 49 + 290, 254 + 112 + 28
+# H100 SXM 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+# clock (NVIDIA Hopper architecture white paper), an instruction an op
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit integer operations per key that each function needs (the same
+# count whatever the kernel's design), at L=16, k=7: murmur3_32 over four
+# words is 4 x 11 (mul, rotate as 3, mul, xor, rotate, mul-add as 2) plus
+# 10 of finalisation, 54, three passes (h_a, h_b, g_b) 162; fnv1a over 16
+# bytes, 4 a byte, 64; k chunk slices, 4 each, 28: hashing 254. Then a
+# query's k bit tests (word index, shift, and, compare), 28; an insert's k
+# bit sets into the row's mask (word index, shift, or), 21; a counting
+# update's k saturating nibble adds (extract as 2, add, min, insert as 3),
+# 49; a counting query's k nibble tests, 28. A routed kernel adds the
+# routing pass, one murmur3 (54), for every valid key, and the rest only
+# for the keys its slot owns.
+OPS_HASH, OPS_ROUTE = 162 + 64 + 28, 54
+OPS_QUERY, OPS_INSERT = OPS_HASH + 28, OPS_HASH + 21
+OPS_COUNT_UPDATE, OPS_COUNT_QUERY = OPS_HASH + 49, OPS_HASH + 28
 # BASELINE config 4, as benchmarks/counting_rate.py:31-42 sets it; the
 # `ap` comparison and the checkpoint round trip are cut (see their phases)
 LOG2M_COUNTING, B_COUNTING = 30, 1 << 22
@@ -255,9 +264,16 @@ def rates(t: dict, ms: float) -> dict:
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """The least ms the card could take: the larger of bytes over the
-    memory rate and operations over the rate of their type."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    memory rate and 32-bit integer operations over the INT32 rate."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def floor_ms(nbytes: float) -> float:
+    """Bytes over the memory rate, in ms: with a query's bytes counting
+    every valid key's row once (no two keys sharing a row read), the
+    floor of a kernel that gets no reuse out of the L2."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def phase_device() -> dict:
@@ -288,15 +304,32 @@ def phase_build() -> None:
 
 
 def ptxas_summary(log: str) -> dict:
-    """Each kernel's (mangled name's) registers, shared memory and spills,
-    from the ``-Xptxas -v`` lines of a build log."""
+    """Each kernel's registers, shared memory and spills, from the
+    ``-Xptxas -v`` lines of a build log, under its demangled name."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
         elif name and ("registers" in ln or "spill" in ln):
             out[name] = f"{out.get(name, '')} {ln.split(':', 1)[-1].strip()}".strip()
-    return out
+    return dict(zip(demangle(list(out)), out.values()))
+
+
+def demangle(names: list[str]) -> list[str]:
+    """``tpubloom::blocked_query_row_kernel<16>`` for each mangled kernel
+    name (the argument list dropped), by ``c++filt`` or the toolkit's
+    ``cu++filt``; the names as they are where neither runs."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not names or tool is None:
+        return names
+    try:
+        got = subprocess.run([tool, *names], capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    if len(got) != len(names):
+        return names
+    return [g.removeprefix("void ").split("(")[0] for g in got]
 
 
 def kernel_vs_plain(cfg: FilterConfig, batch: int, rng: np.random.Generator) -> dict:
@@ -451,9 +484,12 @@ def phase_times(f: BlockedBloomFilter, rng) -> dict:
     old, fresh = batches[:4], batches[4:]
     lengths = torch.full((B,), KEY_LEN, dtype=torch.int32, device=dev)
     state = f.words
+    # `ms` queries keys the filter does not hold (the `old` batches before
+    # they are inserted), `present_ms` the same batches once it holds them
     q_ms = cuda_ms(lambda i: sweep.blocked_query(state, old[i % 4], lengths, cfg), 40, warm=4)
     # re-inserts the four batches its warm-up launches inserted
     replay_ms = cuda_ms(lambda i: sweep.blocked_insert(state, old[i % 4], lengths, cfg), 40, warm=4)
+    qpres_ms = cuda_ms(lambda i: sweep.blocked_query(state, old[i % 4], lengths, cfg), 40, warm=4)
     i_ms = fresh_ms(state, lambda i: sweep.blocked_insert(state, fresh[i % 4], lengths, cfg), 40)
     qp_ms = cuda_ms(lambda i: blocked.blocked_query_plain(state, old[i % 4], lengths, cfg), 5, warm=1)
     ip_ms = cuda_ms(lambda i: blocked.blocked_insert_plain(state, old[i % 4], lengths, cfg), 5, warm=1)
@@ -468,11 +504,13 @@ def phase_times(f: BlockedBloomFilter, rng) -> dict:
     i_bytes = in_bytes + 2 * rows_touched * row_bytes
     qb, qby = bound(q_bytes, OPS_QUERY * B)
     ib, iby = bound(i_bytes, OPS_INSERT * B)
+    q_floor = floor_ms(in_bytes + B + B * row_bytes)
     out = {
         "batch": B, "rows_touched": rows_touched, "touched": t,
-        "blocked_query": {"ms": q_ms, "keys_per_s": B / q_ms * 1e3, "plain_ms": qp_ms,
-                          "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby,
-                          "bytes": q_bytes, "share_of_bound": qb / q_ms},
+        "blocked_query": {"ms": q_ms, "present_ms": qpres_ms, "keys_per_s": B / q_ms * 1e3,
+                          "plain_ms": qp_ms, "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby,
+                          "bytes": q_bytes, "share_of_bound": qb / q_ms,
+                          "floor_ms": q_floor, "share_of_floor": q_floor / q_ms},
         "blocked_insert": {"ms": i_ms, "replay_ms": replay_ms, "keys_per_s": B / i_ms * 1e3,
                            "plain_ms": ip_ms, "library_ms": None, "bound_ms": ib, "bound_by": iby,
                            "bytes": i_bytes, "share_of_bound": ib / i_ms, **rates(t, i_ms)},
@@ -934,7 +972,29 @@ def sharded_rows(cfg: FilterConfig, route: ShardRoute, keys, lengths, domain: in
     return int(torch.unique(row[owned]).numel()), row, pos, owned
 
 
-def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> dict:
+def slot_query_times(g: ShardedBloomFilter, batches: list, lengths: torch.Tensor) -> dict:
+    """The routed query on the 4-slot layout's slot of shards 16-31 (a
+    quarter of the batch owned), on keys the filter does not hold, with
+    its bound over the owned keys' rows: every key is read and routed,
+    only the owned keys are hashed and gathered."""
+    cfg, state, route = g.config, g.slot_words[1], g.routes[1]
+    check((route.shard_lo, route.shards_per_dev) == (16, 16), "slot 1 holds shards 16-31")
+    n_rows, _, _, owned = sharded_rows(cfg, route, batches[0], lengths, cfg.block_bits)
+    n_owned = int(owned.sum())
+    ms = cuda_ms(lambda i: sweep.blocked_query(state, batches[i % 4], lengths, cfg, route=route), 40, warm=4)
+    n = lengths.numel()
+    row_bytes = cfg.words_per_block * 4
+    q_bytes = n * (KEY_LEN + 4) + n + n_rows * row_bytes
+    qb, qby = bound(q_bytes, OPS_ROUTE * n + OPS_QUERY * n_owned)
+    q_floor = floor_ms(n * (KEY_LEN + 4) + n + n_owned * row_bytes)
+    return {"ms": ms, "keys_per_s": n / ms * 1e3, "route": [route.n_shards, route.shard_lo,
+            route.shards_per_dev], "owned": n_owned, "rows_touched": n_rows, "bound_ms": qb,
+            "bound_by": qby, "bytes": q_bytes, "share_of_bound": qb / ms,
+            "floor_ms": q_floor, "share_of_floor": q_floor / ms}
+
+
+def phase_sharded_times(f: ShardedBloomFilter, g: ShardedBloomFilter, fc: ShardedBloomFilter,
+                        rng) -> dict:
     cfg, state, route = f.config, f.slot_words[0], f.routes[0]
     dev = state.device
     batches = [torch.from_numpy(rows(rng, B_SHARDED)).to(dev) for _ in range(4)]
@@ -943,9 +1003,13 @@ def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> d
     rows_touched, row, _, _ = sharded_rows(cfg, route, batches[0], lengths, cfg.block_bits)
     _, fresh_row, fresh_pos, fresh_owned = sharded_rows(cfg, route, fresh[0], lengths, cfg.block_bits)
     t = touched(fresh_row, fresh_pos >> 5, cfg.words_per_block, fresh_owned)
+    # absent keys (`ms`: the batches before they are inserted), then present
     q_ms = cuda_ms(lambda i: sweep.blocked_query(state, batches[i % 4], lengths, cfg, route=route), 40, warm=4)
+    slot = slot_query_times(g, batches, lengths)
     replay_ms = cuda_ms(lambda i: sweep.blocked_insert(state, batches[i % 4], lengths, cfg, route=route),
                         40, warm=4)
+    qpres_ms = cuda_ms(lambda i: sweep.blocked_query(state, batches[i % 4], lengths, cfg, route=route),
+                       40, warm=4)
     i_ms = fresh_ms(state, lambda i: sweep.blocked_insert(state, fresh[i % 4], lengths, cfg, route=route), 40)
     qp_ms = cuda_ms(lambda i: blocked.blocked_query_plain(state, batches[i % 4], lengths, cfg, route), 3, warm=1)
     ip_ms = cuda_ms(lambda i: blocked.blocked_insert_plain(state, batches[i % 4], lengths, cfg, route), 3, warm=1)
@@ -955,9 +1019,10 @@ def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> d
     in_bytes = B_SHARDED * (KEY_LEN + 4)
     q_bytes = in_bytes + B_SHARDED + rows_touched * row_bytes
     i_bytes = in_bytes + 2 * rows_touched * row_bytes
-    # the routing hash adds one murmur3 pass (~54 ops a key) to each kernel
-    qb, qby = bound(q_bytes, (OPS_QUERY + 54) * B_SHARDED)
-    ib, iby = bound(i_bytes, (OPS_INSERT + 54) * B_SHARDED)
+    # one slot owns every key here: the routing pass, then the rest
+    qb, qby = bound(q_bytes, (OPS_ROUTE + OPS_QUERY) * B_SHARDED)
+    ib, iby = bound(i_bytes, (OPS_ROUTE + OPS_INSERT) * B_SHARDED)
+    q_floor = floor_ms(in_bytes + B_SHARDED + B_SHARDED * row_bytes)
     del batches, fresh
     # configs 4 x 5
     ccfg, cstate, croute = fc.config, fc.slot_words[0], fc.routes[0]
@@ -985,15 +1050,17 @@ def phase_sharded_times(f: ShardedBloomFilter, fc: ShardedBloomFilter, rng) -> d
     c_in = B_SHARDED_COUNTING * (KEY_LEN + 4)
     cu_bytes = c_in + 2 * c_rows * row_bytes
     cq_bytes = c_in + B_SHARDED_COUNTING + c_rows * row_bytes
-    cub, cuby = bound(cu_bytes, (OPS_COUNT_UPDATE + 54) * B_SHARDED_COUNTING)
-    cqb, cqby = bound(cq_bytes, (OPS_COUNT_QUERY + 54) * B_SHARDED_COUNTING)
+    cub, cuby = bound(cu_bytes, (OPS_ROUTE + OPS_COUNT_UPDATE) * B_SHARDED_COUNTING)
+    cqb, cqby = bound(cq_bytes, (OPS_ROUTE + OPS_COUNT_QUERY) * B_SHARDED_COUNTING)
     out = {
         "batch": B_SHARDED, "rows_touched": rows_touched, "state_bytes": state.numel() * 4,
         "touched": t,
         "sharded_blocked_query": {
-            "ms": q_ms, "keys_per_s": B_SHARDED / q_ms * 1e3, "plain_ms": qp_ms,
-            "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby, "bytes": q_bytes,
-            "share_of_bound": qb / q_ms},
+            "ms": q_ms, "present_ms": qpres_ms, "keys_per_s": B_SHARDED / q_ms * 1e3,
+            "plain_ms": qp_ms, "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby,
+            "bytes": q_bytes, "share_of_bound": qb / q_ms,
+            "floor_ms": q_floor, "share_of_floor": q_floor / q_ms},
+        "sharded_blocked_query_4_slots": slot,
         "sharded_blocked_insert": {
             "ms": i_ms, "replay_ms": replay_ms, "keys_per_s": B_SHARDED / i_ms * 1e3,
             "plain_ms": ip_ms, "library_ms": None, "bound_ms": ib, "bound_by": iby,
@@ -1026,10 +1093,12 @@ def phase_sharded_end_to_end(f: ShardedBloomFilter, g: ShardedBloomFilter, rng, 
     )))
 
 
-# The update kernels walk a warp's work list with a group of lanes a key;
-# the query kernels keep a thread a key.
-GROUP_DESIGN = ("blocked_insert", "blocked_counting_update",
-                "sharded_blocked_insert", "sharded_blocked_counting_update")
+# The update kernels and the bit filter's query kernels move a key's row
+# with a group of lanes; the counting query kernels keep a thread a key.
+GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
+                "sharded_blocked_insert", "sharded_blocked_counting_update",
+                "sharded_blocked_query")
+EXTRA_TIMES = ("replay_ms", "present_ms", "floor_ms")
 
 
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
@@ -1063,7 +1132,7 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
             "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
             "bound_by": t[name]["bound_by"], "library_ms": t[name]["library_ms"],
             "design": "lane group a key" if name in GROUP_DESIGN else "thread a key",
-            **({"replay_ms": t[name]["replay_ms"]} if "replay_ms" in t[name] else {}),
+            **{k: t[name][k] for k in EXTRA_TIMES if k in t[name]},
         })
     kernels[2]["also_replaces"] = "tpubloom/ops/sweep.py:582"
     kernels[4]["also_replaces"] = "tpubloom/ops/sweep.py:1463 (K3 at tpubloom/parallel/sharded.py:274)"
@@ -1088,10 +1157,13 @@ def times_only() -> dict:
     del cf
     torch.cuda.empty_cache()
     sf = ShardedBloomFilter(sharded_config(LOG2M_SHARDED))
-    sf.insert_packed(rows(rng, B_SHARDED))
+    sg = ShardedBloomFilter(sharded_config(LOG2M_SHARDED), devices=["cuda"] * N_SLOTS)
+    first = rows(rng, B_SHARDED)
+    sf.insert_packed(first)
+    sg.insert_packed(first)
     sfc = ShardedBloomFilter(sharded_config(LOG2M_SHARDED_COUNTING, counting=True))
     sfc.insert_packed(rows(rng, B_SHARDED_COUNTING))
-    s_times = phase_sharded_times(sf, sfc, rng)
+    s_times = phase_sharded_times(sf, sg, sfc, rng)
     return {"times": times, "counting_times": c_times, "sharded_times": s_times}
 
 
@@ -1110,11 +1182,15 @@ def phase_ab(other: Path) -> None:
         run = json.loads(proc.stdout.strip().splitlines()[-1])["times_only"]
         runs.append({"tree": label, "path": str(tree), **run})
         summary = {name: {k: v for k, v in run[phase][name].items()
-                          if k in ("ms", "replay_ms", "delete_ms", "share_of_bound")}
+                          if k in ("ms", "present_ms", "replay_ms", "delete_ms", "share_of_bound")}
                    for phase, name in (("times", "blocked_insert"), ("times", "blocked_query"),
                                        ("counting_times", "blocked_counting_update"),
+                                       ("counting_times", "blocked_counting_query"),
                                        ("sharded_times", "sharded_blocked_insert"),
-                                       ("sharded_times", "sharded_blocked_counting_update"))}
+                                       ("sharded_times", "sharded_blocked_query"),
+                                       ("sharded_times", "sharded_blocked_query_4_slots"),
+                                       ("sharded_times", "sharded_blocked_counting_update"))
+                   if name in run[phase]}
         emit("ab_run", tree=label, kernels=summary)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ab_times.json").write_text(json.dumps(runs, indent=1))
@@ -1151,7 +1227,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     s_errs = phase_sharded_kernel_vs_plain(rng)
     s_launches, sf, sg, sfc = phase_sharded_path(rng)
-    s_times = phase_sharded_times(sf, sfc, rng)
+    s_times = phase_sharded_times(sf, sg, sfc, rng)
     phase_sharded_end_to_end(sf, sg, rng, s_times)
     del sf, sg, sfc
     torch.cuda.empty_cache()

@@ -141,6 +141,34 @@ def test_query_matches_k5(k3, k5):
     np.testing.assert_array_equal(st.numpy(), k3[0])  # the query writes nothing
 
 
+def test_query_matches_k5_mixed_verdicts():
+    """K5 at a fill where fresh keys meet false positives: 64 keys a
+    block (NB=512, m=2^18), a query of 2048 keys, a quarter held, the
+    rest fresh, and tail padding. The plain query gives K5's verdicts,
+    false positives included."""
+    nb, bq, n_pad = 512, 2048, 37
+    jcfg = JConfig(m=nb * BB, k=K, key_len=L, block_bits=BB)
+    cfg = FilterConfig(m=nb * BB, k=K, key_len=L, block_bits=BB)
+    assert jsweep.choose_fat_query_params(nb, bq, W) is not None
+    rng = np.random.default_rng(14)
+    pre = rng.integers(0, 256, (64 * nb, L), dtype=np.uint8)
+    oracle = CPUBlockedBloomFilter(jcfg, use_native=False)
+    oracle.insert_batch([bytes(r) for r in pre])
+    q = np.concatenate([pre[: bq // 4], rng.integers(0, 256, (bq - bq // 4, L), dtype=np.uint8)])
+    lengths = np.full((bq,), L, np.int32)
+    lengths[bq - n_pad:] = -1
+    q[bq - n_pad:] = 0
+    fat = blocked_device_shape(cfg)
+    fn = jsweep.make_sweep_query_fn(jcfg, interpret=True, storage_fat=True)
+    hits = np.asarray(fn(jnp.asarray(oracle.words.reshape(fat)), jnp.asarray(q), jnp.asarray(lengths)))
+    st = _t(oracle.words.reshape(fat).copy())
+    got = sweep.blocked_query(st, _t(q), _t(lengths), cfg).numpy()
+    np.testing.assert_array_equal(got, hits)
+    fresh = got[bq // 4 : bq - n_pad]
+    assert got[: bq // 4].all() and not got[bq - n_pad:].any()
+    assert 0 < fresh.sum() < fresh.size  # false positives among the fresh keys
+
+
 def test_test_insert_matches_k1_presence_branch():
     """K1's narrow presence branch: at m=2^22 (NB=8192), k=7 and B=64 the
     fat chooser rejects the shape, so ``make_sweep_insert_fn(...,

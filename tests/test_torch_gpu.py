@@ -15,7 +15,13 @@ with a group of lanes a key: block_bits 128 to 1024 take the staged path
 update's 16-byte CAS), 2048 and 4096 the wide path. Ragged
 batches leave partial warps and partial groups; the contention cases
 crowd thousands of keys into eight blocks; the mostly-unowned cases give
-a routed slot a batch of which it owns a few keys."""
+a routed slot a batch of which it owns a few keys.
+
+The query kernel gathers each key's row with W / 4 lanes (block_bits 128
+to 1024; 2048 and 4096 take the chunk kernel); its routed twin first
+compacts the keys its slot owns when the slot owns only some shards. Its
+cases fill the filter to 32 keys a block or more, so that fresh keys meet
+false positives and the verdicts are mixed."""
 
 import numpy as np
 import pytest
@@ -384,3 +390,121 @@ def test_sharded_filter_on_card_matches_cpu(cuda, counting_layout):
     launches = sweep.launch_counts()
     name = "sharded_blocked_counting_update" if counting_layout else "sharded_blocked_insert"
     assert launches[name] == 5 * (3 if counting_layout else 2)
+
+
+def _filled(cfg, rng, dev, route=None):
+    """A state (the whole filter, or one slot's shards) holding
+    max(32, block_bits / 8) keys a block, and the keys."""
+    rows = cfg.n_blocks if route is None else route.shards_per_dev * cfg.n_blocks_per_shard
+    lam = max(32, cfg.block_bits // 8)
+    n_fill = lam * (cfg.n_blocks if route is None else cfg.n_blocks)
+    state = torch.zeros(rows * cfg.words_per_block, dtype=torch.int32, device=dev).view(torch.uint32)
+    keys, lengths = _keys(rng, n_fill, dev)
+    sweep.blocked_insert(state, keys, lengths, cfg, route=route)
+    return state, keys, lengths
+
+
+def _probe(rng, n, held, held_len, dev, key_len=L):
+    """n keys: a third the filter holds, the rest fresh (lengths 0..L),
+    the last n // 8 padding."""
+    keys = rng.integers(0, 256, (n, key_len), dtype=np.uint8)
+    lengths = rng.integers(0, key_len + 1, n).astype(np.int32)
+    keys[np.arange(key_len)[None, :] >= lengths[:, None]] = 0
+    keys, lengths = torch.from_numpy(keys).to(dev), torch.from_numpy(lengths).to(dev)
+    keys[: n // 3], lengths[: n // 3] = held[: n // 3], held_len[: n // 3]
+    if n // 8:
+        lengths[-(n // 8):] = -1
+    return keys.contiguous(), lengths.contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4109])
+@pytest.mark.parametrize("block_bits", [128, 256, 512, 1024, 2048, 4096])
+def test_query_kernel_mixed_verdicts(cuda, n, block_bits):
+    """The query against its plain version on ragged batches of held
+    keys, fresh keys of every length 0..L and padding, at a fill where
+    fresh keys give false positives."""
+    cfg = FilterConfig(m=block_bits * 64, k=7, key_len=L, block_bits=block_bits,
+                       block_hash="chunk" if block_bits in (128, 512, 2048) else "ap")
+    rng = np.random.default_rng(n + block_bits)
+    state, held, held_len = _filled(cfg, rng, cuda)
+    keys, lengths = _probe(rng, n, held, held_len, cuda)
+    before = _clone(state)
+    sweep.reset_launch_counts()
+    got = sweep.blocked_query(state, keys, lengths, cfg)
+    want = blocked.blocked_query_plain(state, keys, lengths, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert _equal_words(state, before)  # the query writes nothing
+    assert bool(got[: n // 3].all()) and not bool(got[lengths < 0].any())
+    if n > 1000:
+        fresh = got[n // 3 : n - n // 8]
+        assert 0 < int(fresh.sum()) < fresh.numel()  # false positives: mixed verdicts
+    assert sweep.launch_counts() == {**_NO_LAUNCH, "blocked_query": 1}
+
+
+@pytest.mark.parametrize("block_bits", [128, 512, 4096])
+def test_query_kernel_all_padding(cuda, block_bits):
+    cfg = FilterConfig(m=block_bits * 64, k=7, key_len=L, block_bits=block_bits)
+    rng = np.random.default_rng(3)
+    state, held, held_len = _filled(cfg, rng, cuda)
+    lengths = torch.full((300,), -1, dtype=torch.int32, device=cuda)
+    got = sweep.blocked_query(state, held[:300].contiguous(), lengths, cfg)
+    assert not bool(got.any())
+
+
+@pytest.mark.parametrize("key_len", [8, 32])
+def test_query_kernel_other_key_lengths(cuda, key_len):
+    """Keys other than 16 bytes, which the kernel hashes from memory."""
+    cfg = FilterConfig(m=512 * 64, k=7, key_len=key_len, block_bits=512)
+    rng = np.random.default_rng(key_len)
+    state = torch.zeros(cfg.n_blocks * cfg.words_per_block, dtype=torch.int32,
+                        device=cuda).view(torch.uint32)
+    held = rng.integers(0, 256, (64 * 64, key_len), dtype=np.uint8)
+    held = torch.from_numpy(held).to(cuda)
+    held_len = torch.full((held.shape[0],), key_len, dtype=torch.int32, device=cuda)
+    sweep.blocked_insert(state, held, held_len, cfg)
+    keys, lengths = _probe(rng, 4109, held, held_len, cuda, key_len=key_len)
+    got = sweep.blocked_query(state, keys, lengths, cfg)
+    assert torch.equal(got.cpu(), blocked.blocked_query_plain(state, keys, lengths, cfg).cpu())
+    assert bool(got[: 4109 // 3].all())
+
+
+_ROUTED_QUERY_CASES = [(1, "mixed"), (4, "mixed"), (4, "mostly_unowned"), (4, "unowned_only")]
+
+
+@pytest.mark.parametrize("n_slots,batch", _ROUTED_QUERY_CASES)
+@pytest.mark.parametrize("block_bits", [128, 512, 1024, 4096])
+def test_routed_query_kernels(cuda, block_bits, n_slots, batch):
+    """The routed query on every slot of a 1- or 4-slot placement against
+    its routed plain version: a mixed batch, a batch of which the slot
+    owns 64 keys, and one of which it owns none (every key False, no row
+    read). A slot of the 4-slot placement compacts its owned keys (each
+    verdict must land at its key's index); the 1-slot placement's slot
+    owns every shard and routes each key in its own thread."""
+    cfg = FilterConfig(m=block_bits * 256, k=7, key_len=L, block_bits=block_bits, shards=16,
+                       block_hash="ap" if block_bits == 1024 else "chunk")
+    rng = np.random.default_rng(block_bits + 7 * n_slots + len(batch))
+    spd = 16 // n_slots
+    sweep.reset_launch_counts()
+    for slot in range(n_slots):
+        route = ShardRoute(16, slot * spd, spd)
+        state, held, held_len = _filled(cfg, rng, cuda, route)
+        keys, lengths = _probe(rng, 4109, held, held_len, cuda)
+        owned = hashing.route_local(keys.cpu(), lengths.cpu(), route, cfg.seed)[1]
+        if batch != "mixed":
+            pick = torch.cat([torch.nonzero(~owned)[:, 0],
+                              torch.nonzero(owned)[: 64 if batch == "mostly_unowned" else 0, 0]])
+            pick = pick[torch.from_numpy(rng.permutation(pick.numel()))]
+            keys, lengths, owned = keys[pick.to(cuda)].contiguous(), lengths[pick.to(cuda)].contiguous(), owned[pick]
+        got = sweep.blocked_query(state, keys, lengths, cfg, route=route)
+        want = blocked.blocked_query_plain(state, keys, lengths, cfg, route)
+        assert torch.equal(got.cpu(), want.cpu())
+        assert not bool(got.cpu()[~owned].any())
+        if batch == "unowned_only":
+            assert not bool(owned.any())
+        elif batch == "mostly_unowned":
+            assert int(owned.sum()) == 64 and bool(got.cpu()[owned].any())
+        else:
+            assert bool(got.cpu()[owned].any()) and (n_slots == 1 or not bool(owned.all()))
+    assert sweep.launch_counts() == {**_NO_LAUNCH, "sharded_blocked_insert": n_slots,
+                                     "sharded_blocked_query": n_slots}

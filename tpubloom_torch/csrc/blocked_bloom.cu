@@ -5,17 +5,20 @@
 // (L a multiple of 4, zero past each key's length) and the lengths as
 // i32[B], where a negative length marks a padding entry. Each thread loads
 // and hashes one key (bloom_hash.cuh), and a key touches only its one
-// block: the query tests it in the key's own thread, the insert writes it
-// from a group of lanes (see blocked_insert). The results are
-// bit-identical to tpubloom's: the same filter state after an insert, the
-// same verdicts from a query.
+// block: the query gathers it with a group of lanes and tests it in the
+// key's own lane, the insert writes it from a group of lanes (see
+// blocked_insert). The results are bit-identical to tpubloom's: the same
+// filter state after an insert, the same verdicts from a query.
 //
-// Each kernel has a routed instantiation (kRouted = true) for the sharded
-// filter array (tpubloom/parallel/sharded.py): the state is then one slot's
-// shards, u32[shards_per_dev * n_blocks_per_shard, W]; the key's shard comes
-// from the routing hash (bloom_hash.cuh, route_key), and a key the slot does
-// not own sets nothing and answers False. The unrouted instantiation never
-// reads its RouteSpec (the last parameter) and compiles as before.
+// Each kernel has a routed variant for the sharded filter array
+// (tpubloom/parallel/sharded.py): the state is then one slot's shards,
+// u32[shards_per_dev * n_blocks_per_shard, W]; the key's shard comes from
+// the routing hash (bloom_hash.cuh, route_key), and a key the slot does not
+// own sets nothing and answers False. It is an instantiation with kRouted =
+// true (the unrouted one never reads its RouteSpec, the last parameter);
+// the query has besides a kernel of its own for a slot that owns only some
+// shards, sharded_blocked_query_row_kernel, which compacts the owned keys
+// first.
 //
 // Built by tpubloom_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -23,6 +26,7 @@
 // file, loaded with ctypes. Each entry launches on the caller's stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,35 +39,106 @@ constexpr int kThreads = 256;
 // ---------------------------------------------------------------------------
 // blocked_query
 //
-// Replaces the TPU query sweep `_fat_query_kernel` / `fat_sweep_query`
-// (tpubloom/ops/sweep.py), and the presence half (PRES) of `_fat_kernel`.
-// The TPU sorts keys by block and streams the whole array through VMEM
-// because its HBM serves random rows slowly; Hopper serves a random 64-byte
-// row directly, so each key gathers its own row and no sort, partition
-// window or overflow fallback exists here.
+// Replaces K5, the TPU query sweep `_fat_query_kernel` / `fat_sweep_query`
+// (tpubloom/ops/sweep.py:2437, driven by `apply_fat_query`), and the
+// presence half (PRES) of K3 `_fat_kernel`. The TPU sorts keys by block and
+// streams the whole array through VMEM because its HBM serves random rows
+// slowly; Hopper serves a random 64-byte row directly, so each key gathers
+// its own row, and no sort, partition window or overflow fallback exists.
 //
-// Bound: bytes. Per key it reads L key bytes + 4 length bytes, writes one
-// verdict byte, and reads its block's row once (64 B at block_bits=512).
-// At the main path's shapes (B = 2^23, m = 2^32, lambda = B/NB = 1) the
-// touched rows are ~1 - e^-1 = 63% of the 512 MiB state: ~0.5 GB in all,
-// ~0.15 ms at 3.35 TB/s. The rows are random, so every access is two full
-// 32-byte sectors in a DRAM page that nothing else reuses: the real floor
-// is the card's random-sector rate, not its streaming rate. The design
-// keeps every row load a full 16-byte vector (W/4 of them per key, issued
-// before the mask arithmetic so their latency overlaps it) and keeps one
-// thread per key so that the card has B independent rows in flight.
+// Bound: bytes. Per key it reads L key bytes and 4 length bytes, writes
+// one verdict byte, and reads its block's row (64 B at block_bits = 512).
+// At the main path's shapes (B = 2^23, m = 2^32, lambda = 1) the distinct
+// rows are ~63% of the 512 MiB state: ~0.52 GB with the keys, 0.154 ms at
+// 3.35 TB/s. With no row shared in the L2 (every key's row read once) it is
+// ~0.71 GB, 0.213 ms: the floor a gather that gets no reuse can reach. The
+// integer work the function needs, ~282 32-bit operations a key (three
+// murmur3 passes, fnv1a, k slices and k bit tests), takes 0.141 ms at the
+// card's INT32 rate (132 SMs x 64 lanes x 1.98 GHz), under the byte bound.
+// The first design (a thread a key) spent more: its W-word mask took k * W
+// selects a key, and each lane's own four 16-byte row loads put 32
+// unrelated rows in every load instruction. Hence:
 //
-// sharded_blocked_query (kRouted = true) serves the sharded filter array's
-// membership: on the TPU K5 inside shard_map when a device holds one shard
-// (tpubloom/parallel/sharded.py:337-354), the row gather otherwise. Each
-// slot answers owned && hit; a key it does not own answers False without a
-// row read, and the slots' answers are ORed on the host side of the kernel
-// (the psum at sharded.py:362). Bound: bytes, as above, over the owned keys'
-// distinct rows; at config 5 (B = 2^23 over 2^27 blocks) ~0.7 GB, ~0.21 ms.
+// - Keys: each lane loads and hashes one key (key_at); a 16-byte key is
+//   loaded once into registers and hashed there. A lane without a key is
+//   a flag, never an early return, so every lane reaches the collectives.
+// - Gather (query_warp): G = W / 4 lanes a key copy its row into the key's
+//   slot of shared memory, a 16-byte quarter a lane, with cp.async, the
+//   row offset broadcast by __shfl_sync. All G steps' copies are issued
+//   before one wait: a key's row leaves in one request, each sector once,
+//   and the warp's 32 rows are in flight together.
+// - Test: the key's own lane reads word b >> 5 of its staged row and tests
+//   bit b & 31, ~4 operations a position instead of a W-word mask.
+// - W = 64, 128 (block_bits 2048, 4096) keep the chunk kernel: a thread a
+//   key, loading only the 16-byte chunks its bits touch.
+//
+// On an H100 this took the query from 0.367 to 0.323 ms at the main path's
+// shapes. Trimming the lane's instructions further (hashing full keys with
+// the length a constant, a sliding window for the positions, the test
+// unrolled for k = 7) then moved nothing, so what is left is the gather's
+// latency and the card's rate for random 64-byte rows (PERF.md).
+//
+// sharded_blocked_query (the routed kernel) serves the sharded filter
+// array's membership: on the TPU, K5 inside shard_map when a device holds
+// one shard (tpubloom/parallel/sharded.py:337-354), the row gather
+// otherwise. Each slot answers owned && hit; a key it does not own answers
+// False without a row read, and the slots' answers are ORed after the
+// kernels (the psum at sharded.py:362). A slot that owns only some shards
+// (several slots a card, or one slot a card of many) compacts: each thread
+// routes kRouteKeys keys (one murmur3 a key), the owned ones are listed in
+// shared memory, and the block runs query_warp over that list on full
+// warps, so that a slot's hashing, gathers and tests scale with the keys it
+// owns, not with the batch. A slot that owns every shard has nothing to
+// compact: the thread-a-key kernel runs with the routing hash in front.
+// (On an H100 the compaction cost that slot 7 % at kRouteKeys = 1, and a
+// slot owning a quarter of the keys ran fastest at kRouteKeys = 2; PERF.md.)
+// Bound: bytes, over every key read (and routed) and the owned keys'
+// distinct rows; at config 5 on one slot (B = 2^23 over 2^27 blocks) ~0.70
+// GB, ~0.21 ms.
 // ---------------------------------------------------------------------------
 
-// W known at compile time (block_bits 128..1024): the whole row in
-// registers, all of its 16-byte loads issued at once.
+// The query of a warp's keys, one key a lane (`mine`; a lane without a key
+// has mine.valid false and answers false). Every lane of the warp calls
+// it. G = W / 4 lanes copy a key's row, a 16-byte quarter a lane, into the
+// key's slot of the warp's stage (kStride words a lane) with cp.async; the
+// row offset comes from the key's lane by __shfl_sync, and all G steps'
+// copies are issued before the one wait. Then each lane tests its own k
+// positions against its staged row.
+template <int W>
+__device__ __forceinline__ bool query_warp(const LaneKey& mine,
+                                           const uint32_t* __restrict__ state,
+                                           uint32_t* warp_stage,
+                                           const BlockSpec& s) {
+  constexpr int kStride = W + 4, G = W / 4, kPerStep = 32 / G;
+  const int lane = threadIdx.x & 31, sub = lane % G, grp = lane / G;
+  const unsigned valid = __ballot_sync(kFullMask, mine.valid);
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    const int src = t * kPerStep + grp;
+    const uint64_t row = __shfl_sync(kFullMask, mine.row, src);
+    if ((valid >> src) & 1u)
+      __pipeline_memcpy_async(warp_stage + src * kStride + 4 * sub,
+                              state + row + 4 * sub, 16);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  bool hit = mine.valid;
+  if (hit) {
+    const uint32_t* r = warp_stage + lane * kStride;
+    for (int j = 0; j < s.k; ++j) {
+      const uint32_t b = inblock_bit(j, mine.h, s);
+      hit &= ((r[b >> 5] >> (b & 31)) & 1u) != 0u;
+    }
+  }
+  __syncwarp();  // the stage is free again
+  return hit;
+}
+
+// W = 4, 8, 16, 32: a thread a key, the rows gathered by lane groups
+// (query_warp). kRouted: the key is routed in its own thread first, and a
+// key the slot does not own answers False; the launch takes this kernel
+// for a slot that owns every shard, where there is nothing to compact.
 template <int W, bool kRouted>
 __global__ void __launch_bounds__(kThreads)
 blocked_query_row_kernel(const uint32_t* __restrict__ state,
@@ -71,46 +146,77 @@ blocked_query_row_kernel(const uint32_t* __restrict__ state,
                          const int32_t* __restrict__ lengths,
                          uint8_t* __restrict__ out, int64_t B, int L,
                          BlockSpec s, RouteSpec route) {
+  __shared__ __align__(16) uint32_t stage[kThreads * (W + 4)];
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const int len = lengths[i];
-  if (len < 0) {  // padding answers False
-    out[i] = 0;
-    return;
+  const int len = i < B ? lengths[i] : -1;
+  LaneKey mine{false, 0, KeyHash{0, 0u, 0u, 0u}};
+  if (len >= 0) {
+    int64_t local = 0;
+    if constexpr (kRouted) local = route_at(keys, i, L, len, s.seed, route);
+    if (local >= 0) mine = key_at(keys, i, L, len, W, (uint64_t)local * s.n_blocks, s);
   }
-  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
-  uint64_t base = 0;  // the slot's first row of the key's shard
-  if constexpr (kRouted) {
-    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
-    if (local < 0) {  // not this slot's key: False, no row read
-      out[i] = 0;
-      return;
+  const bool hit = query_warp<W>(mine, state, stage + (threadIdx.x & ~31) * (W + 4), s);
+  if (i < B) out[i] = hit ? 1 : 0;  // padding answers False
+}
+
+// W = 4, 8, 16, 32, routed, for a slot that owns only some shards:
+// owned-key compaction. Each thread routes kRouteKeys keys of the block's
+// tile (kThreads * kRouteKeys keys); a key the slot does not own, and
+// padding, answer False at once. The owned keys' tile indices and local
+// shards are listed in shared memory (a ballot a warp, one shared
+// counter), and the block then runs query_warp over that list on full
+// warps, so that its hashing, gathers and tests scale with the keys the
+// slot owns. The list's order is the counter's, which does not matter:
+// each verdict is written at its key's index.
+constexpr int kRouteKeys = 2;
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+sharded_blocked_query_row_kernel(const uint32_t* __restrict__ state,
+                                 const uint8_t* __restrict__ keys,
+                                 const int32_t* __restrict__ lengths,
+                                 uint8_t* __restrict__ out, int64_t B, int L,
+                                 BlockSpec s, RouteSpec route) {
+  constexpr int kTile = kThreads * kRouteKeys;
+  __shared__ __align__(16) uint32_t stage[kThreads * (W + 4)];
+  __shared__ uint16_t list_key[kTile];
+  __shared__ uint32_t list_local[kTile];
+  __shared__ int n_owned;
+  const int lane = threadIdx.x & 31;
+  const int64_t tile = (int64_t)blockIdx.x * kTile;
+  if (threadIdx.x == 0) n_owned = 0;
+  __syncthreads();
+  for (int r = 0; r < kRouteKeys; ++r) {
+    const int t = r * kThreads + threadIdx.x;
+    const int64_t i = tile + t;
+    const int len = i < B ? lengths[i] : -1;
+    const int64_t local = len >= 0 ? route_at(keys, i, L, len, s.seed, route) : -1;
+    const bool own = local >= 0;
+    if (i < B && !own) out[i] = 0;
+    const unsigned owners = __ballot_sync(kFullMask, own);
+    int at = 0;
+    if (lane == 0 && owners) at = atomicAdd(&n_owned, __popc(owners));
+    at = __shfl_sync(kFullMask, at, 0) + __popc(owners & ((1u << lane) - 1u));
+    if (own) {
+      list_key[at] = (uint16_t)t;
+      list_local[at] = (uint32_t)local;
     }
-    base = (uint64_t)local * s.n_blocks;
   }
-  const KeyHash h = hash_key(kw, L / 4, len, s);
-  const uint4* row = reinterpret_cast<const uint4*>(state + (base + h.blk) * W);
-  uint4 r[W / 4];
-#pragma unroll
-  for (int c = 0; c < W / 4; ++c) r[c] = __ldg(row + c);
-  uint32_t m[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) m[w] = 0u;
-  for (int j = 0; j < s.k; ++j) {
-    const uint32_t b = inblock_bit(j, h, s);
-    const uint32_t word = b >> 5, one = 1u << (b & 31);
-#pragma unroll
-    for (int w = 0; w < W; ++w) m[w] |= (word == (uint32_t)w) ? one : 0u;
+  __syncthreads();
+  const int n = n_owned;
+  uint32_t* warp_stage = stage + (threadIdx.x & ~31) * (W + 4);
+  for (int at = 0; at < n; at += kThreads) {
+    if (at + (int)(threadIdx.x & ~31) >= n) break;  // the warp has no key left
+    LaneKey mine{false, 0, KeyHash{0, 0u, 0u, 0u}};
+    int64_t i = -1;
+    if (at + (int)threadIdx.x < n) {
+      i = tile + list_key[at + threadIdx.x];
+      mine = key_at(keys, i, L, lengths[i], W,
+                    (uint64_t)list_local[at + threadIdx.x] * s.n_blocks, s);
+    }
+    const bool hit = query_warp<W>(mine, state, warp_stage, s);
+    if (i >= 0) out[i] = hit ? 1 : 0;
   }
-  bool hit = true;
-#pragma unroll
-  for (int c = 0; c < W / 4; ++c) {
-    hit &= (r[c].x & m[4 * c + 0]) == m[4 * c + 0];
-    hit &= (r[c].y & m[4 * c + 1]) == m[4 * c + 1];
-    hit &= (r[c].z & m[4 * c + 2]) == m[4 * c + 2];
-    hit &= (r[c].w & m[4 * c + 3]) == m[4 * c + 3];
-  }
-  out[i] = hit ? 1 : 0;
 }
 
 // Any W (a multiple of 4; block_bits up to 4096): only the 16-byte chunks
@@ -318,12 +424,22 @@ int launch_query(const void* state, const void* keys, const void* lengths,
   auto o = static_cast<uint8_t*>(out);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const unsigned g = grid_for(B);
-  switch (W) {
-    case 4: blocked_query_row_kernel<4, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
-    case 8: blocked_query_row_kernel<8, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
-    case 16: blocked_query_row_kernel<16, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
-    case 32: blocked_query_row_kernel<32, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
-    default: blocked_query_chunk_kernel<kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, W, s, r); break;
+  if (kRouted && r.shards_per_dev != (int64_t)r.n_shards && W <= 32) {
+    const unsigned gr = (unsigned)((B + kThreads * kRouteKeys - 1) / (kThreads * kRouteKeys));
+    switch (W) {
+      case 4: sharded_blocked_query_row_kernel<4><<<gr, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+      case 8: sharded_blocked_query_row_kernel<8><<<gr, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+      case 16: sharded_blocked_query_row_kernel<16><<<gr, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+      default: sharded_blocked_query_row_kernel<32><<<gr, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+    }
+  } else {
+    switch (W) {
+      case 4: blocked_query_row_kernel<4, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+      case 8: blocked_query_row_kernel<8, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+      case 16: blocked_query_row_kernel<16, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+      case 32: blocked_query_row_kernel<32, kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, s, r); break;
+      default: blocked_query_chunk_kernel<kRouted><<<g, kThreads, 0, cs>>>(st, ky, ln, o, B, L, W, s, r); break;
+    }
   }
   return (int)cudaGetLastError();
 }
