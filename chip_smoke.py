@@ -33,8 +33,9 @@ counters over 64 shards, batches of 2^22). Phases, one JSON line each:
    least time the card could take for the same work (``bound_ms``: bytes
    over the memory rate, or 32-bit integer operations over the INT32
    rate, whichever is larger). The query's ``ms`` is on keys the filter
-   does not hold, ``present_ms`` on keys it holds, and ``floor_ms`` the
-   bytes of a query that reads every key's row once (no row shared).
+   does not hold, ``present_ms`` on keys it holds; its phase record (not
+   the ``kernels`` line) adds ``floor_ms``, a second bound: the bytes of
+   a query that reads every key's row once (no row shared).
    The insert's ``ms`` is a fresh insert: each launch has its own event
    pair, and before it, outside the pair, the state is restored from a
    snapshot and the L2 cache flushed, so every timed launch sets the
@@ -1098,7 +1099,7 @@ def phase_sharded_end_to_end(f: ShardedBloomFilter, g: ShardedBloomFilter, rng, 
 GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
                 "sharded_blocked_insert", "sharded_blocked_counting_update",
                 "sharded_blocked_query")
-EXTRA_TIMES = ("replay_ms", "present_ms", "floor_ms")
+EXTRA_TIMES = ("replay_ms", "present_ms")
 
 
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,

@@ -397,7 +397,7 @@ def _filled(cfg, rng, dev, route=None):
     max(32, block_bits / 8) keys a block, and the keys."""
     rows = cfg.n_blocks if route is None else route.shards_per_dev * cfg.n_blocks_per_shard
     lam = max(32, cfg.block_bits // 8)
-    n_fill = lam * (cfg.n_blocks if route is None else cfg.n_blocks)
+    n_fill = lam * cfg.n_blocks  # a routed slot owns about its share of these keys
     state = torch.zeros(rows * cfg.words_per_block, dtype=torch.int32, device=dev).view(torch.uint32)
     keys, lengths = _keys(rng, n_fill, dev)
     sweep.blocked_insert(state, keys, lengths, cfg, route=route)

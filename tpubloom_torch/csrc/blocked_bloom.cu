@@ -59,8 +59,8 @@ constexpr int kThreads = 256;
 // selects a key, and each lane's own four 16-byte row loads put 32
 // unrelated rows in every load instruction. Hence:
 //
-// - Keys: each lane loads and hashes one key (key_at); a 16-byte key is
-//   loaded once into registers and hashed there. A lane without a key is
+// - Keys: each lane loads and hashes one key (lane_key, as the updates
+//   do); a 16-byte key is loaded once into registers and hashed there. A lane without a key is
 //   a flag, never an early return, so every lane reaches the collectives.
 // - Gather (query_warp): G = W / 4 lanes a key copy its row into the key's
 //   slot of shared memory, a 16-byte quarter a lane, with cp.async, the
@@ -148,13 +148,7 @@ blocked_query_row_kernel(const uint32_t* __restrict__ state,
                          BlockSpec s, RouteSpec route) {
   __shared__ __align__(16) uint32_t stage[kThreads * (W + 4)];
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int len = i < B ? lengths[i] : -1;
-  LaneKey mine{false, 0, KeyHash{0, 0u, 0u, 0u}};
-  if (len >= 0) {
-    int64_t local = 0;
-    if constexpr (kRouted) local = route_at(keys, i, L, len, s.seed, route);
-    if (local >= 0) mine = key_at(keys, i, L, len, W, (uint64_t)local * s.n_blocks, s);
-  }
+  const LaneKey mine = lane_key<kRouted>(keys, lengths, B, L, W, s, route);
   const bool hit = query_warp<W>(mine, state, stage + (threadIdx.x & ~31) * (W + 4), s);
   if (i < B) out[i] = hit ? 1 : 0;  // padding answers False
 }
@@ -190,7 +184,10 @@ sharded_blocked_query_row_kernel(const uint32_t* __restrict__ state,
     const int t = r * kThreads + threadIdx.x;
     const int64_t i = tile + t;
     const int len = i < B ? lengths[i] : -1;
-    const int64_t local = len >= 0 ? route_at(keys, i, L, len, s.seed, route) : -1;
+    const int64_t local =
+        len >= 0 ? route_key(reinterpret_cast<const uint32_t*>(keys + i * L), L / 4,
+                             len, s.seed, route)
+                 : -1;
     const bool own = local >= 0;
     if (i < B && !own) out[i] = 0;
     const unsigned owners = __ballot_sync(kFullMask, own);

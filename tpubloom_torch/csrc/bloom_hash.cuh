@@ -99,110 +99,13 @@ __device__ __forceinline__ uint32_t fnv1a_32(const uint32_t* __restrict__ kw,
   return h;
 }
 
-// The hashes one key needs: its block and the in-block hash pool.
-struct KeyHash {
-  uint64_t blk;
-  uint32_t hb, ga, gb;
-};
-
-__device__ __forceinline__ KeyHash hash_key(const uint32_t* __restrict__ kw,
-                                            int nw, int len, const BlockSpec& s) {
-  KeyHash h;
-  h.blk = (uint64_t)murmur3_32(kw, nw, len, s.seed) & (s.n_blocks - 1);
-  h.ga = fnv1a_32(kw, nw, len);
-  h.gb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorGB);
-  h.hb = s.chunk ? murmur3_32(kw, nw, len, s.seed ^ kSeedXorHB) : 0u;
-  return h;
-}
-
-// The key's shard relative to the slot (its 64-bit local shard row, so its
-// block row is local * n_blocks + blk), or -1 when the slot does not own
-// it. Callers skip padding (len < 0) before, which is never owned.
-__device__ __forceinline__ int64_t route_key(const uint32_t* __restrict__ kw,
-                                             int nw, int len, uint32_t seed,
-                                             const RouteSpec& r) {
-  const int64_t local =
-      (int64_t)(murmur3_32(kw, nw, len, seed ^ kSeedXorRoute) % r.n_shards) -
-      r.shard_lo;
-  return (local >= 0 && local < r.shards_per_dev) ? local : -1;
-}
-
-// In-block position i of a key (0 <= i < k).
-__device__ __forceinline__ uint32_t inblock_bit(int i, const KeyHash& h,
-                                                const BlockSpec& s) {
-  const uint32_t mask = (uint32_t)s.block_bits - 1u;
-  if (s.chunk) {
-    const int sh = i * s.log2_bits;
-    const int w = sh >> 5, off = sh & 31;
-    const uint32_t p0 = w == 0 ? h.hb : (w == 1 ? h.ga : h.gb);
-    uint32_t v = p0 >> off;
-    if (off + s.log2_bits > 32) {  // the slice straddles two pool words
-      const uint32_t p1 = w == 0 ? h.ga : h.gb;
-      v |= p1 << (32 - off);
-    }
-    return v & mask;
-  }
-  return (h.ga + (uint32_t)i * (h.gb | 1u)) & mask;
-}
-
-// ---------------------------------------------------------------------------
-// Warp work lists, for the update kernels (blocked_insert,
-// blocked_counting_update): each lane hashes the one key it loads, a ballot
-// of the lanes that hold a key to update gives the warp's work list, and
-// the warp walks that list with G lanes a key, 32 / G keys a step, so that
-// a key's words go out from neighbouring lanes in one instruction. Every
-// lane reaches every warp collective: a lane without a key is a flag
-// (LaneKey::valid), never an early return.
-// ---------------------------------------------------------------------------
-
-constexpr unsigned kFullMask = 0xFFFFFFFFu;
-
-// The key a lane loaded: whether it updates anything, the offset in words
-// of its row (64-bit: a routed slot can hold 2^31 words and more), and its
-// in-block hash pool.
-struct LaneKey {
-  bool valid;
-  uint64_t row;
-  KeyHash h;
-};
-
-// Key i = this thread's global index: invalid past the batch, for padding
-// (len < 0), and (kRouted) for a key the slot does not own, which costs
-// the routing hash and nothing else. W: words a row.
-template <bool kRouted>
-__device__ __forceinline__ LaneKey lane_key(const uint8_t* __restrict__ keys,
-                                            const int32_t* __restrict__ lengths,
-                                            int64_t B, int L, int W,
-                                            const BlockSpec& s,
-                                            const RouteSpec& route) {
-  LaneKey k{false, 0, KeyHash{0, 0u, 0u, 0u}};
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return k;
-  const int len = lengths[i];
-  if (len < 0) return k;
-  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
-  uint64_t base = 0;  // the slot's first row of the key's shard
-  if constexpr (kRouted) {
-    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
-    if (local < 0) return k;
-    base = (uint64_t)local * s.n_blocks;
-  }
-  k.h = hash_key(kw, L / 4, len, s);
-  k.row = (base + k.h.blk) * (uint64_t)W;
-  k.valid = true;
-  return k;
-}
-
-// ---------------------------------------------------------------------------
-// Query lanes (blocked_query): a lane loads a 16-byte key once and hashes
-// it from registers. (On an H100 this made the routing pass of a slot that
-// owns a quarter of the keys 11 % faster, and changed nothing else.)
-// ---------------------------------------------------------------------------
-
 // murmur3_32 and fnv1a_32 over a key of NW words held in registers: the
 // same functions, with loops of a fixed trip count (a word or byte at or
 // past `len` is skipped, which is where the loops above stop), so that
-// every index into `r` is a constant and `r` stays in registers.
+// every index into `r` is a constant and `r` stays in registers. A key of
+// 4 words (L = 16, the main path's) is loaded once and hashed this way;
+// on an H100 that made the routing pass of a slot owning a quarter of the
+// keys 11 % faster.
 template <int NW>
 __device__ __forceinline__ uint32_t murmur3_32_regs(const uint32_t (&r)[NW],
                                                     int len, uint32_t seed) {
@@ -238,41 +141,122 @@ __device__ __forceinline__ uint32_t fnv1a_32_regs(const uint32_t (&r)[NW],
   return h;
 }
 
-// The key at index i, its routing (if any) done: `base` is the slot's first
-// row of its shard (0 unrouted). The caller has checked i < B and len >= 0.
-// A key of 16 bytes (L = 16, the main path's) is loaded once into registers
-// and hashed there; any other L as hash_key does.
+// The hashes one key needs: its block and the in-block hash pool.
+struct KeyHash {
+  uint64_t blk;
+  uint32_t hb, ga, gb;
+};
+
+// A key of 4 words is hashed from registers, any other from memory.
+
+__device__ __forceinline__ KeyHash hash_key(const uint32_t* __restrict__ kw,
+                                            int nw, int len, const BlockSpec& s) {
+  KeyHash h;
+  if (nw == 4) {
+    const uint32_t r[4] = {kw[0], kw[1], kw[2], kw[3]};
+    h.blk = (uint64_t)murmur3_32_regs(r, len, s.seed) & (s.n_blocks - 1);
+    h.ga = fnv1a_32_regs(r, len);
+    h.gb = murmur3_32_regs(r, len, s.seed ^ kSeedXorGB);
+    h.hb = s.chunk ? murmur3_32_regs(r, len, s.seed ^ kSeedXorHB) : 0u;
+    return h;
+  }
+  h.blk = (uint64_t)murmur3_32(kw, nw, len, s.seed) & (s.n_blocks - 1);
+  h.ga = fnv1a_32(kw, nw, len);
+  h.gb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorGB);
+  h.hb = s.chunk ? murmur3_32(kw, nw, len, s.seed ^ kSeedXorHB) : 0u;
+  return h;
+}
+
+// The key's shard relative to the slot (its 64-bit local shard row, so its
+// block row is local * n_blocks + blk), or -1 when the slot does not own
+// it. Callers skip padding (len < 0) before, which is never owned.
+__device__ __forceinline__ int64_t route_key(const uint32_t* __restrict__ kw,
+                                             int nw, int len, uint32_t seed,
+                                             const RouteSpec& r) {
+  uint32_t h;
+  if (nw == 4) {
+    const uint32_t w[4] = {kw[0], kw[1], kw[2], kw[3]};
+    h = murmur3_32_regs(w, len, seed ^ kSeedXorRoute);
+  } else {
+    h = murmur3_32(kw, nw, len, seed ^ kSeedXorRoute);
+  }
+  const int64_t local = (int64_t)(h % r.n_shards) - r.shard_lo;
+  return (local >= 0 && local < r.shards_per_dev) ? local : -1;
+}
+
+// In-block position i of a key (0 <= i < k).
+__device__ __forceinline__ uint32_t inblock_bit(int i, const KeyHash& h,
+                                                const BlockSpec& s) {
+  const uint32_t mask = (uint32_t)s.block_bits - 1u;
+  if (s.chunk) {
+    const int sh = i * s.log2_bits;
+    const int w = sh >> 5, off = sh & 31;
+    const uint32_t p0 = w == 0 ? h.hb : (w == 1 ? h.ga : h.gb);
+    uint32_t v = p0 >> off;
+    if (off + s.log2_bits > 32) {  // the slice straddles two pool words
+      const uint32_t p1 = w == 0 ? h.ga : h.gb;
+      v |= p1 << (32 - off);
+    }
+    return v & mask;
+  }
+  return (h.ga + (uint32_t)i * (h.gb | 1u)) & mask;
+}
+
+// ---------------------------------------------------------------------------
+// Lane keys, for every lane-group kernel (the queries and the updates):
+// each lane hashes the one key it loads (lane_key). Warp work lists, for
+// the update kernels (blocked_insert, blocked_counting_update): a ballot
+// of the lanes that hold a key to update gives the warp's work list, and
+// the warp walks that list with G lanes a key, 32 / G keys a step, so that
+// a key's words go out from neighbouring lanes in one instruction. Every
+// lane reaches every warp collective: a lane without a key is a flag
+// (LaneKey::valid), never an early return.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// The key a lane loaded: whether it updates anything, the offset in words
+// of its row (64-bit: a routed slot can hold 2^31 words and more), and its
+// in-block hash pool.
+struct LaneKey {
+  bool valid;
+  uint64_t row;
+  KeyHash h;
+};
+
+// The key at index i (i < B, len = lengths[i] >= 0), its routing done:
+// `base` is the slot's first row of the key's shard (0 unrouted).
 __device__ __forceinline__ LaneKey key_at(const uint8_t* __restrict__ keys,
                                           int64_t i, int L, int len, int W,
                                           uint64_t base, const BlockSpec& s) {
-  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
   LaneKey k;
-  if (L == 16) {
-    const uint32_t r[4] = {kw[0], kw[1], kw[2], kw[3]};
-    k.h.blk = (uint64_t)murmur3_32_regs(r, len, s.seed) & (s.n_blocks - 1);
-    k.h.ga = fnv1a_32_regs(r, len);
-    k.h.gb = murmur3_32_regs(r, len, s.seed ^ kSeedXorGB);
-    k.h.hb = s.chunk ? murmur3_32_regs(r, len, s.seed ^ kSeedXorHB) : 0u;
-  } else {
-    k.h = hash_key(kw, L / 4, len, s);
-  }
+  k.h = hash_key(reinterpret_cast<const uint32_t*>(keys + i * L), L / 4, len, s);
   k.row = (base + k.h.blk) * (uint64_t)W;
   k.valid = true;
   return k;
 }
 
-// route_key for the key at index i (i < B, len >= 0), a key of 16 bytes
-// hashed from registers as key_at does.
-__device__ __forceinline__ int64_t route_at(const uint8_t* __restrict__ keys,
-                                            int64_t i, int L, int len,
-                                            uint32_t seed, const RouteSpec& r) {
-  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
-  if (L != 16) return route_key(kw, L / 4, len, seed, r);
-  const uint32_t w[4] = {kw[0], kw[1], kw[2], kw[3]};
-  const int64_t local =
-      (int64_t)(murmur3_32_regs(w, len, seed ^ kSeedXorRoute) % r.n_shards) -
-      r.shard_lo;
-  return (local >= 0 && local < r.shards_per_dev) ? local : -1;
+// Key i = this thread's global index: invalid past the batch, for padding
+// (len < 0), and (kRouted) for a key the slot does not own, which costs
+// the routing hash and nothing else. W: words a row.
+template <bool kRouted>
+__device__ __forceinline__ LaneKey lane_key(const uint8_t* __restrict__ keys,
+                                            const int32_t* __restrict__ lengths,
+                                            int64_t B, int L, int W,
+                                            const BlockSpec& s,
+                                            const RouteSpec& route) {
+  const LaneKey none{false, 0, KeyHash{0, 0u, 0u, 0u}};
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return none;
+  const int len = lengths[i];
+  if (len < 0) return none;
+  int64_t local = 0;
+  if constexpr (kRouted) {
+    local = route_key(reinterpret_cast<const uint32_t*>(keys + i * L), L / 4,
+                      len, s.seed, route);
+    if (local < 0) return none;
+  }
+  return key_at(keys, i, L, len, W, (uint64_t)local * s.n_blocks, s);
 }
 
 // The lane that holds the n-th (from 0) key of the work list `list`, or
