@@ -13,7 +13,11 @@ benchmarks/counting_rate.py); and the sharded path, a ShardedBloomFilter
 at BASELINE config 5 (m=2^36, k=7, block_bits=512, 64 shards, 8 GiB of
 state on one card, batches of 2^23, the parameters of
 benchmarks/run.py:269-305) and its counting twin, configs 4 x 5 (m=2^30
-counters over 64 shards, batches of 2^22). Phases, one JSON line each:
+counters over 64 shards, batches of 2^22); and the flat layout, each of
+those filters in it (BloomFilter at BASELINE config 2, m=2^30 bits, k=10,
+batches of 2^20; CountingBloomFilter at config 4; the flat sharded arrays
+at configs 5 and 4 x 5, batches of 2^18 and 2^22). Phases, one JSON line
+each, with the seconds it took (``phase_seconds``):
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
@@ -84,7 +88,25 @@ counters over 64 shards, batches of 2^22). Phases, one JSON line each:
    1-slot state, and the routed query on the 4-slot layout's slot of
    shards 16-31 (bound over the keys that slot owns);
 15. sharded end to end: as phase 6 for the 1-slot and the 4-slot filters
-   (the latter split into ``kernel_shard<i>`` phases).
+   (the latter split into ``kernel_shard<i>`` phases);
+16. flat kernel vs plain: each flat kernel and its routed twin against its
+   plain version from the same state (tolerance 0): config 2, config 1's
+   m=10,000,000 (the mod walk), config 4 flat, one slot of config 5 flat
+   and its slot of shards 16-31, configs 4 x 5 flat on one slot and on
+   the slot of shards 48-63; batches with old keys, within-batch
+   duplicates, one key over an eighth of the batch (past saturation),
+   tail padding and, for counting, a delete of absent keys;
+17. flat path: the four flat filters through their entry points at full
+   size (packed and ``bytes`` keys, a replay, deletes; 1 and 4 slots whose
+   words must agree), the FPR of fresh keys against
+   ``params.theoretical_fpr`` at m=2^26, and the Redis bitmap and
+   checkpoint round trips at m=2^26 bits or 2^24 counters, with the
+   launch counts after each step;
+18. flat times: as phases 5 and 9 for the eight flat kernels, beside the
+   bound (the launch's distinct 32-byte sectors read, and written back by
+   updates) and, for the queries, the gather ``words[widx]`` of the
+   launch's B k words;
+19. flat end to end: as phase 6 for the flat filters' packed calls.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -93,7 +115,7 @@ present. The full record is written to ``chiprun_out/chip_smoke.json``.
 
 Two other modes compare kernel builds on one card:
 
-    python3 chip_smoke.py --times         # device, build, phases 5, 9, 14
+    python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18
     python3 chip_smoke.py --ab DIR        # --times in DIR, here, here, DIR
 
 ``--times`` fills the filters as the full run does before its timing
@@ -123,7 +145,13 @@ from tpubloom_torch import ShardedBloomFilter, checkpoint
 from tpubloom_torch.obs import context as obs
 from tpubloom_torch.ops import _build, blocked, counting, sweep
 from tpubloom_torch.ops.hashing import ShardRoute
-from tpubloom_torch.params import blocked_fpr
+from tpubloom_torch.params import blocked_fpr, theoretical_fpr
+
+try:  # the flat layout; `--ab` runs this script in trees that predate it
+    from tpubloom_torch import BloomFilter, CountingBloomFilter
+    from tpubloom_torch.ops import bitops
+except ImportError:
+    BloomFilter = CountingBloomFilter = bitops = None
 
 SEED = 20260
 LOG2M, K, BLOCK_BITS, KEY_LEN = 32, 7, 512, 16
@@ -158,13 +186,39 @@ LOG2M_CHECKPOINT, B_CHECKPOINT = 24, 1 << 20
 LOG2M_SHARDED, SHARDS, B_SHARDED = 36, 64, 1 << 23
 LOG2M_SHARDED_COUNTING, B_SHARDED_COUNTING = 30, 1 << 22
 LOG2M_SHARDED_FPR, N_SLOTS = 26, 4
+# The flat layout, each path at its benchmark settings (benchmarks/run.py,
+# whose default --layout is flat for configs 2, 4 and 5), nothing cut:
+# config 2 (run.py:69-93), m=2^30 bits, k=10, B=2^20 (run.py:93); config
+# 1's shape (run.py:39-48), m=10,000,000, k=7, for the mod walk, kernel vs
+# plain only; config 4 (run.py:233-266), m=2^30 counters, k=7, B=2^22 as
+# the blocked counting path; config 5 (run.py:269-305), m=2^36 over 64
+# shards, k=7, B=2^18 (run.py:289), one slot and the 4-slot layout; configs
+# 4 x 5, m=2^30 counters over 64 shards, B=2^22. The FPR checks, the Redis
+# bitmap and the checkpoint round trips run at m=2^26 bits or 2^24
+# counters: a fuller filter for the FPR model, and numpy bit reversal and
+# CRC32C loops over the host copy for the round trips.
+LOG2M_FLAT, K_FLAT, B_FLAT = 30, 10, 1 << 20
+M_FLAT_MOD, K_FLAT_MOD = 10_000_000, 7
+LOG2M_FLAT_COUNTING, B_FLAT_COUNTING = 30, 1 << 22
+LOG2M_FLAT_SHARDED, B_FLAT_SHARDED = 36, 1 << 18
+LOG2M_FLAT_SMALL, LOG2M_FLAT_SMALL_COUNTING = 26, 24
+N_FLAT_FPR, N_FLAT_ROUND_TRIP = 1 << 22, 1 << 18  # keys the cut filters take
+# 32-bit integer operations a key of the flat kernels: the four base
+# hashes (three murmur3 passes, 162, and fnv1a, 64), then a position's
+# 64-bit walk step, mask, word index and bit (8), or nibble (11).
+OPS_FLAT_HASH, OPS_FLAT_BIT, OPS_FLAT_COUNTER = 162 + 64, 8, 11
 M32 = 0xFFFFFFFF
 L2_FLUSH_BYTES = 128 << 20  # read between fresh launches: 2.5 x the H100's 50 MB L2
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 RECORD: dict = {}
+_LAST_EMIT = [time.perf_counter()]
 
 
 def emit(phase: str, **kw) -> None:
+    """One phase's JSON line, with the seconds since the previous line."""
+    now = time.perf_counter()
+    kw["phase_seconds"] = now - _LAST_EMIT[0]
+    _LAST_EMIT[0] = now
     RECORD[phase] = kw
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -1094,6 +1148,396 @@ def phase_sharded_end_to_end(f: ShardedBloomFilter, g: ShardedBloomFilter, rng, 
     )))
 
 
+# -- the flat layout -------------------------------------------------------------
+
+
+FLAT_KERNELS = ("flat_insert", "flat_query", "flat_counting_update", "flat_counting_query",
+                "sharded_flat_insert", "sharded_flat_query", "sharded_flat_counting_update",
+                "sharded_flat_counting_query")
+
+
+def flat_config(log2m: int = LOG2M_FLAT, k: int = K_FLAT, **kw) -> FilterConfig:
+    return FilterConfig(m=1 << log2m, k=k, key_len=KEY_LEN, **kw)
+
+
+def flat_sharded_config(log2m: int, **kw) -> FilterConfig:
+    return FilterConfig(m=1 << log2m, k=K, key_len=KEY_LEN, shards=SHARDS, **kw)
+
+
+def flat_update(state, keys, lengths, cfg, *, increment=True, route=None, plain=False) -> None:
+    """The flat insert (bit config) or counting update, kernel or plain."""
+    if cfg.counting:
+        fn = counting.flat_counting_update_plain if plain else sweep.flat_counting_update
+        fn(state, keys, lengths, cfg, increment=increment, route=route)
+    elif plain:
+        bitops.flat_insert_plain(state, keys, lengths, cfg, route)
+    else:
+        sweep.flat_insert(state, keys, lengths, cfg, route=route)
+
+
+def flat_query(state, keys, lengths, cfg, *, route=None, plain=False) -> torch.Tensor:
+    """The flat query (bit config) or counting query, kernel or plain."""
+    if plain:
+        fn = counting.flat_counting_query_plain if cfg.counting else bitops.flat_query_plain
+        return fn(state, keys, lengths, cfg, route)
+    fn = sweep.flat_counting_query if cfg.counting else sweep.flat_query
+    return fn(state, keys, lengths, cfg, route=route)
+
+
+def flat_batch(rng, prev: torch.Tensor, batch: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Keys already in (a quarter of ``prev``), fresh keys with a repeat of
+    a quarter of the batch inside it, a crowd of one key over an eighth of
+    the batch (past saturation for counters), and tail padding; returns
+    (keys, lengths, padded entries)."""
+    dev = prev.device
+    keys = torch.from_numpy(rows(rng, batch)).to(dev)
+    q = batch // 4
+    keys[:q] = prev[:q]
+    keys[q : 2 * q] = keys[2 * q : 3 * q]
+    keys[3 * q : 3 * q + batch // 8] = keys[3 * q].clone()
+    lengths = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
+    n_pad = max(1, batch // 1024)
+    lengths[-n_pad:] = -1
+    keys[-n_pad:] = 0
+    return keys, lengths, n_pad
+
+
+def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
+    """Populate a flat state (a slot's, with a route) with kernel batches,
+    then run the same update(s) and query through the kernels and their
+    plain versions from the same state: the bit filter's insert, or the
+    counting filter's insert and a delete of half the batch and as many
+    absent keys."""
+    dev = torch.device("cuda")
+    state = torch.zeros(sweep._state_words(cfg, route), dtype=torch.int32, device=dev).view(torch.uint32)
+    full = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
+    for _ in range(3):
+        prev = torch.from_numpy(rows(rng, batch)).to(dev)
+        flat_update(state, prev, full, cfg, route=route)
+    keys, lengths, n_pad = flat_batch(rng, prev, batch)
+    ops = [("insert", keys, True)]
+    if cfg.counting:
+        absent = torch.from_numpy(rows(rng, batch - batch // 2)).to(dev)
+        ops.append(("delete", torch.cat([keys[: batch // 2], absent]).contiguous(), False))
+    owned, _ = bitops.routed_positions(keys, lengths, cfg, route)
+    out = {"m": cfg.m, "k": cfg.k, "batch": batch, "padded": n_pad, "owned": int(owned.sum()),
+           "state_bytes": state.numel() * 4,
+           "route": None if route is None else [route.n_shards, route.shard_lo, route.shards_per_dev]}
+    s_plain = clone_u32(state)
+    for op, k_, increment in ops:
+        flat_update(state, k_, lengths, cfg, increment=increment, route=route)
+        flat_update(s_plain, k_, lengths, cfg, increment=increment, route=route, plain=True)
+        torch.cuda.synchronize()
+        out[f"{op}_state_err"] = max_abs_err(state, s_plain)
+        check(equal_words(state, s_plain), f"flat {op} state m={cfg.m} {out['route']}")
+        if increment:
+            crowd = keys[3 * (batch // 4) : 3 * (batch // 4) + 1]
+            hot = flat_query(state, crowd, full[:1], cfg, route=route)
+            hot_owned = bitops.routed_positions(crowd, full[:1], cfg, route)[0]
+            check(bool(hot[0]) == bool(hot_owned[0]), "the crowded key is present after its insert")
+    del s_plain
+    probe = torch.cat([prev[: batch // 2], torch.from_numpy(rows(rng, batch - batch // 2)).to(dev)])
+    q_k = flat_query(state, probe, lengths, cfg, route=route)
+    q_p = flat_query(state, probe, lengths, cfg, route=route, plain=True)
+    torch.cuda.synchronize()
+    check(torch.equal(q_k, q_p), f"flat query verdicts m={cfg.m} {out['route']}")
+    p_owned, _ = bitops.routed_positions(probe, lengths, cfg, route)
+    check(not bool(q_k[~p_owned].any()), "padding and keys the slot does not own answer False")
+    out.update(query_err=max_abs_err(q_k, q_p), query_hits_old_half=int(q_k[: batch // 2].sum()),
+               owned_old_half=int(p_owned[: batch // 2].sum()),
+               query_hits_fresh_half=int(q_k[batch // 2 :].sum()))
+    if not cfg.counting:
+        check(out["query_hits_old_half"] == out["owned_old_half"], "owned old keys present")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_flat_kernel_vs_plain(rng) -> dict:
+    one, quarter = ShardRoute(SHARDS, 0, SHARDS), ShardRoute(SHARDS, 16, SHARDS // N_SLOTS)
+    cfg5 = flat_sharded_config(LOG2M_FLAT_SHARDED)
+    cfg45 = flat_sharded_config(LOG2M_FLAT_COUNTING, counting=True)
+    runs = {
+        "config2": flat_vs_plain(flat_config(), B_FLAT, rng),
+        "config1_mod": flat_vs_plain(FilterConfig(m=M_FLAT_MOD, k=K_FLAT_MOD, key_len=KEY_LEN), B_FLAT, rng),
+        "config4": flat_vs_plain(flat_config(LOG2M_FLAT_COUNTING, K, counting=True), B_FLAT_COUNTING, rng),
+        "config5_1_slot": flat_vs_plain(cfg5, B_FLAT_SHARDED, rng, one),
+        "config5_slot_16_31": flat_vs_plain(cfg5, B_FLAT_SHARDED, rng, quarter),
+        "configs4x5_1_slot": flat_vs_plain(cfg45, B_FLAT_COUNTING, rng, one),
+        "configs4x5_slot_48_63": flat_vs_plain(cfg45, B_FLAT_COUNTING, rng, ShardRoute(SHARDS, 48, 16)),
+    }
+
+    def worst(names, keys):
+        return max(runs[n][k] for n in names for k in keys)
+
+    bits, counts = ("config2", "config1_mod"), ("config4",)
+    sbits, scounts = ("config5_1_slot", "config5_slot_16_31"), ("configs4x5_1_slot", "configs4x5_slot_48_63")
+    updates = ("insert_state_err", "delete_state_err")
+    errs = {
+        "flat_insert": worst(bits, ("insert_state_err",)), "flat_query": worst(bits, ("query_err",)),
+        "flat_counting_update": worst(counts, updates), "flat_counting_query": worst(counts, ("query_err",)),
+        "sharded_flat_insert": worst(sbits, ("insert_state_err",)),
+        "sharded_flat_query": worst(sbits, ("query_err",)),
+        "sharded_flat_counting_update": worst(scounts, updates),
+        "sharded_flat_counting_query": worst(scounts, ("query_err",)),
+    }
+    emit("flat_kernel_vs_plain", runs=runs, max_abs_err=errs, tolerance=0)
+    return errs
+
+
+def flat_fpr_check(f, rng, n_insert: int, n_probe: int) -> dict:
+    """Fresh keys' hits against the flat model ``params.theoretical_fpr``,
+    with the acceptance of tests/test_fpr_model.py."""
+    f.insert_packed(rows(rng, n_insert))
+    hits = int(f.include_packed(rows(rng, n_probe)).sum())
+    c = f.config
+    expect = n_probe * theoretical_fpr(c.m, c.k, f.n_inserted)
+    tol = max(6.0 * math.sqrt(max(expect, 1.0)), 0.35 * expect, 8.0)
+    check(abs(hits - expect) <= tol, f"flat FPR {hits} hits vs model {expect:.1f} ± {tol:.1f}")
+    return {"m": c.m, "k": c.k, "shards": c.shards, "n_inserted": f.n_inserted, "probes": n_probe,
+            "hits": hits, "model_hits": expect, "tolerance": tol}
+
+
+def flat_round_trips(f, rng) -> dict:
+    """The Redis bitmap (bit filters) and a checkpoint round trip of a
+    filter at the cut size: equal words, verdicts and usage counters."""
+    cls, cfg = type(f), f.config
+    keys = rows(rng, N_FLAT_ROUND_TRIP)
+    f.insert_packed(keys)
+    probe = np.concatenate([keys[: N_FLAT_ROUND_TRIP // 4], rows(rng, N_FLAT_ROUND_TRIP // 4)])
+    out = {"m": cfg.m, "counting": cfg.counting, "shards": cfg.shards}
+    if not cfg.counting:
+        t0 = time.perf_counter()
+        bitmap = f.to_redis_bitmap()
+        g = cls.from_redis_bitmap(cfg, bitmap)
+        out["redis_bitmap_s"] = time.perf_counter() - t0
+        check(len(bitmap) == cfg.m // 8, "Redis bitmap of ceil(m/8) bytes")
+        check(np.array_equal(f._host_words(), g._host_words()), "Redis bitmap round trip words")
+    t0 = time.perf_counter()
+    _, seq, blob = checkpoint.snapshot_blob(f)
+    g = checkpoint.restore_blob(blob)
+    out["checkpoint_s"] = time.perf_counter() - t0
+    header, _ = checkpoint._deserialize(blob)
+    out.update(format=header["format"], blob_bytes=len(blob))
+    check(header["format"] == ("counting_le_words" if cfg.counting else "redis_bitmap"), "blob format")
+    check(type(g) is cls and all(t.is_cuda for t in g._state_tensors()), "restored on the card")
+    check(np.array_equal(f._host_words(), g._host_words()), "restored words equal")
+    check(np.array_equal(f.include_packed(probe), g.include_packed(probe)), "restored verdicts equal")
+    check(g.n_inserted == f.n_inserted and g._restored_seq == seq, "restored usage counters and seq")
+    return out
+
+
+def phase_flat_path(rng):
+    """The four flat filters through the entry points, at full size."""
+    sweep.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps, out = {}, {}
+    # BASELINE config 2 (flat)
+    f = BloomFilter(flat_config())  # no device: the card
+    check(f.words.is_cuda and f.words.numel() == 1 << (LOG2M_FLAT - 5), "config 2 on the card, 128 MiB")
+    big = rows(rng, B_FLAT)
+    check(f.insert_packed(big) == B_FLAT, "insert_packed count")
+    steps["insert_packed"] = sweep.launch_counts()
+    check(f.include_packed(big).all(), "packed replay all present")
+    steps["include_packed"] = sweep.launch_counts()
+    lens = rng.integers(0, KEY_LEN + 1, 10_000)
+    keys = [rng.bytes(int(n)) for n in lens] + [b"", b"a"]
+    f.insert_batch(keys)
+    steps["insert_batch"] = sweep.launch_counts()
+    check(f.include_batch(keys).all(), "bytes keys all present")
+    steps["include_batch"] = sweep.launch_counts()
+    out["config2"] = {"n_inserted": f.n_inserted, "stats": f.stats(),
+                      "fresh_hits": int(f.include_packed(rows(rng, B_FLAT)).sum()),
+                      "fpr_fuller": flat_fpr_check(BloomFilter(flat_config(LOG2M_FLAT_SMALL)), rng,
+                                                   N_FLAT_FPR, B_FLAT),
+                      "round_trips": flat_round_trips(BloomFilter(flat_config(LOG2M_FLAT_SMALL)), rng)}
+    steps["config2_checks"] = sweep.launch_counts()
+    # BASELINE config 4 (flat counting)
+    ccfg = flat_config(LOG2M_FLAT_COUNTING, K, counting=True)
+    c = CountingBloomFilter(ccfg)
+    bigc = rows(rng, B_FLAT_COUNTING)
+    check(c.insert_packed(bigc) == B_FLAT_COUNTING, "counting insert_packed count")
+    check(c.include_packed(bigc).all(), "counted keys all present")
+    n_gone = B_FLAT_COUNTING // 64
+    gone = [bytes(r) for r in bigc[:n_gone]]
+    c.delete_batch(gone)
+    after = c.include_batch(gone + [bytes(r) for r in bigc[n_gone : 2 * n_gone]])
+    check(not after[:n_gone].any() and after[n_gone:].all(), "deleted keys absent, the others present")
+    check(c.n_inserted == B_FLAT_COUNTING - n_gone, "n_inserted after the delete")
+    g = CountingBloomFilter(ccfg)
+    again = rows(rng, B_FLAT_COUNTING)
+    g.insert_packed(again)
+    g.delete_batch([bytes(r) for r in again])
+    torch.cuda.synchronize()
+    check(not bool(g.words.view(torch.int32).any()), "insert then delete returns to all-zero words")
+    del g
+    out["config4"] = {"n_inserted": c.n_inserted, "deleted": n_gone,
+                      "round_trips": flat_round_trips(
+                          CountingBloomFilter(flat_config(LOG2M_FLAT_SMALL_COUNTING, K, counting=True)), rng)}
+    steps["counting"] = sweep.launch_counts()
+    # BASELINE config 5 (flat) on one slot and on 4 slots of the card
+    cfg5 = flat_sharded_config(LOG2M_FLAT_SHARDED)
+    s1, s4 = ShardedBloomFilter(cfg5), ShardedBloomFilter(cfg5, devices=["cuda"] * N_SLOTS)
+    check(len(s1.slot_words) == 1 and s1.slot_words[0].numel() * 4 == 1 << 33, "config 5: 8 GiB in one slot")
+    bigs = rows(rng, B_FLAT_SHARDED)
+    for s in (s1, s4):
+        check(s.insert_packed(bigs) == B_FLAT_SHARDED, "sharded insert_packed count")
+        s.insert_batch(keys)
+    torch.cuda.synchronize()
+    check(same_slots(s1, s4), "4-slot words equal the 1-slot words shard for shard")
+    probe = np.concatenate([bigs, rows(rng, B_FLAT_SHARDED)])
+    verdicts = s1.include_packed(probe)
+    check(verdicts[:B_FLAT_SHARDED].all(), "sharded packed replay all present")
+    check(np.array_equal(s4.include_packed(probe), verdicts), "4-slot verdicts equal")
+    check(s1.include_batch(keys).all() and s4.include_batch(keys).all(), "sharded bytes keys present")
+    out["config5"] = {"n_inserted": s1.n_inserted, "fresh_hits": int(verdicts[B_FLAT_SHARDED:].sum()),
+                      "fpr_fuller": flat_fpr_check(
+                          ShardedBloomFilter(flat_sharded_config(LOG2M_FLAT_SMALL)), rng, N_FLAT_FPR,
+                          B_FLAT),
+                      "round_trips": flat_round_trips(
+                          ShardedBloomFilter(flat_sharded_config(LOG2M_FLAT_SMALL)), rng)}
+    steps["sharded"] = sweep.launch_counts()
+    # configs 4 x 5 (flat counting, 64 shards) on one slot and on 4 slots
+    cfg45 = flat_sharded_config(LOG2M_FLAT_COUNTING, counting=True)
+    sc1, sc4 = ShardedBloomFilter(cfg45), ShardedBloomFilter(cfg45, devices=["cuda"] * N_SLOTS)
+    for s in (sc1, sc4):
+        s.insert_packed(bigc)
+        s.delete_batch(gone)
+    torch.cuda.synchronize()
+    check(same_slots(sc1, sc4), "4-slot counters equal the 1-slot counters shard for shard")
+    probe_c = np.concatenate([bigc[: 2 * n_gone], rows(rng, n_gone)])
+    hits_c = sc1.include_packed(probe_c)
+    check(np.array_equal(sc4.include_packed(probe_c), hits_c), "4-slot counting verdicts equal")
+    check(not hits_c[:n_gone].any() and hits_c[n_gone : 2 * n_gone].all(),
+          "sharded: deleted keys absent, the others present")
+    out["configs4x5"] = {"n_inserted": sc1.n_inserted, "deleted": n_gone,
+                         "probe_hits_fresh": int(hits_c[2 * n_gone :].sum()),
+                         "round_trips": flat_round_trips(ShardedBloomFilter(
+                             flat_sharded_config(LOG2M_FLAT_SMALL_COUNTING, counting=True)), rng)}
+    del sc4
+    torch.cuda.synchronize()
+    steps["sharded_counting"] = sweep.launch_counts()
+    launches = sweep.launch_counts()
+    for name in FLAT_KERNELS:
+        check(launches[name] > 0, f"{name} launched on the flat path")
+    torch.cuda.empty_cache()
+    emit("flat_path", launches=launches, launches_after_step=steps, seconds=time.perf_counter() - t0,
+         **out)
+    return launches, f, c, s1, s4, sc1
+
+
+def flat_footprint(cfg: FilterConfig, keys, lengths, route=None):
+    """What one launch's keys touch: the distinct words and 32-byte
+    sectors of each valid key's positions, summed over the keys (one L2
+    request a position in a thread-a-key kernel), and the sectors distinct
+    over the whole launch (the bytes a bound counts). Returns (footprint,
+    word index of each position int64[B, k], valid bool[B])."""
+    valid, pos = bitops.routed_positions(keys, lengths, cfg, route)
+    widx = pos // (8 if cfg.counting else 32)
+    t = touched(torch.zeros_like(widx[:, 0]), widx, 1, valid)
+    return {**t, "distinct_sectors": int(torch.unique(widx[valid] >> 3).numel())}, widx, valid
+
+
+def flat_bound(cfg: FilterConfig, n_keys: int, fp: dict, *, update: bool, routed: bool):
+    """(bound ms, by, bytes): keys x 20 B in, the launch's distinct sectors
+    x 32 B (read, and for an update written back), a verdict byte a key
+    out of a query; the flat hash and k position steps a valid key (and
+    the routing hash a key, routed) at the INT32 rate."""
+    nbytes = n_keys * (KEY_LEN + 4) + fp["distinct_sectors"] * 32 * (2 if update else 1)
+    nbytes += 0 if update else n_keys
+    step = OPS_FLAT_COUNTER if cfg.counting else OPS_FLAT_BIT
+    ops = (OPS_ROUTE * n_keys if routed else 0) + fp["keys"] * (OPS_FLAT_HASH + cfg.k * step)
+    return (*bound(nbytes, ops), nbytes)
+
+
+def flat_pair_times(name: str, state, cfg, batches, lengths, route=None, fresh=None) -> dict:
+    """The times of one flat update kernel and its query (``name`` is the
+    update's; None for ``fresh``: counting), each beside its bound, its
+    plain version and, for the query, the gather ``words[widx]`` of the
+    launch's B k words."""
+    n = lengths.numel()
+    routed = route is not None
+    qname = name.replace("insert", "query").replace("update", "query")
+
+    def upd(keys, increment=True, plain=False):
+        return lambda i: flat_update(state, keys(i), lengths, cfg, increment=increment, route=route,
+                                     plain=plain)
+
+    def qry(plain=False):
+        return lambda i: flat_query(state, batches[i % 4], lengths, cfg, route=route, plain=plain)
+
+    def batch(i):
+        return batches[i % 4]
+
+    q_ms = cuda_ms(qry(), 40, warm=4)  # the batches before they are inserted (bits) or counted again
+    u = {}
+    if cfg.counting:
+        # insert then delete the same batch, as benchmarks/counting_rate.py does
+        u["ms"], u["delete_ms"] = event_pairs_ms([upd(batch), upd(batch, False)], 40)
+        u["plain_ms"], u["plain_delete_ms"] = event_pairs_ms(
+            [upd(batch, plain=True), upd(batch, False, plain=True)], 3, warm=1)
+        fp_u, _, _ = flat_footprint(cfg, batches[0], lengths, route)
+    else:
+        u["replay_ms"] = cuda_ms(upd(batch), 40, warm=4)  # inserts the batches, then re-inserts
+        u["ms"] = fresh_ms(state, upd(lambda i: fresh[i % 4]), 40)
+        u["plain_ms"] = cuda_ms(upd(batch, plain=True), 3, warm=1)
+        fp_u, _, _ = flat_footprint(cfg, fresh[0], lengths, route)
+    qpres_ms = cuda_ms(qry(), 40, warm=4)
+    qp_ms = cuda_ms(qry(plain=True), 3, warm=1)
+    fp_q, widx, _ = flat_footprint(cfg, batches[0], lengths, route)
+    words, flat_idx = state.view(torch.int32).reshape(-1), widx.reshape(-1)
+    lib_ms = cuda_ms(lambda i: torch.index_select(words, 0, flat_idx), 40, warm=4)
+    ub, uby, u_bytes = flat_bound(cfg, n, fp_u, update=True, routed=routed)
+    qb, qby, q_bytes = flat_bound(cfg, n, fp_q, update=False, routed=routed)
+    return {
+        name: {**u, "keys_per_s": n / u["ms"] * 1e3, "library_ms": None, "bound_ms": ub,
+               "bound_by": uby, "bytes": u_bytes, "share_of_bound": ub / u["ms"], "touched": fp_u,
+               **rates(fp_u, u["ms"])},
+        qname: {"ms": q_ms, "present_ms": qpres_ms, "keys_per_s": n / q_ms * 1e3, "plain_ms": qp_ms,
+                "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby, "bytes": q_bytes,
+                "share_of_bound": qb / q_ms, "touched": fp_q},
+    }
+
+
+def phase_flat_times(f, c, s1, sc1, rng) -> dict:
+    out = {}
+    for name, state, cfg, route, batch in (
+        ("flat_insert", f.words, f.config, None, B_FLAT),
+        ("flat_counting_update", c.words, c.config, None, B_FLAT_COUNTING),
+        ("sharded_flat_insert", s1.slot_words[0], s1.config, s1.routes[0], B_FLAT_SHARDED),
+        ("sharded_flat_counting_update", sc1.slot_words[0], sc1.config, sc1.routes[0], B_FLAT_COUNTING),
+    ):
+        dev = state.device
+        batches = [torch.from_numpy(rows(rng, batch)).to(dev) for _ in range(4)]
+        fresh = None if cfg.counting else [torch.from_numpy(rows(rng, batch)).to(dev) for _ in range(4)]
+        lengths = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
+        out.update(flat_pair_times(name, state, cfg, batches, lengths, route, fresh))
+        del batches, fresh
+    emit("flat_times", **out)
+    return out
+
+
+def phase_flat_end_to_end(f, c, s1, s4, rng, times: dict) -> None:
+    big, bigc, bigs = rows(rng, B_FLAT), rows(rng, B_FLAT_COUNTING), rows(rng, B_FLAT_SHARDED)
+    small = [bytes(r) for r in rows(rng, 1 << 16)]
+    emit("flat_end_to_end", **time_calls((
+        ("insert_packed", B_FLAT, lambda: f.insert_packed(big), times["flat_insert"]["ms"]),
+        ("include_packed", B_FLAT, lambda: f.include_packed(big), times["flat_query"]["ms"]),
+        ("counting_insert_packed", B_FLAT_COUNTING, lambda: c.insert_packed(bigc),
+         times["flat_counting_update"]["ms"]),
+        ("counting_include_packed", B_FLAT_COUNTING, lambda: c.include_packed(bigc),
+         times["flat_counting_query"]["ms"]),
+        ("counting_delete_bytes_keys", len(small), lambda: c.delete_batch(small), None),
+        ("sharded_insert_packed_1_slot", B_FLAT_SHARDED, lambda: s1.insert_packed(bigs),
+         times["sharded_flat_insert"]["ms"]),
+        ("sharded_include_packed_1_slot", B_FLAT_SHARDED, lambda: s1.include_packed(bigs),
+         times["sharded_flat_query"]["ms"]),
+        # four launches a call, each routing the whole batch: not timed alone
+        ("sharded_insert_packed_4_slots", B_FLAT_SHARDED, lambda: s4.insert_packed(bigs), None),
+        ("sharded_include_packed_4_slots", B_FLAT_SHARDED, lambda: s4.include_packed(bigs), None),
+    )))
+
+
 # The update kernels and the bit filter's query kernels move a key's row
 # with a group of lanes; the counting query kernels keep a thread a key.
 GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
@@ -1102,8 +1546,23 @@ GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
 EXTRA_TIMES = ("replay_ms", "present_ms")
 
 
+# The flat kernels have no Pallas counterpart: each replaces the XLA ops of
+# a tpubloom function (its sort + segmented scan + scatter, or its gather).
+FLAT_REPLACES = {
+    "flat_insert": "tpubloom/filter.py:51 (make_insert_fn + ops/bitops.py:75 scatter_or)",
+    "flat_query": "tpubloom/filter.py:72 (make_query_fn + ops/bitops.py:107 query_membership)",
+    "flat_counting_update": "tpubloom/filter.py:86 (make_counter_fn + ops/counting.py:36 counter_update)",
+    "flat_counting_query": "tpubloom/filter.py:104 (make_counting_query_fn + ops/counting.py:92 "
+                           "counting_membership)",
+    "sharded_flat_insert": "tpubloom/parallel/sharded.py:139 (make_sharded_insert_fn)",
+    "sharded_flat_query": "tpubloom/parallel/sharded.py:164 (make_sharded_query_fn)",
+    "sharded_flat_counting_update": "tpubloom/parallel/sharded.py:394 (make_sharded_counter_fn)",
+    "sharded_flat_counting_query": "tpubloom/parallel/sharded.py:420 (make_sharded_counting_query_fn)",
+}
+
+
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
-                 s_launches, s_errs, s_times) -> list[dict]:
+                 s_launches, s_errs, s_times, f_launches, f_errs, f_times) -> list[dict]:
     kernels = []
     for name, src, replaces, lau, err, t in (
         ("blocked_insert", "blocked_bloom.cu", "tpubloom/ops/sweep.py:1463", launches, errs, times),
@@ -1138,13 +1597,23 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
     kernels[2]["also_replaces"] = "tpubloom/ops/sweep.py:582"
     kernels[4]["also_replaces"] = "tpubloom/ops/sweep.py:1463 (K3 at tpubloom/parallel/sharded.py:274)"
     kernels[6]["also_replaces"] = "tpubloom/ops/sweep.py:1976 (K4 at tpubloom/parallel/sharded.py:500)"
+    for name in FLAT_KERNELS:
+        t = f_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "tpubloom_torch/csrc/flat_bloom.cu",
+            "replaces": FLAT_REPLACES[name], "launches": f_launches[name],
+            "max_abs_err": f_errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "design": "thread a key",
+            **{k: t[k] for k in EXTRA_TIMES if k in t},
+        })
     return kernels
 
 
 def times_only() -> dict:
-    """Phases 5, 9 and 14 alone, on filters filled as the full run fills
-    them before those phases: five batches of B in the main filter, one
-    batch in each of the others."""
+    """Phases 5, 9, 14 and (in a tree with the flat layout) 18 alone, on
+    filters filled as the full run fills them before those phases: five
+    batches of B in the main filter, one batch in each of the others."""
     rng = np.random.default_rng(SEED)
     f = BlockedBloomFilter(FilterConfig(m=1 << LOG2M, k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS))
     for _ in range(5):
@@ -1165,7 +1634,20 @@ def times_only() -> dict:
     sfc = ShardedBloomFilter(sharded_config(LOG2M_SHARDED_COUNTING, counting=True))
     sfc.insert_packed(rows(rng, B_SHARDED_COUNTING))
     s_times = phase_sharded_times(sf, sg, sfc, rng)
-    return {"times": times, "counting_times": c_times, "sharded_times": s_times}
+    out = {"times": times, "counting_times": c_times, "sharded_times": s_times}
+    del sf, sg, sfc
+    torch.cuda.empty_cache()
+    if bitops is not None:
+        f = BloomFilter(flat_config())
+        f.insert_packed(rows(rng, B_FLAT))
+        c = CountingBloomFilter(flat_config(LOG2M_FLAT_COUNTING, K, counting=True))
+        c.insert_packed(rows(rng, B_FLAT_COUNTING))
+        s1 = ShardedBloomFilter(flat_sharded_config(LOG2M_FLAT_SHARDED))
+        s1.insert_packed(rows(rng, B_FLAT_SHARDED))
+        sc1 = ShardedBloomFilter(flat_sharded_config(LOG2M_FLAT_COUNTING, counting=True))
+        sc1.insert_packed(rows(rng, B_FLAT_COUNTING))
+        out["flat_times"] = phase_flat_times(f, c, s1, sc1, rng)
+    return out
 
 
 def phase_ab(other: Path) -> None:
@@ -1190,8 +1672,9 @@ def phase_ab(other: Path) -> None:
                                        ("sharded_times", "sharded_blocked_insert"),
                                        ("sharded_times", "sharded_blocked_query"),
                                        ("sharded_times", "sharded_blocked_query_4_slots"),
-                                       ("sharded_times", "sharded_blocked_counting_update"))
-                   if name in run[phase]}
+                                       ("sharded_times", "sharded_blocked_counting_update"),
+                                       *(("flat_times", n) for n in FLAT_KERNELS))
+                   if name in run.get(phase, {})}
         emit("ab_run", tree=label, kernels=summary)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ab_times.json").write_text(json.dumps(runs, indent=1))
@@ -1232,8 +1715,15 @@ def main(argv: list[str]) -> int:
     phase_sharded_end_to_end(sf, sg, rng, s_times)
     del sf, sg, sfc
     torch.cuda.empty_cache()
+    check(bitops is not None, "tpubloom_torch has the flat layout")
+    f_errs = phase_flat_kernel_vs_plain(rng)
+    f_launches, ff, fc, fs1, fs4, fsc1 = phase_flat_path(rng)
+    f_times = phase_flat_times(ff, fc, fs1, fsc1, rng)
+    phase_flat_end_to_end(ff, fc, fs1, fs4, rng, f_times)
+    del ff, fc, fs1, fs4, fsc1
+    torch.cuda.empty_cache()
     kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
-                           s_launches, s_errs, s_times)
+                           s_launches, s_errs, s_times, f_launches, f_errs, f_times)
     RECORD["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

@@ -5,7 +5,8 @@ tpubloom's (tpubloom.checkpoint), on the CPU:
   vector;
 * blobs of both blocked kinds cross between the packages in both
   directions, with identical decoded headers (all but the wall-clock
-  ``time``) and payload bytes, and identical verdicts and ``n_inserted``;
+  ``time``) and payload bytes, and identical verdicts and ``n_inserted``
+  (the flat kinds' crossings are in tests/test_torch_flat.py);
 * a FileSink directory written by one package restores in the other;
 * a corrupt newest generation is quarantined and the previous one
   restores; v1 blobs still restore; mismatched configs raise;
@@ -180,15 +181,12 @@ def _foreign_blob(kind):
         base = tpubloom.FilterConfig(m=1 << 12, k=3)
         return jck._serialize_scalable(base, {}, 1, [words])
     cfg = {
-        "flat": dict(m=1 << 12, k=3),
-        "flat counting": dict(m=1 << 10, k=3, counting=True),
-        "shards=2": dict(m=1 << 12, k=3, shards=2),
         "kind='cuckoo'": dict(m=1 << 10, k=2, kind="cuckoo"),
     }[kind]
     return jck._serialize(tpubloom.FilterConfig(**cfg), 1, words)
 
 
-@pytest.mark.parametrize("kind", ["flat", "flat counting", "shards=2", "kind='cuckoo'", "scalable"])
+@pytest.mark.parametrize("kind", ["kind='cuckoo'", "scalable"])
 def test_unsupported_kinds_raise(kind):
     with pytest.raises(NotImplementedError, match=kind):
         ck.restore_blob(_foreign_blob(kind), device="cpu")

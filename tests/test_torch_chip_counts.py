@@ -47,3 +47,27 @@ def test_touched_at_the_main_path_geometry():
     assert (got["words"], got["sectors"]) == (want_words, want_sectors)
     assert abs(got["words_per_key"] - 16 * (1 - (15 / 16) ** 7)) < 0.05
     assert abs(got["sectors_per_key"] - 2 * (1 - 2 ** -7)) < 0.02
+
+
+@pytest.mark.parametrize("counting_layout", [False, True])
+def test_flat_footprint_matches_brute_force(counting_layout):
+    """``chip_smoke.flat_footprint``: a flat key's words and sectors summed
+    over the keys (one request a position), and the sectors distinct over
+    the launch (what the bound counts), padding left out."""
+    from tpubloom_torch import FilterConfig
+    from tpubloom_torch.ops import bitops
+
+    rng = np.random.default_rng(7 + counting_layout)
+    cfg = FilterConfig(m=1 << 16, k=10, key_len=16, counting=counting_layout)
+    keys = torch.from_numpy(rng.integers(0, 256, (3000, 16), dtype=np.uint8))
+    lengths = torch.full((3000,), 16, dtype=torch.int32)
+    lengths[-100:] = -1
+    got, widx, valid = chip_smoke.flat_footprint(cfg, keys, lengths)
+    _, pos = bitops.routed_positions(keys, lengths, cfg)
+    per_word = 8 if counting_layout else 32
+    want_words, want_sectors = _brute(np.zeros(3000, np.int64), (pos // per_word).numpy(), 1,
+                                      valid.numpy())
+    distinct = {int(p) // per_word // 8 for p in pos[valid].reshape(-1)}
+    assert (got["words"], got["sectors"], got["keys"]) == (want_words, want_sectors, 2900)
+    assert got["distinct_sectors"] == len(distinct)
+    assert torch.equal(widx, pos // per_word)

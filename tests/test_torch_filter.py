@@ -185,6 +185,7 @@ def test_config_matches_tpubloom(kw):
 def test_port_imports_neither_jax_nor_tpubloom():
     code = (
         "import sys, importlib, pkgutil, tpubloom_torch\n"
+        "import tpubloom_torch.migrate, tpubloom_torch.ops.bitops\n"
         "for m in pkgutil.walk_packages(tpubloom_torch.__path__, 'tpubloom_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -240,7 +241,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert sweep.launch_counts() == dict.fromkeys(
         ("blocked_query", "blocked_insert", "blocked_counting_update", "blocked_counting_query",
          "sharded_blocked_query", "sharded_blocked_insert", "sharded_blocked_counting_update",
-         "sharded_blocked_counting_query"), 0
+         "sharded_blocked_counting_query",
+         "flat_insert", "flat_query", "flat_counting_update", "flat_counting_query",
+         "sharded_flat_insert", "sharded_flat_query", "sharded_flat_counting_update",
+         "sharded_flat_counting_query"), 0
     )
     with pytest.raises(ValueError, match="share a device"):
         sweep.blocked_query(f.words, torch.zeros((4, L), dtype=torch.uint8, device="meta"),

@@ -10,11 +10,12 @@ bytes and ``n_inserted``:
   K2, its counting twin, with a delete of 200 keys. Each interpret-mode
   reference runs once, in a module-scoped fixture;
 * the scatter path at test_sharded.py's shapes (m=2^20, k=5, shards 8 and
-  16) on 1, 2 and 8 slots: every placement holds the same words as
-  tpubloom, so the same words as each other;
-* the packed, staged and array surfaces, bytes, checkpoint blobs and
-  FileSink directories across the packages, the per-slot phases, and the
-  guards."""
+  16) on 1, 2 and 8 slots, in all four layouts (blocked and flat, bit and
+  counting): every placement holds the same words as tpubloom, so the
+  same words as each other;
+* the packed, staged and array surfaces, bytes, the flat Redis bitmap,
+  checkpoint blobs and FileSink directories across the packages, the
+  per-slot phases, and the guards."""
 
 import numpy as np
 import pytest
@@ -36,7 +37,11 @@ from tpubloom_torch.utils.packing import pack_keys
 
 L = 16
 SMALL = dict(m=1 << 20, k=5, key_len=L, block_bits=512)
-LAYOUTS = {"blocked": {}, "counting": {"counting": True}}
+LAYOUTS = {
+    "blocked": {}, "counting": {"counting": True},
+    "flat": {"block_bits": 0}, "flat_counting": {"block_bits": 0, "counting": True},
+}
+BLOCKED_LAYOUTS = ["blocked", "counting"]  # K1 and K2 run only in the blocked layouts
 
 
 def _keys(rng, n):
@@ -48,8 +53,12 @@ def _cpu(n_slots):
 
 
 def _cfgs(layout, shards=8, **kw):
-    d = dict(SMALL, shards=shards, **LAYOUTS[layout], **kw)
+    d = {**SMALL, "shards": shards, **LAYOUTS[layout], **kw}
     return FilterConfig(**d), tpubloom.FilterConfig(**d)
+
+
+def _counting(layout):
+    return LAYOUTS[layout].get("counting", False)
 
 
 # -- routing ---------------------------------------------------------------------
@@ -92,7 +101,7 @@ def sweep_refs():
     keys = _keys(rng, 512)
     probe = keys[:200] + _keys(rng, 300)
     out = {}
-    for layout in LAYOUTS:
+    for layout in BLOCKED_LAYOUTS:
         j = JSharded(tpubloom.FilterConfig(**K1_KW, **LAYOUTS[layout], insert_path="sweep"),
                      mesh=make_mesh(8))
         j.insert_batch(keys)
@@ -112,7 +121,7 @@ def test_k1_is_the_per_device_kernel_at_this_shape():
                              counting=True) is None
 
 
-@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("layout", BLOCKED_LAYOUTS)
 def test_matches_k1_and_k2_in_shard_map(layout, sweep_refs):
     keys, probe, words, verdicts = sweep_refs[layout]
     f = ShardedBloomFilter(FilterConfig(**K1_KW, **LAYOUTS[layout]), devices=_cpu(8))
@@ -142,7 +151,7 @@ def scatter_refs():
             _, jcfg = _cfgs(layout, shards)
             j = JSharded(jcfg)
             j.insert_batch(keys)
-            if layout == "counting":
+            if _counting(layout):
                 j.delete_batch(keys[:200])
             probe = keys[:100] + _keys(rng, 400) + [b"", b"a"]
             memo[layout, shards] = (keys, probe, j.words_logical, j.include_batch(probe))
@@ -160,7 +169,7 @@ def test_every_placement_matches_tpubloom(layout, shards, n_slots, scatter_refs)
     f = ShardedBloomFilter(cfg, devices=_cpu(n_slots))
     assert len(f.slot_words) == n_slots and f.shards_per_dev == shards // n_slots
     f.insert_batch(keys)
-    if layout == "counting":
+    if _counting(layout):
         f.delete_batch(keys[:200])
     np.testing.assert_array_equal(f.words_logical, words)
     np.testing.assert_array_equal(f.include_batch(probe), verdicts)
@@ -219,7 +228,7 @@ def filled():
         f, j = ShardedBloomFilter(cfg, devices=_cpu(8)), JSharded(jcfg)
         for x in (f, j):
             x.insert_batch(keys)
-            if layout == "counting":
+            if _counting(layout):
                 x.delete_batch(keys[:100])
         out[layout] = (f, j, keys)
     return out
@@ -234,6 +243,13 @@ def test_bytes_cross_both_ways(layout, filled):
     port = ShardedBloomFilter.from_bytes(f.config, j.to_bytes(), devices=_cpu(2))
     np.testing.assert_array_equal(port.words_logical, j.words_logical)
     assert port.include_batch(keys[100:]).all()
+    if layout == "flat":  # shard-major Redis bitmaps, both ways
+        bitmap = f.to_redis_bitmap()
+        assert bitmap == j.to_redis_bitmap() and len(bitmap) == f.config.m // 8
+        back = JSharded.from_redis_bitmap(j.config, bitmap)
+        np.testing.assert_array_equal(back.words_logical, f.words_logical)
+        port = ShardedBloomFilter.from_redis_bitmap(f.config, j.to_redis_bitmap(), devices=_cpu(4))
+        np.testing.assert_array_equal(port.words_logical, j.words_logical)
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
@@ -273,28 +289,30 @@ def test_file_sink_directories_cross(layout, filled, tmp_path):
 
 
 def test_interop_builds_a_sharded_filter(filled):
-    f, j, keys = filled["blocked"]
-    g = interop.filter_from_words(j.words_logical, interop.config_from_dict(j.config.to_dict()),
-                                  "cpu", n_inserted=j.n_inserted)
-    assert isinstance(g, ShardedBloomFilter)
-    np.testing.assert_array_equal(interop.words_to_numpy(g), j.words_logical)
-    assert g.include_batch(keys).all()
+    for layout in ("blocked", "flat"):
+        f, j, keys = filled[layout]
+        g = interop.filter_from_words(j.words_logical, interop.config_from_dict(j.config.to_dict()),
+                                      "cpu", n_inserted=j.n_inserted)
+        assert isinstance(g, ShardedBloomFilter)
+        np.testing.assert_array_equal(interop.words_to_numpy(g), j.words_logical)
+        assert g.include_batch(keys).all()
 
 
 def test_stats_and_fill_ratios_match_tpubloom(filled):
-    f, j, _ = filled["blocked"]
-    assert f.shard_fill_ratios() == j.shard_fill_ratios()
-    got, want = f.stats(), j.stats()
-    assert got.keys() == want.keys()
-    # (n_queried is left out: other tests query these filters)
-    for key in ("m", "k", "shards", "n_inserted", "bits_set", "fill_ratio_per_shard"):
-        assert got[key] == want[key], key
-    for key in ("fill_ratio", "estimated_fpr", "predicted_fpr", "fpr_drift"):
-        assert got[key] == pytest.approx(want[key], rel=1e-12, abs=1e-18), key
-    assert got["devices"] == 8
-    assert f.bits_set() == got["bits_set"]
-    fc, jc, _ = filled["counting"]
-    assert fc.shard_fill_ratios() is None and fc.stats().keys() == jc.stats().keys()
+    for bits, counts in (("blocked", "counting"), ("flat", "flat_counting")):
+        f, j, _ = filled[bits]
+        assert f.shard_fill_ratios() == j.shard_fill_ratios()
+        got, want = f.stats(), j.stats()
+        assert got.keys() == want.keys()
+        # (n_queried is left out: other tests query these filters)
+        for key in ("m", "k", "shards", "n_inserted", "bits_set", "fill_ratio_per_shard"):
+            assert got[key] == want[key], key
+        for key in ("fill_ratio", "estimated_fpr", "predicted_fpr", "fpr_drift"):
+            assert got[key] == pytest.approx(want[key], rel=1e-12, abs=1e-18), key
+        assert got["devices"] == 8
+        assert f.bits_set() == got["bits_set"]
+        fc, jc, _ = filled[counts]
+        assert fc.shard_fill_ratios() is None and fc.stats().keys() == jc.stats().keys()
 
 
 def test_shard_popcounts_reduce_each_shard():
@@ -356,13 +374,25 @@ def test_slot_rules_follow_make_mesh():
 
 @pytest.mark.parametrize("counting", [False, True])
 def test_flat_sharded_layouts_raise(counting):
+    """Where tpubloom's flat sharded layouts raise, the port's do: no Redis
+    bitmap of a counting or blocked array, no delete without counters."""
     cfg = FilterConfig(m=1 << 20, k=5, key_len=L, shards=8, counting=counting)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ShardedBloomFilter(cfg, devices=_cpu(8))
+    f = ShardedBloomFilter(cfg, devices=_cpu(8))
+    assert [tuple(w.shape) for w in f.slot_words] == [(1, (1 << 20) // 8 // (8 if counting else 32))] * 8
+    if counting:
+        with pytest.raises(ValueError, match="not Redis-bitmap exportable"):
+            f.to_redis_bitmap()
+        with pytest.raises(ValueError, match="restore via from_bytes"):
+            ShardedBloomFilter.from_redis_bitmap(cfg, b"", devices=_cpu(2))
+    else:
+        with pytest.raises(ValueError, match="delete requires a counting config"):
+            f.delete_batch([b"x"])
+    blocked = FilterConfig(m=1 << 20, k=5, key_len=L, shards=8, block_bits=512)
+    with pytest.raises(ValueError, match="not Redis-bitmap exportable"):
+        ShardedBloomFilter(blocked, devices=_cpu(2)).to_redis_bitmap()
     blob = jck._serialize(tpubloom.FilterConfig(m=1 << 20, k=5, shards=8, counting=counting), 1,
-                          np.zeros(1 << 15, np.uint32))
-    with pytest.raises(NotImplementedError, match="shards=8"):
-        checkpoint.restore_blob(blob, device="cpu")
+                          np.zeros((1 << 20) // (8 if counting else 32), np.uint32))
+    assert checkpoint.restore_blob(blob, device="cpu").bits_set() == 0
 
 
 def test_delete_needs_counting_and_clear_empties():

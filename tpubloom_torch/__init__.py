@@ -1,4 +1,4 @@
-"""tpubloom_torch — the blocked bloom filters on PyTorch and CUDA (Hopper).
+"""tpubloom_torch — the bloom filters of tpubloom on PyTorch and CUDA (Hopper).
 
 The PyTorch/CUDA port of :mod:`tpubloom`, which stays beside it as the
 reference. This package imports ``torch`` and numpy, never JAX and never
@@ -6,6 +6,7 @@ reference. This package imports ``torch`` and numpy, never JAX and never
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 
     from tpubloom_torch import BlockedBloomFilter, BlockedCountingBloomFilter, FilterConfig
+    from tpubloom_torch import BloomFilter, CountingBloomFilter, ShardedBloomFilter
 
     f = BlockedBloomFilter(FilterConfig(m=1 << 32, k=7, block_bits=512))
     present = f.insert_batch([b"alpha", b"beta"], return_presence=True)
@@ -17,12 +18,19 @@ reference. This package imports ``torch`` and numpy, never JAX and never
 
     s = ShardedBloomFilter(FilterConfig(m=1 << 36, k=7, block_bits=512, shards=64))
     s.insert_batch([b"alpha"])           # BASELINE config 5: 64 shards, 8 GiB
+
+    b = BloomFilter(FilterConfig(m=1 << 30, k=10))  # the flat layout (config 2)
+    b.insert_batch([b"alpha"])
+    bitmap = b.to_redis_bitmap()         # the reference gem's SETBIT bytes
 """
 
 from tpubloom_torch.config import FilterConfig
-from tpubloom_torch.filter import BlockedBloomFilter, BlockedCountingBloomFilter
+from tpubloom_torch.filter import (
+    BlockedBloomFilter, BlockedCountingBloomFilter, BloomFilter, CountingBloomFilter,
+)
 from tpubloom_torch.parallel.sharded import ShardedBloomFilter
 
 __all__ = [
-    "FilterConfig", "BlockedBloomFilter", "BlockedCountingBloomFilter", "ShardedBloomFilter",
+    "FilterConfig", "BloomFilter", "CountingBloomFilter", "BlockedBloomFilter",
+    "BlockedCountingBloomFilter", "ShardedBloomFilter",
 ]

@@ -1,6 +1,7 @@
 """Checkpoint blobs of the port's filters: the codec of ``tpubloom/checkpoint.py``
-for the kinds the port has, blocked and blocked counting, on one device or
-sharded (``shards > 1``, :class:`~tpubloom_torch.parallel.sharded.ShardedBloomFilter`).
+for the kinds the port has, flat and blocked, bit and counting, on one
+device or sharded (``shards > 1``,
+:class:`~tpubloom_torch.parallel.sharded.ShardedBloomFilter`).
 
 A blob is format v2, byte for byte as ``tpubloom`` writes it::
 
@@ -8,17 +9,18 @@ A blob is format v2, byte for byte as ``tpubloom`` writes it::
 
 The JSON header carries the filter's config (``FilterConfig.to_dict``),
 the sequence number, the payload format (``blocked_le_words`` or
-``counting_le_words``: the state's row-major little-endian words), the
-wall-clock time, ``extra`` (``n_inserted`` / ``n_queried``), and the
-payload's length and CRC32C. A sharded filter's payload is its words
-shard-major (``tpubloom``'s global array). v1 blobs (``TPUBLOOM1``, no CRC) still
-decode. A blob of either package restores in the other; a
-:class:`FileSink` directory too, since the file names are the same
-(``<key_name>.<seq:012d>.ckpt``).
+``counting_le_words``: the state's row-major little-endian words;
+``redis_bitmap`` for a flat bit filter: the reference gem's SETBIT string
+bitmap, ``ceil(m / 8)`` bytes), the wall-clock time, ``extra``
+(``n_inserted`` / ``n_queried``), and the payload's length and CRC32C. A
+sharded filter's payload is its words shard-major (``tpubloom``'s global
+array). v1 blobs (``TPUBLOOM1``, no CRC) still decode. A blob of either
+package restores in the other; a :class:`FileSink` directory too, since
+the file names are the same (``<key_name>.<seq:012d>.ckpt``).
 
-Kinds the port does not have yet — flat (``redis_bitmap``), flat
-counting, flat sharded, ``scalable_stack``, the sketch kinds — raise
-``NotImplementedError`` naming the kind; nothing falls back.
+Kinds the port does not have yet — ``scalable_stack`` and the sketch
+kinds — raise ``NotImplementedError`` naming the kind; nothing falls
+back.
 
 The snapshot copies the state on its device first and then to the host:
 the port updates a filter in place, so the copy must be taken in stream
@@ -38,9 +40,9 @@ import numpy as np
 import torch
 
 from tpubloom_torch.config import FilterConfig, identity_mismatch
-from tpubloom_torch.filter import BlockedBloomFilter, BlockedCountingBloomFilter
-from tpubloom_torch.parallel.sharded import ShardedBloomFilter
+from tpubloom_torch.interop import new_filter
 from tpubloom_torch.utils.crc32c import crc32c
+from tpubloom_torch.utils.packing import redis_bitmap_to_words, words_to_redis_bitmap
 
 log = logging.getLogger("tpubloom_torch.checkpoint")
 
@@ -63,10 +65,6 @@ def _kind_name(config: FilterConfig) -> Optional[str]:
     else None."""
     if config.kind != "bloom":
         return f"kind={config.kind!r}"
-    if not config.block_bits:
-        if config.shards > 1:
-            return f"flat sharded (shards={config.shards})"
-        return "flat counting" if config.counting else "flat (redis_bitmap)"
     return None
 
 
@@ -80,11 +78,19 @@ def _unsupported(what: str) -> NotImplementedError:
 def _serialize(
     config: FilterConfig, seq: int, words: np.ndarray, extra: Optional[dict] = None
 ) -> bytes:
-    """Self-describing checkpoint: framing + json header + raw LE words."""
+    """Self-describing checkpoint: framing + json header + payload. Flat
+    bit filters store the payload in Redis-bitmap byte order (what the
+    reference's SETBIT loop would have produced); the others raw LE
+    words."""
     kind = _kind_name(config)
     if kind is not None:
         raise _unsupported(kind)
-    fmt = "counting_le_words" if config.counting else "blocked_le_words"
+    if config.counting or config.block_bits:
+        fmt = "counting_le_words" if config.counting else "blocked_le_words"
+        payload = words.reshape(-1).astype("<u4").tobytes()
+    else:
+        fmt = "redis_bitmap"
+        payload = words_to_redis_bitmap(words.reshape(-1), config.m)
     return _frame(
         {
             "config": config.to_dict(),
@@ -93,7 +99,7 @@ def _serialize(
             "time": time.time(),
             "extra": extra or {},
         },
-        words.reshape(-1).astype("<u4").tobytes(),
+        payload,
     )
 
 
@@ -157,10 +163,12 @@ def _deserialize(data: bytes) -> Tuple[dict, bytes]:
 
 
 def payload_to_words(config: FilterConfig, header: dict, payload: bytes) -> np.ndarray:
-    """The payload's ``uint32`` words (the raw-LE-words formats only)."""
-    if header["format"] not in ("counting_le_words", "blocked_le_words"):
-        raise _unsupported(f"{header['format']!r} payload")
-    return np.frombuffer(payload, dtype="<u4").astype(np.uint32)
+    """The payload's ``uint32`` words (raw LE words, or a Redis bitmap)."""
+    if header["format"] in ("counting_le_words", "blocked_le_words"):
+        return np.frombuffer(payload, dtype="<u4").astype(np.uint32)
+    if header["format"] == "redis_bitmap":
+        return redis_bitmap_to_words(payload, config.m)
+    raise _unsupported(f"{header['format']!r} payload")
 
 
 class FileSink:
@@ -273,9 +281,8 @@ def snapshot_blob(
 def restore_blob(blob: bytes, config: Optional[FilterConfig] = None, *, device=None):
     """Rebuild a live filter from one in-memory blob (integrity-checked
     like any sink read). With no ``config`` the blob's own stored config
-    is adopted. ``device`` as for the filter classes (the card unless
-    given); a sharded filter (``shards > 1``) gets one slot on it, or
-    with no ``device`` one slot per visible card."""
+    is adopted. ``device`` as for :func:`~tpubloom_torch.interop.new_filter`
+    (the card unless given)."""
     header, payload = _deserialize(blob)
     if config is None:
         config = FilterConfig.from_dict(header["config"])
@@ -353,11 +360,7 @@ def _build_filter(config: FilterConfig, header: dict, payload: bytes, device=Non
     kind = _kind_name(config)
     if kind is not None:
         raise _unsupported(kind)
-    if config.shards > 1:
-        f = ShardedBloomFilter(config, None if device is None else [device])
-    else:
-        cls = BlockedCountingBloomFilter if config.counting else BlockedBloomFilter
-        f = cls(config, device)
+    f = new_filter(config, device)
     words = payload_to_words(config, header, payload)
     n_words = sum(t.numel() for t in f._state_tensors())
     if words.size != n_words:

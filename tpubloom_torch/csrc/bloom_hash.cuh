@@ -10,6 +10,13 @@
 //   chunk: bit_i = (pool >> (i*log2(b))) mod b, pool = h_b | g_a<<32 | g_b<<64
 //   ap:    bit_i = (g_a + i*(g_b|1)) mod b
 //
+// Flat layout (tpubloom/ops/hashing.py `positions`): the k positions of a
+// key over m positions are
+//   m a power of two: ((h_b << 32 | h_a) + i * (g_b << 32 | (g_a | 1)))
+//                     mod 2^64, masked to m - 1 (the (hi, lo) walk with
+//                     its u32 carry is this 64-bit add);
+//   any other m (< 2^31): ((h_a + i * (g_a | 1)) mod 2^32) mod m.
+//
 // Sharded filter array (tpubloom/parallel/sharded.py): a key belongs to
 // shard murmur3_32(key, seed ^ 0x517CC1B7) mod n_shards (a true mod), and
 // hashes into that shard with n_blocks = the shard's block count.
@@ -200,6 +207,70 @@ __device__ __forceinline__ uint32_t inblock_bit(int i, const KeyHash& h,
     return v & mask;
   }
   return (h.ga + (uint32_t)i * (h.gb | 1u)) & mask;
+}
+
+// ---------------------------------------------------------------------------
+// Flat positions (flat_bloom.cu). The walk of a key: position i is
+// (start + i * stride) & (m - 1) for a power-of-two m, in 64 bits, and
+// ((u32)start + i * (u32)stride) % m otherwise. m is the position count of
+// the whole filter, or of one shard for a routed kernel.
+// ---------------------------------------------------------------------------
+
+struct FlatSpec {
+  uint64_t m;
+  int pow2;  // 1: m a power of two (the 64-bit walk), 0: the mod walk
+  int k;
+  uint32_t seed;
+};
+
+inline FlatSpec make_flat_spec(int64_t m, int k, uint32_t seed) {
+  FlatSpec s;
+  s.m = (uint64_t)m;
+  s.pow2 = (m & (m - 1)) == 0 ? 1 : 0;
+  s.k = k;
+  s.seed = seed;
+  return s;
+}
+
+struct FlatWalk {
+  uint64_t start, stride;
+};
+
+// The four base hashes of the spec, with the full h_a: a key of 4 words is
+// hashed from registers, any other from memory. The mod walk needs only
+// h_a and g_a.
+__device__ __forceinline__ FlatWalk flat_walk(const uint32_t* __restrict__ kw,
+                                              int nw, int len,
+                                              const FlatSpec& s) {
+  uint32_t ha, hb = 0u, ga, gb = 0u;
+  if (nw == 4) {
+    const uint32_t r[4] = {kw[0], kw[1], kw[2], kw[3]};
+    ha = murmur3_32_regs(r, len, s.seed);
+    ga = fnv1a_32_regs(r, len);
+    if (s.pow2) {
+      hb = murmur3_32_regs(r, len, s.seed ^ kSeedXorHB);
+      gb = murmur3_32_regs(r, len, s.seed ^ kSeedXorGB);
+    }
+  } else {
+    ha = murmur3_32(kw, nw, len, s.seed);
+    ga = fnv1a_32(kw, nw, len);
+    if (s.pow2) {
+      hb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorHB);
+      gb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorGB);
+    }
+  }
+  FlatWalk w;
+  w.start = ((uint64_t)hb << 32) | ha;
+  w.stride = ((uint64_t)gb << 32) | (ga | 1u);
+  return w;
+}
+
+// Position i (0 <= i < k) of the walk, in [0, m).
+__device__ __forceinline__ uint64_t flat_position(int i, const FlatWalk& w,
+                                                  const FlatSpec& s) {
+  if (s.pow2) return (w.start + (uint64_t)i * w.stride) & (s.m - 1);
+  const uint32_t p = (uint32_t)w.start + (uint32_t)i * (uint32_t)w.stride;
+  return (uint64_t)(p % (uint32_t)s.m);
 }
 
 // ---------------------------------------------------------------------------

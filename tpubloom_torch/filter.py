@@ -1,15 +1,16 @@
-"""The port's front-end classes: BlockedBloomFilter and
-BlockedCountingBloomFilter on PyTorch.
+"""The port's front-end classes on PyTorch: BloomFilter and
+CountingBloomFilter (the flat, Redis-bitmap-compatible layout),
+BlockedBloomFilter and BlockedCountingBloomFilter.
 
-The same surfaces as ``tpubloom.filter.BlockedBloomFilter`` and
-``tpubloom.filter.BlockedCountingBloomFilter``: ``insert_batch``
-(optionally test-and-insert, bit filter only), ``include_batch``, the
-fixed-width ``insert_packed`` / ``include_packed``, the staged
-``stage_batch`` / ``launch_insert`` / ``launch_query`` API, the
+The same surfaces as their namesakes in ``tpubloom.filter``:
+``insert_batch`` (optionally test-and-insert, blocked bit filter only),
+``include_batch``, the fixed-width ``insert_packed`` / ``include_packed``,
+the staged ``stage_batch`` / ``launch_insert`` / ``launch_query`` API, the
 device-array ``insert_arrays`` / ``include_arrays``, ``clear``,
 ``words_logical``, ``to_bytes`` / ``from_bytes`` and ``stats``; the bit
-filter adds ``fill_ratio`` and its FPR gauges, the counting filter
-``delete_batch`` / ``delete``.
+filters add ``fill_ratio`` and its FPR gauges, the counting filters
+``delete_batch`` / ``delete``, and the flat bit filter
+``to_redis_bitmap`` / ``from_redis_bitmap``.
 
 Device: the filter lives on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that argument the
@@ -17,12 +18,13 @@ constructor raises. On the card every insert and query runs the
 hand-written kernels (:mod:`tpubloom_torch.ops.sweep`); on the CPU their
 plain versions.
 
-Storage: ``self.words`` is ``uint32[NB·W/128, 128]`` (the fat view of
-``tpubloom.filter.blocked_device_shape``; the logical ``[NB, W]`` where
-the fat view does not divide), with the same row-major bytes as
-``tpubloom``'s: bits for the bit filter, packed 4-bit counters for the
-counting filter. Inserts and deletes update it in place, where
-``tpubloom`` donates the buffer to its jitted step.
+Storage: a blocked filter's ``self.words`` is ``uint32[NB·W/128, 128]``
+(the fat view of ``tpubloom.filter.blocked_device_shape``; the logical
+``[NB, W]`` where the fat view does not divide), a flat filter's
+``uint32[n_words]`` (bits) or ``uint32[n_counter_words]`` (4-bit
+counters), with the same bytes as ``tpubloom``'s. Inserts and deletes
+update it in place, where ``tpubloom`` donates the buffer to its jitted
+step.
 
 Batches: host batches are padded to the next power of two (minimum 64),
 as in ``tpubloom``; padded entries carry ``length = -1`` at the tail and
@@ -31,6 +33,7 @@ set nothing and report False.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -40,7 +43,9 @@ from tpubloom_torch.config import FilterConfig
 from tpubloom_torch.obs import context as obs
 from tpubloom_torch.ops import sweep
 from tpubloom_torch.params import blocked_fpr
-from tpubloom_torch.utils.packing import pack_keys
+from tpubloom_torch.utils.packing import (
+    pack_keys, redis_bitmap_to_words, words_to_redis_bitmap,
+)
 
 _POPCOUNT8 = [bin(i).count("1") for i in range(256)]
 
@@ -69,12 +74,10 @@ def blocked_device_shape(config: FilterConfig) -> tuple[int, int]:
     return (nb, w)
 
 
-def _zero_storage(config: FilterConfig, device: torch.device) -> torch.Tensor:
+def _zero_storage(shape, device: torch.device) -> torch.Tensor:
     # zeros as int32 then viewed: uint32 is a storage type in torch, with
     # few kernels of its own
-    return torch.zeros(
-        blocked_device_shape(config), dtype=torch.int32, device=device
-    ).view(torch.uint32)
+    return torch.zeros(shape, dtype=torch.int32, device=device).view(torch.uint32)
 
 
 def resolve_device(device) -> torch.device:
@@ -215,7 +218,10 @@ class _FilterBase:
 
     @property
     def words_logical(self) -> np.ndarray:
-        """Host copy of the storage in its LOGICAL ``[NB, W]`` shape."""
+        """Host copy of the storage in its LOGICAL shape: ``[NB, W]`` for
+        a blocked layout, the flat word array otherwise."""
+        if not self.config.block_bits:
+            return self._host_words()
         return self._host_words().reshape(
             self.config.n_blocks, self.config.words_per_block
         )
@@ -344,9 +350,12 @@ class _FilterBase:
         return self.fill_ratio() ** self.config.k
 
     def predicted_fpr(self) -> float:
-        """Analytic FPR from the geometry and ``n_inserted`` alone (the
-        blocked layout's own model, :func:`params.blocked_fpr`)."""
+        """Analytic FPR from the geometry and ``n_inserted`` alone: the
+        blocked layout's own model (:func:`params.blocked_fpr`), or
+        ``(1 - e^{-kn/m})^k`` for the flat layout."""
         c = self.config
+        if not c.block_bits:
+            return (1.0 - math.exp(-c.k * self.n_inserted / c.m)) ** c.k
         return blocked_fpr(
             self.n_inserted, m=c.m, k=c.k,
             block_bits=c.block_bits, block_hash=c.block_hash,
@@ -364,6 +373,48 @@ class _FilterBase:
             "predicted_fpr": predicted,
             "fpr_drift": estimated - predicted,
         }
+
+
+class BloomFilter(_FilterBase):
+    """Flat bloom filter on a packed ``uint32[n_words]`` array: the
+    reference gem's SETBIT/GETBIT positions, so its words convert to and
+    from a Redis string bitmap. On the card an insert is one
+    ``flat_insert`` launch (an ``atomicOr`` a position), a query one
+    ``flat_query`` (k word gathers a key)."""
+
+    def __init__(self, config: FilterConfig, device=None):
+        if config.counting:
+            raise ValueError("use CountingBloomFilter for counting configs")
+        if config.block_bits:
+            raise ValueError("use BlockedBloomFilter for blocked configs")
+        super().__init__(config, device)
+        self.words = _zero_storage((config.n_words,), self.device)
+
+    def _insert(self, keys, lengths) -> None:
+        sweep.flat_insert(self.words, keys, lengths, self.config)
+
+    def _query(self, keys, lengths) -> torch.Tensor:
+        return sweep.flat_query(self.words, keys, lengths, self.config)
+
+    def stats(self) -> dict:
+        return {
+            "m": self.config.m,
+            "k": self.config.k,
+            "n_inserted": self.n_inserted,
+            "n_queried": self.n_queried,
+            **self._fpr_gauges(),
+        }
+
+    # persistence in the Redis-string-bitmap format (reference-compatible)
+
+    def to_redis_bitmap(self) -> bytes:
+        return words_to_redis_bitmap(self._host_words(), self.config.m)
+
+    @classmethod
+    def from_redis_bitmap(cls, config: FilterConfig, data: bytes, device=None) -> "BloomFilter":
+        f = cls(config, device)
+        f._set_words(redis_bitmap_to_words(data, config.m))
+        return f
 
 
 class BlockedBloomFilter(_FilterBase):
@@ -384,7 +435,7 @@ class BlockedBloomFilter(_FilterBase):
         if not config.block_bits:
             config = config.replace(block_bits=512)
         super().__init__(config, device)
-        self.words = _zero_storage(config, self.device)
+        self.words = _zero_storage(blocked_device_shape(config), self.device)
 
     def insert_batch(
         self, keys: Sequence[bytes | str], *, return_presence: bool = False
@@ -426,7 +477,56 @@ class BlockedBloomFilter(_FilterBase):
         }
 
 
-class BlockedCountingBloomFilter(_FilterBase):
+class _CountingBase(_FilterBase):
+    """Delete and stats of the counting filters; subclasses provide
+    ``_delete`` beside ``_insert`` / ``_query``."""
+
+    def delete_batch(self, keys: Sequence[bytes | str]) -> None:
+        """Remove one copy of each key: its counters drop by their
+        multiplicities, flooring at 0."""
+        B = self._update_batch(keys, self._delete)
+        self.n_inserted = max(0, self.n_inserted - B)
+
+    def delete(self, key: bytes | str) -> None:
+        self.delete_batch([key])
+
+    def stats(self) -> dict:
+        out = {"m": self.config.m, "k": self.config.k}
+        if self.config.block_bits:
+            out["block_bits"] = self.config.block_bits
+        return {**out, "n_inserted": self.n_inserted, "n_queried": self.n_queried}
+
+
+class CountingBloomFilter(_CountingBase):
+    """Flat counting bloom filter: 4-bit saturating counters at the flat
+    positions, packed in ``uint32[n_counter_words]``; supports delete.
+    ``m`` counts COUNTERS (< 2^31). On the card an insert or a delete is
+    one ``flat_counting_update`` launch (a saturating ``atomicCAS`` loop a
+    position), a query one ``flat_counting_query``. Increments clamp at
+    15, decrements floor at 0, with the result of ``tpubloom``'s one clamp
+    per batch against the pre-batch value, bit for bit."""
+
+    def __init__(self, config: FilterConfig, device=None):
+        if not config.counting:
+            config = config.replace(counting=True)
+        if config.block_bits:
+            raise ValueError("use BlockedCountingBloomFilter for blocked configs")
+        if config.m >= (1 << 31):
+            raise ValueError("counting filters support m < 2^31 (config 4: m=2^30)")
+        super().__init__(config, device)
+        self.words = _zero_storage((config.n_counter_words,), self.device)
+
+    def _insert(self, keys, lengths) -> None:
+        sweep.flat_counting_update(self.words, keys, lengths, self.config, increment=True)
+
+    def _delete(self, keys, lengths) -> None:
+        sweep.flat_counting_update(self.words, keys, lengths, self.config, increment=False)
+
+    def _query(self, keys, lengths) -> torch.Tensor:
+        return sweep.flat_counting_query(self.words, keys, lengths, self.config)
+
+
+class BlockedCountingBloomFilter(_CountingBase):
     """Blocked (cache-line) counting filter — delete support at the
     blocked layout's throughput.
 
@@ -448,7 +548,7 @@ class BlockedCountingBloomFilter(_FilterBase):
         if config.m >= (1 << 31):
             raise ValueError("counting filters support m < 2^31")
         super().__init__(config, device)
-        self.words = _zero_storage(config, self.device)
+        self.words = _zero_storage(blocked_device_shape(config), self.device)
 
     def _insert(self, keys, lengths) -> None:
         sweep.blocked_counting_update(self.words, keys, lengths, self.config, increment=True)
@@ -458,21 +558,3 @@ class BlockedCountingBloomFilter(_FilterBase):
 
     def _query(self, keys, lengths) -> torch.Tensor:
         return sweep.blocked_counting_query(self.words, keys, lengths, self.config)
-
-    def delete_batch(self, keys: Sequence[bytes | str]) -> None:
-        """Remove one copy of each key: its counters drop by their
-        multiplicities, flooring at 0."""
-        B = self._update_batch(keys, self._delete)
-        self.n_inserted = max(0, self.n_inserted - B)
-
-    def delete(self, key: bytes | str) -> None:
-        self.delete_batch([key])
-
-    def stats(self) -> dict:
-        return {
-            "m": self.config.m,
-            "k": self.config.k,
-            "block_bits": self.config.block_bits,
-            "n_inserted": self.n_inserted,
-            "n_queried": self.n_queried,
-        }

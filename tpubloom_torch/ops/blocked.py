@@ -157,17 +157,21 @@ def blocked_insert_plain(
     key's k bits in ``state``, in place. With a ``route``
     (:func:`routed_blocks`), the plain version of the
     ``sharded_blocked_insert`` kernel: keys the slot does not own set
-    nothing.
-
-    torch has no scatter-OR, so: take the global bit indices
-    ``blk·block_bits + bit``, ``unique`` them, keep those not yet set,
-    and ``index_put_(accumulate=True)`` their ``1 << (bit & 31)`` values
-    into their words in int64 — a sum of distinct unset powers of two is
-    their OR."""
+    nothing."""
     valid, blk, bit = _positions(keys, lengths, config, route)
-    gbit = (blk[:, None] * config.block_bits + bit)[valid].reshape(-1)
+    or_bits(_words(state), (blk[:, None] * config.block_bits + bit)[valid].reshape(-1))
+
+
+def or_bits(words: torch.Tensor, gbit: torch.Tensor) -> None:
+    """OR bit ``g`` of the packed array for every ``g`` in ``gbit`` (int64
+    global bit indices, repeats allowed) into ``words``, the int32 view of
+    the state, in place.
+
+    torch has no scatter-OR, so: ``unique`` the bits, keep those not yet
+    set, and ``index_put_(accumulate=True)`` their ``1 << (bit & 31)``
+    into their words in int64; a sum of distinct unset powers of two is
+    their OR."""
     gbit = torch.unique(gbit)
-    words = _words(state)
     widx = gbit >> 5
     one = 1 << (gbit & 31)
     unset = ((words[widx].to(torch.int64) & M32) & one) == 0

@@ -1,5 +1,6 @@
-"""Blocked counting filter in plain PyTorch: the plain versions of the two
-counting kernels (``tpubloom_torch/csrc/blocked_counting.cu``).
+"""Counting filters in plain PyTorch: the plain versions of the blocked
+counting kernels (``tpubloom_torch/csrc/blocked_counting.cu``) and of the
+flat counting kernels (``tpubloom_torch/csrc/flat_bloom.cu``).
 
 Layout (the same as ``tpubloom/ops/counting.py``): counter ``pos`` lives
 in word ``pos >> 3``, nibble ``pos & 7`` (bits ``4·(pos & 7)`` and up) of
@@ -8,7 +9,10 @@ of ``block_bits`` bits holds ``counters_per_block = block_bits / 4``
 counters, and a key's k counters ``c_i`` all live in its block ``blk``:
 the in-block positions follow the blocked spec of
 :mod:`tpubloom_torch.ops.blocked` with ``block_bits = counters_per_block``,
-and the global counter index is ``blk · counters_per_block + c_i``.
+and the global counter index is ``blk · counters_per_block + c_i``. In
+the flat counting layout a key's k counters are the flat positions of
+:func:`tpubloom_torch.ops.hashing.positions` over ``m`` counters
+(``tpubloom/filter.py`` ``make_counter_fn``), anywhere in the array.
 
 Semantics (``tpubloom.ops.counting.counter_update``): an insert adds each
 distinct counter's multiplicity in the batch and saturates at 15; a
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from tpubloom_torch.ops.bitops import routed_positions
 from tpubloom_torch.ops.blocked import _words, routed_blocks
 from tpubloom_torch.ops.hashing import M32
 
@@ -95,3 +100,33 @@ def blocked_counting_query_plain(
     vals = torch.gather(rows, 1, cpos >> 3)
     cnt = (vals >> (4 * (cpos & 7))) & 15
     return (cnt > 0).all(dim=-1) & valid
+
+
+def flat_counting_update_plain(
+    state: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor, config, *,
+    increment: bool, route=None,
+) -> None:
+    """Plain version of the ``flat_counting_update`` kernel
+    (``tpubloom.ops.counting.counter_update`` over the keys' flat counter
+    positions): each valid key adds (``increment``) or subtracts its
+    counters' multiplicities, saturating at 15 / flooring at 0, in place.
+    With a ``route``, the plain version of ``sharded_flat_counting_update``:
+    keys the slot does not own change nothing."""
+    valid, pos = routed_positions(keys, lengths, config, route)
+    counter_update_plain(
+        _words(state), pos.reshape(-1),
+        valid[:, None].expand(pos.shape).reshape(-1), increment=increment,
+    )
+
+
+def flat_counting_query_plain(
+    state: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor, config,
+    route=None,
+) -> torch.Tensor:
+    """Plain version of the ``flat_counting_query`` kernel
+    (``counting_membership``): ``bool[B]``, True where all k counters of
+    the key are non-zero; padding and, with a ``route``, keys the slot does
+    not own answer False. ``state`` is never written."""
+    valid, pos = routed_positions(keys, lengths, config, route)
+    vals = _words(state)[pos >> 3].to(torch.int64) & M32
+    return (((vals >> (4 * (pos & 7))) & 15) > 0).all(dim=-1) & valid

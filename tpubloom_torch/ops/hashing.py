@@ -28,8 +28,18 @@ position hashes. A slot that holds shards ``[shard_lo, shard_lo +
 shards_per_dev)`` owns a key when its shard falls in that range; padding
 (``lengths < 0``) hashes as length 0 and is never owned.
 
-The flat-layout ``positions``/``split_*`` helpers come with the flat
-layout; the blocked layout needs only the base hashes.
+Flat positions (the Redis-bitmap-compatible layout)::
+
+  m a power of two (m <= 2^36): a 64-bit odd-stride walk,
+    (hi, lo) = (h_b, h_a), stride (g_b, g_a | 1),
+    position_i = (hi, lo) + i * stride  mod 2^64, masked to m - 1
+    (hi carries out of lo as a u32 add would);
+  any other m (< 2^31): position_i = (h_a + i * (g_a | 1) mod 2^32) mod m.
+
+Positions come as ``(pos_hi, pos_lo)`` u32 pairs, ``pos_hi`` zero for
+m <= 2^32; bit ``pos`` is bit ``pos & 31`` of word ``pos >> 5``
+(:func:`split_word_bit`), counter ``pos`` nibble ``pos & 7`` of word
+``pos >> 3`` (:func:`split_counter`).
 """
 
 from __future__ import annotations
@@ -169,3 +179,65 @@ def route_local(
     local = route_shards(keys, lengths, route.n_shards, seed) - route.shard_lo
     owned = (local >= 0) & (local < route.shards_per_dev) & (lengths >= 0)
     return local, owned
+
+
+def positions(
+    keys: torch.Tensor, lengths: torch.Tensor, *, m: int, k: int, seed: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k flat positions of each key as u32 ``(pos_hi, pos_lo)`` pairs,
+    int64 ``[..., k]`` each, with position = pos_hi * 2^32 + pos_lo,
+    already reduced mod m (``pos_hi`` is zero for m <= 2^32)."""
+    if (m & (m - 1)) == 0:
+        return _positions_pow2(keys, lengths, m=m, k=k, seed=seed)
+    if m >= (1 << 31):
+        raise ValueError("non-power-of-two m must be < 2^31")
+    return _positions_mod(keys, lengths, m=m, k=k, seed=seed)
+
+
+def _positions_pow2(keys, lengths, *, m: int, k: int, seed: int):
+    logm = m.bit_length() - 1
+    if logm > 36:
+        raise ValueError(f"m up to 2^36 supported, got 2^{logm}")
+    h_a, h_b, g_a, g_b = base_hashes(keys, lengths, seed)
+    g_a = g_a | 1  # odd 64-bit stride
+    lo, hi = h_a, h_b
+    lo_mask = M32 if logm >= 32 else (1 << logm) - 1
+    hi_mask = (1 << (logm - 32)) - 1 if logm > 32 else 0
+    out_hi, out_lo = [], []
+    for i in range(k):
+        if i > 0:
+            # (hi, lo) += (g_b, g_a) mod 2^64: the carry of the low u32 add
+            lo_next = (lo + g_a) & M32
+            hi = (hi + g_b + (lo_next < lo).to(torch.int64)) & M32
+            lo = lo_next
+        out_lo.append(lo & lo_mask)
+        out_hi.append(hi & hi_mask)
+    return torch.stack(out_hi, dim=-1), torch.stack(out_lo, dim=-1)
+
+
+def _positions_mod(keys, lengths, *, m: int, k: int, seed: int):
+    h_a = murmur3_32(keys, lengths, seed)
+    g_a = fnv1a_32(keys, lengths) | 1
+    out, pos = [], h_a
+    for i in range(k):
+        if i > 0:
+            pos = (pos + g_a) & M32  # u32 wrap
+        out.append(pos % m)
+    lo = torch.stack(out, dim=-1)
+    return torch.zeros_like(lo), lo
+
+
+def split_word_bit(
+    pos_hi: torch.Tensor, pos_lo: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed-u32 bit coordinates: ``word = pos >> 5`` (int64, < 2^31 for
+    m <= 2^36), ``bit = pos & 31`` (LSB-first within the word)."""
+    return (pos_lo >> 5) | (pos_hi << 27), pos_lo & 31
+
+
+def split_counter(
+    pos_hi: torch.Tensor, pos_lo: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed 4-bit-counter coordinates: ``word = pos >> 3``,
+    ``nibble = pos & 7``."""
+    return (pos_lo >> 3) | (pos_hi << 29), pos_lo & 7

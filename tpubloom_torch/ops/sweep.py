@@ -1,5 +1,5 @@
-"""Kernel wrappers for the blocked filter's hot path, and the host-side
-double buffer.
+"""Kernel wrappers for the filters' hot paths, and the host-side double
+buffer.
 
 Mapping from the TPU kernels of ``tpubloom/ops/sweep.py``:
 
@@ -26,6 +26,20 @@ Mapping from the TPU kernels of ``tpubloom/ops/sweep.py``:
   ``sharded_blocked_counting_update``, ``sharded_blocked_counting_query``)
   cover K5, K2, K4 and the gathers inside ``shard_map``.
 
+The flat layout has no Pallas kernel in ``tpubloom``: its device ops are
+XLA (a sort, a segmented scan, a scatter). Each has a CUDA kernel here
+(``tpubloom_torch/csrc/flat_bloom.cu``), with a routed twin for the flat
+sharded layouts:
+
+* ``make_insert_fn`` + ``bitops.scatter_or`` (``tpubloom/filter.py``;
+  sharded ``make_sharded_insert_fn``) -> :func:`flat_insert`;
+* ``make_query_fn`` + ``bitops.query_membership`` (sharded
+  ``make_sharded_query_fn``) -> :func:`flat_query`;
+* ``make_counter_fn`` + ``counting.counter_update`` (sharded
+  ``make_sharded_counter_fn``) -> :func:`flat_counting_update`;
+* ``make_counting_query_fn`` + ``counting.counting_membership`` (sharded
+  ``make_sharded_counting_query_fn``) -> :func:`flat_counting_query`.
+
 Why the sweep algorithm is not carried over: the TPU sorts each batch by
 block, streams the whole filter through VMEM partition by partition and
 places updates with one-hot matmuls, because TPU HBM cannot do random
@@ -38,15 +52,18 @@ same bits: the same state after an insert, the same verdicts.
 
 Each wrapper takes ``(state, keys, lengths, config)``: ``state`` the
 filter's ``uint32`` storage (any shape holding ``n_blocks *
-words_per_block`` words; the fat and logical views are the same memory),
+words_per_block`` words for a blocked layout, the fat and logical views
+being the same memory; ``n_words`` or ``n_counter_words`` for a flat one),
 ``keys`` ``uint8[B, L]``, ``lengths`` ``int32[B]`` (negative = padding).
 With ``route=``:class:`~tpubloom_torch.ops.hashing.ShardRoute` it runs
 the routed kernel on one slot of a sharded filter: ``state`` then holds
-that slot's ``shards_per_dev * n_blocks_per_shard * words_per_block``
-words, and keys the slot does not own set nothing and answer False.
+that slot's ``shards_per_dev`` shards (``n_blocks_per_shard *
+words_per_block``, ``n_words_per_shard`` or ``m_per_shard / 8`` words
+each), and keys the slot does not own set nothing and answer False.
 A tensor on the CPU goes to the plain version in
-:mod:`tpubloom_torch.ops.blocked` (bit filter) or
-:mod:`tpubloom_torch.ops.counting` (counting filter); a CUDA tensor goes
+:mod:`tpubloom_torch.ops.blocked` (blocked bit filter),
+:mod:`tpubloom_torch.ops.bitops` (flat bit filter) or
+:mod:`tpubloom_torch.ops.counting` (counting filters); a CUDA tensor goes
 to the kernel, or the wrapper raises. It never falls back from one to the
 other.
 
@@ -61,7 +78,7 @@ import ctypes
 
 import torch
 
-from tpubloom_torch.ops import _build, blocked, counting
+from tpubloom_torch.ops import _build, bitops, blocked, counting
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`
 #: (CUDA launches only; the plain versions are not counted).
@@ -70,6 +87,10 @@ LAUNCHES: dict[str, int] = {
     "blocked_counting_update": 0, "blocked_counting_query": 0,
     "sharded_blocked_query": 0, "sharded_blocked_insert": 0,
     "sharded_blocked_counting_update": 0, "sharded_blocked_counting_query": 0,
+    "flat_insert": 0, "flat_query": 0,
+    "flat_counting_update": 0, "flat_counting_query": 0,
+    "sharded_flat_insert": 0, "sharded_flat_query": 0,
+    "sharded_flat_counting_update": 0, "sharded_flat_counting_query": 0,
 }
 
 _P = ctypes.c_void_p
@@ -122,6 +143,20 @@ _COUNTING_SIGNATURES = {
     ),
 }
 
+_FLAT = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32]  # B, L, m, k, seed
+_FLAT_SIGNATURES = {
+    "tpb_flat_insert": ([_P, _P, _P, *_FLAT, _P], ctypes.c_int),
+    "tpb_flat_query": ([_P, _P, _P, _P, *_FLAT, _P], ctypes.c_int),
+    "tpb_flat_counting_update": ([_P, _P, _P, *_FLAT, ctypes.c_int, _P], ctypes.c_int),
+    "tpb_flat_counting_query": ([_P, _P, _P, _P, *_FLAT, _P], ctypes.c_int),
+    "tpb_sharded_flat_insert": ([_P, _P, _P, *_FLAT, *_ROUTE, _P], ctypes.c_int),
+    "tpb_sharded_flat_query": ([_P, _P, _P, _P, *_FLAT, *_ROUTE, _P], ctypes.c_int),
+    "tpb_sharded_flat_counting_update": (
+        [_P, _P, _P, *_FLAT, ctypes.c_int, *_ROUTE, _P], ctypes.c_int,
+    ),
+    "tpb_sharded_flat_counting_query": ([_P, _P, _P, _P, *_FLAT, *_ROUTE, _P], ctypes.c_int),
+}
+
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
@@ -140,11 +175,33 @@ def _counting_library() -> ctypes.CDLL:
     return _build.load_library("blocked_counting", _COUNTING_SIGNATURES)
 
 
-def _check(state, keys, lengths, config, route=None, *, counters: bool = False) -> None:
+def _flat_library() -> ctypes.CDLL:
+    return _build.load_library("flat_bloom", _FLAT_SIGNATURES)
+
+
+def _state_words(config, route=None) -> int:
+    """Words of the state a kernel takes: the whole filter, or with a
+    ``route`` one slot's ``shards_per_dev`` shards."""
+    if config.block_bits:
+        rows = config.n_blocks if route is None else route.shards_per_dev * config.n_blocks_per_shard
+        return rows * config.words_per_block
+    per_word = 8 if config.counting else 32  # counters or bits a word
+    if route is None:
+        return config.n_counter_words if config.counting else config.n_words
+    return route.shards_per_dev * config.m_per_shard // per_word
+
+
+def _check(state, keys, lengths, config, route=None, *, counters: bool = False,
+           flat: bool = False) -> None:
     if bool(config.counting) != counters:
         raise ValueError(
             f"{'counting' if config.counting else 'bit'}-filter config given "
             f"to a {'counting' if counters else 'bit'}-filter kernel"
+        )
+    if (not config.block_bits) != flat:
+        raise ValueError(
+            f"{'flat' if not config.block_bits else 'blocked'} config given to a "
+            f"{'flat' if flat else 'blocked'}-layout kernel"
         )
     if keys.device != state.device or lengths.device != state.device:
         raise ValueError(
@@ -155,19 +212,16 @@ def _check(state, keys, lengths, config, route=None, *, counters: bool = False) 
         raise ValueError(f"unsupported device {state.device}")
     if state.dtype != torch.uint32:
         raise TypeError(f"state must be uint32, got {state.dtype}")
-    if route is None:
-        rows = config.n_blocks
-    else:
-        if route.n_shards != config.shards or not (
-            0 <= route.shard_lo and route.shards_per_dev > 0
-            and route.shard_lo + route.shards_per_dev <= config.shards
-        ):
-            raise ValueError(f"{route} does not fit a config of {config.shards} shards")
-        rows = route.shards_per_dev * config.n_blocks_per_shard
-    if state.numel() != rows * config.words_per_block:
+    if route is not None and (route.n_shards != config.shards or not (
+        0 <= route.shard_lo and route.shards_per_dev > 0
+        and route.shard_lo + route.shards_per_dev <= config.shards
+    )):
+        raise ValueError(f"{route} does not fit a config of {config.shards} shards")
+    need = _state_words(config, route)
+    if state.numel() != need:
         raise ValueError(
             f"state holds {state.numel()} words, the "
-            f"{'config' if route is None else 'slot'} needs {rows * config.words_per_block}"
+            f"{'config' if route is None else 'slot'} needs {need}"
         )
     if keys.dtype != torch.uint8 or keys.dim() != 2 or keys.shape[1] % 4:
         raise ValueError(f"keys must be uint8[B, L], L % 4 == 0; got {keys.dtype}{tuple(keys.shape)}")
@@ -206,6 +260,38 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def _launch_update(lib, name, state, keys, lengths, spec, route) -> None:
+    """One launch of the in-place kernel ``name`` (or its routed twin):
+    ``fn(state, keys, lengths, B, L, *spec, *routing, stream)``."""
+    B, L = keys.shape
+    if not B:
+        return
+    fn, routing, counter = _entry(lib, name, route)
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = fn(state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+                 B, L, *spec, *routing, stream)
+    _raise_on(err, counter)
+    LAUNCHES[counter] += 1
+
+
+def _launch_query(lib, name, state, keys, lengths, spec, route) -> torch.Tensor:
+    """One launch of the query kernel ``name`` (or its routed twin) into a
+    fresh verdict tensor: ``fn(state, keys, lengths, out, B, L, *spec,
+    *routing, stream)``."""
+    B, L = keys.shape
+    out = torch.empty((B,), dtype=torch.uint8, device=state.device)
+    if B:
+        fn, routing, counter = _entry(lib, name, route)
+        with torch.cuda.device(state.device):
+            stream = torch.cuda.current_stream(state.device).cuda_stream
+            err = fn(state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+                     out.data_ptr(), B, L, *spec, *routing, stream)
+        _raise_on(err, counter)
+        LAUNCHES[counter] += 1
+    return out.view(torch.bool)
+
+
 def blocked_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
     """Membership of each key: ``bool[B]``, False where ``lengths < 0``
     (and, with a ``route``, where the slot does not own the key).
@@ -213,19 +299,8 @@ def blocked_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
     _check(state, keys, lengths, config, route)
     if state.device.type == "cpu":
         return blocked.blocked_query_plain(state, keys, lengths, config, route)
-    B, L = keys.shape
-    out = torch.empty((B,), dtype=torch.uint8, device=state.device)
-    if B:
-        fn, routing, name = _entry(_library(), "blocked_query", route)
-        with torch.cuda.device(state.device):
-            stream = torch.cuda.current_stream(state.device).cuda_stream
-            err = fn(
-                state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), B, L, *_spec_args(config, route), *routing, stream,
-            )
-        _raise_on(err, name)
-        LAUNCHES[name] += 1
-    return out.view(torch.bool)
+    return _launch_query(_library(), "blocked_query", state, keys, lengths,
+                         _spec_args(config, route), route)
 
 
 def blocked_insert(state, keys, lengths, config, *, route=None) -> None:
@@ -235,18 +310,8 @@ def blocked_insert(state, keys, lengths, config, *, route=None) -> None:
     if state.device.type == "cpu":
         blocked.blocked_insert_plain(state, keys, lengths, config, route)
         return
-    B, L = keys.shape
-    if not B:
-        return
-    fn, routing, name = _entry(_library(), "blocked_insert", route)
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = fn(
-            state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
-            B, L, *_spec_args(config, route), *routing, stream,
-        )
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _launch_update(_library(), "blocked_insert", state, keys, lengths,
+                   _spec_args(config, route), route)
 
 
 def blocked_test_insert(state, keys, lengths, config) -> torch.Tensor:
@@ -273,18 +338,8 @@ def blocked_counting_update(
             state, keys, lengths, config, increment=increment, route=route
         )
         return
-    B, L = keys.shape
-    if not B:
-        return
-    fn, routing, name = _entry(_counting_library(), "blocked_counting_update", route)
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = fn(
-            state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
-            B, L, *_spec_args(config, route), 1 if increment else 0, *routing, stream,
-        )
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _launch_update(_counting_library(), "blocked_counting_update", state, keys, lengths,
+                   (*_spec_args(config, route), 1 if increment else 0), route)
 
 
 def blocked_counting_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
@@ -295,19 +350,60 @@ def blocked_counting_query(state, keys, lengths, config, *, route=None) -> torch
     _check(state, keys, lengths, config, route, counters=True)
     if state.device.type == "cpu":
         return counting.blocked_counting_query_plain(state, keys, lengths, config, route)
-    B, L = keys.shape
-    out = torch.empty((B,), dtype=torch.uint8, device=state.device)
-    if B:
-        fn, routing, name = _entry(_counting_library(), "blocked_counting_query", route)
-        with torch.cuda.device(state.device):
-            stream = torch.cuda.current_stream(state.device).cuda_stream
-            err = fn(
-                state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), B, L, *_spec_args(config, route), *routing, stream,
-            )
-        _raise_on(err, name)
-        LAUNCHES[name] += 1
-    return out.view(torch.bool)
+    return _launch_query(_counting_library(), "blocked_counting_query", state, keys, lengths,
+                         _spec_args(config, route), route)
+
+
+def _flat_args(config, route):
+    """(m, k, seed): a routed kernel walks one shard's positions."""
+    return (config.m if route is None else config.m_per_shard), config.k, config.seed
+
+
+def flat_insert(state, keys, lengths, config, *, route=None) -> None:
+    """Set every valid key's k flat bits in ``state`` (``uint32[n_words]``),
+    in place (with a ``route``, every key the slot owns)."""
+    _check(state, keys, lengths, config, route, flat=True)
+    if state.device.type == "cpu":
+        bitops.flat_insert_plain(state, keys, lengths, config, route)
+        return
+    _launch_update(_flat_library(), "flat_insert", state, keys, lengths,
+                   _flat_args(config, route), route)
+
+
+def flat_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
+    """Flat membership of each key: ``bool[B]``, False where ``lengths <
+    0`` (and, with a ``route``, where the slot does not own the key).
+    ``state`` is only read."""
+    _check(state, keys, lengths, config, route, flat=True)
+    if state.device.type == "cpu":
+        return bitops.flat_query_plain(state, keys, lengths, config, route)
+    return _launch_query(_flat_library(), "flat_query", state, keys, lengths,
+                         _flat_args(config, route), route)
+
+
+def flat_counting_update(state, keys, lengths, config, *, increment: bool, route=None) -> None:
+    """Add (``increment``) or subtract each valid key's multiplicity at
+    its k flat counters in ``state`` (``uint32[n_counter_words]``), in
+    place; nibbles saturate at 15 and floor at 0."""
+    _check(state, keys, lengths, config, route, counters=True, flat=True)
+    if state.device.type == "cpu":
+        counting.flat_counting_update_plain(
+            state, keys, lengths, config, increment=increment, route=route
+        )
+        return
+    _launch_update(_flat_library(), "flat_counting_update", state, keys, lengths,
+                   (*_flat_args(config, route), 1 if increment else 0), route)
+
+
+def flat_counting_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
+    """Flat counting membership: ``bool[B]``, True where all k counters
+    are non-zero, False where ``lengths < 0`` (and, with a ``route``,
+    where the slot does not own the key). ``state`` is only read."""
+    _check(state, keys, lengths, config, route, counters=True, flat=True)
+    if state.device.type == "cpu":
+        return counting.flat_counting_query_plain(state, keys, lengths, config, route)
+    return _launch_query(_flat_library(), "flat_counting_query", state, keys, lengths,
+                         _flat_args(config, route), route)
 
 
 def record_fence(device: torch.device):

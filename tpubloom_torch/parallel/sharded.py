@@ -1,21 +1,24 @@
 """ShardedBloomFilter — the filter array of BASELINE config 5 on PyTorch.
 
-The port of ``tpubloom/parallel/sharded.py`` for the blocked layouts (bit
-and counting). BASELINE config 5 is "64-shard filter array over v5e-8,
-m=2^36 total — pmap hash + all-reduce-OR cross-chip membership"; its
-counting twin is configs 4 x 5.
+The port of ``tpubloom/parallel/sharded.py`` for all four layouts: blocked
+and flat, bit and counting. BASELINE config 5 is "64-shard filter array
+over v5e-8, m=2^36 total — pmap hash + all-reduce-OR cross-chip
+membership" (``benchmarks/run.py`` runs it flat by default); its counting
+twin is configs 4 x 5.
 
 Layout (the same as ``tpubloom``'s, byte for byte):
 
-* The filter's blocks are split into ``config.shards`` independent
-  sub-filters of ``n_blocks_per_shard`` blocks. A key belongs to shard
-  ``murmur3_32(key, seed ^ 0x517CC1B7) mod shards`` (see
-  :mod:`tpubloom_torch.ops.hashing`) and hashes inside it with
-  ``n_blocks = n_blocks_per_shard``.
+* The filter is split into ``config.shards`` independent sub-filters of
+  ``m_per_shard`` positions (``n_blocks_per_shard`` blocks for a blocked
+  layout). A key belongs to shard ``murmur3_32(key, seed ^ 0x517CC1B7)
+  mod shards`` (see :mod:`tpubloom_torch.ops.hashing`) and hashes inside
+  it with the shard's geometry.
 * The shards are dealt to *slots*, ``shards_per_dev`` consecutive shards
   each: slot i holds shards ``[i * spd, (i + 1) * spd)`` as one tensor of
-  shape ``[spd, NBL·W/128, 128]`` (the fat view, where it divides; else
-  ``[spd, NBL, W]``), the same bytes as ``tpubloom``'s per-device block.
+  shape ``[spd, NBL·W/128, 128]`` (blocked: the fat view, where it
+  divides; else ``[spd, NBL, W]``), ``[spd, n_words_per_shard]`` (flat
+  bits) or ``[spd, m_per_shard / 8]`` (flat counters), the same bytes as
+  ``tpubloom``'s per-device block.
   A slot is a device entry of :func:`make_slots`: by default one slot per
   visible CUDA card, and a device may be named more than once, which lays
   several slots on one card (or on the CPU, where the tests mirror
@@ -28,10 +31,9 @@ Layout (the same as ``tpubloom``'s, byte for byte):
   the first slot's device and ORed there, are the answer — the
   counterpart of ``tpubloom``'s ``psum`` over the mesh.
 
-The flat layouts (``block_bits == 0``) are not ported yet (ROADMAP queue
-1 item 6) and raise ``NotImplementedError``. Nor are the multi-host join
-(``parallel/distributed.py``), an NCCL all-reduce across cards, or the
-``shard.*`` fault points (ROADMAP queue 1 items 9 and 11).
+The multi-host join (``parallel/distributed.py``), an NCCL all-reduce
+across cards and the ``shard.*`` fault points are not ported yet (ROADMAP
+queue 1 items 4 and 6).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from tpubloom_torch.filter import _FilterBase
 from tpubloom_torch.obs import context as obs
 from tpubloom_torch.ops import sweep
 from tpubloom_torch.ops.hashing import M32, ShardRoute
+from tpubloom_torch.utils.packing import redis_bitmap_to_words, words_to_redis_bitmap
 
 
 def _device(d) -> torch.device:
@@ -93,10 +96,14 @@ def local_blocked_storage_fat(config: FilterConfig) -> bool:
     return 128 % w == 0 and config.n_blocks_per_shard % (128 // w) == 0
 
 
-def sharded_blocked_shape(config: FilterConfig) -> tuple[int, int, int]:
-    """Shape of the whole array, ``[shards, ...]``: per-shard fat rows when
-    :func:`local_blocked_storage_fat` holds, else logical rows. A slot
-    holds ``shards_per_dev`` of its leading entries."""
+def sharded_shape(config: FilterConfig) -> tuple[int, ...]:
+    """Shape of the whole array, ``[shards, ...]``: blocked, per-shard fat
+    rows when :func:`local_blocked_storage_fat` holds, else logical rows;
+    flat, each shard's words. A slot holds ``shards_per_dev`` of its
+    leading entries."""
+    if not config.block_bits:
+        per_word = 8 if config.counting else 32  # counters or bits a word
+        return (config.shards, config.m_per_shard // per_word)
     if local_blocked_storage_fat(config):
         return (
             config.shards,
@@ -136,12 +143,14 @@ class _Fences:
 
 
 class ShardedBloomFilter(_FilterBase):
-    """Filter array over slots of device memory (config 5, blocked and
-    blocked-counting layouts), with ``tpubloom.ShardedBloomFilter``'s
-    surface: the batch, packed, staged, array and scalar APIs, ``delete``
-    (counting), ``clear``, ``stats`` and ``shard_fill_ratios``,
-    ``words_logical`` and ``to_bytes`` / ``from_bytes`` (shard-major raw
-    little-endian words).
+    """Filter array over slots of device memory (config 5, in each of the
+    four layouts), with ``tpubloom.ShardedBloomFilter``'s surface: the
+    batch, packed, staged, array and scalar APIs, ``delete`` (counting),
+    ``clear``, ``stats`` and ``shard_fill_ratios``, ``words_logical``,
+    ``to_bytes`` / ``from_bytes`` (shard-major raw little-endian words)
+    and, for the flat bit layout, ``to_redis_bitmap`` /
+    ``from_redis_bitmap`` (shard-major: bit ``s * m_per_shard + p`` of the
+    bitmap is bit p of shard s).
 
     ``devices`` as for :func:`make_slots`; the first slot's device is
     ``self.device``, where query verdicts are assembled."""
@@ -149,11 +158,6 @@ class ShardedBloomFilter(_FilterBase):
     def __init__(self, config: FilterConfig, devices: Optional[Sequence] = None):
         if config.shards < 2:
             raise ValueError("ShardedBloomFilter needs config.shards >= 2")
-        if not config.block_bits:
-            raise NotImplementedError(
-                "tpubloom_torch has no flat sharded layout yet (block_bits=0; "
-                "ROADMAP queue 1 item 6); use a blocked layout"
-            )
         if config.counting and config.m >= (1 << 31):
             raise ValueError("counting filters support m < 2^31")
         self.slots = make_slots(config.shards, devices)
@@ -161,19 +165,22 @@ class ShardedBloomFilter(_FilterBase):
         spd = config.shards // len(self.slots)
         self.shards_per_dev = spd
         self.routes = [ShardRoute(config.shards, i * spd, spd) for i in range(len(self.slots))]
-        shape = (spd, *sharded_blocked_shape(config)[1:])
+        shape = (spd, *sharded_shape(config)[1:])
         self.slot_words = [
             torch.zeros(shape, dtype=torch.int32, device=d).view(torch.uint32)
             for d in self.slots
         ]
         self._devices = list(dict.fromkeys(self.slots))  # distinct, in slot order
         self._slot_fences: list = []
+        flat = not config.block_bits
         if config.counting:
-            self._update_kernel = partial(sweep.blocked_counting_update, increment=True)
-            self._query_kernel = sweep.blocked_counting_query
+            update = sweep.flat_counting_update if flat else sweep.blocked_counting_update
+            self._update_kernel = partial(update, increment=True)
+            self._delete_kernel = partial(update, increment=False)
+            self._query_kernel = sweep.flat_counting_query if flat else sweep.blocked_counting_query
         else:
-            self._update_kernel = sweep.blocked_insert
-            self._query_kernel = sweep.blocked_query
+            self._update_kernel = sweep.flat_insert if flat else sweep.blocked_insert
+            self._query_kernel = sweep.flat_query if flat else sweep.blocked_query
 
     def _state_tensors(self) -> list[torch.Tensor]:
         return self.slot_words
@@ -210,7 +217,7 @@ class ShardedBloomFilter(_FilterBase):
         self._launch(self._update_kernel, keys, lengths)
 
     def _delete(self, keys, lengths) -> None:
-        self._launch(partial(sweep.blocked_counting_update, increment=False), keys, lengths)
+        self._launch(self._delete_kernel, keys, lengths)
 
     def _query(self, keys, lengths) -> torch.Tensor:
         """Each slot answers for the keys it owns (False elsewhere); the
@@ -295,9 +302,28 @@ class ShardedBloomFilter(_FilterBase):
 
     @property
     def words_logical(self) -> np.ndarray:
-        """Host copy as ``[shards, n_blocks_per_shard, words_per_block]``."""
+        """Host copy as ``[shards, n_blocks_per_shard, words_per_block]``
+        (blocked), else in the device shape ``[shards, words a shard]``."""
         c = self.config
-        return self._host_words().reshape(c.shards, c.n_blocks_per_shard, c.words_per_block)
+        if c.block_bits:
+            return self._host_words().reshape(c.shards, c.n_blocks_per_shard, c.words_per_block)
+        return self._host_words().reshape(sharded_shape(c))
+
+    def to_redis_bitmap(self) -> bytes:
+        if self.config.block_bits or self.config.counting:
+            raise ValueError(
+                "blocked/counting layouts are not Redis-bitmap exportable "
+                "(different position spec); use to_bytes"
+            )
+        return words_to_redis_bitmap(self._host_words(), self.config.m)
+
+    @classmethod
+    def from_redis_bitmap(cls, config: FilterConfig, data: bytes, devices=None):
+        if config.block_bits or config.counting:
+            raise ValueError("blocked/counting layouts restore via from_bytes")
+        f = cls(config, devices)
+        f._set_words(redis_bitmap_to_words(data, config.m))
+        return f
 
     @classmethod
     def from_bytes(cls, config: FilterConfig, data: bytes, devices=None):

@@ -1,11 +1,10 @@
 """Host-side key packing: variable-length keys -> fixed-shape arrays.
 
-A framework-free copy of the key-packing half of
-``tpubloom/utils/packing.py``. Key packing turns variable-length
-byte-string keys into the ``uint8[B, L]`` + ``int32[B]`` arrays the hash
-kernels consume; bytes past a key's length are zero (the hash-kernel
-contract). The Redis-bitmap conversions belong to the flat layout and
-come with it.
+A framework-free copy of ``tpubloom/utils/packing.py``. Key packing turns
+variable-length byte-string keys into the ``uint8[B, L]`` + ``int32[B]``
+arrays the hash kernels consume; bytes past a key's length are zero (the
+hash-kernel contract). The Redis-bitmap conversions carry the flat
+layout's words to and from the reference gem's string bitmaps.
 
 Where ``tpubloom`` takes a C++ fast path for all-``bytes`` batches, this
 copy takes a vectorized NumPy one (one join plus one masked scatter); both
@@ -18,6 +17,10 @@ import hashlib
 from typing import Sequence
 
 import numpy as np
+
+_BIT_REVERSE = np.array(
+    [int(f"{i:08b}"[::-1], 2) for i in range(256)], dtype=np.uint8
+)
 
 
 def pack_keys(
@@ -75,3 +78,25 @@ def pack_keys_dense(keys: np.ndarray, lengths: np.ndarray) -> tuple[np.ndarray, 
         raise ValueError(f"bad shapes: keys {keys.shape}, lengths {lengths.shape}")
     mask = np.arange(keys.shape[1], dtype=np.int32)[None, :] < lengths[:, None]
     return np.where(mask, keys, 0).astype(np.uint8), lengths
+
+
+def words_to_redis_bitmap(words: np.ndarray, m: int) -> bytes:
+    """Serialize a packed ``uint32`` bit array to Redis SETBIT byte order.
+
+    Bit ``pos`` of the array (bit ``pos & 31``, LSB-first, of word ``pos
+    >> 5``) is bit ``7 - (pos & 7)`` of byte ``pos >> 3``: exactly the
+    string value the reference's ``:ruby`` driver would have produced by
+    SETBIT-ing the same positions, cut to ``ceil(m / 8)`` bytes."""
+    le = np.ascontiguousarray(words, dtype=np.uint32).astype("<u4", copy=False)
+    return _BIT_REVERSE[le.reshape(-1).view(np.uint8)[: (m + 7) // 8]].tobytes()
+
+
+def redis_bitmap_to_words(data: bytes, m: int) -> np.ndarray:
+    """Parse a Redis string bitmap back into the packed ``uint32[(m + 31)
+    // 32]`` array (bytes past ``ceil(m / 8)`` are ignored, missing ones
+    are zero)."""
+    n_words = (m + 31) // 32
+    buf = np.zeros(n_words * 4, dtype=np.uint8)
+    nbytes = min(len(data), (m + 7) // 8)
+    buf[:nbytes] = np.frombuffer(data, dtype=np.uint8, count=nbytes)
+    return _BIT_REVERSE[buf].view("<u4").astype(np.uint32, copy=False)
