@@ -95,18 +95,27 @@ each, with the seconds it took (``phase_seconds``):
    and its slot of shards 16-31, configs 4 x 5 flat on one slot and on
    the slot of shards 48-63; batches with old keys, within-batch
    duplicates, one key over an eighth of the batch (past saturation),
-   tail padding and, for counting, a delete of absent keys;
+   tail padding and, for counting, a delete of absent keys; the counting
+   pair at its path's batch (the partitioned kernels) and at 2^16 keys
+   (the thread-a-key kernels), each op recording the kernel it took;
 17. flat path: the four flat filters through their entry points at full
    size (packed and ``bytes`` keys, a replay, deletes; 1 and 4 slots whose
    words must agree), the FPR of fresh keys against
    ``params.theoretical_fpr`` at m=2^26, and the Redis bitmap and
    checkpoint round trips at m=2^26 bits or 2^24 counters, with the
-   launch counts after each step;
-18. flat times: as phases 5 and 9 for the eight flat kernels, beside the
-   bound (the launch's distinct 32-byte sectors read, and written back by
-   updates) and, for the queries, the gather ``words[widx]`` of the
-   launch's B k words;
-19. flat end to end: as phase 6 for the flat filters' packed calls.
+   launch counts after each step (each counting wrapper must have taken
+   both of its kernels);
+18. flat times: as phases 5 and 9 for the eight flat kernels and the four
+   partitioned ones, beside the bound (the launch's distinct 32-byte
+   sectors read, and written back by updates) and, for the queries, the
+   gather ``words[widx]`` of the launch's B k words; the counting pair on
+   both of its kernels at the path's batch and at 2^16 keys, on a crowd
+   batch, and its query on held keys and on a filter half full, with the
+   partition (tiles touched, scratch bytes, sweep CTAs);
+19. flat crossover: both kernels of the flat counting pair at config 4
+   flat over B = 2^13 .. 2^22, and the batch (in positions per sector of
+   the state) from which the partitioned one is the faster;
+20. flat end to end: as phase 6 for the flat filters' packed calls.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -115,7 +124,7 @@ present. The full record is written to ``chiprun_out/chip_smoke.json``.
 
 Two other modes compare kernel builds on one card:
 
-    python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18
+    python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18, 19
     python3 chip_smoke.py --ab DIR        # --times in DIR, here, here, DIR
 
 ``--times`` fills the filters as the full run does before its timing
@@ -129,6 +138,7 @@ here, here and DIR in turn, and writes the four runs to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import shutil
@@ -203,6 +213,17 @@ LOG2M_FLAT_COUNTING, B_FLAT_COUNTING = 30, 1 << 22
 LOG2M_FLAT_SHARDED, B_FLAT_SHARDED = 36, 1 << 18
 LOG2M_FLAT_SMALL, LOG2M_FLAT_SMALL_COUNTING = 26, 24
 N_FLAT_FPR, N_FLAT_ROUND_TRIP = 1 << 22, 1 << 18  # keys the cut filters take
+# The flat counting pair has two kernels each, chosen by the batch's shape
+# (sweep.flat_tile_plan): the partitioned one at the counting paths' 2^22
+# keys, the thread-a-key one at a delete_batch of 2^16 keys (PERF.md
+# section 5). Both are held and timed at both sizes, and the crossover
+# between them is measured over B = 2^13 .. 2^22 at config 4 flat.
+B_FLAT_SPARSE = 1 << 16
+LOG2B_CROSSOVER = range(13, 23)
+# The query is also timed on the config 4 flat filter filled to about half
+# of its counters non-zero (25 more batches of 2^22 keys made on the card):
+# a filter near its capacity, where an absent key has fewer zero counters.
+N_HALF_FULL_BATCHES = 25
 # 32-bit integer operations a key of the flat kernels: the four base
 # hashes (three murmur3 passes, 162, and fnv1a, 64), then a position's
 # 64-bit walk step, mask, word index and bit (8), or nibble (11).
@@ -266,6 +287,21 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Mean ms a call of the card's own time in the kernels ``fn(i)``
+    launches, by ``torch.profiler`` over ``n`` calls after one warm call:
+    without the host's gaps, which the event pairs of a small launch
+    include."""
+    fn(0)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / n / 1e3
 
 
 def fresh_ms(state: torch.Tensor, launch, n: int, warm: int = 2) -> float:
@@ -1156,6 +1192,34 @@ FLAT_KERNELS = ("flat_insert", "flat_query", "flat_counting_update", "flat_count
                 "sharded_flat_counting_query")
 
 
+# The partitioned kernels, under their own launch counters; a tree without
+# them (``--ab`` against a parent) times the flat counting pair as it is.
+TILED = hasattr(sweep, "flat_tile_plan")
+FLAT_TILED = ("flat_counting_update_tiled", "flat_counting_query_tiled",
+              "sharded_flat_counting_update_tiled", "sharded_flat_counting_query_tiled") if TILED else ()
+
+
+@contextlib.contextmanager
+def flat_variant(tiled):
+    """Hold the flat counting wrappers on one kernel whatever the shape:
+    the partitioned one (True) or the thread-a-key one (False), by moving
+    the crossover; None keeps the wrappers' own choice."""
+    if tiled is None or not TILED:
+        yield
+        return
+    keep = sweep.FLAT_TILE_CROSSOVER, sweep.FLAT_TILE_QUERY_CROSSOVER
+    sweep.FLAT_TILE_CROSSOVER = sweep.FLAT_TILE_QUERY_CROSSOVER = 0.0 if tiled else math.inf
+    try:
+        yield
+    finally:
+        sweep.FLAT_TILE_CROSSOVER, sweep.FLAT_TILE_QUERY_CROSSOVER = keep
+
+
+def tiled_launches() -> int:
+    """Partitioned launches so far (all four names)."""
+    return sum(sweep.LAUNCHES[n] for n in FLAT_TILED)
+
+
 def flat_config(log2m: int = LOG2M_FLAT, k: int = K_FLAT, **kw) -> FilterConfig:
     return FilterConfig(m=1 << log2m, k=k, key_len=KEY_LEN, **kw)
 
@@ -1207,7 +1271,9 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
     then run the same update(s) and query through the kernels and their
     plain versions from the same state: the bit filter's insert, or the
     counting filter's insert and a delete of half the batch and as many
-    absent keys."""
+    absent keys, then the same at B_FLAT_SPARSE keys, which the wrappers
+    give the other kernel of the counting pair. ``ops`` records each op's
+    kernel (``variant``) and its ``max_abs_err`` against the plain version."""
     dev = torch.device("cuda")
     state = torch.zeros(sweep._state_words(cfg, route), dtype=torch.int32, device=dev).view(torch.uint32)
     full = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
@@ -1215,39 +1281,55 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
         prev = torch.from_numpy(rows(rng, batch)).to(dev)
         flat_update(state, prev, full, cfg, route=route)
     keys, lengths, n_pad = flat_batch(rng, prev, batch)
-    ops = [("insert", keys, True)]
+    ops = [("insert", keys, lengths, True)]
+    probes = [("query", torch.cat([prev[: batch // 2],
+                                   torch.from_numpy(rows(rng, batch - batch // 2)).to(dev)]), lengths)]
     if cfg.counting:
         absent = torch.from_numpy(rows(rng, batch - batch // 2)).to(dev)
-        ops.append(("delete", torch.cat([keys[: batch // 2], absent]).contiguous(), False))
+        ops.append(("delete", torch.cat([keys[: batch // 2], absent]).contiguous(), lengths, False))
+        n = B_FLAT_SPARSE
+        s_keys, s_lengths, _ = flat_batch(rng, prev, n)
+        s_absent = torch.from_numpy(rows(rng, n - n // 2)).to(dev)
+        ops += [("sparse_insert", s_keys, s_lengths, True),
+                ("sparse_delete", torch.cat([s_keys[: n // 2], s_absent]).contiguous(), s_lengths, False)]
+        probes.append(("sparse_query", torch.cat([prev[: n // 2], s_absent]).contiguous(), s_lengths))
     owned, _ = bitops.routed_positions(keys, lengths, cfg, route)
     out = {"m": cfg.m, "k": cfg.k, "batch": batch, "padded": n_pad, "owned": int(owned.sum()),
-           "state_bytes": state.numel() * 4,
+           "state_bytes": state.numel() * 4, "ops": {},
            "route": None if route is None else [route.n_shards, route.shard_lo, route.shards_per_dev]}
     s_plain = clone_u32(state)
-    for op, k_, increment in ops:
-        flat_update(state, k_, lengths, cfg, increment=increment, route=route)
-        flat_update(s_plain, k_, lengths, cfg, increment=increment, route=route, plain=True)
+    for op, k_, l_, increment in ops:
+        before = tiled_launches()
+        flat_update(state, k_, l_, cfg, increment=increment, route=route)
+        variant = "tiled" if tiled_launches() > before else "thread_a_key"
+        flat_update(s_plain, k_, l_, cfg, increment=increment, route=route, plain=True)
         torch.cuda.synchronize()
-        out[f"{op}_state_err"] = max_abs_err(state, s_plain)
-        check(equal_words(state, s_plain), f"flat {op} state m={cfg.m} {out['route']}")
+        out["ops"][op] = {"variant": variant, "keys": k_.shape[0], "max_abs_err": max_abs_err(state, s_plain)}
+        check(equal_words(state, s_plain), f"flat {op} state m={cfg.m} {out['route']} ({variant})")
         if increment:
-            crowd = keys[3 * (batch // 4) : 3 * (batch // 4) + 1]
+            n = k_.shape[0]
+            crowd = k_[3 * (n // 4) : 3 * (n // 4) + 1]
             hot = flat_query(state, crowd, full[:1], cfg, route=route)
             hot_owned = bitops.routed_positions(crowd, full[:1], cfg, route)[0]
             check(bool(hot[0]) == bool(hot_owned[0]), "the crowded key is present after its insert")
     del s_plain
-    probe = torch.cat([prev[: batch // 2], torch.from_numpy(rows(rng, batch - batch // 2)).to(dev)])
-    q_k = flat_query(state, probe, lengths, cfg, route=route)
-    q_p = flat_query(state, probe, lengths, cfg, route=route, plain=True)
-    torch.cuda.synchronize()
-    check(torch.equal(q_k, q_p), f"flat query verdicts m={cfg.m} {out['route']}")
-    p_owned, _ = bitops.routed_positions(probe, lengths, cfg, route)
-    check(not bool(q_k[~p_owned].any()), "padding and keys the slot does not own answer False")
-    out.update(query_err=max_abs_err(q_k, q_p), query_hits_old_half=int(q_k[: batch // 2].sum()),
-               owned_old_half=int(p_owned[: batch // 2].sum()),
-               query_hits_fresh_half=int(q_k[batch // 2 :].sum()))
+    for op, probe, l_ in probes:
+        n = probe.shape[0]
+        before = tiled_launches()
+        q_k = flat_query(state, probe, l_, cfg, route=route)
+        variant = "tiled" if tiled_launches() > before else "thread_a_key"
+        q_p = flat_query(state, probe, l_, cfg, route=route, plain=True)
+        torch.cuda.synchronize()
+        check(torch.equal(q_k, q_p), f"flat {op} verdicts m={cfg.m} {out['route']} ({variant})")
+        p_owned, _ = bitops.routed_positions(probe, l_, cfg, route)
+        check(not bool(q_k[~p_owned].any()), "padding and keys the slot does not own answer False")
+        out["ops"][op] = {"variant": variant, "keys": n, "max_abs_err": max_abs_err(q_k, q_p),
+                          "hits_old_half": int(q_k[: n // 2].sum()),
+                          "owned_old_half": int(p_owned[: n // 2].sum()),
+                          "hits_fresh_half": int(q_k[n // 2 :].sum())}
     if not cfg.counting:
-        check(out["query_hits_old_half"] == out["owned_old_half"], "owned old keys present")
+        q = out["ops"]["query"]
+        check(q["hits_old_half"] == q["owned_old_half"], "owned old keys present")
     del state
     torch.cuda.empty_cache()
     return out
@@ -1267,20 +1349,24 @@ def phase_flat_kernel_vs_plain(rng) -> dict:
         "configs4x5_slot_48_63": flat_vs_plain(cfg45, B_FLAT_COUNTING, rng, ShardRoute(SHARDS, 48, 16)),
     }
 
-    def worst(names, keys):
-        return max(runs[n][k] for n in names for k in keys)
+    def worst(names, query: bool, variant="thread_a_key"):
+        errs = [r["max_abs_err"] for n in names for op, r in runs[n]["ops"].items()
+                if ("query" in op) == query and r["variant"] == variant]
+        check(bool(errs), f"{names} ran the {variant} kernel")
+        return max(errs)
 
     bits, counts = ("config2", "config1_mod"), ("config4",)
     sbits, scounts = ("config5_1_slot", "config5_slot_16_31"), ("configs4x5_1_slot", "configs4x5_slot_48_63")
-    updates = ("insert_state_err", "delete_state_err")
     errs = {
-        "flat_insert": worst(bits, ("insert_state_err",)), "flat_query": worst(bits, ("query_err",)),
-        "flat_counting_update": worst(counts, updates), "flat_counting_query": worst(counts, ("query_err",)),
-        "sharded_flat_insert": worst(sbits, ("insert_state_err",)),
-        "sharded_flat_query": worst(sbits, ("query_err",)),
-        "sharded_flat_counting_update": worst(scounts, updates),
-        "sharded_flat_counting_query": worst(scounts, ("query_err",)),
+        "flat_insert": worst(bits, False), "flat_query": worst(bits, True),
+        "flat_counting_update": worst(counts, False), "flat_counting_query": worst(counts, True),
+        "sharded_flat_insert": worst(sbits, False), "sharded_flat_query": worst(sbits, True),
+        "sharded_flat_counting_update": worst(scounts, False),
+        "sharded_flat_counting_query": worst(scounts, True),
     }
+    for name in FLAT_TILED:
+        names = scounts if name.startswith("sharded") else counts
+        errs[name] = worst(names, "query" in name, "tiled")
     emit("flat_kernel_vs_plain", runs=runs, max_abs_err=errs, tolerance=0)
     return errs
 
@@ -1410,6 +1496,11 @@ def phase_flat_path(rng):
     check(np.array_equal(sc4.include_packed(probe_c), hits_c), "4-slot counting verdicts equal")
     check(not hits_c[:n_gone].any() and hits_c[n_gone : 2 * n_gone].all(),
           "sharded: deleted keys absent, the others present")
+    check(not sc1.include_batch(gone).any(), "sharded: deleted bytes keys absent")
+    hits_full = sc1.include_packed(bigc)  # the whole batch: the partitioned query
+    check(np.array_equal(sc4.include_packed(bigc), hits_full), "4-slot full-batch verdicts equal")
+    check(not hits_full[:n_gone].any() and hits_full[n_gone:].all(),
+          "sharded full batch: deleted keys absent, the others present")
     out["configs4x5"] = {"n_inserted": sc1.n_inserted, "deleted": n_gone,
                          "probe_hits_fresh": int(hits_c[2 * n_gone :].sum()),
                          "round_trips": flat_round_trips(ShardedBloomFilter(
@@ -1420,6 +1511,10 @@ def phase_flat_path(rng):
     launches = sweep.launch_counts()
     for name in FLAT_KERNELS:
         check(launches[name] > 0, f"{name} launched on the flat path")
+    for name in FLAT_TILED:  # both kernels of each counting wrapper
+        base = name.removesuffix("_tiled")
+        check(launches[name] > 0 and launches[base] > launches[name],
+              f"{name} and the thread-a-key {base} launched on the flat path")
     torch.cuda.empty_cache()
     emit("flat_path", launches=launches, launches_after_step=steps, seconds=time.perf_counter() - t0,
          **out)
@@ -1450,38 +1545,25 @@ def flat_bound(cfg: FilterConfig, n_keys: int, fp: dict, *, update: bool, routed
     return (*bound(nbytes, ops), nbytes)
 
 
-def flat_pair_times(name: str, state, cfg, batches, lengths, route=None, fresh=None) -> dict:
-    """The times of one flat update kernel and its query (``name`` is the
-    update's; None for ``fresh``: counting), each beside its bound, its
-    plain version and, for the query, the gather ``words[widx]`` of the
-    launch's B k words."""
+def flat_pair_times(name: str, state, cfg, batches, lengths, fresh, route=None) -> dict:
+    """The times of one flat insert kernel and its query, each beside its
+    bound, its plain version and, for the query, the gather ``words[widx]``
+    of the launch's B k words."""
     n = lengths.numel()
     routed = route is not None
-    qname = name.replace("insert", "query").replace("update", "query")
+    qname = name.replace("insert", "query")
 
-    def upd(keys, increment=True, plain=False):
-        return lambda i: flat_update(state, keys(i), lengths, cfg, increment=increment, route=route,
-                                     plain=plain)
+    def upd(keys, plain=False):
+        return lambda i: flat_update(state, keys(i), lengths, cfg, route=route, plain=plain)
 
     def qry(plain=False):
         return lambda i: flat_query(state, batches[i % 4], lengths, cfg, route=route, plain=plain)
 
-    def batch(i):
-        return batches[i % 4]
-
-    q_ms = cuda_ms(qry(), 40, warm=4)  # the batches before they are inserted (bits) or counted again
-    u = {}
-    if cfg.counting:
-        # insert then delete the same batch, as benchmarks/counting_rate.py does
-        u["ms"], u["delete_ms"] = event_pairs_ms([upd(batch), upd(batch, False)], 40)
-        u["plain_ms"], u["plain_delete_ms"] = event_pairs_ms(
-            [upd(batch, plain=True), upd(batch, False, plain=True)], 3, warm=1)
-        fp_u, _, _ = flat_footprint(cfg, batches[0], lengths, route)
-    else:
-        u["replay_ms"] = cuda_ms(upd(batch), 40, warm=4)  # inserts the batches, then re-inserts
-        u["ms"] = fresh_ms(state, upd(lambda i: fresh[i % 4]), 40)
-        u["plain_ms"] = cuda_ms(upd(batch, plain=True), 3, warm=1)
-        fp_u, _, _ = flat_footprint(cfg, fresh[0], lengths, route)
+    q_ms = cuda_ms(qry(), 40, warm=4)  # the batches before they are inserted
+    u = {"replay_ms": cuda_ms(upd(lambda i: batches[i % 4]), 40, warm=4)}  # inserts, then re-inserts
+    u["ms"] = fresh_ms(state, upd(lambda i: fresh[i % 4]), 40)
+    u["plain_ms"] = cuda_ms(upd(lambda i: batches[i % 4], plain=True), 3, warm=1)
+    fp_u, _, _ = flat_footprint(cfg, fresh[0], lengths, route)
     qpres_ms = cuda_ms(qry(), 40, warm=4)
     qp_ms = cuda_ms(qry(plain=True), 3, warm=1)
     fp_q, widx, _ = flat_footprint(cfg, batches[0], lengths, route)
@@ -1499,6 +1581,111 @@ def flat_pair_times(name: str, state, cfg, batches, lengths, route=None, fresh=N
     }
 
 
+def flat_partition(cfg, keys, lengths, route=None) -> dict:
+    """The partitioned kernels' plan for this launch and what its keys put
+    in the tiles: tiles touched, the fullest tile's entries, sweep CTAs."""
+    n = keys.shape[0]
+    plan_u = sweep.flat_tile_plan(cfg, n, route, query=False)
+    plan_q = sweep.flat_tile_plan(cfg, n, route, query=True)
+    per_tile = counting.flat_tile_counts_plain(keys, lengths, cfg, sweep.FLAT_TILE_LOG2, route)
+    pieces = (per_tile + sweep.FLAT_TILE_PIECE - 1) // sweep.FLAT_TILE_PIECE
+    return {"crossover": sweep.FLAT_TILE_CROSSOVER, "query_crossover": sweep.FLAT_TILE_QUERY_CROSSOVER,
+            "expected_per_sector": plan_u.expected / (plan_u.n_words / 8),
+            "n_tiles": plan_u.n_tiles, "chunks": plan_u.chunks, "sweep_grid": plan_u.sweep_grid,
+            "update_scratch_bytes": plan_u.scratch_bytes, "query_scratch_bytes": plan_q.scratch_bytes,
+            "tiles_touched": int((per_tile > 0).sum()), "max_tile_entries": int(per_tile.max()),
+            "sweep_ctas": int(pieces.sum())}
+
+
+def half_full_query(state, cfg, batches, lengths, route=None) -> dict:
+    """Each query kernel's time on absent keys (``batches``) in a copy of
+    the state filled with N_HALF_FULL_BATCHES more batches of keys made on
+    the card from SEED, and the share of its counters that are non-zero."""
+    full = clone_u32(state)
+    gen = torch.Generator(device=state.device).manual_seed(SEED)
+    n = lengths.numel()
+    for _ in range(N_HALF_FULL_BATCHES):
+        keys = torch.randint(0, 256, (n, KEY_LEN), dtype=torch.uint8, device=state.device, generator=gen)
+        flat_update(full, keys, lengths, cfg, route=route)
+    words = full.view(torch.int32).reshape(-1)
+    nonzero = sum(int((((words >> (4 * j)) & 15) != 0).sum()) for j in range(8))
+    out = {"nonzero_share": nonzero / (words.numel() * 8)}
+    for tiled in (False, True) if TILED else (None,):
+        with flat_variant(tiled):
+            out["tiled_ms" if tiled else "ms"] = cuda_ms(
+                lambda i: flat_query(full, batches[i % 4], lengths, cfg, route=route), 40, warm=4)
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def flat_counting_times(name: str, state, cfg, batches, lengths, crowd, route=None) -> dict:
+    """The flat counting pair (``name`` is the update's) on each of its
+    kernels (only the one a tree has without the partitioned kernels), at
+    the path's batch and at B_FLAT_SPARSE keys: an insert then a delete of
+    the same batch (as benchmarks/counting_rate.py), the same for ``crowd``
+    (an eighth of it one key), and the query of absent keys (``ms``) and of
+    held ones (``present_ms``); beside the bound, the plain versions and,
+    for the query, the gather ``words[widx]`` of the launch's B k words."""
+    n = lengths.numel()
+    routed = route is not None
+    qname = name.replace("update", "query")
+    sparse, s_len = [b[:B_FLAT_SPARSE] for b in batches], lengths[:B_FLAT_SPARSE]
+    c_keys, c_len = crowd
+
+    def upd(bs, lens, increment=True, plain=False):
+        return lambda i: flat_update(state, bs[i % len(bs)], lens, cfg, increment=increment, route=route,
+                                     plain=plain)
+
+    def qry(bs, lens, plain=False):
+        return lambda i: flat_query(state, bs[i % len(bs)], lens, cfg, route=route, plain=plain)
+
+    fp, widx, _ = flat_footprint(cfg, batches[0], lengths, route)
+    fp_s, _, _ = flat_footprint(cfg, sparse[0], s_len, route)
+    ub, uby, u_bytes = flat_bound(cfg, n, fp, update=True, routed=routed)
+    qb, qby, q_bytes = flat_bound(cfg, n, fp, update=False, routed=routed)
+    s_ub = flat_bound(cfg, B_FLAT_SPARSE, fp_s, update=True, routed=routed)[0]
+    s_qb = flat_bound(cfg, B_FLAT_SPARSE, fp_s, update=False, routed=routed)[0]
+    p_ms, pd_ms = event_pairs_ms([upd(batches, lengths, plain=True), upd(batches, lengths, False, True)],
+                                 3, warm=1)
+    qp_ms = cuda_ms(qry(batches, lengths, plain=True), 3, warm=1)
+    words, flat_idx = state.view(torch.int32).reshape(-1), widx.reshape(-1)
+    lib_ms = cuda_ms(lambda i: torch.index_select(words, 0, flat_idx), 40, warm=4)
+    half = half_full_query(state, cfg, batches, lengths, route)
+    out = {}
+    for tiled in (False, True) if TILED else (None,):
+        suffix = "_tiled" if tiled else ""
+        with flat_variant(tiled):
+            i_ms, d_ms = event_pairs_ms([upd(batches, lengths), upd(batches, lengths, False)], 40)
+            si_ms, sd_ms = event_pairs_ms([upd(sparse, s_len), upd(sparse, s_len, False)], 40)
+            s_dev = device_ms(lambda i: (upd(sparse, s_len)(i), upd(sparse, s_len, False)(i))) / 2
+            sq_dev = device_ms(qry(sparse, s_len))
+            ci_ms, cd_ms = event_pairs_ms([upd([c_keys], c_len), upd([c_keys], c_len, False)], 20)
+            q_ms = cuda_ms(qry(batches, lengths), 40, warm=4)
+            sq_ms = cuda_ms(qry(sparse, s_len), 40, warm=4)
+            upd(batches, lengths)(0)
+            pres_ms = cuda_ms(qry(batches[:1], lengths), 40, warm=4)
+            upd(batches, lengths, False)(0)
+        out[name + suffix] = {
+            "ms": i_ms, "delete_ms": d_ms, "keys_per_s": n / i_ms * 1e3,
+            "sparse_ms": si_ms, "sparse_delete_ms": sd_ms, "sparse_device_ms": s_dev,
+            "crowd_ms": ci_ms, "crowd_delete_ms": cd_ms,
+            "plain_ms": p_ms, "plain_delete_ms": pd_ms, "library_ms": None, "bound_ms": ub,
+            "bound_by": uby, "bytes": u_bytes, "share_of_bound": ub / i_ms, "sparse_bound_ms": s_ub,
+            "touched": fp, "sparse_touched": fp_s, **rates(fp, i_ms)}
+        out[qname + suffix] = {
+            "ms": q_ms, "present_ms": pres_ms, "sparse_ms": sq_ms, "sparse_device_ms": sq_dev,
+            "keys_per_s": n / q_ms * 1e3,
+            "plain_ms": qp_ms, "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby, "bytes": q_bytes,
+            "share_of_bound": qb / q_ms, "sparse_bound_ms": s_qb, "touched": fp,
+            "half_full_ms": half["tiled_ms" if tiled else "ms"],
+            "half_full_nonzero_share": half["nonzero_share"]}
+        if tiled:
+            out[name + suffix]["partition"] = flat_partition(cfg, batches[0], lengths, route)
+            out[name + suffix]["crowd_partition"] = flat_partition(cfg, c_keys, c_len, route)
+    return out
+
+
 def phase_flat_times(f, c, s1, sc1, rng) -> dict:
     out = {}
     for name, state, cfg, route, batch in (
@@ -1509,11 +1696,58 @@ def phase_flat_times(f, c, s1, sc1, rng) -> dict:
     ):
         dev = state.device
         batches = [torch.from_numpy(rows(rng, batch)).to(dev) for _ in range(4)]
-        fresh = None if cfg.counting else [torch.from_numpy(rows(rng, batch)).to(dev) for _ in range(4)]
         lengths = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
-        out.update(flat_pair_times(name, state, cfg, batches, lengths, route, fresh))
-        del batches, fresh
+        if cfg.counting:
+            crowd = flat_batch(rng, batches[0], batch)[:2]
+            out.update(flat_counting_times(name, state, cfg, batches, lengths, crowd, route))
+            del crowd
+        else:
+            fresh = [torch.from_numpy(rows(rng, batch)).to(dev) for _ in range(4)]
+            out.update(flat_pair_times(name, state, cfg, batches, lengths, fresh, route))
+            del fresh
+        del batches
     emit("flat_times", **out)
+    return out
+
+
+def phase_flat_crossover(c, rng) -> dict:
+    """Both kernels of the flat counting pair on config 4 flat's state over
+    B = 2^13 .. 2^22: an insert then a delete of the same batch, and the
+    query. The crossover of each is the smallest B from which the
+    partitioned kernel is the faster at every larger B, given as positions
+    per 32-byte sector of the state (what sweep.FLAT_TILE_CROSSOVER holds)."""
+    cfg, state = c.config, c.words
+    sectors = sweep._state_words(cfg) / 8
+    top = 1 << max(LOG2B_CROSSOVER)
+    big = [torch.from_numpy(rows(rng, top)).to(state.device) for _ in range(2)]
+    full = torch.full((top,), KEY_LEN, dtype=torch.int32, device=state.device)
+    runs = []
+    for lb in LOG2B_CROSSOVER:
+        n = 1 << lb
+        bs, lens = [b[:n] for b in big], full[:n]
+        row = {"batch": n, "positions_per_sector": n * cfg.k / sectors}
+        for tiled in (False, True):
+            with flat_variant(tiled):
+                i_ms, d_ms = event_pairs_ms(
+                    [lambda i: flat_update(state, bs[i % 2], lens, cfg),
+                     lambda i: flat_update(state, bs[i % 2], lens, cfg, increment=False)], 20)
+                q_ms = cuda_ms(lambda i: flat_query(state, bs[i % 2], lens, cfg), 20, warm=2)
+            tag = "tiled" if tiled else "thread_a_key"
+            row.update({f"{tag}_update_ms": (i_ms + d_ms) / 2, f"{tag}_query_ms": q_ms})
+        runs.append(row)
+
+    def crossover(op: str):
+        at = None
+        for r in reversed(runs):
+            if r[f"tiled_{op}_ms"] >= r[f"thread_a_key_{op}_ms"]:
+                break
+            at = r["positions_per_sector"]
+        return at
+
+    out = {"runs": runs, "update_crossover": crossover("update"), "query_crossover": crossover("query"),
+           "crossover_in_use": sweep.FLAT_TILE_CROSSOVER,
+           "query_crossover_in_use": sweep.FLAT_TILE_QUERY_CROSSOVER}
+    emit("flat_crossover", **out)
     return out
 
 
@@ -1524,9 +1758,9 @@ def phase_flat_end_to_end(f, c, s1, s4, rng, times: dict) -> None:
         ("insert_packed", B_FLAT, lambda: f.insert_packed(big), times["flat_insert"]["ms"]),
         ("include_packed", B_FLAT, lambda: f.include_packed(big), times["flat_query"]["ms"]),
         ("counting_insert_packed", B_FLAT_COUNTING, lambda: c.insert_packed(bigc),
-         times["flat_counting_update"]["ms"]),
+         times["flat_counting_update_tiled"]["ms"]),
         ("counting_include_packed", B_FLAT_COUNTING, lambda: c.include_packed(bigc),
-         times["flat_counting_query"]["ms"]),
+         times["flat_counting_query_tiled"]["ms"]),
         ("counting_delete_bytes_keys", len(small), lambda: c.delete_batch(small), None),
         ("sharded_insert_packed_1_slot", B_FLAT_SHARDED, lambda: s1.insert_packed(bigs),
          times["sharded_flat_insert"]["ms"]),
@@ -1543,7 +1777,7 @@ def phase_flat_end_to_end(f, c, s1, s4, rng, times: dict) -> None:
 GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
                 "sharded_blocked_insert", "sharded_blocked_counting_update",
                 "sharded_blocked_query")
-EXTRA_TIMES = ("replay_ms", "present_ms")
+EXTRA_TIMES = ("replay_ms", "present_ms", "delete_ms", "sparse_ms")
 
 
 # The flat kernels have no Pallas counterpart: each replaces the XLA ops of
@@ -1597,21 +1831,26 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
     kernels[2]["also_replaces"] = "tpubloom/ops/sweep.py:582"
     kernels[4]["also_replaces"] = "tpubloom/ops/sweep.py:1463 (K3 at tpubloom/parallel/sharded.py:274)"
     kernels[6]["also_replaces"] = "tpubloom/ops/sweep.py:1976 (K4 at tpubloom/parallel/sharded.py:500)"
-    for name in FLAT_KERNELS:
+    for name in (*FLAT_KERNELS, *FLAT_TILED):
         t = f_times[name]
+        tiled = name.endswith("_tiled")
+        # a counting wrapper's count is its calls; those on the partitioned
+        # kernel also count under <name>_tiled
+        launches = f_launches[name] - f_launches.get(f"{name}_tiled", 0)
         kernels.append({
-            "name": name, "route": "cuda", "source": "tpubloom_torch/csrc/flat_bloom.cu",
-            "replaces": FLAT_REPLACES[name], "launches": f_launches[name],
+            "name": name, "route": "cuda",
+            "source": f"tpubloom_torch/csrc/{'flat_counting' if tiled else 'flat_bloom'}.cu",
+            "replaces": FLAT_REPLACES[name.removesuffix("_tiled")], "launches": launches,
             "max_abs_err": f_errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "design": "thread a key",
+            "design": "partitioned by tile" if tiled else "thread a key",
             **{k: t[k] for k in EXTRA_TIMES if k in t},
         })
     return kernels
 
 
 def times_only() -> dict:
-    """Phases 5, 9, 14 and (in a tree with the flat layout) 18 alone, on
+    """Phases 5, 9, 14 and (in a tree with the flat layout) 18 and 19 alone, on
     filters filled as the full run fills them before those phases: five
     batches of B in the main filter, one batch in each of the others."""
     rng = np.random.default_rng(SEED)
@@ -1647,6 +1886,8 @@ def times_only() -> dict:
         sc1 = ShardedBloomFilter(flat_sharded_config(LOG2M_FLAT_COUNTING, counting=True))
         sc1.insert_packed(rows(rng, B_FLAT_COUNTING))
         out["flat_times"] = phase_flat_times(f, c, s1, sc1, rng)
+        if TILED:
+            out["flat_crossover"] = phase_flat_crossover(c, rng)
     return out
 
 
@@ -1665,7 +1906,9 @@ def phase_ab(other: Path) -> None:
         run = json.loads(proc.stdout.strip().splitlines()[-1])["times_only"]
         runs.append({"tree": label, "path": str(tree), **run})
         summary = {name: {k: v for k, v in run[phase][name].items()
-                          if k in ("ms", "present_ms", "replay_ms", "delete_ms", "share_of_bound")}
+                          if k in ("ms", "present_ms", "replay_ms", "delete_ms", "sparse_ms",
+                                   "sparse_delete_ms", "sparse_device_ms", "crowd_ms", "half_full_ms",
+                                   "share_of_bound")}
                    for phase, name in (("times", "blocked_insert"), ("times", "blocked_query"),
                                        ("counting_times", "blocked_counting_update"),
                                        ("counting_times", "blocked_counting_query"),
@@ -1673,7 +1916,7 @@ def phase_ab(other: Path) -> None:
                                        ("sharded_times", "sharded_blocked_query"),
                                        ("sharded_times", "sharded_blocked_query_4_slots"),
                                        ("sharded_times", "sharded_blocked_counting_update"),
-                                       *(("flat_times", n) for n in FLAT_KERNELS))
+                                       *(("flat_times", n) for n in (*FLAT_KERNELS, *FLAT_TILED)))
                    if name in run.get(phase, {})}
         emit("ab_run", tree=label, kernels=summary)
     OUT_DIR.mkdir(exist_ok=True)
@@ -1719,6 +1962,7 @@ def main(argv: list[str]) -> int:
     f_errs = phase_flat_kernel_vs_plain(rng)
     f_launches, ff, fc, fs1, fs4, fsc1 = phase_flat_path(rng)
     f_times = phase_flat_times(ff, fc, fs1, fsc1, rng)
+    phase_flat_crossover(fc, rng)
     phase_flat_end_to_end(ff, fc, fs1, fs4, rng, f_times)
     del ff, fc, fs1, fs4, fsc1
     torch.cuda.empty_cache()

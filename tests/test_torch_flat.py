@@ -272,7 +272,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert not any(sweep.launch_counts().values())
     assert {n for n in sweep.LAUNCHES if "flat" in n} == {
         f"{p}flat_{op}" for p in ("", "sharded_")
-        for op in ("insert", "query", "counting_update", "counting_query")
+        for op in ("insert", "query", "counting_update", "counting_query",
+                   "counting_update_tiled", "counting_query_tiled")
     }
 
 

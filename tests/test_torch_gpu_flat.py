@@ -13,7 +13,18 @@ floor. Batches are ragged (partial blocks of threads) and padded; keys of
 28 bytes take the hash from memory, 16-byte keys from registers; m =
 10,000,000 takes the mod walk, m = 2^33 the 64-bit walk's high word. The
 routed kernels run on every slot of a 1-slot and a 4-slot placement, so
-the ``shard_lo != 0`` branch runs too."""
+the ``shard_lo != 0`` branch runs too.
+
+The flat counting wrappers have two kernels each: the thread-a-key one
+and, for a batch whose positions cover enough of the state
+(``sweep.flat_tile_plan``), the partitioned one
+(``tpubloom_torch/csrc/flat_counting.cu``). The partitioned cases take
+shapes on both sides of the crossover (a dense batch of 2^16 keys on 2^20
+counters, a sparse one of 2^10), a ragged m (not a multiple of the 2^17
+counters of a tile), a crowd of one key past saturation, tiles shared by
+several sweep CTAs (one tile, 14 pieces, counters left unsaturated), a
+delete of absent keys, padding, routed slots of 1, 2 and 4, and k from 1
+to 16; each checks which kernel ran from the launch counts."""
 
 import numpy as np
 import pytest
@@ -78,6 +89,11 @@ def _query(state, keys, lengths, cfg, *, route=None, plain=False):
     return fn(state, keys, lengths, cfg, route=route)
 
 
+def _tiled_calls(cfg, sizes, route=None, query=False):
+    """How many of these batch sizes the wrapper gives the partitioned kernel."""
+    return sum(sweep.flat_tile_plan(cfg, n, route, query=query).tiled for n in sizes)
+
+
 def _check_steps(state, cfg, batches, probe, route=None):
     """Each batch through the kernel and the plain version from the same
     state (counting: insert, delete, insert in turn); then the query of
@@ -112,7 +128,11 @@ def test_flat_kernels_match_plain(cuda, counting_layout, m, k, key_len):
     assert bool(hits.any())
     name = "flat_counting_update" if counting_layout else "flat_insert"
     query = "flat_counting_query" if counting_layout else "flat_query"
-    assert sweep.launch_counts() == {**dict.fromkeys(sweep.LAUNCHES, 0), name: 4, query: 1}
+    tiled = _tiled_calls(cfg, [b[0].shape[0] for b in batches], query=False) if counting_layout else 0
+    tiled_q = _tiled_calls(cfg, [probe[0].shape[0]], query=True) if counting_layout else 0
+    assert sweep.launch_counts() == {**dict.fromkeys(sweep.LAUNCHES, 0), name: 4, query: 1,
+                                     **({f"{name}_tiled": tiled, f"{query}_tiled": tiled_q}
+                                        if counting_layout else {})}
 
 
 @pytest.mark.parametrize("counting_layout", [False, True])
@@ -171,8 +191,12 @@ def test_flat_routed_kernels_match_plain(cuda, n_slots, counting_layout, m, key_
             assert bool(owned.any()) and not bool(owned.all())
     name = "sharded_flat_counting_update" if counting_layout else "sharded_flat_insert"
     query = "sharded_flat_counting_query" if counting_layout else "sharded_flat_query"
-    assert sweep.launch_counts() == {**dict.fromkeys(sweep.LAUNCHES, 0), name: 3 * n_slots,
-                                     query: n_slots}
+    expect = {name: 3 * n_slots, query: n_slots}
+    if counting_layout:
+        route = ShardRoute(16, 0, spd)  # every slot has the same geometry
+        expect[f"{name}_tiled"] = n_slots * _tiled_calls(cfg, [4096 + 13, 2048, 3000], route)
+        expect[f"{query}_tiled"] = n_slots * _tiled_calls(cfg, [3000], route, query=True)
+    assert sweep.launch_counts() == {**dict.fromkeys(sweep.LAUNCHES, 0), **expect}
 
 
 @pytest.mark.parametrize("counting_layout", [False, True])
@@ -221,3 +245,115 @@ def test_flat_wrappers_reject_bad_tensors(cuda):
     with pytest.raises(ValueError):
         sweep.flat_counting_update(f.words, keys, torch.zeros(64, dtype=torch.int32, device=cuda),
                                    cfg, increment=True)
+
+
+# -- the partitioned flat counting kernels ----------------------------------------
+
+
+def _variant(before):
+    """Which kernel the last counting call took, from the launch counts."""
+    after = sweep.launch_counts()
+    tiled = sum(after[n] - before[n] for n in after if n.endswith("_tiled"))
+    return "tiled" if tiled else "thread_a_key"
+
+
+def _planned(cfg, n, route, query):
+    return "tiled" if sweep.flat_tile_plan(cfg, n, route, query=query).tiled else "thread_a_key"
+
+
+def _check_counting_ops(state, cfg, ops, probes, route=None):
+    """Each ``(keys, lengths, increment)`` of ``ops`` through the kernel and
+    the plain version from the same state, then each probe's verdicts;
+    each call must take the kernel its plan names. Returns the kernels
+    taken, in order."""
+    taken = []
+    for keys, lengths, increment in ops:
+        s_p = _clone(state)
+        before = sweep.launch_counts()
+        sweep.flat_counting_update(state, keys, lengths, cfg, increment=increment, route=route)
+        taken.append(_variant(before))
+        assert taken[-1] == _planned(cfg, keys.shape[0], route, False)
+        counting.flat_counting_update_plain(s_p, keys, lengths, cfg, increment=increment, route=route)
+        torch.cuda.synchronize()
+        assert _equal(state, s_p), (len(taken), taken[-1])
+    for keys, lengths in probes:
+        before = sweep.launch_counts()
+        q_k = sweep.flat_counting_query(state, keys, lengths, cfg, route=route)
+        taken.append(_variant(before))
+        assert taken[-1] == _planned(cfg, keys.shape[0], route, True)
+        q_p = counting.flat_counting_query_plain(state, keys, lengths, cfg, route)
+        assert torch.equal(q_k.cpu(), q_p.cpu()), taken[-1]
+        assert not bool(q_k[lengths < 0].any())
+    return taken
+
+
+def _dense_and_sparse(rng, dev, n=1 << 16, n_sparse=16, key_len=16):
+    """Updates and probes on both sides of the crossover: a dense insert,
+    a delete of half of it and as many absent keys, a crowd of one key
+    over half a batch inserted and deleted, a sparse insert and delete."""
+    dense = _batch(rng, n, dev, key_len)
+    absent = _batch(rng, n // 2, dev, key_len)
+    delete = (torch.cat([dense[0][: n // 2], absent[0]]), torch.cat([dense[1][: n // 2], absent[1]]))
+    crowd = _batch(rng, n, dev, key_len, crowd=n // 2)
+    sparse = _batch(rng, n_sparse, dev, key_len)
+    ops = [(*dense, True), (*delete, False), (*crowd, True), (*crowd, False), (*crowd, True),
+           (*sparse, True), (*sparse, False)]
+    probe = (torch.cat([dense[0][n // 2 :], absent[0]]), torch.cat([dense[1][n // 2 :], absent[1]]))
+    return ops, [probe, (probe[0][:n_sparse], probe[1][:n_sparse])]
+
+
+@pytest.mark.parametrize("k", [1, 3, 7, 16])
+def test_flat_counting_partitioned_matches_plain(cuda, k):
+    """m = 2^20 counters (8 tiles): 2^16 keys take the partitioned kernels,
+    16 keys the thread-a-key ones."""
+    cfg = FilterConfig(m=1 << 20, k=k, key_len=16, counting=True)
+    rng = np.random.default_rng(100 + k)
+    state = _zeros(sweep._state_words(cfg), cuda)
+    ops, probes = _dense_and_sparse(rng, cuda)
+    taken = _check_counting_ops(state, cfg, ops, probes)
+    assert taken == ["tiled"] * 5 + ["thread_a_key"] * 2 + ["tiled", "thread_a_key"]
+    assert bool(state.view(torch.int32).any())
+
+
+def test_flat_counting_partitioned_ragged_m(cuda):
+    """m = 10,000,000 counters (the mod walk): 1,250,000 words, 77 tiles,
+    the last of 4,816 words; keys of 28 bytes hash from memory."""
+    cfg = FilterConfig(m=10_000_000, k=7, key_len=28, counting=True)
+    plan = sweep.flat_tile_plan(cfg, 1 << 16, query=False)
+    assert plan.tiled and (plan.n_tiles, plan.last_tile_words) == (77, 4816)
+    rng = np.random.default_rng(77)
+    state = _zeros(sweep._state_words(cfg), cuda)
+    ops, probes = _dense_and_sparse(rng, cuda, key_len=28)
+    taken = _check_counting_ops(state, cfg, ops, probes)
+    assert taken[0] == "tiled" and taken[-1] == "thread_a_key"
+
+
+@pytest.mark.parametrize("k", [2, 7])
+def test_flat_counting_partitioned_shared_tiles(cuda, k):
+    """One tile (m = 2^17 counters) and 2^15 keys: 14 sweep CTAs share it
+    (k = 7), each applying its counts with a CAS loop, and most counters
+    stay below 15, so a lost update would show; then the same keys
+    deleted, down to all-zero words."""
+    cfg = FilterConfig(m=1 << 17, k=k, key_len=16, counting=True)
+    keys, lengths = _batch(np.random.default_rng(k), 1 << 15, cuda, n_pad=0)
+    state = _zeros(sweep._state_words(cfg), cuda)
+    ops = [(keys, lengths, True), (keys, lengths, False)]
+    assert _check_counting_ops(state, cfg, ops, [(keys, lengths)]) == ["tiled"] * 3
+    assert not bool(state.view(torch.int32).any())
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 4])
+@pytest.mark.parametrize("m,key_len", [(1 << 22, 16), (9_999_872, 28)])
+def test_flat_counting_partitioned_routed(cuda, n_slots, m, key_len):
+    """The routed partitioned kernels on every slot of 1, 2 and 4 (16
+    shards): the tiles run over the slot's shard-major words; keys other
+    slots own change nothing and answer False."""
+    cfg = FilterConfig(m=m, k=7, key_len=key_len, shards=16, counting=True)
+    rng = np.random.default_rng(n_slots + key_len)
+    spd = 16 // n_slots
+    for i in range(n_slots):
+        route = ShardRoute(16, i * spd, spd)
+        state = _zeros(sweep._state_words(cfg, route), cuda)
+        ops, probes = _dense_and_sparse(rng, cuda, n=1 << 16, n_sparse=1 << 8, key_len=key_len)
+        taken = _check_counting_ops(state, cfg, ops, probes, route=route)
+        assert taken[0] == "tiled" and taken[-1] == "thread_a_key"

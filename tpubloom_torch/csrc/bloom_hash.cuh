@@ -210,10 +210,10 @@ __device__ __forceinline__ uint32_t inblock_bit(int i, const KeyHash& h,
 }
 
 // ---------------------------------------------------------------------------
-// Flat positions (flat_bloom.cu). The walk of a key: position i is
-// (start + i * stride) & (m - 1) for a power-of-two m, in 64 bits, and
-// ((u32)start + i * (u32)stride) % m otherwise. m is the position count of
-// the whole filter, or of one shard for a routed kernel.
+// Flat positions (flat_bloom.cu, flat_counting.cu). The walk of a key:
+// position i is (start + i * stride) & (m - 1) for a power-of-two m, in 64
+// bits, and ((u32)start + i * (u32)stride) % m otherwise. m is the position
+// count of the whole filter, or of one shard for a routed kernel.
 // ---------------------------------------------------------------------------
 
 struct FlatSpec {
@@ -271,6 +271,49 @@ __device__ __forceinline__ uint64_t flat_position(int i, const FlatWalk& w,
   if (s.pow2) return (w.start + (uint64_t)i * w.stride) & (s.m - 1);
   const uint32_t p = (uint32_t)w.start + (uint32_t)i * (uint32_t)w.stride;
   return (uint64_t)(p % (uint32_t)s.m);
+}
+
+// Key i (< B) of a flat kernel: false for padding and (kRouted) for a key
+// the slot does not own; else its walk, and in `base` the first position
+// of its shard in the slot's state (0 unrouted).
+template <bool kRouted>
+__device__ __forceinline__ bool flat_key(const uint8_t* __restrict__ keys,
+                                         const int32_t* __restrict__ lengths,
+                                         int64_t i, int L, const FlatSpec& s,
+                                         const RouteSpec& route, FlatWalk& w,
+                                         uint64_t& base) {
+  const int len = lengths[i];
+  if (len < 0) return false;
+  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  base = 0;
+  if constexpr (kRouted) {
+    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
+    if (local < 0) return false;
+    base = (uint64_t)local * s.m;
+  }
+  w = flat_walk(kw, L / 4, len, s);
+  return true;
+}
+
+// One saturating step of the 4-bit counter at bits sh.. of a word: +1
+// (increment) stopping at 15, or -1 stopping at 0, as a CAS loop from `old`,
+// a value the caller read (a plain atomicAdd would carry into the next
+// nibble). A nibble read at its stop is still there, since within a batch
+// every nibble moves one way only. The word may be in shared memory.
+__device__ __forceinline__ void counter_step_from(uint32_t* word, uint32_t old, int sh,
+                                                  int increment) {
+  const uint32_t stop = increment ? 15u : 0u, one = 1u << sh;
+  while (((old >> sh) & 15u) != stop) {
+    const uint32_t seen = atomicCAS(word, old, increment ? old + one : old - one);
+    if (seen == old) break;
+    old = seen;
+  }
+}
+
+// The same on a state word in device memory, first read from L2, where the
+// CASes land.
+__device__ __forceinline__ void counter_step(uint32_t* word, int sh, int increment) {
+  counter_step_from(word, __ldcg(word), sh, increment);
 }
 
 // ---------------------------------------------------------------------------

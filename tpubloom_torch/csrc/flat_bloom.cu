@@ -39,9 +39,15 @@
 // B = 2^20 keys) the 10.5 M positions fall on ~3.9 M of the 4.2 M sectors:
 // ~0.27 GB for the insert, ~0.08 ms at 3.35 TB/s. A thread a key gives each
 // position its own L2 request, so the card's rate of random 32-byte
-// requests, not its bandwidth, is what these kernels will see; grouping a
-// key's positions by sector cannot help (they are k random sectors).
-// Making them faster is later work.
+// requests, not its bandwidth, is what these kernels see (a key's k
+// positions are k random sectors, so grouping them by key cannot help).
+// What helps is grouping the batch's positions by place: for a batch that
+// covers much of the state, the counting pair has partitioned kernels
+// (flat_counting.cu) that place each position in the segment of its
+// shared-memory tile and sweep the tiles on chip; the wrapper
+// (ops/sweep.py flat_tile_plan) keeps these thread-a-key kernels for the
+// small batches below the crossover. The bit pair (flat_insert, flat_query)
+// has no partitioned twin yet.
 //
 // Built by tpubloom_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -59,28 +65,6 @@ namespace tpubloom {
 constexpr int kFlatThreads = 256;
 // A query issues this many of a key's loads before it tests any of them.
 constexpr int kFlatGather = 8;
-
-// The key of thread i (< B): false for padding and (kRouted) for a key the
-// slot does not own; else its walk, and in `base` the first position of its
-// shard in the slot's state (0 unrouted).
-template <bool kRouted>
-__device__ __forceinline__ bool flat_key(const uint8_t* __restrict__ keys,
-                                         const int32_t* __restrict__ lengths,
-                                         int64_t i, int L, const FlatSpec& s,
-                                         const RouteSpec& route, FlatWalk& w,
-                                         uint64_t& base) {
-  const int len = lengths[i];
-  if (len < 0) return false;
-  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
-  base = 0;
-  if constexpr (kRouted) {
-    const int64_t local = route_key(kw, L / 4, len, s.seed, route);
-    if (local < 0) return false;
-    base = (uint64_t)local * s.m;
-  }
-  w = flat_walk(kw, L / 4, len, s);
-  return true;
-}
 
 // ---------------------------------------------------------------------------
 // flat_insert
@@ -158,10 +142,11 @@ flat_query_kernel(const uint32_t* __restrict__ state,
 // Replaces make_counter_fn + counting.counter_update (tpubloom/filter.py:
 // 86-101); sharded_flat_counting_update the local update of
 // make_sharded_counter_fn (sharded.py:394-417). A position's +1 (insert) or
-// -1 (delete) is a CAS loop on its 32-bit word: read the word, stop when the
-// nibble is already at 15 (insert) or 0 (delete), else CAS the word with the
-// nibble moved by one. A plain atomicAdd would carry from one nibble into
-// the next and could not saturate.
+// -1 (delete) is a CAS loop on its 32-bit word (bloom_hash.cuh
+// counter_step): read the word, stop when the nibble is already at 15
+// (insert) or 0 (delete), else CAS the word with the nibble moved by one. A
+// plain atomicAdd would carry from one nibble into the next and could not
+// saturate.
 //
 // Why the result equals tpubloom's: tpubloom applies each distinct
 // position's multiplicity c in the batch, clamped once against the pre-batch
@@ -186,18 +171,9 @@ flat_counting_update_kernel(uint32_t* __restrict__ state,
   FlatWalk w;
   uint64_t base;
   if (!flat_key<kRouted>(keys, lengths, i, L, s, route, w, base)) return;
-  const uint32_t stop = increment ? 15u : 0u;
   for (int j = 0; j < s.k; ++j) {
     const uint64_t p = base + flat_position(j, w, s);
-    uint32_t* word = state + (p >> 3);
-    const int sh = 4 * (int)(p & 7u);
-    const uint32_t one = 1u << sh;
-    uint32_t old = __ldcg(word);  // from L2, where the CASes land
-    while (((old >> sh) & 15u) != stop) {
-      const uint32_t seen = atomicCAS(word, old, increment ? old + one : old - one);
-      if (seen == old) break;
-      old = seen;
-    }
+    counter_step(state + (p >> 3), 4 * (int)(p & 7u), increment);
   }
 }
 

@@ -40,12 +40,19 @@ sharded layouts:
 * ``make_counting_query_fn`` + ``counting.counting_membership`` (sharded
   ``make_sharded_counting_query_fn``) -> :func:`flat_counting_query`.
 
+The flat kernels give a key a thread. The counting pair also has
+partitioned kernels (``tpubloom_torch/csrc/flat_counting.cu``) for a
+batch whose positions cover much of the state: the batch's counter
+positions are placed by shared-memory tile and each tile is swept on
+chip, where ``tpubloom`` sorts them; :func:`flat_tile_plan` picks one of
+the two kernels from the launch's shape.
+
 Why the sweep algorithm is not carried over: the TPU sorts each batch by
 block, streams the whole filter through VMEM partition by partition and
 places updates with one-hot matmuls, because TPU HBM cannot do random
 read-modify-writes at speed (see the top of ``tpubloom/ops/sweep.py``).
 Hopper can: a key's block is one 64-byte row, read with vector loads or
-updated with ``atomicOr``. So the kernels here hash each key in place
+updated with ``atomicOr``. So the blocked kernels hash each key in place
 and touch only its row — no sort, no partition windows, and no overflow
 fallback, because nothing has a window to overflow. The results are the
 same bits: the same state after an insert, the same verdicts.
@@ -75,13 +82,16 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from tpubloom_torch.ops import _build, bitops, blocked, counting
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`
-#: (CUDA launches only; the plain versions are not counted).
+#: (CUDA launches only; the plain versions are not counted). A flat
+#: counting call counts once under its name whichever kernel it takes, and
+#: once more under ``<name>_tiled`` when it takes the partitioned one.
 LAUNCHES: dict[str, int] = {
     "blocked_query": 0, "blocked_insert": 0,
     "blocked_counting_update": 0, "blocked_counting_query": 0,
@@ -91,6 +101,8 @@ LAUNCHES: dict[str, int] = {
     "flat_counting_update": 0, "flat_counting_query": 0,
     "sharded_flat_insert": 0, "sharded_flat_query": 0,
     "sharded_flat_counting_update": 0, "sharded_flat_counting_query": 0,
+    "flat_counting_update_tiled": 0, "flat_counting_query_tiled": 0,
+    "sharded_flat_counting_update_tiled": 0, "sharded_flat_counting_query_tiled": 0,
 }
 
 _P = ctypes.c_void_p
@@ -156,6 +168,17 @@ _FLAT_SIGNATURES = {
     ),
     "tpb_sharded_flat_counting_query": ([_P, _P, _P, _P, *_FLAT, *_ROUTE, _P], ctypes.c_int),
 }
+_PLAN = ctypes.POINTER(ctypes.c_int64)  # FlatTilePlan.fields(), a host array
+_FLAT_TILED_SIGNATURES = {
+    "tpb_flat_counting_update_tiled": ([_P, _P, _P, *_FLAT, ctypes.c_int, _P, _PLAN, _P], ctypes.c_int),
+    "tpb_flat_counting_query_tiled": ([_P, _P, _P, _P, *_FLAT, _P, _PLAN, _P], ctypes.c_int),
+    "tpb_sharded_flat_counting_update_tiled": (
+        [_P, _P, _P, *_FLAT, ctypes.c_int, *_ROUTE, _P, _PLAN, _P], ctypes.c_int,
+    ),
+    "tpb_sharded_flat_counting_query_tiled": (
+        [_P, _P, _P, _P, *_FLAT, *_ROUTE, _P, _PLAN, _P], ctypes.c_int,
+    ),
+}
 
 
 def reset_launch_counts() -> None:
@@ -177,6 +200,10 @@ def _counting_library() -> ctypes.CDLL:
 
 def _flat_library() -> ctypes.CDLL:
     return _build.load_library("flat_bloom", _FLAT_SIGNATURES)
+
+
+def _flat_tiled_library() -> ctypes.CDLL:
+    return _build.load_library("flat_counting", _FLAT_TILED_SIGNATURES)
 
 
 def _state_words(config, route=None) -> int:
@@ -381,29 +408,182 @@ def flat_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
                          _flat_args(config, route), route)
 
 
+# -- the partitioned flat counting kernels (csrc/flat_counting.cu) ------------------
+
+#: A tile: 2^14 counter words, the 64 KiB of shared memory a sweep CTA stages.
+FLAT_TILE_LOG2 = 14
+#: The most entries one sweep CTA applies; a tile with more takes several.
+FLAT_TILE_PIECE = 1 << 14
+#: The placement's first level orders entries by bucket of 2^6 tiles (at
+#: most 64 tiles a bucket, 256 buckets); its second moves a bucket's
+#: entries into its tiles, at most FLAT_TILE_SORT_PIECE entries a CTA.
+FLAT_TILE_BUCKET_LOG2, FLAT_TILE_SORT_PIECE = 6, 1 << 12
+#: Count and place passes: at most four chunks of keys an H100 SM (a CTA of
+#: 512 threads each), each of at least FLAT_TILE_CHUNK_KEYS keys.
+FLAT_TILE_CHUNKS, FLAT_TILE_CHUNK_KEYS = 528, 2048
+#: The passes' tile histogram lives in shared memory: at most 2^14 tiles
+#: (64 KiB), so a state of fewer than 2^28 counter words (m < 2^31).
+FLAT_TILE_MAX_TILES = 1 << 14
+#: A launch takes the partitioned kernel when its expected positions (a
+#: routed slot: its owned share of B k) reach this many per 32-byte sector of
+#: the state, and the thread-a-key kernel of flat_bloom.cu below it. Both
+#: from chip_smoke.py's flat_crossover phase on an NVIDIA H100 80GB HBM3
+#: (700 W; PERF.md section 6). The update: the partitioned kernel is the
+#: faster from B = 2^19 keys at config 4 flat (7 x 2^19 positions on 2^24
+#: sectors, 0.219; 0.286 against 0.321 ms). The query: its partitioned
+#: kernel stores a verdict byte for every zero counter it meets, so on absent
+#: keys in a near-empty filter it is the slower at every B measured (1.10
+#: against 0.92 ms at 2^22); at 2^22 it ties at half fill and is 12 % the
+#: faster on held keys, so it takes the partitioned kernel from the counting
+#: path's full batch (7 x 2^22 positions, 1.75 a sector) only.
+FLAT_TILE_CROSSOVER = 7 / 32
+FLAT_TILE_QUERY_CROSSOVER = 7 / 4
+
+
+@dataclass(frozen=True)
+class FlatTilePlan:
+    """The partition of one flat counting launch: which kernel it takes
+    and, for the partitioned one, its geometry and the layout of its
+    scratch (byte offsets into one ``torch.empty`` buffer)."""
+
+    tiled: bool
+    n_words: int        # counter words of the state (a routed slot's)
+    n_tiles: int        # ceil(n_words / 2^FLAT_TILE_LOG2); the last may be ragged
+    last_tile_words: int
+    n_buckets: int      # ceil(n_tiles / 2^FLAT_TILE_BUCKET_LOG2)
+    entries: int        # B k: the most entries the launch can place
+    expected: float     # the entries it should place (a routed slot: its share)
+    chunks: int         # CTAs of the count and place passes
+    chunk_keys: int
+    sweep_grid: int     # sweep CTAs: every tile's pieces fit in n_tiles + ceil(entries / piece)
+    sort_grid: int      # sort CTAs: n_buckets + ceil(entries / sort piece)
+    entry_bytes: int    # 4 (update: position, then index in tile) or 8 (query: and key index)
+    counts_at: int      # u32 [chunks, n_tiles]
+    starts_at: int      # u32 tile_start [n_tiles + 1], then piece_start [n_tiles + 1]
+    cursor_at: int      # u32 tile_cursor [n_tiles]
+    piece_tile_at: int  # u32 [sweep_grid]
+    sort_starts_at: int  # u32 sort_start [n_buckets + 1]
+    sort_map_at: int    # u32 [sort_grid]
+    bucketed_at: int    # the entries by bucket
+    entries_at: int     # the entries by tile
+    scratch_bytes: int
+
+    def fields(self) -> tuple[int, ...]:
+        """The kernel's plan array (``PlanField`` in flat_counting.cu)."""
+        return (self.n_words, FLAT_TILE_LOG2, self.n_tiles, FLAT_TILE_BUCKET_LOG2,
+                self.n_buckets, self.chunks, self.chunk_keys, FLAT_TILE_PIECE, self.sweep_grid,
+                FLAT_TILE_SORT_PIECE, self.sort_grid, self.counts_at, self.starts_at,
+                self.cursor_at, self.piece_tile_at, self.sort_starts_at, self.sort_map_at,
+                self.bucketed_at, self.entries_at)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _takes_tiles(config, batch: int, route, query: bool) -> bool:
+    """Whether a flat counting launch takes the partitioned kernel (see
+    :func:`flat_tile_plan`); cheap, as small batches ask it on every call."""
+    n_words = _state_words(config, route)
+    if batch <= 0 or batch * config.k >= 1 << 31 or n_words > FLAT_TILE_MAX_TILES << FLAT_TILE_LOG2:
+        return False
+    share = 1.0 if route is None else route.shards_per_dev / route.n_shards
+    crossover = FLAT_TILE_QUERY_CROSSOVER if query else FLAT_TILE_CROSSOVER
+    return batch * config.k * share >= crossover * _ceil_div(n_words, 8)
+
+
+def flat_tile_plan(config, batch: int, route=None, *, query: bool) -> FlatTilePlan:
+    """The plan of a flat counting update (``query=False``) or query of
+    ``batch`` keys on ``config``'s state (with a ``route``, one slot's):
+    partitioned when the batch's expected positions reach
+    :data:`FLAT_TILE_CROSSOVER` (the query: :data:`FLAT_TILE_QUERY_CROSSOVER`)
+    per sector of the state, the state has at most
+    :data:`FLAT_TILE_MAX_TILES` tiles and B k < 2^31 (the segments' u32
+    offsets); thread-a-key otherwise."""
+    n_words = _state_words(config, route)
+    tile_words = 1 << FLAT_TILE_LOG2
+    n_tiles = _ceil_div(n_words, tile_words)
+    entries = batch * config.k
+    expected = entries * (1.0 if route is None else route.shards_per_dev / route.n_shards)
+    chunk_keys = max(FLAT_TILE_CHUNK_KEYS, _ceil_div(batch, FLAT_TILE_CHUNKS))
+    chunks = _ceil_div(batch, chunk_keys)
+    n_buckets = _ceil_div(n_tiles, 1 << FLAT_TILE_BUCKET_LOG2)
+    sweep_grid = n_tiles + _ceil_div(entries, FLAT_TILE_PIECE)
+    sort_grid = n_buckets + _ceil_div(entries, FLAT_TILE_SORT_PIECE)
+    entry_bytes = 8 if query else 4
+    starts_at = 4 * chunks * n_tiles
+    cursor_at = starts_at + 8 * (n_tiles + 1)
+    piece_tile_at = cursor_at + 4 * n_tiles
+    sort_starts_at = piece_tile_at + 4 * sweep_grid
+    sort_map_at = sort_starts_at + 4 * (n_buckets + 1)
+    bucketed_at = _ceil_div(sort_map_at + 4 * sort_grid, 16) * 16
+    entries_at = bucketed_at + _ceil_div(entry_bytes * entries, 16) * 16
+    return FlatTilePlan(
+        tiled=_takes_tiles(config, batch, route, query), n_words=n_words, n_tiles=n_tiles,
+        last_tile_words=n_words - (n_tiles - 1) * tile_words, n_buckets=n_buckets,
+        entries=entries, expected=expected, chunks=chunks, chunk_keys=chunk_keys,
+        sweep_grid=sweep_grid, sort_grid=sort_grid, entry_bytes=entry_bytes, counts_at=0,
+        starts_at=starts_at, cursor_at=cursor_at, piece_tile_at=piece_tile_at,
+        sort_starts_at=sort_starts_at, sort_map_at=sort_map_at, bucketed_at=bucketed_at,
+        entries_at=entries_at, scratch_bytes=entries_at + entry_bytes * entries,
+    )
+
+
+def _launch_tiled(name, state, keys, lengths, spec, route, plan, out=None) -> None:
+    """One partitioned launch (``<name>_tiled``, routed with a route):
+    ``fn(state, keys, lengths, [out,] B, L, *spec, *routing, scratch,
+    plan, stream)``, counted under ``name`` and ``name_tiled``."""
+    B, L = keys.shape
+    fn, routing, counter = _entry(_flat_tiled_library(), f"{name}_tiled", route)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=state.device)
+    fields = plan.fields()
+    plan_array = (ctypes.c_int64 * len(fields))(*fields)
+    ptrs = (state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+            *(() if out is None else (out.data_ptr(),)))
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = fn(*ptrs, B, L, *spec, *routing, scratch.data_ptr(), plan_array, stream)
+    _raise_on(err, counter)
+    LAUNCHES[counter] += 1
+    LAUNCHES[counter.removesuffix("_tiled")] += 1
+
+
 def flat_counting_update(state, keys, lengths, config, *, increment: bool, route=None) -> None:
     """Add (``increment``) or subtract each valid key's multiplicity at
     its k flat counters in ``state`` (``uint32[n_counter_words]``), in
-    place; nibbles saturate at 15 and floor at 0."""
+    place; nibbles saturate at 15 and floor at 0. On the card a batch
+    whose positions cover enough of the state (:func:`flat_tile_plan`)
+    takes the partitioned kernels, a smaller one the thread-a-key
+    kernel; both give the same words."""
     _check(state, keys, lengths, config, route, counters=True, flat=True)
     if state.device.type == "cpu":
         counting.flat_counting_update_plain(
             state, keys, lengths, config, increment=increment, route=route
         )
         return
-    _launch_update(_flat_library(), "flat_counting_update", state, keys, lengths,
-                   (*_flat_args(config, route), 1 if increment else 0), route)
+    spec = (*_flat_args(config, route), 1 if increment else 0)
+    if _takes_tiles(config, keys.shape[0], route, False):
+        _launch_tiled("flat_counting_update", state, keys, lengths, spec, route,
+                      flat_tile_plan(config, keys.shape[0], route, query=False))
+    else:
+        _launch_update(_flat_library(), "flat_counting_update", state, keys, lengths, spec, route)
 
 
 def flat_counting_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
     """Flat counting membership: ``bool[B]``, True where all k counters
     are non-zero, False where ``lengths < 0`` (and, with a ``route``,
-    where the slot does not own the key). ``state`` is only read."""
+    where the slot does not own the key). ``state`` is only read. The
+    kernel is chosen as for :func:`flat_counting_update`."""
     _check(state, keys, lengths, config, route, counters=True, flat=True)
     if state.device.type == "cpu":
         return counting.flat_counting_query_plain(state, keys, lengths, config, route)
-    return _launch_query(_flat_library(), "flat_counting_query", state, keys, lengths,
-                         _flat_args(config, route), route)
+    if not _takes_tiles(config, keys.shape[0], route, True):
+        return _launch_query(_flat_library(), "flat_counting_query", state, keys, lengths,
+                             _flat_args(config, route), route)
+    out = torch.empty((keys.shape[0],), dtype=torch.uint8, device=state.device)
+    _launch_tiled("flat_counting_query", state, keys, lengths, _flat_args(config, route), route,
+                  flat_tile_plan(config, keys.shape[0], route, query=True), out)
+    return out.view(torch.bool)
 
 
 def record_fence(device: torch.device):
