@@ -96,25 +96,30 @@ each, with the seconds it took (``phase_seconds``):
    the slot of shards 48-63; batches with old keys, within-batch
    duplicates, one key over an eighth of the batch (past saturation),
    tail padding and, for counting, a delete of absent keys; the counting
-   pair at its path's batch (the partitioned kernels) and at 2^16 keys
-   (the thread-a-key kernels), each op recording the kernel it took;
+   pair at its path's batch and at 2^16 keys, each op through the kernel
+   the wrapper takes (recorded) and through the other one on a copy of the
+   state, so that both kernels of each wrapper meet every shape;
 17. flat path: the four flat filters through their entry points at full
    size (packed and ``bytes`` keys, a replay, deletes; 1 and 4 slots whose
    words must agree), the FPR of fresh keys against
    ``params.theoretical_fpr`` at m=2^26, and the Redis bitmap and
    checkpoint round trips at m=2^26 bits or 2^24 counters, with the
    launch counts after each step (each counting wrapper must have taken
-   both of its kernels);
+   the kernel its crossover gives each batch);
 18. flat times: as phases 5 and 9 for the eight flat kernels and the four
    partitioned ones, beside the bound (the launch's distinct 32-byte
    sectors read, and written back by updates) and, for the queries, the
    gather ``words[widx]`` of the launch's B k words; the counting pair on
    both of its kernels at the path's batch and at 2^16 keys, on a crowd
-   batch, and its query on held keys and on a filter half full, with the
-   partition (tiles touched, scratch bytes, sweep CTAs);
+   batch, and its query on held keys, on config 4's own traffic
+   (benchmarks/run.py config4: 10,000,000 keys inserted, half deleted,
+   all queried in one launch) and on a filter half full, with the
+   partition (tiles touched, scratch bytes, sweep CTAs); at 2^16 keys also
+   the wrappers' host clock per call;
 19. flat crossover: both kernels of the flat counting pair at config 4
-   flat over B = 2^13 .. 2^22, and the batch (in positions per sector of
-   the state) from which the partitioned one is the faster;
+   flat over B = 2^13 .. 2^22 (the query on half held, half absent keys,
+   and on absent keys), and the batch (in positions per sector of the
+   state) from which the partitioned one is the faster;
 20. flat end to end: as phase 6 for the flat filters' packed calls.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
@@ -125,20 +130,23 @@ present. The full record is written to ``chiprun_out/chip_smoke.json``.
 Two other modes compare kernel builds on one card:
 
     python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18, 19
-    python3 chip_smoke.py --ab DIR        # --times in DIR, here, here, DIR
+    python3 chip_smoke.py --host          # device, build, the flat counting wrappers' host clock
+    python3 chip_smoke.py --ab DIR        # --times in DIR, here, here, DIR; --host in turns
+    python3 chip_smoke.py --ab DIR --host # --host in DIR and here in turns only
 
 ``--times`` fills the filters as the full run does before its timing
 phases and ends with one JSON line of the kernels' times. ``--ab`` copies
 this script into DIR (another checkout of the repository, for example a
 parent commit unpacked with ``git archive``), runs ``--times`` in DIR,
 here, here and DIR in turn, and writes the four runs to
-``chiprun_out/ab_times.json``.
+``chiprun_out/ab_times.json``; then ``--host`` (the flat counting
+wrappers' host clock per call at 2^16 keys, each tree in fresh processes)
+in DIR and here, three times in turns, to ``chiprun_out/ab_host.json``.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import shutil
@@ -214,12 +222,20 @@ LOG2M_FLAT_SHARDED, B_FLAT_SHARDED = 36, 1 << 18
 LOG2M_FLAT_SMALL, LOG2M_FLAT_SMALL_COUNTING = 26, 24
 N_FLAT_FPR, N_FLAT_ROUND_TRIP = 1 << 22, 1 << 18  # keys the cut filters take
 # The flat counting pair has two kernels each, chosen by the batch's shape
-# (sweep.flat_tile_plan): the partitioned one at the counting paths' 2^22
+# (sweep.flat_takes_tiles): the partitioned one at the counting paths' 2^22
 # keys, the thread-a-key one at a delete_batch of 2^16 keys (PERF.md
 # section 5). Both are held and timed at both sizes, and the crossover
 # between them is measured over B = 2^13 .. 2^22 at config 4 flat.
 B_FLAT_SPARSE = 1 << 16
 LOG2B_CROSSOVER = range(13, 23)
+# The query is also timed on config 4's own traffic (benchmarks/run.py
+# config4, scale 1: insert n = 10,000,000 keys, delete the first half, query
+# all n), each call one launch padded to 2^24 keys as the port pads it.
+N_CONFIG4 = 10_000_000
+# The wrappers' host clock at B_FLAT_SPARSE keys: calls a measurement, and
+# rounds of measurements in a --host process.
+N_HOST_CALLS, N_HOST_ROUNDS = 2000, 3
+HOST_SCRATCH_BYTES = 1 << 28  # a device allocation the size of a partitioned update's scratch
 # The query is also timed on the config 4 flat filter filled to about half
 # of its counters non-zero (25 more batches of 2^22 keys made on the card):
 # a filter near its capacity, where an absent key has fewer zero counters.
@@ -231,6 +247,7 @@ OPS_FLAT_HASH, OPS_FLAT_BIT, OPS_FLAT_COUNTER = 162 + 64, 8, 11
 M32 = 0xFFFFFFFF
 L2_FLUSH_BYTES = 128 << 20  # read between fresh launches: 2.5 x the H100's 50 MB L2
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+AB_HOST_TURNS = 3  # --ab: --host in the other tree and here, this many times in turns
 RECORD: dict = {}
 _LAST_EMIT = [time.perf_counter()]
 
@@ -1194,25 +1211,15 @@ FLAT_KERNELS = ("flat_insert", "flat_query", "flat_counting_update", "flat_count
 
 # The partitioned kernels, under their own launch counters; a tree without
 # them (``--ab`` against a parent) times the flat counting pair as it is.
-TILED = hasattr(sweep, "flat_tile_plan")
+TILED = hasattr(sweep, "_flat_counting_update_on")
 FLAT_TILED = ("flat_counting_update_tiled", "flat_counting_query_tiled",
               "sharded_flat_counting_update_tiled", "sharded_flat_counting_query_tiled") if TILED else ()
+# The kernels of the flat counting pair: the wrapper's own choice (None), or
+# one held whatever the shape through sweep's private entries.
+COUNTING_KERNELS = ("thread_a_key", "tiled") if TILED else (None,)
 
 
-@contextlib.contextmanager
-def flat_variant(tiled):
-    """Hold the flat counting wrappers on one kernel whatever the shape:
-    the partitioned one (True) or the thread-a-key one (False), by moving
-    the crossover; None keeps the wrappers' own choice."""
-    if tiled is None or not TILED:
-        yield
-        return
-    keep = sweep.FLAT_TILE_CROSSOVER, sweep.FLAT_TILE_QUERY_CROSSOVER
-    sweep.FLAT_TILE_CROSSOVER = sweep.FLAT_TILE_QUERY_CROSSOVER = 0.0 if tiled else math.inf
-    try:
-        yield
-    finally:
-        sweep.FLAT_TILE_CROSSOVER, sweep.FLAT_TILE_QUERY_CROSSOVER = keep
+OTHER_KERNEL = {"tiled": "thread_a_key", "thread_a_key": "tiled"}
 
 
 def tiled_launches() -> int:
@@ -1228,9 +1235,14 @@ def flat_sharded_config(log2m: int, **kw) -> FilterConfig:
     return FilterConfig(m=1 << log2m, k=K, key_len=KEY_LEN, shards=SHARDS, **kw)
 
 
-def flat_update(state, keys, lengths, cfg, *, increment=True, route=None, plain=False) -> None:
-    """The flat insert (bit config) or counting update, kernel or plain."""
-    if cfg.counting:
+def flat_update(state, keys, lengths, cfg, *, increment=True, route=None, plain=False,
+                kernel=None) -> None:
+    """The flat insert (bit config) or counting update, kernel or plain; a
+    counting ``kernel`` ("tiled" or "thread_a_key") holds that kernel."""
+    if cfg.counting and kernel is not None and not plain:
+        sweep._flat_counting_update_on(kernel == "tiled", state, keys, lengths, cfg,
+                                       increment=increment, route=route)
+    elif cfg.counting:
         fn = counting.flat_counting_update_plain if plain else sweep.flat_counting_update
         fn(state, keys, lengths, cfg, increment=increment, route=route)
     elif plain:
@@ -1239,11 +1251,14 @@ def flat_update(state, keys, lengths, cfg, *, increment=True, route=None, plain=
         sweep.flat_insert(state, keys, lengths, cfg, route=route)
 
 
-def flat_query(state, keys, lengths, cfg, *, route=None, plain=False) -> torch.Tensor:
-    """The flat query (bit config) or counting query, kernel or plain."""
+def flat_query(state, keys, lengths, cfg, *, route=None, plain=False, kernel=None) -> torch.Tensor:
+    """The flat query (bit config) or counting query, kernel or plain; a
+    counting ``kernel`` holds that kernel."""
     if plain:
         fn = counting.flat_counting_query_plain if cfg.counting else bitops.flat_query_plain
         return fn(state, keys, lengths, cfg, route)
+    if cfg.counting and kernel is not None:
+        return sweep._flat_counting_query_on(kernel == "tiled", state, keys, lengths, cfg, route=route)
     fn = sweep.flat_counting_query if cfg.counting else sweep.flat_query
     return fn(state, keys, lengths, cfg, route=route)
 
@@ -1273,7 +1288,9 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
     counting filter's insert and a delete of half the batch and as many
     absent keys, then the same at B_FLAT_SPARSE keys, which the wrappers
     give the other kernel of the counting pair. ``ops`` records each op's
-    kernel (``variant``) and its ``max_abs_err`` against the plain version."""
+    kernel (``variant``) and its ``max_abs_err`` against the plain version;
+    for the counting pair also (``other``) the same op through the kernel
+    the wrapper did not take."""
     dev = torch.device("cuda")
     state = torch.zeros(sweep._state_words(cfg, route), dtype=torch.int32, device=dev).view(torch.uint32)
     full = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
@@ -1297,7 +1314,10 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
     out = {"m": cfg.m, "k": cfg.k, "batch": batch, "padded": n_pad, "owned": int(owned.sum()),
            "state_bytes": state.numel() * 4, "ops": {},
            "route": None if route is None else [route.n_shards, route.shard_lo, route.shards_per_dev]}
+    # the counting pair: each op also through the kernel the wrapper did not
+    # take, on a copy of the state, so both kernels meet every shape
     s_plain = clone_u32(state)
+    s_other = clone_u32(state) if cfg.counting and TILED else None
     for op, k_, l_, increment in ops:
         before = tiled_launches()
         flat_update(state, k_, l_, cfg, increment=increment, route=route)
@@ -1306,13 +1326,19 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
         torch.cuda.synchronize()
         out["ops"][op] = {"variant": variant, "keys": k_.shape[0], "max_abs_err": max_abs_err(state, s_plain)}
         check(equal_words(state, s_plain), f"flat {op} state m={cfg.m} {out['route']} ({variant})")
+        if s_other is not None:
+            other = OTHER_KERNEL[variant]
+            flat_update(s_other, k_, l_, cfg, increment=increment, route=route, kernel=other)
+            torch.cuda.synchronize()
+            out["ops"][op]["other"] = {"variant": other, "max_abs_err": max_abs_err(s_other, s_plain)}
+            check(equal_words(s_other, s_plain), f"flat {op} state m={cfg.m} {out['route']} ({other})")
         if increment:
             n = k_.shape[0]
             crowd = k_[3 * (n // 4) : 3 * (n // 4) + 1]
             hot = flat_query(state, crowd, full[:1], cfg, route=route)
             hot_owned = bitops.routed_positions(crowd, full[:1], cfg, route)[0]
             check(bool(hot[0]) == bool(hot_owned[0]), "the crowded key is present after its insert")
-    del s_plain
+    del s_plain, s_other
     for op, probe, l_ in probes:
         n = probe.shape[0]
         before = tiled_launches()
@@ -1327,6 +1353,12 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
                           "hits_old_half": int(q_k[: n // 2].sum()),
                           "owned_old_half": int(p_owned[: n // 2].sum()),
                           "hits_fresh_half": int(q_k[n // 2 :].sum())}
+        if cfg.counting and TILED:
+            other = OTHER_KERNEL[variant]
+            q_o = flat_query(state, probe, l_, cfg, route=route, kernel=other)
+            torch.cuda.synchronize()
+            check(torch.equal(q_o, q_p), f"flat {op} verdicts m={cfg.m} {out['route']} ({other})")
+            out["ops"][op]["other"] = {"variant": other, "max_abs_err": max_abs_err(q_o, q_p)}
     if not cfg.counting:
         q = out["ops"]["query"]
         check(q["hits_old_half"] == q["owned_old_half"], "owned old keys present")
@@ -1350,8 +1382,8 @@ def phase_flat_kernel_vs_plain(rng) -> dict:
     }
 
     def worst(names, query: bool, variant="thread_a_key"):
-        errs = [r["max_abs_err"] for n in names for op, r in runs[n]["ops"].items()
-                if ("query" in op) == query and r["variant"] == variant]
+        errs = [x["max_abs_err"] for n in names for op, r in runs[n]["ops"].items()
+                for x in (r, r.get("other")) if x and ("query" in op) == query and x["variant"] == variant]
         check(bool(errs), f"{names} ran the {variant} kernel")
         return max(errs)
 
@@ -1582,19 +1614,27 @@ def flat_pair_times(name: str, state, cfg, batches, lengths, fresh, route=None) 
 
 
 def flat_partition(cfg, keys, lengths, route=None) -> dict:
-    """The partitioned kernels' plan for this launch and what its keys put
-    in the tiles: tiles touched, the fullest tile's entries, sweep CTAs."""
+    """What a partitioned launch of these keys puts in flat_counting.cu's
+    tiles (its tile and piece read back from the library): tiles touched,
+    the fullest tile's entries, sweep CTAs, and the scratch it plans."""
     n = keys.shape[0]
-    plan_u = sweep.flat_tile_plan(cfg, n, route, query=False)
-    plan_q = sweep.flat_tile_plan(cfg, n, route, query=True)
-    per_tile = counting.flat_tile_counts_plain(keys, lengths, cfg, sweep.FLAT_TILE_LOG2, route)
-    pieces = (per_tile + sweep.FLAT_TILE_PIECE - 1) // sweep.FLAT_TILE_PIECE
+    tile_log2, piece = sweep.flat_tile_geometry()
+    per_tile = counting.flat_tile_counts_plain(keys, lengths, cfg, tile_log2, route)
+    pieces = (per_tile + piece - 1) // piece
+    share = 1.0 if route is None else route.shards_per_dev / route.n_shards
     return {"crossover": sweep.FLAT_TILE_CROSSOVER, "query_crossover": sweep.FLAT_TILE_QUERY_CROSSOVER,
-            "expected_per_sector": plan_u.expected / (plan_u.n_words / 8),
-            "n_tiles": plan_u.n_tiles, "chunks": plan_u.chunks, "sweep_grid": plan_u.sweep_grid,
-            "update_scratch_bytes": plan_u.scratch_bytes, "query_scratch_bytes": plan_q.scratch_bytes,
+            "expected_per_sector": n * cfg.k * share / (sweep._state_words(cfg, route) / 8),
+            "tile_log2": tile_log2, "piece": piece, "n_tiles": int(per_tile.numel()),
+            "update_scratch_bytes": sweep.flat_tiled_scratch_bytes(cfg, n, route, query=False),
+            "query_scratch_bytes": sweep.flat_tiled_scratch_bytes(cfg, n, route, query=True),
             "tiles_touched": int((per_tile > 0).sum()), "max_tile_entries": int(per_tile.max()),
             "sweep_ctas": int(pieces.sum())}
+
+
+def nonzero_share(state: torch.Tensor) -> float:
+    """The share of a flat counting state's counters that are non-zero."""
+    words = state.view(torch.int32).reshape(-1)
+    return sum(int((((words >> (4 * j)) & 15) != 0).sum()) for j in range(8)) / (words.numel() * 8)
 
 
 def half_full_query(state, cfg, batches, lengths, route=None) -> dict:
@@ -1607,15 +1647,153 @@ def half_full_query(state, cfg, batches, lengths, route=None) -> dict:
     for _ in range(N_HALF_FULL_BATCHES):
         keys = torch.randint(0, 256, (n, KEY_LEN), dtype=torch.uint8, device=state.device, generator=gen)
         flat_update(full, keys, lengths, cfg, route=route)
-    words = full.view(torch.int32).reshape(-1)
-    nonzero = sum(int((((words >> (4 * j)) & 15) != 0).sum()) for j in range(8))
-    out = {"nonzero_share": nonzero / (words.numel() * 8)}
-    for tiled in (False, True) if TILED else (None,):
-        with flat_variant(tiled):
-            out["tiled_ms" if tiled else "ms"] = cuda_ms(
-                lambda i: flat_query(full, batches[i % 4], lengths, cfg, route=route), 40, warm=4)
+    out = {"nonzero_share": nonzero_share(full)}
+    for kernel in COUNTING_KERNELS:
+        out[kernel] = cuda_ms(lambda i: flat_query(full, batches[i % 4], lengths, cfg, route=route,
+                                                   kernel=kernel), 40, warm=4)
     del full
     torch.cuda.empty_cache()
+    return out
+
+
+def config4_mix(cfg, route=None) -> dict:
+    """Config 4's own traffic (benchmarks/run.py config4 at scale 1): on a
+    fresh state (a slot's, with a route), the insert of N_CONFIG4 keys made
+    on the card from SEED, the delete of the first half, then the query of
+    all N_CONFIG4, half held and half absent, each call one launch padded
+    to a power of two as the port's filters pad it. Each query kernel's time
+    on that launch, its verdicts held against the plain version."""
+    dev = torch.device("cuda")
+    n = N_CONFIG4
+    bp = 1 << (n - 1).bit_length()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    keys = torch.zeros((bp, KEY_LEN), dtype=torch.uint8, device=dev)
+    keys[:n] = torch.randint(0, 256, (n, KEY_LEN), dtype=torch.uint8, device=dev, generator=gen)
+    lengths = torch.full((bp,), KEY_LEN, dtype=torch.int32, device=dev)
+    lengths[n:] = -1
+    d_lengths = lengths[: bp // 2].clone()
+    d_lengths[n // 2 :] = -1
+    state = torch.zeros(sweep._state_words(cfg, route), dtype=torch.int32, device=dev).view(torch.uint32)
+    flat_update(state, keys, lengths, cfg, route=route)
+    flat_update(state, keys[: bp // 2], d_lengths, cfg, increment=False, route=route)
+    want = flat_query(state, keys, lengths, cfg, route=route, plain=True)
+    owned = bitops.routed_positions(keys[n // 2 : n], lengths[n // 2 : n], cfg, route)[0]
+    check(bool(want[n // 2 : n][owned].all()), "config 4 mix: the held half present")
+    out = {"keys": n, "launch_keys": bp, "nonzero_share": nonzero_share(state),
+           "hits": int(want.sum())}
+    for kernel in COUNTING_KERNELS:
+        got = flat_query(state, keys, lengths, cfg, route=route, kernel=kernel)
+        check(torch.equal(got, want), f"config 4 mix verdicts ({kernel})")
+        out[kernel] = cuda_ms(lambda i: flat_query(state, keys, lengths, cfg, route=route, kernel=kernel),
+                              20, warm=2)
+    del state, keys, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_us(fn, n: int = N_HOST_CALLS) -> float:
+    """Mean microseconds of host clock a call of ``fn(i)`` takes, issued
+    back to back (one synchronise after the last): what the host spends to
+    issue it, which bounds a stream of small calls."""
+    fn(0)
+    fn(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def call_us(fn, n: int = N_HOST_CALLS // 4) -> float:
+    """Median microseconds of host clock of one call of ``fn(i)`` and a
+    synchronise after it: the latency a caller that waits for each call
+    sees."""
+    fn(0)
+    fn(1)
+    torch.cuda.synchronize()
+    spans = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+    return float(np.median(spans)) * 1e6
+
+
+def sparse_host(state, cfg, keys, lengths, route=None) -> dict:
+    """The flat counting wrappers at B_FLAT_SPARSE keys on the host clock,
+    as a user calls them (the thread-a-key kernel at this size): a call
+    issued back to back and a call waited for, the update alternating an
+    insert and a delete of the batch; and the query's parts, its argument
+    checks and its bare launch (``sweep._launch_query``), to place a
+    difference between two trees."""
+    spec = sweep._flat_args(cfg, route)
+    lib = sweep._flat_library()
+
+    def qry(i):
+        return sweep.flat_counting_query(state, keys, lengths, cfg, route=route)
+
+    def upd(i):
+        sweep.flat_counting_update(state, keys, lengths, cfg, increment=i % 2 == 0, route=route)
+
+    out = {"query_us": host_us(qry), "query_sync_us": call_us(qry),
+           "update_us": host_us(upd), "update_sync_us": call_us(upd),
+           "query_check_us": host_us(lambda i: sweep._check(state, keys, lengths, cfg, route,
+                                                            counters=True, flat=True)),
+           "query_launch_us": host_us(lambda i: sweep._launch_query(
+               lib, "flat_counting_query", state, keys, lengths, spec, route))}
+    if TILED:  # the wrapper's choice of kernel, which the parent does not make
+        out["query_choice_us"] = host_us(lambda i: sweep._takes_tiles(cfg, keys.shape[0], route, True))
+    torch.cuda.synchronize()
+    return out
+
+
+def host_only() -> dict:
+    """sparse_host alone in a fresh process, N_HOST_ROUNDS rounds each on
+    config 4 flat and one slot of configs 4 x 5 flat, with the card's own
+    time of the query (``query_device_us``), at four points of the
+    process's life: on states filled by 2^16-key batches (the thread-a-key
+    kernels in any tree, so that two trees' processes have done the same
+    work); after a scratch-sized device allocation, freed; after an update
+    of B_FLAT_COUNTING keys held on the thread-a-key kernel (a tree with
+    both kernels); after one through the wrapper (the partitioned kernel
+    where a tree has it). It places a difference of the small calls
+    between two trees in the wrapper or in what a large launch leaves."""
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    c = CountingBloomFilter(flat_config(LOG2M_FLAT_COUNTING, K, counting=True))
+    sc = ShardedBloomFilter(flat_sharded_config(LOG2M_FLAT_COUNTING, counting=True))
+    keys = torch.from_numpy(rows(rng, B_FLAT_SPARSE)).to(dev)
+    lengths = torch.full((B_FLAT_SPARSE,), KEY_LEN, dtype=torch.int32, device=dev)
+    cases = (("flat_counting", c.words, c.config, None),
+             ("sharded_flat_counting", sc.slot_words[0], sc.config, sc.routes[0]))
+    for _, state, cfg, route in cases:
+        for _ in range(B_FLAT_COUNTING // B_FLAT_SPARSE):
+            sweep.flat_counting_update(state, torch.from_numpy(rows(rng, B_FLAT_SPARSE)).to(dev), lengths,
+                                       cfg, increment=True, route=route)
+    out = {}
+
+    def measure(stage):
+        for name, state, cfg, route in cases:
+            rs = [sparse_host(state, cfg, keys, lengths, route) for _ in range(N_HOST_ROUNDS)]
+            dev_us = device_ms(lambda i: sweep.flat_counting_query(state, keys, lengths, cfg, route=route)) * 1e3
+            out[f"{name}{stage}"] = [{**r, "query_device_us": dev_us} for r in rs]
+
+    measure("")
+    scratch = torch.empty(HOST_SCRATCH_BYTES, dtype=torch.uint8, device=dev)
+    del scratch
+    measure("_after_alloc")
+    big = [torch.from_numpy(rows(rng, B_FLAT_COUNTING)).to(dev) for _ in range(2)]
+    big_len = torch.full((B_FLAT_COUNTING,), KEY_LEN, dtype=torch.int32, device=dev)
+    if TILED:
+        for _, state, cfg, route in cases:
+            flat_update(state, big[0], big_len, cfg, route=route, kernel="thread_a_key")
+        measure("_after_thread_big")
+    for _, state, cfg, route in cases:
+        sweep.flat_counting_update(state, big[1], big_len, cfg, increment=True, route=route)
+    measure("_after_big")
     return out
 
 
@@ -1624,21 +1802,25 @@ def flat_counting_times(name: str, state, cfg, batches, lengths, crowd, route=No
     kernels (only the one a tree has without the partitioned kernels), at
     the path's batch and at B_FLAT_SPARSE keys: an insert then a delete of
     the same batch (as benchmarks/counting_rate.py), the same for ``crowd``
-    (an eighth of it one key), and the query of absent keys (``ms``) and of
-    held ones (``present_ms``); beside the bound, the plain versions and,
-    for the query, the gather ``words[widx]`` of the launch's B k words."""
+    (an eighth of it one key), and the query of absent keys (``ms``), of
+    held ones (``present_ms``), on config 4's own traffic (``mix_ms``,
+    config4_mix) and in a filter half full; beside the bound, the plain
+    versions and, for the query, the gather ``words[widx]`` of the launch's
+    B k words. At B_FLAT_SPARSE keys also the wrappers' host clock
+    (sparse_host)."""
     n = lengths.numel()
     routed = route is not None
     qname = name.replace("update", "query")
     sparse, s_len = [b[:B_FLAT_SPARSE] for b in batches], lengths[:B_FLAT_SPARSE]
     c_keys, c_len = crowd
 
-    def upd(bs, lens, increment=True, plain=False):
+    def upd(bs, lens, increment=True, plain=False, kernel=None):
         return lambda i: flat_update(state, bs[i % len(bs)], lens, cfg, increment=increment, route=route,
-                                     plain=plain)
+                                     plain=plain, kernel=kernel)
 
-    def qry(bs, lens, plain=False):
-        return lambda i: flat_query(state, bs[i % len(bs)], lens, cfg, route=route, plain=plain)
+    def qry(bs, lens, plain=False, kernel=None):
+        return lambda i: flat_query(state, bs[i % len(bs)], lens, cfg, route=route, plain=plain,
+                                    kernel=kernel)
 
     fp, widx, _ = flat_footprint(cfg, batches[0], lengths, route)
     fp_s, _, _ = flat_footprint(cfg, sparse[0], s_len, route)
@@ -1652,20 +1834,25 @@ def flat_counting_times(name: str, state, cfg, batches, lengths, crowd, route=No
     words, flat_idx = state.view(torch.int32).reshape(-1), widx.reshape(-1)
     lib_ms = cuda_ms(lambda i: torch.index_select(words, 0, flat_idx), 40, warm=4)
     half = half_full_query(state, cfg, batches, lengths, route)
+    mix = config4_mix(cfg, route)
+    host = sparse_host(state, cfg, sparse[0], s_len, route)
     out = {}
-    for tiled in (False, True) if TILED else (None,):
-        suffix = "_tiled" if tiled else ""
-        with flat_variant(tiled):
-            i_ms, d_ms = event_pairs_ms([upd(batches, lengths), upd(batches, lengths, False)], 40)
-            si_ms, sd_ms = event_pairs_ms([upd(sparse, s_len), upd(sparse, s_len, False)], 40)
-            s_dev = device_ms(lambda i: (upd(sparse, s_len)(i), upd(sparse, s_len, False)(i))) / 2
-            sq_dev = device_ms(qry(sparse, s_len))
-            ci_ms, cd_ms = event_pairs_ms([upd([c_keys], c_len), upd([c_keys], c_len, False)], 20)
-            q_ms = cuda_ms(qry(batches, lengths), 40, warm=4)
-            sq_ms = cuda_ms(qry(sparse, s_len), 40, warm=4)
-            upd(batches, lengths)(0)
-            pres_ms = cuda_ms(qry(batches[:1], lengths), 40, warm=4)
-            upd(batches, lengths, False)(0)
+    for kernel in COUNTING_KERNELS:
+        suffix = "_tiled" if kernel == "tiled" else ""
+        i_ms, d_ms = event_pairs_ms([upd(batches, lengths, kernel=kernel),
+                                     upd(batches, lengths, False, kernel=kernel)], 40)
+        si_ms, sd_ms = event_pairs_ms([upd(sparse, s_len, kernel=kernel),
+                                       upd(sparse, s_len, False, kernel=kernel)], 40)
+        s_dev = device_ms(lambda i: (upd(sparse, s_len, kernel=kernel)(i),
+                                     upd(sparse, s_len, False, kernel=kernel)(i))) / 2
+        sq_dev = device_ms(qry(sparse, s_len, kernel=kernel))
+        ci_ms, cd_ms = event_pairs_ms([upd([c_keys], c_len, kernel=kernel),
+                                       upd([c_keys], c_len, False, kernel=kernel)], 20)
+        q_ms = cuda_ms(qry(batches, lengths, kernel=kernel), 40, warm=4)
+        sq_ms = cuda_ms(qry(sparse, s_len, kernel=kernel), 40, warm=4)
+        upd(batches, lengths, kernel=kernel)(0)
+        pres_ms = cuda_ms(qry(batches[:1], lengths, kernel=kernel), 40, warm=4)
+        upd(batches, lengths, False, kernel=kernel)(0)
         out[name + suffix] = {
             "ms": i_ms, "delete_ms": d_ms, "keys_per_s": n / i_ms * 1e3,
             "sparse_ms": si_ms, "sparse_delete_ms": sd_ms, "sparse_device_ms": s_dev,
@@ -1674,13 +1861,15 @@ def flat_counting_times(name: str, state, cfg, batches, lengths, crowd, route=No
             "bound_by": uby, "bytes": u_bytes, "share_of_bound": ub / i_ms, "sparse_bound_ms": s_ub,
             "touched": fp, "sparse_touched": fp_s, **rates(fp, i_ms)}
         out[qname + suffix] = {
-            "ms": q_ms, "present_ms": pres_ms, "sparse_ms": sq_ms, "sparse_device_ms": sq_dev,
-            "keys_per_s": n / q_ms * 1e3,
+            "ms": q_ms, "present_ms": pres_ms, "mix_ms": mix[kernel], "sparse_ms": sq_ms,
+            "sparse_device_ms": sq_dev, "keys_per_s": n / q_ms * 1e3,
             "plain_ms": qp_ms, "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby, "bytes": q_bytes,
             "share_of_bound": qb / q_ms, "sparse_bound_ms": s_qb, "touched": fp,
-            "half_full_ms": half["tiled_ms" if tiled else "ms"],
-            "half_full_nonzero_share": half["nonzero_share"]}
-        if tiled:
+            "half_full_ms": half[kernel], "half_full_nonzero_share": half["nonzero_share"],
+            "mix": {k: v for k, v in mix.items() if k not in COUNTING_KERNELS}}
+        if kernel != "tiled":
+            out[name + suffix]["sparse_host"] = out[qname + suffix]["sparse_host"] = host
+        else:
             out[name + suffix]["partition"] = flat_partition(cfg, batches[0], lengths, route)
             out[name + suffix]["crowd_partition"] = flat_partition(cfg, c_keys, c_len, route)
     return out
@@ -1713,9 +1902,12 @@ def phase_flat_times(f, c, s1, sc1, rng) -> dict:
 def phase_flat_crossover(c, rng) -> dict:
     """Both kernels of the flat counting pair on config 4 flat's state over
     B = 2^13 .. 2^22: an insert then a delete of the same batch, and the
-    query. The crossover of each is the smallest B from which the
-    partitioned kernel is the faster at every larger B, given as positions
-    per 32-byte sector of the state (what sweep.FLAT_TILE_CROSSOVER holds)."""
+    query on config 4's own traffic (the batch's first half inserted
+    before it and deleted after it, so half held and half absent) and on
+    absent keys. The crossover of each is the smallest B from which the
+    partitioned kernel is the faster at every larger B (the query's, on
+    config 4's traffic), given as positions per 32-byte sector of the state
+    (what sweep.FLAT_TILE_CROSSOVER and FLAT_TILE_QUERY_CROSSOVER hold)."""
     cfg, state = c.config, c.words
     sectors = sweep._state_words(cfg) / 8
     top = 1 << max(LOG2B_CROSSOVER)
@@ -1726,14 +1918,16 @@ def phase_flat_crossover(c, rng) -> dict:
         n = 1 << lb
         bs, lens = [b[:n] for b in big], full[:n]
         row = {"batch": n, "positions_per_sector": n * cfg.k / sectors}
-        for tiled in (False, True):
-            with flat_variant(tiled):
-                i_ms, d_ms = event_pairs_ms(
-                    [lambda i: flat_update(state, bs[i % 2], lens, cfg),
-                     lambda i: flat_update(state, bs[i % 2], lens, cfg, increment=False)], 20)
-                q_ms = cuda_ms(lambda i: flat_query(state, bs[i % 2], lens, cfg), 20, warm=2)
-            tag = "tiled" if tiled else "thread_a_key"
-            row.update({f"{tag}_update_ms": (i_ms + d_ms) / 2, f"{tag}_query_ms": q_ms})
+        for kernel in ("thread_a_key", "tiled"):
+            i_ms, d_ms = event_pairs_ms(
+                [lambda i: flat_update(state, bs[i % 2], lens, cfg, kernel=kernel),
+                 lambda i: flat_update(state, bs[i % 2], lens, cfg, increment=False, kernel=kernel)], 20)
+            qa_ms = cuda_ms(lambda i: flat_query(state, bs[i % 2], lens, cfg, kernel=kernel), 20, warm=2)
+            flat_update(state, bs[0][: n // 2], lens[: n // 2], cfg)
+            q_ms = cuda_ms(lambda i: flat_query(state, bs[0], lens, cfg, kernel=kernel), 20, warm=2)
+            flat_update(state, bs[0][: n // 2], lens[: n // 2], cfg, increment=False)
+            row.update({f"{kernel}_update_ms": (i_ms + d_ms) / 2, f"{kernel}_query_ms": q_ms,
+                        f"{kernel}_query_absent_ms": qa_ms})
         runs.append(row)
 
     def crossover(op: str):
@@ -1745,6 +1939,7 @@ def phase_flat_crossover(c, rng) -> dict:
         return at
 
     out = {"runs": runs, "update_crossover": crossover("update"), "query_crossover": crossover("query"),
+           "query_absent_crossover": crossover("query_absent"),
            "crossover_in_use": sweep.FLAT_TILE_CROSSOVER,
            "query_crossover_in_use": sweep.FLAT_TILE_QUERY_CROSSOVER}
     emit("flat_crossover", **out)
@@ -1777,7 +1972,7 @@ def phase_flat_end_to_end(f, c, s1, s4, rng, times: dict) -> None:
 GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
                 "sharded_blocked_insert", "sharded_blocked_counting_update",
                 "sharded_blocked_query")
-EXTRA_TIMES = ("replay_ms", "present_ms", "delete_ms", "sparse_ms")
+EXTRA_TIMES = ("replay_ms", "present_ms", "delete_ms", "sparse_ms", "mix_ms")
 
 
 # The flat kernels have no Pallas counterpart: each replaces the XLA ops of
@@ -1891,14 +2086,16 @@ def times_only() -> dict:
     return out
 
 
-def phase_ab(other: Path) -> None:
+def phase_ab(other: Path, times: bool = True) -> None:
     """``--times`` in ``other`` (with this script copied in), here, here
-    and ``other``, each in a process of its own on the same card; the
-    four runs' kernel times, touched counts and ptxas lines."""
+    and ``other``, each in a process of its own on the same card, unless
+    ``times`` is False; the four runs' kernel times, touched counts and
+    ptxas lines. Then ``--host`` in ``other`` and here in turns."""
     here = Path(__file__).resolve()
     shutil.copy(here, other / here.name)
     runs = []
-    for label, tree in (("other", other), ("this", here.parent), ("this", here.parent), ("other", other)):
+    turns = (("other", other), ("this", here.parent), ("this", here.parent), ("other", other))
+    for label, tree in turns if times else ():
         proc = subprocess.run([sys.executable, here.name, "--times"], cwd=tree,
                               capture_output=True, text=True, timeout=1500)
         if proc.returncode:
@@ -1908,7 +2105,7 @@ def phase_ab(other: Path) -> None:
         summary = {name: {k: v for k, v in run[phase][name].items()
                           if k in ("ms", "present_ms", "replay_ms", "delete_ms", "sparse_ms",
                                    "sparse_delete_ms", "sparse_device_ms", "crowd_ms", "half_full_ms",
-                                   "share_of_bound")}
+                                   "mix_ms", "sparse_host", "share_of_bound")}
                    for phase, name in (("times", "blocked_insert"), ("times", "blocked_query"),
                                        ("counting_times", "blocked_counting_update"),
                                        ("counting_times", "blocked_counting_query"),
@@ -1919,21 +2116,39 @@ def phase_ab(other: Path) -> None:
                                        *(("flat_times", n) for n in (*FLAT_KERNELS, *FLAT_TILED)))
                    if name in run.get(phase, {})}
         emit("ab_run", tree=label, kernels=summary)
+    hosts = []
+    for label, tree in (("other", other), ("this", here.parent)) * AB_HOST_TURNS:
+        proc = subprocess.run([sys.executable, here.name, "--host"], cwd=tree,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"--host in {tree} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])["host_only"]
+        hosts.append({"tree": label, **run})
+        emit("ab_host", tree=label, **{name: [{k: round(v, 2) for k, v in r.items()} for r in rs]
+                                       for name, rs in run.items()})
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "ab_times.json").write_text(json.dumps(runs, indent=1))
+    if times:
+        (OUT_DIR / "ab_times.json").write_text(json.dumps(runs, indent=1))
+    (OUT_DIR / "ab_host.json").write_text(json.dumps(hosts, indent=1))
 
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", action="store_true", help="device, build and the timing phases only")
     ap.add_argument("--ab", type=Path, metavar="DIR",
-                    help="--times in DIR, here, here and DIR; writes chiprun_out/ab_times.json")
+                    help="--times in DIR, here, here and DIR, then --host in DIR and here in turns; "
+                         "writes chiprun_out/ab_times.json and ab_host.json")
+    ap.add_argument("--host", action="store_true",
+                    help="device, build and the flat counting wrappers' host clock at 2^16 keys only")
     args = ap.parse_args(argv)
     dev = phase_device()
     if args.ab:
-        phase_ab(args.ab.resolve())
+        phase_ab(args.ab.resolve(), times=not args.host)
         return 0
     phase_build()
+    if args.host:
+        print(json.dumps({"host_only": host_only()}), flush=True)
+        return 0
     if args.times:
         print(json.dumps({"times_only": {**times_only(), "build": RECORD["build"]}}), flush=True)
         return 0

@@ -1,12 +1,17 @@
 """The partitioned flat counting kernels (``tpubloom_torch/csrc/flat_counting.cu``)
-from the CPU: the wrapper's geometry (``sweep.flat_tile_plan``, pure
-Python: tiles, the ragged last tile, routed slots, scratch sizes, which
-kernel a batch takes), the plain partition (``counting.flat_tile_counts_plain``)
-against positions from ``tpubloom``'s numpy oracle, and the plain flat
-counting update and query against ``tpubloom``'s ``make_counter_fn`` /
-``make_counting_query_fn`` on a dense batch with a crowd, the shape that
-takes the partitioned kernels on the card. The kernels themselves run
-only on the card (``tests/test_torch_gpu_flat.py``)."""
+from the CPU: the wrapper's choice of kernel (``sweep.flat_takes_tiles``,
+pure Python: positions a state sector against the crossovers, routed
+slots by their owned share), the plain partition
+(``counting.flat_tile_counts_plain``) against positions from
+``tpubloom``'s numpy oracle, and the plain flat counting update and query
+against ``tpubloom``'s ``make_counter_fn`` / ``make_counting_query_fn`` on a
+dense batch with a crowd (the shape that takes the partitioned kernels on
+the card) and on config 4's own traffic (half the keys deleted, all
+queried). The partition's geometry and scratch are set by the kernel
+source and read back from it, so they, and the kernels themselves, are
+tested on the card (``tests/test_torch_gpu_flat.py``)."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,84 +36,49 @@ def _keys(rng, n, crowd=0):
     return keys, lengths
 
 
-@pytest.mark.parametrize("query", [False, True])
-def test_plan_at_config_4_flat(query):
-    """B = 2^22, k = 7 on 2^30 counters: 8,192 full tiles in 128 buckets,
-    528 chunks, and the scratch: the count matrix, the scans, the pieces of
-    the sort and sweep passes, then two buffers of 29.4 M entries (by
-    bucket, then by tile) of 4 bytes (update) or 8 (query)."""
-    plan = sweep.flat_tile_plan(CONFIG4, 1 << 22, query=query)
-    n, eb = 7 << 22, 8 if query else 4
-    assert plan.tiled
-    assert (plan.n_words, plan.n_tiles, plan.last_tile_words, plan.n_buckets) == (1 << 27, 8192, 1 << 14, 128)
-    assert (plan.chunks, plan.chunk_keys) == (528, 7944)
-    assert plan.chunks * plan.chunk_keys >= 1 << 22 > (plan.chunks - 1) * plan.chunk_keys
-    assert plan.entries == n and plan.expected == n and plan.entry_bytes == eb
-    assert plan.sweep_grid == 8192 + n // sweep.FLAT_TILE_PIECE == 9984
-    assert plan.sort_grid == 128 + n // sweep.FLAT_TILE_SORT_PIECE == 7296
-    layout = [(plan.counts_at, 4 * 528 * 8192), (plan.starts_at, 8 * 8193), (plan.cursor_at, 4 * 8192),
-              (plan.piece_tile_at, 4 * 9984), (plan.sort_starts_at, 4 * 129), (plan.sort_map_at, 4 * 7296)]
-    assert plan.counts_at == 0
-    for (at, size), (nxt, _) in zip(layout, layout[1:]):
-        assert nxt == at + size
-    end = plan.sort_map_at + 4 * 7296
-    assert plan.bucketed_at == end + (-end % 16) and plan.entries_at == plan.bucketed_at + eb * n
-    assert plan.scratch_bytes == plan.entries_at + eb * n
-    assert plan.scratch_bytes == (487_231_504 if query else 252_350_480)
-    assert plan.fields() == (1 << 27, sweep.FLAT_TILE_LOG2, 8192, sweep.FLAT_TILE_BUCKET_LOG2, 128, 528,
-                             7944, sweep.FLAT_TILE_PIECE, 9984, sweep.FLAT_TILE_SORT_PIECE, 7296, 0,
-                             plan.starts_at, plan.cursor_at, plan.piece_tile_at, plan.sort_starts_at,
-                             plan.sort_map_at, plan.bucketed_at, plan.entries_at)
-
-
 @pytest.mark.parametrize("batch,update,query", [
     (0, False, False), (1, False, False), (1 << 16, False, False), (1 << 18, False, False),
     (1 << 19, True, False), (1 << 21, True, False), (1 << 22, True, True),
 ])
 def test_crossover_picks_the_kernel_by_shape(batch, update, query):
     """A delete_batch of 2^16 keys (0.46 M positions on 16.8 M sectors)
-    keeps the thread-a-key kernels; the update takes the partitioned kernel
-    from 2^19 keys, the query only at the counting path's 2^22."""
-    assert sweep.flat_tile_plan(CONFIG4, batch, query=False).tiled is update
-    assert sweep.flat_tile_plan(CONFIG4, batch, query=True).tiled is query
+    keeps the thread-a-key kernels; the update takes the partitioned
+    kernel from 2^19 keys (7 x 2^19 positions, 0.219 a sector), the query
+    from 2^22 (1.75 a sector), where it is the faster on config 4's own
+    traffic."""
+    assert sweep.flat_takes_tiles(CONFIG4, batch, query=False) is update
+    assert sweep.flat_takes_tiles(CONFIG4, batch, query=True) is query
     per_sector = batch * 7 / (CONFIG4.n_counter_words / 8)
     assert (batch > 0 and per_sector >= sweep.FLAT_TILE_CROSSOVER) is update
     assert (batch > 0 and per_sector >= sweep.FLAT_TILE_QUERY_CROSSOVER) is query
 
 
-@pytest.mark.parametrize("m,tiles,last", [(10_000_000, 77, 4816), (1 << 20, 8, 1 << 14),
-                                          ((1 << 17) + 32, 2, 4), (256, 1, 32)])
-def test_ragged_last_tile(m, tiles, last):
-    cfg = FilterConfig(m=m, k=7, key_len=L, counting=True)
-    plan = sweep.flat_tile_plan(cfg, 1 << 16, query=False)
-    assert (plan.n_tiles, plan.last_tile_words) == (tiles, last)
-    assert (plan.n_tiles - 1) * (1 << sweep.FLAT_TILE_LOG2) + plan.last_tile_words == m // 8
+@pytest.mark.parametrize("log2m", [20, 24, 30])
+def test_crossover_scales_with_the_state(log2m):
+    """The smallest batch that takes each partitioned kernel is the
+    crossover's positions a sector of the state over k: it grows with m."""
+    cfg = FilterConfig(m=1 << log2m, k=7, key_len=L, counting=True)
+    sectors = cfg.n_counter_words // 8
+    for query, crossover in ((False, sweep.FLAT_TILE_CROSSOVER), (True, sweep.FLAT_TILE_QUERY_CROSSOVER)):
+        first = math.ceil(crossover * sectors / 7)
+        assert sweep.flat_takes_tiles(cfg, first, query=query)
+        assert not sweep.flat_takes_tiles(cfg, first - 1, query=query)
 
 
 @pytest.mark.parametrize("shard_lo,spd", [(0, 64), (48, 16), (16, 16)])
 def test_routed_slot_geometry(shard_lo, spd):
-    """Configs 4 x 5 flat (2^30 counters over 64 shards): a slot's tiles
-    run over its spd shards of 2^21 words each, and its expected entries
-    are its owned share of B k."""
+    """Configs 4 x 5 flat (2^30 counters over 64 shards): a slot's state is
+    its spd shards of 2^21 words each, and its expected positions are its
+    owned share of B k, so a slot of a quarter of the shards takes the
+    partitioned kernels at the same B as the whole state."""
     cfg = FilterConfig(m=1 << 30, k=7, key_len=L, shards=64, counting=True)
     route = ShardRoute(64, shard_lo, spd)
-    plan = sweep.flat_tile_plan(cfg, 1 << 22, route, query=False)
-    assert plan.n_words == spd << 21 == sweep._state_words(cfg, route)
-    assert plan.n_tiles == spd << 7 and plan.last_tile_words == 1 << 14
-    assert plan.entries == 7 << 22 and plan.expected == (7 << 22) * spd / 64
-    assert plan.tiled and sweep.flat_tile_plan(cfg, 1 << 22, route, query=True).tiled
-    assert not sweep.flat_tile_plan(cfg, 1 << 16, route, query=False).tiled
-
-
-def test_plan_keeps_thread_a_key_where_the_partition_cannot_hold():
-    """More tiles than the passes' shared-memory histogram holds (a counting
-    config of m = 2^33), or B k at 2^31 entries (u32 offsets)."""
-    big = FilterConfig(m=1 << 33, k=7, key_len=L, counting=True)
-    assert sweep.flat_tile_plan(big, 1 << 26, query=False).n_tiles == 1 << 16
-    assert not sweep.flat_tile_plan(big, 1 << 26, query=False).tiled
-    k8 = FilterConfig(m=1 << 30, k=8, key_len=L, counting=True)
-    assert sweep.flat_tile_plan(k8, (1 << 28) - 1, query=True).tiled
-    assert not sweep.flat_tile_plan(k8, 1 << 28, query=True).tiled  # 2^31 entries
+    assert sweep._state_words(cfg, route) == spd << 21
+    for query in (False, True):
+        assert sweep.flat_takes_tiles(cfg, 1 << 22, route, query=query)
+        assert not sweep.flat_takes_tiles(cfg, 1 << 16, route, query=query)
+        assert (sweep.flat_takes_tiles(cfg, 1 << 19, route, query=query)
+                == sweep.flat_takes_tiles(CONFIG4, 1 << 19, query=query))
 
 
 @pytest.mark.parametrize("tile_log2", [3, 6, 14])
@@ -154,7 +124,7 @@ def test_plain_counting_matches_tpubloom_on_a_dense_batch(k):
     partitioned kernels. Insert, delete of half and as many absent keys,
     then the query, against tpubloom's JAX functions."""
     cfg = FilterConfig(m=1 << 16, k=k, key_len=L, counting=True)
-    assert sweep.flat_tile_plan(cfg, 1 << 12, query=False).tiled
+    assert sweep.flat_takes_tiles(cfg, 1 << 12, query=False)
     jcfg = tpubloom.FilterConfig(m=1 << 16, k=k, key_len=L, counting=True)
     rng = np.random.default_rng(k)
     keys, lengths = _keys(rng, 1 << 12, crowd=1 << 9)
@@ -176,3 +146,31 @@ def test_plain_counting_matches_tpubloom_on_a_dense_batch(k):
     valid = p_len >= 0
     np.testing.assert_array_equal(got[valid], want[valid])
     assert not got[~valid].any() and got[: (1 << 11) - 40].all()
+
+
+@pytest.mark.parametrize("k", [1, 7, 16])
+def test_plain_query_on_config_4_traffic(k):
+    """Config 4's own traffic (benchmarks/run.py config4) at m = 2^16
+    counters: insert n keys, delete the first half, query all n with
+    padding; the query the partitioned kernel probes (most deleted keys
+    stop at a zero counter). Plain update and query against tpubloom's JAX
+    functions; the held half is present."""
+    cfg = FilterConfig(m=1 << 16, k=k, key_len=L, counting=True)
+    jcfg = tpubloom.FilterConfig(m=1 << 16, k=k, key_len=L, counting=True)
+    n = 1 << 11
+    keys, lengths = _keys(np.random.default_rng(40 + k), n + 64)
+    lengths[n:] = -1
+    d_len = lengths[: n // 2].copy()
+    jw = jnp.zeros((cfg.n_counter_words,), jnp.uint32)
+    state = torch.zeros(cfg.n_counter_words, dtype=torch.int32).view(torch.uint32)
+    for increment, ks, ls in ((True, keys, lengths), (False, keys[: n // 2], d_len)):
+        jw = make_counter_fn(jcfg, increment=increment)(jw, jnp.asarray(ks), jnp.asarray(ls))
+        counting.flat_counting_update_plain(state, torch.from_numpy(ks), torch.from_numpy(ls), cfg,
+                                            increment=increment)
+    np.testing.assert_array_equal(state.view(torch.int32).numpy().view(np.uint32), np.asarray(jw))
+    got = counting.flat_counting_query_plain(state, torch.from_numpy(keys), torch.from_numpy(lengths),
+                                             cfg).numpy()
+    want = np.asarray(make_counting_query_fn(jcfg)(jw, jnp.asarray(keys), jnp.asarray(lengths)))
+    np.testing.assert_array_equal(got[:n], want[:n])
+    assert got[n // 2 : n].all() and not got[n:].any()
+    assert got[: n // 2].sum() < n // 8  # the deleted keys: false positives only

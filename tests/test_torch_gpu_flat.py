@@ -17,14 +17,18 @@ the ``shard_lo != 0`` branch runs too.
 
 The flat counting wrappers have two kernels each: the thread-a-key one
 and, for a batch whose positions cover enough of the state
-(``sweep.flat_tile_plan``), the partitioned one
-(``tpubloom_torch/csrc/flat_counting.cu``). The partitioned cases take
+(``sweep.flat_takes_tiles``), the partitioned one
+(``tpubloom_torch/csrc/flat_counting.cu``), whose source sets and reports
+the partition's geometry and scratch. The partitioned cases take
 shapes on both sides of the crossover (a dense batch of 2^16 keys on 2^20
 counters, a sparse one of 2^10), a ragged m (not a multiple of the 2^17
 counters of a tile), a crowd of one key past saturation, tiles shared by
 several sweep CTAs (one tile, 14 pieces, counters left unsaturated), a
-delete of absent keys, padding, routed slots of 1, 2 and 4, and k from 1
-to 16; each checks which kernel ran from the launch counts."""
+delete of absent keys, padding, routed slots of 1, 2 and 4, k from 1 to
+16, and config 4's own traffic (half the keys deleted, all queried), where
+the partitioned query's probe answers most keys; each checks which kernel
+ran from the launch counts, and both kernels are also held on the same
+shapes through the wrappers' private entries."""
 
 import numpy as np
 import pytest
@@ -91,7 +95,7 @@ def _query(state, keys, lengths, cfg, *, route=None, plain=False):
 
 def _tiled_calls(cfg, sizes, route=None, query=False):
     """How many of these batch sizes the wrapper gives the partitioned kernel."""
-    return sum(sweep.flat_tile_plan(cfg, n, route, query=query).tiled for n in sizes)
+    return sum(sweep._takes_tiles(cfg, n, route, query) for n in sizes)
 
 
 def _check_steps(state, cfg, batches, probe, route=None):
@@ -258,31 +262,39 @@ def _variant(before):
 
 
 def _planned(cfg, n, route, query):
-    return "tiled" if sweep.flat_tile_plan(cfg, n, route, query=query).tiled else "thread_a_key"
+    return "tiled" if sweep._takes_tiles(cfg, n, route, query) else "thread_a_key"
 
 
 def _check_counting_ops(state, cfg, ops, probes, route=None):
     """Each ``(keys, lengths, increment)`` of ``ops`` through the kernel and
     the plain version from the same state, then each probe's verdicts;
-    each call must take the kernel its plan names. Returns the kernels
-    taken, in order."""
+    each call must take the kernel the wrapper's choice names. The other
+    kernel runs each op too, on a copy of the state (and each probe), and
+    must give the same words and verdicts. Returns the kernels taken, in
+    order."""
     taken = []
+    other = _clone(state)
     for keys, lengths, increment in ops:
         s_p = _clone(state)
         before = sweep.launch_counts()
         sweep.flat_counting_update(state, keys, lengths, cfg, increment=increment, route=route)
         taken.append(_variant(before))
         assert taken[-1] == _planned(cfg, keys.shape[0], route, False)
+        sweep._flat_counting_update_on(taken[-1] != "tiled", other, keys, lengths, cfg,
+                                       increment=increment, route=route)
         counting.flat_counting_update_plain(s_p, keys, lengths, cfg, increment=increment, route=route)
         torch.cuda.synchronize()
         assert _equal(state, s_p), (len(taken), taken[-1])
+        assert _equal(other, s_p), (len(taken), "the other kernel")
     for keys, lengths in probes:
         before = sweep.launch_counts()
         q_k = sweep.flat_counting_query(state, keys, lengths, cfg, route=route)
         taken.append(_variant(before))
         assert taken[-1] == _planned(cfg, keys.shape[0], route, True)
+        q_o = sweep._flat_counting_query_on(taken[-1] != "tiled", state, keys, lengths, cfg, route=route)
         q_p = counting.flat_counting_query_plain(state, keys, lengths, cfg, route)
         assert torch.equal(q_k.cpu(), q_p.cpu()), taken[-1]
+        assert torch.equal(q_o.cpu(), q_p.cpu()), "the other kernel"
         assert not bool(q_k[lengths < 0].any())
     return taken
 
@@ -319,8 +331,10 @@ def test_flat_counting_partitioned_ragged_m(cuda):
     """m = 10,000,000 counters (the mod walk): 1,250,000 words, 77 tiles,
     the last of 4,816 words; keys of 28 bytes hash from memory."""
     cfg = FilterConfig(m=10_000_000, k=7, key_len=28, counting=True)
-    plan = sweep.flat_tile_plan(cfg, 1 << 16, query=False)
-    assert plan.tiled and (plan.n_tiles, plan.last_tile_words) == (77, 4816)
+    tile_log2, _ = sweep.flat_tile_geometry()
+    n_words = sweep._state_words(cfg)
+    assert (-(-n_words >> tile_log2), n_words - (76 << tile_log2)) == (77, 4816)
+    assert sweep._takes_tiles(cfg, 1 << 16, None, False)
     rng = np.random.default_rng(77)
     state = _zeros(sweep._state_words(cfg), cuda)
     ops, probes = _dense_and_sparse(rng, cuda, key_len=28)
@@ -357,3 +371,57 @@ def test_flat_counting_partitioned_routed(cuda, n_slots, m, key_len):
         ops, probes = _dense_and_sparse(rng, cuda, n=1 << 16, n_sparse=1 << 8, key_len=key_len)
         taken = _check_counting_ops(state, cfg, ops, probes, route=route)
         assert taken[0] == "tiled" and taken[-1] == "thread_a_key"
+
+
+def test_flat_tiled_plan_at_config_4_flat(cuda):
+    """The partition flat_counting.cu plans at config 4 flat (m = 2^30
+    counters, k = 7, B = 2^22): tiles of 2^14 words, pieces of 2^14
+    entries; its scratch, the 8.7 MB count matrix, the scans and two
+    buffers of 29.4 M entries of 4 bytes (update) or 8 (query); a routed
+    slot plans over its own words; shapes it cannot hold answer -1 and keep
+    the thread-a-key kernel."""
+    assert sweep.flat_tile_geometry() == (14, 1 << 14)
+    cfg = FilterConfig(m=1 << 30, k=7, key_len=16, counting=True)
+    assert sweep.flat_tiled_scratch_bytes(cfg, 1 << 22, query=False) == 252_350_480
+    assert sweep.flat_tiled_scratch_bytes(cfg, 1 << 22, query=True) == 487_231_504
+    scfg = cfg.replace(shards=64)
+    quarter = ShardRoute(64, 16, 16)
+    assert (sweep.flat_tiled_scratch_bytes(scfg, 1 << 22, quarter, query=False)
+            < sweep.flat_tiled_scratch_bytes(scfg, 1 << 22, ShardRoute(64, 0, 64), query=False))
+    big = FilterConfig(m=1 << 33, k=7, key_len=16, counting=True)  # 2^16 tiles
+    assert sweep.flat_tiled_scratch_bytes(big, 1 << 26, query=False) == -1
+    assert sweep.flat_takes_tiles(big, 1 << 26, query=False) and not sweep._takes_tiles(big, 1 << 26, None, False)
+    k8 = FilterConfig(m=1 << 30, k=8, key_len=16, counting=True)
+    assert sweep.flat_tiled_scratch_bytes(k8, (1 << 28) - 1, query=True) > 0
+    assert sweep.flat_tiled_scratch_bytes(k8, 1 << 28, query=True) == -1  # 2^31 entries
+
+
+@pytest.mark.parametrize("k", [1, 2, 7])
+def test_flat_counting_partitioned_config_4_traffic(cuda, k):
+    """Config 4's own traffic at m = 2^20 counters: insert n = 2^16 keys,
+    delete the first half, query all n with padding, on each kernel held
+    through the private entries: the query's probe stops most deleted keys
+    at a zero counter; the rest meet one in the sweep, or are false
+    positives, as in the plain version."""
+    cfg = FilterConfig(m=1 << 20, k=k, key_len=16, counting=True)
+    rng = np.random.default_rng(400 + k)
+    n = 1 << 16  # distinct 16-byte keys, then 64 of padding
+    keys = torch.from_numpy(rng.integers(0, 256, (n + 64, 16), dtype=np.uint8)).to(cuda)
+    lengths = torch.full((n + 64,), 16, dtype=torch.int32, device=cuda)
+    lengths[n:] = -1
+    d_len = lengths[: n // 2].clone()
+    for tiled in (True, False):
+        state = _zeros(sweep._state_words(cfg), cuda)
+        sweep._flat_counting_update_on(tiled, state, keys, lengths, cfg, increment=True)
+        sweep._flat_counting_update_on(tiled, state, keys[: n // 2], d_len, cfg, increment=False)
+        s_p = _zeros(sweep._state_words(cfg), cuda)
+        counting.flat_counting_update_plain(s_p, keys, lengths, cfg, increment=True)
+        counting.flat_counting_update_plain(s_p, keys[: n // 2], d_len, cfg, increment=False)
+        assert _equal(state, s_p), tiled
+        sweep.reset_launch_counts()
+        got = sweep._flat_counting_query_on(tiled, state, keys, lengths, cfg)
+        assert sweep.launch_counts()["flat_counting_query_tiled"] == int(tiled)
+        want = counting.flat_counting_query_plain(state, keys, lengths, cfg)
+        assert torch.equal(got.cpu(), want.cpu()), tiled
+        assert bool(got[n // 2 : n].all()) and not bool(got[n:].any())
+        assert int(got[: n // 2].sum()) < n // 8  # the deleted keys: false positives only

@@ -45,7 +45,7 @@
 // covers much of the state, the counting pair has partitioned kernels
 // (flat_counting.cu) that place each position in the segment of its
 // shared-memory tile and sweep the tiles on chip; the wrapper
-// (ops/sweep.py flat_tile_plan) keeps these thread-a-key kernels for the
+// (ops/sweep.py flat_takes_tiles) keeps these thread-a-key kernels for the
 // small batches below the crossover. The bit pair (flat_insert, flat_query)
 // has no partitioned twin yet.
 //

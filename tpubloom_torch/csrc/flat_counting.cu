@@ -26,13 +26,17 @@
 // TB/s (the tiles read and written, the entries written and read, the keys
 // read twice).
 //
-// Six launches on the caller's stream, with the scratch the wrapper
-// allocates (ops/sweep.py flat_tile_plan, which also sets every size):
+// Six launches on the caller's stream. This file sets every size of the
+// partition (make_tile_plan); the wrapper (ops/sweep.py) allocates the
+// scratch that tpb_flat_counting_tiled_scratch_bytes gives.
 //   1. tile_count_kernel: `chunks` CTAs, each a contiguous chunk of keys;
 //      each valid (routed: owned) key is hashed (flat_key / flat_walk) and
 //      each of its k positions counted in a shared-memory histogram of the
 //      tiles, written out as row `chunk` of counts[chunks][n_tiles]. The
-//      query also writes out[i] = 1 for a valid owned key, else 0.
+//      query first probes the key's position 0 in the state, a random read
+//      a key as the thread-a-key kernel makes, and writes out[i]: 0 where
+//      the counter there is 0 (or the key is padding, or not the slot's),
+//      else 1; only the keys at 1 count, and place, positions 1..k-1.
 //   2. tile_scan_columns_kernel: for each tile, the exclusive prefix of its
 //      column over the chunks (in place) and the tile's total.
 //   3. tile_scan_kernel (one CTA): the exclusive scan of the tiles' totals
@@ -60,30 +64,36 @@
 //        (v + min(c, 15 - v), or v - min(c, v));
 //      - tile_query_kernel stages the tile in shared memory (cp.async) and
 //        stores out[key] = 0 for each entry whose nibble is 0 (idempotent,
-//        so order does not matter);
+//        so order does not matter). Without the probe every absent key
+//        placed its k entries and stored a verdict byte for each zero
+//        counter: ~28.6 M random byte stores at config 4 flat, which made
+//        the query on absent keys 1.10 ms against the thread-a-key 0.92
+//        (NVIDIA H100 80GB HBM3, 700 W). In a filter at config 4's fill
+//        the probe answers nearly every absent key, which then places and
+//        stores nothing;
 //      - a piece of kSparseEntries entries or fewer skips shared memory:
 //        the update applies each entry with the thread-a-key kernel's CAS
 //        step (counter_step), the query reads its nibble from the state.
 //      A tile with no entries takes no CTA and is neither read nor written.
 //
-// Tiles are 2^tile_log2 counter words (the wrapper takes 2^14: 64 KiB,
-// 2^17 counters; 8,192 tiles at m = 2^30), over the state's words, or a
+// Tiles are 2^kTileLog2 counter words (2^14: 64 KiB, 2^17 counters; 8,192
+// tiles at m = 2^30), over the state's words, or a
 // routed slot's shard-major words at base + pos; the last may be ragged (m
 // need not be a multiple of the tile). An entry's index in its tile fits
-// 17 bits; the segments' offsets are u32 (the wrapper keeps B k < 2^31).
+// 17 bits; the segments' offsets are u32 (the plan refuses B k >= 2^31).
 // A tile's words are a multiple of 4 (m, and a shard's m, divide by 32), so
 // a tile is staged in 16-byte copies.
-// Scratch at config 4 flat: two entry buffers (by bucket, then by tile) of
-// 4 B an entry for the update (2 x 117 MB), 8 B for the query (2 x 235
-// MB), and the 8.7 MB count matrix.
+// Scratch at config 4 flat, sized for B k entries: two entry buffers (by
+// bucket, then by tile) of 4 B an entry for the update (2 x 117 MB), 8 B
+// for the query (2 x 235 MB), and the 8.7 MB count matrix.
 //
 // Small batches keep the thread-a-key kernels of flat_bloom.cu: a delete of
 // 2^16 keys (0.46 M positions) would pay for two passes over the keys and
 // a CTA for every tile they touch. The wrapper picks the partitioned
 // kernels when the batch's expected positions (a routed slot: its owned
-// share) reach FLAT_TILE_CROSSOVER of the state's 32-byte sectors; the
-// crossover is chip_smoke.py's measurement (flat_crossover), stated in
-// ops/sweep.py.
+// share) reach a crossover number of the state's 32-byte sectors
+// (FLAT_TILE_CROSSOVER, FLAT_TILE_QUERY_CROSSOVER in ops/sweep.py, from
+// chip_smoke.py's flat_crossover phase) and the plan can hold the launch.
 //
 // Bound at config 4 flat, as for the thread-a-key kernels: each key's 20
 // input bytes and the launch's distinct sectors, read and (update) written
@@ -92,7 +102,8 @@
 //
 // Built by tpubloom_torch/ops/_build.py like flat_bloom.cu; each entry
 // launches on the caller's stream, does not synchronise, allocates nothing,
-// and returns the first launch error.
+// and returns the first launch error (cudaErrorInvalidValue for a shape the
+// plan refuses or a scratch smaller than the plan's).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -106,11 +117,12 @@ constexpr int kPassThreads = 512;   // count, place and sort passes
 constexpr int kPassWarps = kPassThreads / 32;
 constexpr int kScanThreads = 1024;  // the two scans
 constexpr int kSweepThreads = 512;
+constexpr int kCountUnroll = 4;     // keys a query's count thread probes at once
 constexpr int kSweepUnroll = 8;     // loads a sweep thread issues before it uses them
 constexpr int kApplyUnroll = 4;     // 16-byte state loads in flight a thread, applying counts
 constexpr int kPlaceEntries = 4096;  // entries a place sub-batch orders in shared memory
-constexpr int kMaxBuckets = 256;     // buckets of a state (2^14 tiles at most, 64 a bucket)
-constexpr int kMaxBucketTiles = 64;  // tiles a bucket
+constexpr int kMaxBuckets = 256;     // buckets of a state (the place pass's shared arrays)
+constexpr int kMaxBucketTiles = 64;  // tiles a bucket (the sort pass's shared cursors)
 // A piece of kSparseEntries entries or fewer goes to device memory entry by
 // entry; a larger one stages its tile. The break-even: staging moves 128 KiB
 // a tile (~39 ns of the card's 3.35 TB/s), a CAS entry costs ~88 ps of the
@@ -118,53 +130,89 @@ constexpr int kMaxBucketTiles = 64;  // tiles a bucket
 constexpr uint32_t kSparseEntries = 512;
 constexpr uint32_t kNoEntry = 0xFFFFFFFFu;  // also "no position": positions are < 2^31
 
-// The launch's partition, from the wrapper (ops/sweep.py FlatTilePlan);
-// the scratch offsets are bytes from the scratch's base.
-enum PlanField {
-  kPlanNWords, kPlanTileLog2, kPlanTiles, kPlanBucketLog2, kPlanBuckets, kPlanChunks,
-  kPlanChunkKeys, kPlanPiece, kPlanSweepGrid, kPlanSortPiece, kPlanSortGrid, kPlanCountsAt,
-  kPlanStartsAt, kPlanCursorAt, kPlanPieceTileAt, kPlanSortStartsAt, kPlanSortMapAt,
-  kPlanBucketedAt, kPlanEntriesAt, kPlanFields
-};
+// The partition's sizes, which this file alone sets (the wrapper asks
+// tpb_flat_counting_tiled_scratch_bytes for the scratch): tiles of 2^14
+// words, the 64 KiB a sweep CTA stages; at most 2^14 entries a sweep CTA;
+// the place pass orders entries by bucket of 2^6 tiles; at most 2^12
+// entries a sort CTA moves into its tiles.
+constexpr int kTileLog2 = 14;
+constexpr uint32_t kPiece = 1u << 14;
+constexpr int kBucketLog2 = 6;
+constexpr uint32_t kSortPiece = 1u << 12;
+// The count and place passes: at most four chunks of keys an H100 SM (132
+// SMs, a CTA of 512 threads each), each of at least kMinChunkKeys keys.
+constexpr int64_t kMaxChunks = 528, kMinChunkKeys = 2048;
+// The passes' tile histogram lives in shared memory: at most 2^14 tiles
+// (64 KiB of counts).
+constexpr int64_t kMaxTiles = 1 << 14;
+static_assert(kTileLog2 >= 2, "a tile is staged in 16-byte copies");
+static_assert((1 << kBucketLog2) <= kMaxBucketTiles, "a bucket's tiles fit the sort's cursors");
+static_assert((kMaxTiles >> kBucketLog2) <= kMaxBuckets, "the buckets fit the place pass's arrays");
+static_assert(kMaxBuckets <= kPassThreads && kMaxBuckets <= kScanThreads, "a thread a bucket");
+static_assert(kMaxBucketTiles <= kPassThreads, "a thread a tile of a bucket");
 
+// The launch's partition: its geometry and the layout of its scratch (byte
+// offsets from the scratch's base), from the launch's shape alone.
 struct TilePlan {
   int64_t n_words;     // counter words of the state (a routed slot's)
-  int tile_log2;       // log2 of a tile's counter words
-  int n_tiles;         // ceil(n_words / 2^tile_log2)
-  int bucket_log2;     // log2 of a bucket's tiles
-  int n_buckets;       // ceil(n_tiles / 2^bucket_log2)
+  int n_tiles;         // ceil(n_words / 2^kTileLog2); the last may be ragged
+  int n_buckets;       // ceil(n_tiles / 2^kBucketLog2)
   int chunks;          // CTAs of the count and place passes
   int64_t chunk_keys;  // keys a chunk
-  uint32_t piece;      // most entries a sweep CTA takes
   int sweep_grid;      // sweep CTAs: n_tiles + ceil(B k / piece), at least the pieces
-  uint32_t sort_piece; // most entries a sort CTA takes
   int sort_grid;       // sort CTAs: n_buckets + ceil(B k / sort_piece)
+  int64_t counts_at;       // u32 counts[chunks][n_tiles]
+  int64_t starts_at;       // u32 tile_start[n_tiles + 1], then piece_start[n_tiles + 1]
+  int64_t cursor_at;       // u32 tile_cursor[n_tiles]
+  int64_t piece_tile_at;   // u32 [sweep_grid]
+  int64_t sort_starts_at;  // u32 sort_start[n_buckets + 1]
+  int64_t sort_map_at;     // u32 [sort_grid]
+  int64_t bucketed_at;     // the entries by bucket
+  int64_t entries_at;      // the entries by tile
+  int64_t scratch_bytes;
 };
 
-inline TilePlan make_tile_plan(const int64_t* p) {
-  TilePlan g;
-  g.n_words = p[kPlanNWords];
-  g.tile_log2 = (int)p[kPlanTileLog2];
-  g.n_tiles = (int)p[kPlanTiles];
-  g.bucket_log2 = (int)p[kPlanBucketLog2];
-  g.n_buckets = (int)p[kPlanBuckets];
-  g.chunks = (int)p[kPlanChunks];
-  g.chunk_keys = p[kPlanChunkKeys];
-  g.piece = (uint32_t)p[kPlanPiece];
-  g.sweep_grid = (int)p[kPlanSweepGrid];
-  g.sort_piece = (uint32_t)p[kPlanSortPiece];
-  g.sort_grid = (int)p[kPlanSortGrid];
-  return g;
+inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// The plan of a launch of B keys, k positions each, on n_words counter
+// words; false where the partition cannot hold it: more tiles than the
+// passes' histogram, or B k at 2^31 entries (the segments' u32 offsets).
+// An entry is 4 bytes (a position, then its index in the tile) or, for the
+// query, 8 (and its key's index).
+inline bool make_tile_plan(int64_t B, int k, int64_t n_words, bool query, TilePlan* g) {
+  const int64_t entries = B * k;
+  const int64_t n_tiles = ceil_div(n_words, (int64_t)1 << kTileLog2);
+  if (B <= 0 || k <= 0 || n_words <= 0 || entries >= ((int64_t)1 << 31) || n_tiles > kMaxTiles)
+    return false;
+  g->n_words = n_words;
+  g->n_tiles = (int)n_tiles;
+  g->n_buckets = (int)ceil_div(n_tiles, (int64_t)1 << kBucketLog2);
+  const int64_t even = ceil_div(B, kMaxChunks);
+  g->chunk_keys = even > kMinChunkKeys ? even : kMinChunkKeys;
+  g->chunks = (int)ceil_div(B, g->chunk_keys);
+  g->sweep_grid = (int)(n_tiles + ceil_div(entries, kPiece));
+  g->sort_grid = (int)(g->n_buckets + ceil_div(entries, kSortPiece));
+  const int64_t entry_bytes = query ? 8 : 4;
+  g->counts_at = 0;
+  g->starts_at = 4 * (int64_t)g->chunks * n_tiles;
+  g->cursor_at = g->starts_at + 8 * (n_tiles + 1);
+  g->piece_tile_at = g->cursor_at + 4 * n_tiles;
+  g->sort_starts_at = g->piece_tile_at + 4 * (int64_t)g->sweep_grid;
+  g->sort_map_at = g->sort_starts_at + 4 * (int64_t)(g->n_buckets + 1);
+  g->bucketed_at = ceil_div(g->sort_map_at + 4 * (int64_t)g->sort_grid, 16) * 16;
+  g->entries_at = g->bucketed_at + ceil_div(entry_bytes * entries, 16) * 16;
+  g->scratch_bytes = g->entries_at + entry_bytes * entries;
+  return true;
 }
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
 // The tile of counter position p, and p's index inside it.
 __device__ __forceinline__ int tile_of(uint64_t p, const TilePlan& g) {
-  return (int)(p >> (g.tile_log2 + 3));
+  return (int)(p >> (kTileLog2 + 3));
 }
 __device__ __forceinline__ uint32_t index_in_tile(uint64_t p, const TilePlan& g) {
-  return (uint32_t)(p & ((1ull << (g.tile_log2 + 3)) - 1ull));
+  return (uint32_t)(p & ((1ull << (kTileLog2 + 3)) - 1ull));
 }
 
 // The exclusive prefix of v over the kThreads threads of the block, and in
@@ -201,25 +249,52 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t* s, uint32_t v
 
 // ---------------------------------------------------------------------------
 // 1. Count: row blockIdx.x of counts[chunks][n_tiles] is the chunk's
-// positions a tile.
+// positions a tile. The query first probes each valid owned key's position
+// 0 in the state and writes out[i]: 0 for padding, a key the slot does not
+// own, or a zero counter there (the key is absent, and places no entry), 1
+// otherwise; it then counts only positions 1..k-1 of the keys still at 1.
+// A query thread takes kCountUnroll keys at once, so that their probes are
+// in flight together; an update thread one.
 // ---------------------------------------------------------------------------
 
 template <bool kRouted, bool kQuery>
 __global__ void __launch_bounds__(kPassThreads)
 tile_count_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict__ lengths,
-                  uint8_t* __restrict__ out, int64_t B, int L, FlatSpec s,
-                  RouteSpec route, TilePlan g, uint32_t* __restrict__ counts) {
+                  const uint32_t* __restrict__ state, uint8_t* __restrict__ out, int64_t B,
+                  int L, FlatSpec s, RouteSpec route, TilePlan g,
+                  uint32_t* __restrict__ counts) {
   extern __shared__ __align__(16) uint32_t hist[];
   for (int t = threadIdx.x; t < g.n_tiles; t += blockDim.x) hist[t] = 0u;
   __syncthreads();
+  constexpr int j0 = kQuery ? 1 : 0;  // the query's position 0 is its probe
+  constexpr int kUnroll = kQuery ? kCountUnroll : 1;
   const int64_t lo = (int64_t)blockIdx.x * g.chunk_keys, hi = min64(B, lo + g.chunk_keys);
-  for (int64_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    FlatWalk w;
-    uint64_t base;
-    const bool ok = flat_key<kRouted>(keys, lengths, i, L, s, route, w, base);
-    if constexpr (kQuery) out[i] = ok ? 1 : 0;
-    if (!ok) continue;
-    for (int j = 0; j < s.k; ++j) atomicAdd(&hist[tile_of(base + flat_position(j, w, s), g)], 1u);
+  for (int64_t i0 = lo + threadIdx.x; i0 < hi; i0 += kUnroll * (int64_t)blockDim.x) {
+    FlatWalk w[kUnroll];
+    uint64_t base[kUnroll];
+    bool ok[kUnroll];
+    uint32_t probe[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = i0 + (int64_t)u * blockDim.x;
+      ok[u] = i < hi && flat_key<kRouted>(keys, lengths, i, L, s, route, w[u], base[u]);
+      probe[u] = 1u;
+      if (kQuery && ok[u]) {
+        const uint64_t p = base[u] + flat_position(0, w[u], s);
+        probe[u] = (__ldg(state + (p >> 3)) >> (4 * (int)(p & 7u))) & 15u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = i0 + (int64_t)u * blockDim.x;
+      if constexpr (kQuery) {
+        ok[u] = ok[u] && probe[u] != 0u;
+        if (i < hi) out[i] = ok[u] ? 1 : 0;
+      }
+      if (!ok[u]) continue;
+      for (int j = j0; j < s.k; ++j)
+        atomicAdd(&hist[tile_of(base[u] + flat_position(j, w[u], s), g)], 1u);
+    }
   }
   __syncthreads();
   uint32_t* row = counts + (int64_t)blockIdx.x * g.n_tiles;
@@ -281,13 +356,13 @@ tile_scan_kernel(uint32_t* __restrict__ tile_start, uint32_t* __restrict__ piece
   uint32_t e = 0u, p = 0u;
   for (int t = t0; t < t1; ++t) {
     e += start[t];
-    p += (start[t] + g.piece - 1u) / g.piece;
+    p += (start[t] + kPiece - 1u) / kPiece;
   }
   uint32_t e_total, p_total;
   e = block_exclusive_scan<kScanThreads>(s, e, &e_total);
   p = block_exclusive_scan<kScanThreads>(s, p, &p_total);
   for (int t = t0; t < t1; ++t) {
-    const uint32_t n = start[t], np = (n + g.piece - 1u) / g.piece;
+    const uint32_t n = start[t], np = (n + kPiece - 1u) / kPiece;
     start[t] = e;
     piece_start[t] = p;
     for (uint32_t q = 0; q < np; ++q) piece_tile[p + q] = (uint32_t)t;
@@ -306,8 +381,8 @@ tile_scan_kernel(uint32_t* __restrict__ tile_start, uint32_t* __restrict__ piece
   const int b = threadIdx.x;  // n_buckets <= kMaxBuckets < kScanThreads
   uint32_t nq = 0u;
   if (b < g.n_buckets) {
-    const int first = b << g.bucket_log2, last = min(g.n_tiles, (b + 1) << g.bucket_log2);
-    nq = (start[last] - start[first] + g.sort_piece - 1u) / g.sort_piece;
+    const int first = b << kBucketLog2, last = min(g.n_tiles, (b + 1) << kBucketLog2);
+    nq = (start[last] - start[first] + kSortPiece - 1u) / kSortPiece;
   }
   uint32_t q_total;
   const uint32_t q0 = block_exclusive_scan<kScanThreads>(s, nq, &q_total);
@@ -319,10 +394,11 @@ tile_scan_kernel(uint32_t* __restrict__ tile_start, uint32_t* __restrict__ piece
 }
 
 // ---------------------------------------------------------------------------
-// 4. Place, level 1: the same keys and positions as the count pass, written
+// 4. Place, level 1: the same keys and positions as the count pass (the
+// query: the keys whose probe found a non-zero counter, from out), written
 // as the positions themselves (u32: a partitioned state holds < 2^31
 // counters; the query: and the key's index) into the segment of their
-// bucket (2^bucket_log2 tiles). Writing each entry where it goes would be
+// bucket (2^kBucketLog2 tiles). Writing each entry where it goes would be
 // one random partial-sector write an entry, as costly as the random
 // requests this design removes. So a chunk takes its keys in sub-batches
 // of up to kPlaceEntries entries, orders each by bucket in shared memory (a
@@ -341,9 +417,9 @@ constexpr int kPlaceSmemWords = 2 * kPlaceEntries + kPassWarps * kMaxBuckets + 2
 template <bool kRouted, bool kQuery>
 __global__ void __launch_bounds__(kPassThreads)
 bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict__ lengths,
-                    int64_t B, int L, FlatSpec s, RouteSpec route, TilePlan g,
-                    const uint32_t* __restrict__ counts, const uint32_t* __restrict__ tile_start,
-                    void* __restrict__ bucketed) {
+                    const uint8_t* __restrict__ out, int64_t B, int L, FlatSpec s,
+                    RouteSpec route, TilePlan g, const uint32_t* __restrict__ counts,
+                    const uint32_t* __restrict__ tile_start, void* __restrict__ bucketed) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* pos = smem;                      // entry e = (key k0 + e / k, position e % k)
   uint32_t* order = pos + kPlaceEntries;     // entry indices by bucket
@@ -351,15 +427,15 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
   uint32_t* first = bins + kPassWarps * kMaxBuckets;
   uint32_t* base = first + kMaxBuckets;
   uint32_t* scan = base + kMaxBuckets;
-  const int nb = g.n_buckets, shift = g.tile_log2 + 3 + g.bucket_log2;
+  const int nb = g.n_buckets, shift = kTileLog2 + 3 + kBucketLog2;
   uint32_t* my_bins = bins + (threadIdx.x >> 5) * kMaxBuckets;
   for (int b = threadIdx.x; b < nb; b += blockDim.x) base[b] = 0u;
   __syncthreads();
   const uint32_t* row = counts + (int64_t)blockIdx.x * g.n_tiles;
   for (int t = threadIdx.x; t < g.n_tiles; t += blockDim.x)
-    atomicAdd(&base[t >> g.bucket_log2], row[t]);
+    atomicAdd(&base[t >> kBucketLog2], row[t]);
   __syncthreads();
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) base[b] += tile_start[b << g.bucket_log2];
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) base[b] += tile_start[b << kBucketLog2];
   // keys a sub-batch: as many as fit, in whole rounds of the CTA's threads
   const int fit = kPlaceEntries / s.k;
   const int per = fit >= kPassThreads ? fit / kPassThreads * kPassThreads : fit;
@@ -372,10 +448,12 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
       FlatWalk w;
       uint64_t off;
       const int64_t i = k0 + q;
-      const bool ok = flat_key<kRouted>(keys, lengths, i, L, s, route, w, off);
+      // the query: only the keys its probe left at 1, from position 1
+      const bool ok = (!kQuery || out[i] != 0) &&
+                      flat_key<kRouted>(keys, lengths, i, L, s, route, w, off);
       for (int j = 0; j < s.k; ++j) {
         uint32_t p = kNoEntry;
-        if (ok) {
+        if (ok && (!kQuery || j > 0)) {
           p = (uint32_t)(off + flat_position(j, w, s));
           atomicAdd(&my_bins[p >> shift], 1u);
         }
@@ -438,8 +516,8 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
 // Shared memory of tile_sort_kernel: the piece's positions (the query: and
 // key indices) as read and as ordered by tile, and the scan.
 template <bool kQuery>
-inline int sort_smem_bytes(const TilePlan& g) {
-  return (int)sizeof(uint32_t) * ((kQuery ? 4 : 2) * (int)g.sort_piece + 32);
+constexpr int sort_smem_bytes() {
+  return (int)sizeof(uint32_t) * ((kQuery ? 4 : 2) * (int)kSortPiece + 32);
 }
 
 template <bool kQuery>
@@ -455,15 +533,15 @@ tile_sort_kernel(const void* __restrict__ bucketed, void* __restrict__ entries,
   const uint32_t q = blockIdx.x;
   if (q >= sort_start[g.n_buckets]) return;
   uint32_t* in_p = smem;
-  uint32_t* st_p = in_p + g.sort_piece;
-  uint32_t* in_k = st_p + g.sort_piece;                     // the query only
-  uint32_t* st_k = in_k + (kQuery ? g.sort_piece : 0u);     // the query only
-  uint32_t* scan = st_k + (kQuery ? g.sort_piece : 0u);
+  uint32_t* st_p = in_p + kSortPiece;
+  uint32_t* in_k = st_p + kSortPiece;                     // the query only
+  uint32_t* st_k = in_k + (kQuery ? kSortPiece : 0u);     // the query only
+  uint32_t* scan = st_k + (kQuery ? kSortPiece : 0u);
   const int b = (int)sort_bucket[q];
-  const int t0 = b << g.bucket_log2, nt = min(g.n_tiles - t0, 1 << g.bucket_log2);
-  const uint32_t e0 = tile_start[t0] + (q - sort_start[b]) * g.sort_piece;
-  const int n = (int)(min(tile_start[t0 + nt], e0 + g.sort_piece) - e0);
-  const int ts = g.tile_log2 + 3;
+  const int t0 = b << kBucketLog2, nt = min(g.n_tiles - t0, 1 << kBucketLog2);
+  const uint32_t e0 = tile_start[t0] + (q - sort_start[b]) * kSortPiece;
+  const int n = (int)(min(tile_start[t0 + nt], e0 + kSortPiece) - e0);
+  const int ts = kTileLog2 + 3;
   const uint32_t* p32 = static_cast<const uint32_t*>(bucketed) + e0;
   const uint2* p64 = static_cast<const uint2*>(bucketed) + e0;
   for (int t = threadIdx.x; t < nt; t += blockDim.x) cursor[t] = 0u;
@@ -542,11 +620,11 @@ __device__ __forceinline__ bool sweep_piece(const uint32_t* __restrict__ tile_st
   if (b >= piece_start[g.n_tiles]) return false;
   pc.tile = (int)piece_tile[b];
   const uint32_t first = piece_start[pc.tile];
-  pc.e0 = tile_start[pc.tile] + (b - first) * g.piece;
-  pc.e1 = min(tile_start[pc.tile + 1], pc.e0 + g.piece);
+  pc.e0 = tile_start[pc.tile] + (b - first) * kPiece;
+  pc.e1 = min(tile_start[pc.tile + 1], pc.e0 + kPiece);
   pc.alone = piece_start[pc.tile + 1] - first == 1u;
-  pc.w0 = (int64_t)pc.tile << g.tile_log2;
-  pc.nw = (int)min64(g.n_words - pc.w0, (int64_t)1 << g.tile_log2);
+  pc.w0 = (int64_t)pc.tile << kTileLog2;
+  pc.nw = (int)min64(g.n_words - pc.w0, (int64_t)1 << kTileLog2);
   return true;
 }
 
@@ -714,32 +792,46 @@ struct Scratch {
   void* entries;
 };
 
-inline Scratch scratch_at(void* base, const int64_t* p, int n_tiles) {
+inline Scratch scratch_at(void* base, const TilePlan& g) {
   char* b = static_cast<char*>(base);
   Scratch s;
-  s.counts = reinterpret_cast<uint32_t*>(b + p[kPlanCountsAt]);
-  s.tile_start = reinterpret_cast<uint32_t*>(b + p[kPlanStartsAt]);
-  s.piece_start = s.tile_start + n_tiles + 1;
-  s.tile_cursor = reinterpret_cast<uint32_t*>(b + p[kPlanCursorAt]);
-  s.piece_tile = reinterpret_cast<uint32_t*>(b + p[kPlanPieceTileAt]);
-  s.sort_start = reinterpret_cast<uint32_t*>(b + p[kPlanSortStartsAt]);
-  s.sort_bucket = reinterpret_cast<uint32_t*>(b + p[kPlanSortMapAt]);
-  s.bucketed = b + p[kPlanBucketedAt];
-  s.entries = b + p[kPlanEntriesAt];
+  s.counts = reinterpret_cast<uint32_t*>(b + g.counts_at);
+  s.tile_start = reinterpret_cast<uint32_t*>(b + g.starts_at);
+  s.piece_start = s.tile_start + g.n_tiles + 1;
+  s.tile_cursor = reinterpret_cast<uint32_t*>(b + g.cursor_at);
+  s.piece_tile = reinterpret_cast<uint32_t*>(b + g.piece_tile_at);
+  s.sort_start = reinterpret_cast<uint32_t*>(b + g.sort_starts_at);
+  s.sort_bucket = reinterpret_cast<uint32_t*>(b + g.sort_map_at);
+  s.bucketed = b + g.bucketed_at;
+  s.entries = b + g.entries_at;
   return s;
 }
 
+// The plan of a launch on the state a kernel takes: the filter's m / 8
+// counter words, or a routed slot's shards_per_dev shards of m / 8 each (m
+// is then one shard's counters). Refuses, with cudaErrorInvalidValue, a
+// shape the partition cannot hold or a scratch smaller than the plan's.
+template <bool kRouted>
+int launch_plan(int64_t B, int64_t m, int k, bool query, const RouteSpec& r,
+                int64_t scratch_bytes, TilePlan* g) {
+  const int64_t n_words = (kRouted ? r.shards_per_dev : 1) * (m / 8);
+  if (!make_tile_plan(B, k, n_words, query, g) || scratch_bytes < g->scratch_bytes)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
+}
+
 template <bool kRouted, bool kQuery>
-int launch_partition(const void* keys, const void* lengths, void* out, int64_t B, int L,
-                     const FlatSpec& s, const RouteSpec& r, const TilePlan& g,
+int launch_partition(const void* state, const void* keys, const void* lengths, void* out,
+                     int64_t B, int L, const FlatSpec& s, const RouteSpec& r, const TilePlan& g,
                      const Scratch& x, cudaStream_t cs) {
   const int hist_bytes = g.n_tiles * (int)sizeof(uint32_t);
   cudaFuncSetAttribute(tile_count_kernel<kRouted, kQuery>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, hist_bytes);
   const uint8_t* k8 = static_cast<const uint8_t*>(keys);
   const int32_t* len = static_cast<const int32_t*>(lengths);
+  uint8_t* verdict = static_cast<uint8_t*>(out);
   tile_count_kernel<kRouted, kQuery><<<g.chunks, kPassThreads, hist_bytes, cs>>>(
-      k8, len, static_cast<uint8_t*>(out), B, L, s, r, g, x.counts);
+      k8, len, static_cast<const uint32_t*>(state), verdict, B, L, s, r, g, x.counts);
   int err = (int)cudaGetLastError();
   if (err) return err;
   tile_scan_columns_kernel<<<(g.n_tiles + 31) / 32, kScanThreads, 0, cs>>>(
@@ -755,9 +847,9 @@ int launch_partition(const void* keys, const void* lengths, void* out, int64_t B
   cudaFuncSetAttribute(bucket_place_kernel<kRouted, kQuery>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, place_bytes);
   bucket_place_kernel<kRouted, kQuery><<<g.chunks, kPassThreads, place_bytes, cs>>>(
-      k8, len, B, L, s, r, g, x.counts, x.tile_start, x.bucketed);
+      k8, len, verdict, B, L, s, r, g, x.counts, x.tile_start, x.bucketed);
   if ((err = (int)cudaGetLastError())) return err;
-  const int sort_bytes = sort_smem_bytes<kQuery>(g);
+  const int sort_bytes = sort_smem_bytes<kQuery>();
   cudaFuncSetAttribute(tile_sort_kernel<kQuery>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        sort_bytes);
   tile_sort_kernel<kQuery><<<g.sort_grid, kPassThreads, sort_bytes, cs>>>(
@@ -767,15 +859,18 @@ int launch_partition(const void* keys, const void* lengths, void* out, int64_t B
 
 template <bool kRouted>
 int launch_tiled_update(void* state, const void* keys, const void* lengths, int64_t B, int L,
-                        const FlatSpec& s, int increment, const RouteSpec& r,
-                        void* scratch, const int64_t* plan, void* stream) {
+                        int64_t m, int k, uint32_t seed, int increment, const RouteSpec& r,
+                        void* scratch, int64_t scratch_bytes, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const TilePlan g = make_tile_plan(plan);
-  const Scratch x = scratch_at(scratch, plan, g.n_tiles);
-  int err = launch_partition<kRouted, false>(keys, lengths, nullptr, B, L, s, r, g, x, cs);
+  TilePlan g;
+  int err = launch_plan<kRouted>(B, m, k, false, r, scratch_bytes, &g);
   if (err) return err;
-  const int tile_bytes = (int)sizeof(uint32_t) << g.tile_log2;
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const Scratch x = scratch_at(scratch, g);
+  err = launch_partition<kRouted, false>(nullptr, keys, lengths, nullptr, B, L,
+                                         make_flat_spec(m, k, seed), r, g, x, cs);
+  if (err) return err;
+  const int tile_bytes = (int)sizeof(uint32_t) << kTileLog2;
   cudaFuncSetAttribute(tile_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        tile_bytes);
   tile_update_kernel<<<g.sweep_grid, kSweepThreads, tile_bytes, cs>>>(
@@ -786,15 +881,18 @@ int launch_tiled_update(void* state, const void* keys, const void* lengths, int6
 
 template <bool kRouted>
 int launch_tiled_query(const void* state, const void* keys, const void* lengths, void* out,
-                       int64_t B, int L, const FlatSpec& s, const RouteSpec& r,
-                       void* scratch, const int64_t* plan, void* stream) {
+                       int64_t B, int L, int64_t m, int k, uint32_t seed, const RouteSpec& r,
+                       void* scratch, int64_t scratch_bytes, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const TilePlan g = make_tile_plan(plan);
-  const Scratch x = scratch_at(scratch, plan, g.n_tiles);
-  int err = launch_partition<kRouted, true>(keys, lengths, out, B, L, s, r, g, x, cs);
+  TilePlan g;
+  int err = launch_plan<kRouted>(B, m, k, true, r, scratch_bytes, &g);
   if (err) return err;
-  const int tile_bytes = (int)sizeof(uint32_t) << g.tile_log2;
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const Scratch x = scratch_at(scratch, g);
+  err = launch_partition<kRouted, true>(state, keys, lengths, out, B, L,
+                                        make_flat_spec(m, k, seed), r, g, x, cs);
+  if (err) return err;
+  const int tile_bytes = (int)sizeof(uint32_t) << kTileLog2;
   cudaFuncSetAttribute(tile_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        tile_bytes);
   tile_query_kernel<<<g.sweep_grid, kSweepThreads, tile_bytes, cs>>>(
@@ -807,45 +905,61 @@ int launch_tiled_query(const void* state, const void* keys, const void* lengths,
 
 // ---------------------------------------------------------------------------
 // Plain C interface (ctypes), beside flat_bloom.cu's thread-a-key entries
-// with the same leading arguments. `scratch` is device memory of the size
-// the plan gives; `plan` a host array of kPlanFields int64s (PlanField).
+// with the same leading arguments. `scratch` is device memory of at least
+// tpb_flat_counting_tiled_scratch_bytes(B, k, n_words, query) bytes, where
+// n_words is the state's counter words (m / 8, or a routed slot's
+// shards_per_dev * m / 8).
 // ---------------------------------------------------------------------------
+
+// The scratch of a partitioned launch, or -1 where the partition cannot hold
+// the shape (the wrapper then keeps the thread-a-key kernel).
+extern "C" int64_t tpb_flat_counting_tiled_scratch_bytes(int64_t B, int k, int64_t n_words,
+                                                         int query) {
+  tpubloom::TilePlan g;
+  return tpubloom::make_tile_plan(B, k, n_words, query != 0, &g) ? g.scratch_bytes : -1;
+}
+
+// The partition's tile (log2 of its counter words) and piece (the most
+// entries a sweep CTA takes), for records of what a launch's keys put in
+// the tiles.
+extern "C" int tpb_flat_counting_tile_log2(void) { return tpubloom::kTileLog2; }
+extern "C" int64_t tpb_flat_counting_tile_piece(void) { return tpubloom::kPiece; }
 
 extern "C" int tpb_flat_counting_update_tiled(void* state, const void* keys,
                                               const void* lengths, int64_t B, int L,
                                               int64_t m, int k, uint32_t seed, int increment,
-                                              void* scratch, const int64_t* plan,
+                                              void* scratch, int64_t scratch_bytes,
                                               void* stream) {
   using namespace tpubloom;
-  return launch_tiled_update<false>(state, keys, lengths, B, L, make_flat_spec(m, k, seed),
-                                    increment, RouteSpec{}, scratch, plan, stream);
+  return launch_tiled_update<false>(state, keys, lengths, B, L, m, k, seed, increment,
+                                    RouteSpec{}, scratch, scratch_bytes, stream);
 }
 
 extern "C" int tpb_flat_counting_query_tiled(const void* state, const void* keys,
                                              const void* lengths, void* out, int64_t B, int L,
                                              int64_t m, int k, uint32_t seed, void* scratch,
-                                             const int64_t* plan, void* stream) {
+                                             int64_t scratch_bytes, void* stream) {
   using namespace tpubloom;
-  return launch_tiled_query<false>(state, keys, lengths, out, B, L, make_flat_spec(m, k, seed),
-                                   RouteSpec{}, scratch, plan, stream);
+  return launch_tiled_query<false>(state, keys, lengths, out, B, L, m, k, seed, RouteSpec{},
+                                   scratch, scratch_bytes, stream);
 }
 
 extern "C" int tpb_sharded_flat_counting_update_tiled(
     void* state, const void* keys, const void* lengths, int64_t B, int L, int64_t m, int k,
     uint32_t seed, int increment, int64_t n_shards, int64_t shard_lo, int64_t shards_per_dev,
-    void* scratch, const int64_t* plan, void* stream) {
+    void* scratch, int64_t scratch_bytes, void* stream) {
   using namespace tpubloom;
-  return launch_tiled_update<true>(state, keys, lengths, B, L, make_flat_spec(m, k, seed),
-                                   increment, make_route(n_shards, shard_lo, shards_per_dev),
-                                   scratch, plan, stream);
+  return launch_tiled_update<true>(state, keys, lengths, B, L, m, k, seed, increment,
+                                   make_route(n_shards, shard_lo, shards_per_dev), scratch,
+                                   scratch_bytes, stream);
 }
 
 extern "C" int tpb_sharded_flat_counting_query_tiled(
     const void* state, const void* keys, const void* lengths, void* out, int64_t B, int L,
     int64_t m, int k, uint32_t seed, int64_t n_shards, int64_t shard_lo,
-    int64_t shards_per_dev, void* scratch, const int64_t* plan, void* stream) {
+    int64_t shards_per_dev, void* scratch, int64_t scratch_bytes, void* stream) {
   using namespace tpubloom;
-  return launch_tiled_query<true>(state, keys, lengths, out, B, L, make_flat_spec(m, k, seed),
-                                  make_route(n_shards, shard_lo, shards_per_dev), scratch, plan,
-                                  stream);
+  return launch_tiled_query<true>(state, keys, lengths, out, B, L, m, k, seed,
+                                  make_route(n_shards, shard_lo, shards_per_dev), scratch,
+                                  scratch_bytes, stream);
 }

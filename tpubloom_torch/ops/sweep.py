@@ -44,8 +44,8 @@ The flat kernels give a key a thread. The counting pair also has
 partitioned kernels (``tpubloom_torch/csrc/flat_counting.cu``) for a
 batch whose positions cover much of the state: the batch's counter
 positions are placed by shared-memory tile and each tile is swept on
-chip, where ``tpubloom`` sorts them; :func:`flat_tile_plan` picks one of
-the two kernels from the launch's shape.
+chip, where ``tpubloom`` sorts them; :func:`flat_takes_tiles` picks one
+of the two kernels from the launch's shape.
 
 Why the sweep algorithm is not carried over: the TPU sorts each batch by
 block, streams the whole filter through VMEM partition by partition and
@@ -82,7 +82,6 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 
 import torch
 
@@ -168,16 +167,18 @@ _FLAT_SIGNATURES = {
     ),
     "tpb_sharded_flat_counting_query": ([_P, _P, _P, _P, *_FLAT, *_ROUTE, _P], ctypes.c_int),
 }
-_PLAN = ctypes.POINTER(ctypes.c_int64)  # FlatTilePlan.fields(), a host array
 _FLAT_TILED_SIGNATURES = {
-    "tpb_flat_counting_update_tiled": ([_P, _P, _P, *_FLAT, ctypes.c_int, _P, _PLAN, _P], ctypes.c_int),
-    "tpb_flat_counting_query_tiled": ([_P, _P, _P, _P, *_FLAT, _P, _PLAN, _P], ctypes.c_int),
+    "tpb_flat_counting_update_tiled": ([_P, _P, _P, *_FLAT, ctypes.c_int, _P, _I64, _P], ctypes.c_int),
+    "tpb_flat_counting_query_tiled": ([_P, _P, _P, _P, *_FLAT, _P, _I64, _P], ctypes.c_int),
     "tpb_sharded_flat_counting_update_tiled": (
-        [_P, _P, _P, *_FLAT, ctypes.c_int, *_ROUTE, _P, _PLAN, _P], ctypes.c_int,
+        [_P, _P, _P, *_FLAT, ctypes.c_int, *_ROUTE, _P, _I64, _P], ctypes.c_int,
     ),
     "tpb_sharded_flat_counting_query_tiled": (
-        [_P, _P, _P, _P, *_FLAT, *_ROUTE, _P, _PLAN, _P], ctypes.c_int,
+        [_P, _P, _P, _P, *_FLAT, *_ROUTE, _P, _I64, _P], ctypes.c_int,
     ),
+    "tpb_flat_counting_tiled_scratch_bytes": ([_I64, ctypes.c_int, _I64, ctypes.c_int], _I64),
+    "tpb_flat_counting_tile_log2": ([], ctypes.c_int),
+    "tpb_flat_counting_tile_piece": ([], _I64),
 }
 
 
@@ -410,149 +411,119 @@ def flat_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
 
 # -- the partitioned flat counting kernels (csrc/flat_counting.cu) ------------------
 
-#: A tile: 2^14 counter words, the 64 KiB of shared memory a sweep CTA stages.
-FLAT_TILE_LOG2 = 14
-#: The most entries one sweep CTA applies; a tile with more takes several.
-FLAT_TILE_PIECE = 1 << 14
-#: The placement's first level orders entries by bucket of 2^6 tiles (at
-#: most 64 tiles a bucket, 256 buckets); its second moves a bucket's
-#: entries into its tiles, at most FLAT_TILE_SORT_PIECE entries a CTA.
-FLAT_TILE_BUCKET_LOG2, FLAT_TILE_SORT_PIECE = 6, 1 << 12
-#: Count and place passes: at most four chunks of keys an H100 SM (a CTA of
-#: 512 threads each), each of at least FLAT_TILE_CHUNK_KEYS keys.
-FLAT_TILE_CHUNKS, FLAT_TILE_CHUNK_KEYS = 528, 2048
-#: The passes' tile histogram lives in shared memory: at most 2^14 tiles
-#: (64 KiB), so a state of fewer than 2^28 counter words (m < 2^31).
-FLAT_TILE_MAX_TILES = 1 << 14
-#: A launch takes the partitioned kernel when its expected positions (a
-#: routed slot: its owned share of B k) reach this many per 32-byte sector of
-#: the state, and the thread-a-key kernel of flat_bloom.cu below it. Both
-#: from chip_smoke.py's flat_crossover phase on an NVIDIA H100 80GB HBM3
-#: (700 W; PERF.md section 6). The update: the partitioned kernel is the
-#: faster from B = 2^19 keys at config 4 flat (7 x 2^19 positions on 2^24
-#: sectors, 0.219; 0.286 against 0.321 ms). The query: its partitioned
-#: kernel stores a verdict byte for every zero counter it meets, so on absent
-#: keys in a near-empty filter it is the slower at every B measured (1.10
-#: against 0.92 ms at 2^22); at 2^22 it ties at half fill and is 12 % the
-#: faster on held keys, so it takes the partitioned kernel from the counting
-#: path's full batch (7 x 2^22 positions, 1.75 a sector) only.
+#: A flat counting launch takes the partitioned kernel when its expected
+#: positions (a routed slot: its owned share of B k) reach this many per
+#: 32-byte sector of the state, and the thread-a-key kernel of flat_bloom.cu
+#: below it; flat_counting.cu sets every size of the partition and refuses
+#: a shape it cannot hold, which then keeps the thread-a-key kernel too.
+#: Both crossovers are chip_smoke.py's flat_crossover phase on an NVIDIA
+#: H100 80GB HBM3 (700 W; PERF.md section 6). The update: the partitioned
+#: kernel is the faster from B = 2^19 keys at config 4 flat (7 x 2^19
+#: positions on 2^24 sectors, 0.219; 0.286 against 0.321 ms).
 FLAT_TILE_CROSSOVER = 7 / 32
+#: The query, timed on config 4's own traffic (benchmarks/run.py config4: a
+#: query of every key after half of them were deleted, so half held, half
+#: absent): the partitioned kernel is the faster from B = 2^22 keys at
+#: config 4 flat (1.75 a sector; 0.699 against 0.920 ms), where it is also
+#: the faster on absent keys (0.399 against 0.921), held keys (0.862
+#: against 0.921) and a filter half full (0.715 against 0.919); at 2^21 it
+#: is 3 % the slower on that traffic (0.476 against 0.463). At config 4's
+#: own launch of 2^24 keys: 1.613 against 2.214 ms.
 FLAT_TILE_QUERY_CROSSOVER = 7 / 4
-
-
-@dataclass(frozen=True)
-class FlatTilePlan:
-    """The partition of one flat counting launch: which kernel it takes
-    and, for the partitioned one, its geometry and the layout of its
-    scratch (byte offsets into one ``torch.empty`` buffer)."""
-
-    tiled: bool
-    n_words: int        # counter words of the state (a routed slot's)
-    n_tiles: int        # ceil(n_words / 2^FLAT_TILE_LOG2); the last may be ragged
-    last_tile_words: int
-    n_buckets: int      # ceil(n_tiles / 2^FLAT_TILE_BUCKET_LOG2)
-    entries: int        # B k: the most entries the launch can place
-    expected: float     # the entries it should place (a routed slot: its share)
-    chunks: int         # CTAs of the count and place passes
-    chunk_keys: int
-    sweep_grid: int     # sweep CTAs: every tile's pieces fit in n_tiles + ceil(entries / piece)
-    sort_grid: int      # sort CTAs: n_buckets + ceil(entries / sort piece)
-    entry_bytes: int    # 4 (update: position, then index in tile) or 8 (query: and key index)
-    counts_at: int      # u32 [chunks, n_tiles]
-    starts_at: int      # u32 tile_start [n_tiles + 1], then piece_start [n_tiles + 1]
-    cursor_at: int      # u32 tile_cursor [n_tiles]
-    piece_tile_at: int  # u32 [sweep_grid]
-    sort_starts_at: int  # u32 sort_start [n_buckets + 1]
-    sort_map_at: int    # u32 [sort_grid]
-    bucketed_at: int    # the entries by bucket
-    entries_at: int     # the entries by tile
-    scratch_bytes: int
-
-    def fields(self) -> tuple[int, ...]:
-        """The kernel's plan array (``PlanField`` in flat_counting.cu)."""
-        return (self.n_words, FLAT_TILE_LOG2, self.n_tiles, FLAT_TILE_BUCKET_LOG2,
-                self.n_buckets, self.chunks, self.chunk_keys, FLAT_TILE_PIECE, self.sweep_grid,
-                FLAT_TILE_SORT_PIECE, self.sort_grid, self.counts_at, self.starts_at,
-                self.cursor_at, self.piece_tile_at, self.sort_starts_at, self.sort_map_at,
-                self.bucketed_at, self.entries_at)
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _takes_tiles(config, batch: int, route, query: bool) -> bool:
-    """Whether a flat counting launch takes the partitioned kernel (see
-    :func:`flat_tile_plan`); cheap, as small batches ask it on every call."""
-    n_words = _state_words(config, route)
-    if batch <= 0 or batch * config.k >= 1 << 31 or n_words > FLAT_TILE_MAX_TILES << FLAT_TILE_LOG2:
+def flat_takes_tiles(config, batch: int, route=None, *, query: bool) -> bool:
+    """Whether a flat counting update (``query=False``) or query of
+    ``batch`` keys on ``config``'s state (with a ``route``, one slot's)
+    reaches its crossover, :data:`FLAT_TILE_CROSSOVER` or
+    :data:`FLAT_TILE_QUERY_CROSSOVER` expected positions a sector. Pure
+    Python and cheap: small batches ask it on every call."""
+    if batch <= 0:
         return False
     share = 1.0 if route is None else route.shards_per_dev / route.n_shards
     crossover = FLAT_TILE_QUERY_CROSSOVER if query else FLAT_TILE_CROSSOVER
-    return batch * config.k * share >= crossover * _ceil_div(n_words, 8)
+    return batch * config.k * share >= crossover * _ceil_div(_state_words(config, route), 8)
 
 
-def flat_tile_plan(config, batch: int, route=None, *, query: bool) -> FlatTilePlan:
-    """The plan of a flat counting update (``query=False``) or query of
-    ``batch`` keys on ``config``'s state (with a ``route``, one slot's):
-    partitioned when the batch's expected positions reach
-    :data:`FLAT_TILE_CROSSOVER` (the query: :data:`FLAT_TILE_QUERY_CROSSOVER`)
-    per sector of the state, the state has at most
-    :data:`FLAT_TILE_MAX_TILES` tiles and B k < 2^31 (the segments' u32
-    offsets); thread-a-key otherwise."""
-    n_words = _state_words(config, route)
-    tile_words = 1 << FLAT_TILE_LOG2
-    n_tiles = _ceil_div(n_words, tile_words)
-    entries = batch * config.k
-    expected = entries * (1.0 if route is None else route.shards_per_dev / route.n_shards)
-    chunk_keys = max(FLAT_TILE_CHUNK_KEYS, _ceil_div(batch, FLAT_TILE_CHUNKS))
-    chunks = _ceil_div(batch, chunk_keys)
-    n_buckets = _ceil_div(n_tiles, 1 << FLAT_TILE_BUCKET_LOG2)
-    sweep_grid = n_tiles + _ceil_div(entries, FLAT_TILE_PIECE)
-    sort_grid = n_buckets + _ceil_div(entries, FLAT_TILE_SORT_PIECE)
-    entry_bytes = 8 if query else 4
-    starts_at = 4 * chunks * n_tiles
-    cursor_at = starts_at + 8 * (n_tiles + 1)
-    piece_tile_at = cursor_at + 4 * n_tiles
-    sort_starts_at = piece_tile_at + 4 * sweep_grid
-    sort_map_at = sort_starts_at + 4 * (n_buckets + 1)
-    bucketed_at = _ceil_div(sort_map_at + 4 * sort_grid, 16) * 16
-    entries_at = bucketed_at + _ceil_div(entry_bytes * entries, 16) * 16
-    return FlatTilePlan(
-        tiled=_takes_tiles(config, batch, route, query), n_words=n_words, n_tiles=n_tiles,
-        last_tile_words=n_words - (n_tiles - 1) * tile_words, n_buckets=n_buckets,
-        entries=entries, expected=expected, chunks=chunks, chunk_keys=chunk_keys,
-        sweep_grid=sweep_grid, sort_grid=sort_grid, entry_bytes=entry_bytes, counts_at=0,
-        starts_at=starts_at, cursor_at=cursor_at, piece_tile_at=piece_tile_at,
-        sort_starts_at=sort_starts_at, sort_map_at=sort_map_at, bucketed_at=bucketed_at,
-        entries_at=entries_at, scratch_bytes=entries_at + entry_bytes * entries,
-    )
+def flat_tiled_scratch_bytes(config, batch: int, route=None, *, query: bool) -> int:
+    """The scratch of a partitioned launch as flat_counting.cu plans it, or
+    -1 where its partition cannot hold the shape (more tiles than its
+    passes' histogram, or B k >= 2^31). Builds the kernels."""
+    return _flat_tiled_library().tpb_flat_counting_tiled_scratch_bytes(
+        batch, config.k, _state_words(config, route), 1 if query else 0)
 
 
-def _launch_tiled(name, state, keys, lengths, spec, route, plan, out=None) -> None:
-    """One partitioned launch (``<name>_tiled``, routed with a route):
-    ``fn(state, keys, lengths, [out,] B, L, *spec, *routing, scratch,
-    plan, stream)``, counted under ``name`` and ``name_tiled``."""
+def flat_tile_geometry() -> tuple[int, int]:
+    """flat_counting.cu's tile (log2 of its counter words) and piece (the
+    most entries a sweep CTA takes). Builds the kernels."""
+    lib = _flat_tiled_library()
+    return lib.tpb_flat_counting_tile_log2(), lib.tpb_flat_counting_tile_piece()
+
+
+def _takes_tiles(config, batch: int, route, query: bool) -> bool:
+    """The wrapper's choice: the crossover, then whether the plan holds."""
+    return (flat_takes_tiles(config, batch, route, query=query)
+            and flat_tiled_scratch_bytes(config, batch, route, query=query) >= 0)
+
+
+def _launch_tiled(name, state, keys, lengths, spec, config, route, out=None) -> None:
+    """One partitioned launch (``<name>_tiled``, routed with a route) with
+    the scratch its plan needs: ``fn(state, keys, lengths, [out,] B, L,
+    *spec, *routing, scratch, scratch_bytes, stream)``, counted under
+    ``name`` and ``name_tiled``."""
     B, L = keys.shape
-    fn, routing, counter = _entry(_flat_tiled_library(), f"{name}_tiled", route)
-    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=state.device)
-    fields = plan.fields()
-    plan_array = (ctypes.c_int64 * len(fields))(*fields)
+    if not B:
+        return
+    lib = _flat_tiled_library()
+    nbytes = flat_tiled_scratch_bytes(config, B, route, query=out is not None)
+    if nbytes < 0:
+        raise ValueError(f"{name}: the partition cannot hold {B} keys on this state")
+    fn, routing, counter = _entry(lib, f"{name}_tiled", route)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=state.device)
     ptrs = (state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
             *(() if out is None else (out.data_ptr(),)))
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = fn(*ptrs, B, L, *spec, *routing, scratch.data_ptr(), plan_array, stream)
+        err = fn(*ptrs, B, L, *spec, *routing, scratch.data_ptr(), nbytes, stream)
     _raise_on(err, counter)
     LAUNCHES[counter] += 1
     LAUNCHES[counter.removesuffix("_tiled")] += 1
+
+
+def _flat_counting_update_on(tiled: bool, state, keys, lengths, config, *, increment: bool,
+                             route=None) -> None:
+    """The flat counting update of a checked CUDA state on the kernel
+    named: the partitioned one (``tiled``) or the thread-a-key one.
+    :func:`flat_counting_update` picks it by shape; chip_smoke.py and the
+    card tests hold each kernel through here."""
+    spec = (*_flat_args(config, route), 1 if increment else 0)
+    if tiled:
+        _launch_tiled("flat_counting_update", state, keys, lengths, spec, config, route)
+    else:
+        _launch_update(_flat_library(), "flat_counting_update", state, keys, lengths, spec, route)
+
+
+def _flat_counting_query_on(tiled: bool, state, keys, lengths, config, *, route=None) -> torch.Tensor:
+    """The flat counting query of a checked CUDA state on the kernel named,
+    as :func:`_flat_counting_update_on`."""
+    if not tiled:
+        return _launch_query(_flat_library(), "flat_counting_query", state, keys, lengths,
+                             _flat_args(config, route), route)
+    out = torch.empty((keys.shape[0],), dtype=torch.uint8, device=state.device)
+    _launch_tiled("flat_counting_query", state, keys, lengths, _flat_args(config, route), config,
+                  route, out)
+    return out.view(torch.bool)
 
 
 def flat_counting_update(state, keys, lengths, config, *, increment: bool, route=None) -> None:
     """Add (``increment``) or subtract each valid key's multiplicity at
     its k flat counters in ``state`` (``uint32[n_counter_words]``), in
     place; nibbles saturate at 15 and floor at 0. On the card a batch
-    whose positions cover enough of the state (:func:`flat_tile_plan`)
+    whose positions cover enough of the state (:func:`flat_takes_tiles`)
     takes the partitioned kernels, a smaller one the thread-a-key
     kernel; both give the same words."""
     _check(state, keys, lengths, config, route, counters=True, flat=True)
@@ -561,12 +532,8 @@ def flat_counting_update(state, keys, lengths, config, *, increment: bool, route
             state, keys, lengths, config, increment=increment, route=route
         )
         return
-    spec = (*_flat_args(config, route), 1 if increment else 0)
-    if _takes_tiles(config, keys.shape[0], route, False):
-        _launch_tiled("flat_counting_update", state, keys, lengths, spec, route,
-                      flat_tile_plan(config, keys.shape[0], route, query=False))
-    else:
-        _launch_update(_flat_library(), "flat_counting_update", state, keys, lengths, spec, route)
+    _flat_counting_update_on(_takes_tiles(config, keys.shape[0], route, False), state, keys,
+                             lengths, config, increment=increment, route=route)
 
 
 def flat_counting_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
@@ -577,13 +544,8 @@ def flat_counting_query(state, keys, lengths, config, *, route=None) -> torch.Te
     _check(state, keys, lengths, config, route, counters=True, flat=True)
     if state.device.type == "cpu":
         return counting.flat_counting_query_plain(state, keys, lengths, config, route)
-    if not _takes_tiles(config, keys.shape[0], route, True):
-        return _launch_query(_flat_library(), "flat_counting_query", state, keys, lengths,
-                             _flat_args(config, route), route)
-    out = torch.empty((keys.shape[0],), dtype=torch.uint8, device=state.device)
-    _launch_tiled("flat_counting_query", state, keys, lengths, _flat_args(config, route), route,
-                  flat_tile_plan(config, keys.shape[0], route, query=True), out)
-    return out.view(torch.bool)
+    return _flat_counting_query_on(_takes_tiles(config, keys.shape[0], route, True), state, keys,
+                                   lengths, config, route=route)
 
 
 def record_fence(device: torch.device):
