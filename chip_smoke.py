@@ -92,34 +92,45 @@ each, with the seconds it took (``phase_seconds``):
 16. flat kernel vs plain: each flat kernel and its routed twin against its
    plain version from the same state (tolerance 0): config 2, config 1's
    m=10,000,000 (the mod walk), config 4 flat, one slot of config 5 flat
-   and its slot of shards 16-31, configs 4 x 5 flat on one slot and on
-   the slot of shards 48-63; batches with old keys, within-batch
-   duplicates, one key over an eighth of the batch (past saturation),
-   tail padding and, for counting, a delete of absent keys; the counting
-   pair at its path's batch and at 2^16 keys, each op through the kernel
-   the wrapper takes (recorded) and through the other one on a copy of the
-   state, so that both kernels of each wrapper meet every shape;
+   and its slot of shards 16-31, the same two slots at m=2^26 (a dense
+   sharded shape, which takes the partitioned insert), configs 4 x 5 flat
+   on one slot and on the slot of shards 48-63; batches with old keys,
+   within-batch duplicates, one key over an eighth of the batch (past
+   saturation), tail padding and, for counting, a delete of absent keys;
+   the counting pair also at 2^16 keys; each insert and counting op
+   through the kernel the wrapper takes (recorded) and through the other
+   one on a copy of the state, where the partition holds the shape, so that
+   both kernels of each wrapper meet every shape;
 17. flat path: the four flat filters through their entry points at full
    size (packed and ``bytes`` keys, a replay, deletes; 1 and 4 slots whose
    words must agree), the FPR of fresh keys against
    ``params.theoretical_fpr`` at m=2^26, and the Redis bitmap and
    checkpoint round trips at m=2^26 bits or 2^24 counters, with the
-   launch counts after each step (each counting wrapper must have taken
-   the kernel its crossover gives each batch);
-18. flat times: as phases 5 and 9 for the eight flat kernels and the four
+   launch counts after each step (config 2's ``insert_packed`` of 2^20
+   keys must take ``flat_insert_tiled``, its ``insert_batch`` of 10,002
+   ``bytes`` keys the thread-a-key ``flat_insert``; each insert and
+   counting wrapper must have launched both of its kernels);
+18. flat times: as phases 5 and 9 for the eight flat kernels and the six
    partitioned ones, beside the bound (the launch's distinct 32-byte
    sectors read, and written back by updates) and, for the queries, the
-   gather ``words[widx]`` of the launch's B k words; the counting pair on
-   both of its kernels at the path's batch and at 2^16 keys, on a crowd
-   batch, and its query on held keys, on config 4's own traffic
-   (benchmarks/run.py config4: 10,000,000 keys inserted, half deleted,
-   all queried in one launch) and on a filter half full, with the
+   gather ``words[widx]`` of the launch's B k words; the insert on both
+   of its kernels (fresh, replay, a crowd), the routed partitioned insert
+   at config 2's shape over 64 shards, the bit query with each group size
+   of loads in flight (1, 2, 4) on absent and held keys, and the bit pair
+   on config 2's own traffic (benchmarks/run.py config2: 100,000,000 keys
+   inserted in batches of 2^20, to a fill of ~0.606; then a held and an
+   absent batch queried in turns; then a fresh insert into that state);
+   the counting pair on both of its kernels at the path's batch and at
+   2^16 keys, on a crowd batch, and its query on held keys, on config 4's
+   own traffic (benchmarks/run.py config4: 10,000,000 keys inserted, half
+   deleted, all queried in one launch) and on a filter half full, with the
    partition (tiles touched, scratch bytes, sweep CTAs); at 2^16 keys also
    the wrappers' host clock per call;
 19. flat crossover: both kernels of the flat counting pair at config 4
    flat over B = 2^13 .. 2^22 (the query on half held, half absent keys,
-   and on absent keys), and the batch (in positions per sector of the
-   state) from which the partitioned one is the faster;
+   and on absent keys), both kernels of the flat insert at config 2 over
+   B = 2^13 .. 2^20 (fresh inserts), and the batch (in positions per
+   sector of the state) from which the partitioned one is the faster;
 20. flat end to end: as phase 6 for the flat filters' packed calls.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
@@ -232,6 +243,14 @@ LOG2B_CROSSOVER = range(13, 23)
 # config4, scale 1: insert n = 10,000,000 keys, delete the first half, query
 # all n), each call one launch padded to 2^24 keys as the port pads it.
 N_CONFIG4 = 10_000_000
+# The flat bit insert's kernels are compared over B = 2^13 .. 2^20 at config 2
+# (fresh inserts), and the bit pair is timed on config 2's own traffic
+# (benchmarks/run.py config2, scale 1: 100,000,000 keys inserted in batches
+# of 2^20, then queries of a held and an absent batch in turns). The query
+# kernel's loads in flight a key are timed at each of QUERY_GROUPS.
+LOG2B_BIT_CROSSOVER = range(13, 21)
+N_CONFIG2 = 100_000_000
+QUERY_GROUPS = (1, 2, 4)
 # The wrappers' host clock at B_FLAT_SPARSE keys: calls a measurement, and
 # rounds of measurements in a --host process.
 N_HOST_CALLS, N_HOST_ROUNDS = 2000, 3
@@ -306,11 +325,11 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, n: int = 20) -> float:
-    """Mean ms a call of the card's own time in the kernels ``fn(i)``
-    launches, by ``torch.profiler`` over ``n`` calls after one warm call:
-    without the host's gaps, which the event pairs of a small launch
-    include."""
+def kernel_ms(fn, n: int = 20) -> dict:
+    """Mean ms a call of the card's own time in each kernel ``fn(i)``
+    launches (by name, its argument list dropped), by ``torch.profiler``
+    over ``n`` calls after one warm call: without the host's gaps, which
+    the event pairs of a small launch include."""
     fn(0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -318,7 +337,14 @@ def device_ms(fn, n: int = 20) -> float:
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / n / 1e3
+    return {e.key.split("(")[0].removeprefix("void "): e.self_device_time_total / n / 1e3
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Mean ms a call of the card's own time in the kernels ``fn(i)``
+    launches (kernel_ms, summed)."""
+    return sum(kernel_ms(fn, n).values())
 
 
 def fresh_ms(state: torch.Tensor, launch, n: int, warm: int = 2) -> float:
@@ -1210,13 +1236,18 @@ FLAT_KERNELS = ("flat_insert", "flat_query", "flat_counting_update", "flat_count
 
 
 # The partitioned kernels, under their own launch counters; a tree without
-# them (``--ab`` against a parent) times the flat counting pair as it is.
+# them (``--ab`` against a parent) times the flat counting pair, or the flat
+# insert, as it is.
 TILED = hasattr(sweep, "_flat_counting_update_on")
-FLAT_TILED = ("flat_counting_update_tiled", "flat_counting_query_tiled",
-              "sharded_flat_counting_update_tiled", "sharded_flat_counting_query_tiled") if TILED else ()
-# The kernels of the flat counting pair: the wrapper's own choice (None), or
-# one held whatever the shape through sweep's private entries.
+BIT_TILED = hasattr(sweep, "_flat_insert_on")
+FLAT_TILED = (("flat_counting_update_tiled", "flat_counting_query_tiled",
+               "sharded_flat_counting_update_tiled", "sharded_flat_counting_query_tiled") if TILED else ()
+              ) + (("flat_insert_tiled", "sharded_flat_insert_tiled") if BIT_TILED else ())
+# The kernels of the flat counting pair and of the flat insert: the wrapper's
+# own choice (None), or one held whatever the shape through sweep's private
+# entries.
 COUNTING_KERNELS = ("thread_a_key", "tiled") if TILED else (None,)
+INSERT_KERNELS = ("thread_a_key", "tiled") if BIT_TILED else (None,)
 
 
 OTHER_KERNEL = {"tiled": "thread_a_key", "thread_a_key": "tiled"}
@@ -1238,10 +1269,12 @@ def flat_sharded_config(log2m: int, **kw) -> FilterConfig:
 def flat_update(state, keys, lengths, cfg, *, increment=True, route=None, plain=False,
                 kernel=None) -> None:
     """The flat insert (bit config) or counting update, kernel or plain; a
-    counting ``kernel`` ("tiled" or "thread_a_key") holds that kernel."""
+    ``kernel`` ("tiled" or "thread_a_key") holds that kernel."""
     if cfg.counting and kernel is not None and not plain:
         sweep._flat_counting_update_on(kernel == "tiled", state, keys, lengths, cfg,
                                        increment=increment, route=route)
+    elif kernel is not None and not plain:
+        sweep._flat_insert_on(kernel == "tiled", state, keys, lengths, cfg, route=route)
     elif cfg.counting:
         fn = counting.flat_counting_update_plain if plain else sweep.flat_counting_update
         fn(state, keys, lengths, cfg, increment=increment, route=route)
@@ -1261,6 +1294,19 @@ def flat_query(state, keys, lengths, cfg, *, route=None, plain=False, kernel=Non
         return sweep._flat_counting_query_on(kernel == "tiled", state, keys, lengths, cfg, route=route)
     fn = sweep.flat_counting_query if cfg.counting else sweep.flat_query
     return fn(state, keys, lengths, cfg, route=route)
+
+
+def other_kernel(cfg, variant: str, n: int, route, query: bool):
+    """The kernel a wrapper did not take for a launch of ``n`` keys, where
+    this tree has one that can hold the shape: None for the bit query (one
+    kernel), in a tree without the partitioned kernels, or where the
+    partition's plan refuses the shape."""
+    if (query and not cfg.counting) or not (TILED if cfg.counting else BIT_TILED):
+        return None
+    other = OTHER_KERNEL[variant]
+    if other == "tiled" and sweep.flat_tiled_scratch_bytes(cfg, n, route, query=query) < 0:
+        return None
+    return other
 
 
 def flat_batch(rng, prev: torch.Tensor, batch: int) -> tuple[torch.Tensor, torch.Tensor, int]:
@@ -1289,8 +1335,9 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
     absent keys, then the same at B_FLAT_SPARSE keys, which the wrappers
     give the other kernel of the counting pair. ``ops`` records each op's
     kernel (``variant``) and its ``max_abs_err`` against the plain version;
-    for the counting pair also (``other``) the same op through the kernel
-    the wrapper did not take."""
+    for the insert and the counting pair also (``other``) the same op
+    through the kernel the wrapper did not take, where the partition holds
+    the shape."""
     dev = torch.device("cuda")
     state = torch.zeros(sweep._state_words(cfg, route), dtype=torch.int32, device=dev).view(torch.uint32)
     full = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
@@ -1314,10 +1361,10 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
     out = {"m": cfg.m, "k": cfg.k, "batch": batch, "padded": n_pad, "owned": int(owned.sum()),
            "state_bytes": state.numel() * 4, "ops": {},
            "route": None if route is None else [route.n_shards, route.shard_lo, route.shards_per_dev]}
-    # the counting pair: each op also through the kernel the wrapper did not
-    # take, on a copy of the state, so both kernels meet every shape
+    # each op also through the kernel the wrapper did not take, on a copy of
+    # the state, so both kernels meet every shape the partition holds
     s_plain = clone_u32(state)
-    s_other = clone_u32(state) if cfg.counting and TILED else None
+    s_other = clone_u32(state)
     for op, k_, l_, increment in ops:
         before = tiled_launches()
         flat_update(state, k_, l_, cfg, increment=increment, route=route)
@@ -1326,8 +1373,10 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
         torch.cuda.synchronize()
         out["ops"][op] = {"variant": variant, "keys": k_.shape[0], "max_abs_err": max_abs_err(state, s_plain)}
         check(equal_words(state, s_plain), f"flat {op} state m={cfg.m} {out['route']} ({variant})")
+        other = other_kernel(cfg, variant, k_.shape[0], route, False)
+        if other is None:  # the other kernel's state would drift from here
+            s_other = None
         if s_other is not None:
-            other = OTHER_KERNEL[variant]
             flat_update(s_other, k_, l_, cfg, increment=increment, route=route, kernel=other)
             torch.cuda.synchronize()
             out["ops"][op]["other"] = {"variant": other, "max_abs_err": max_abs_err(s_other, s_plain)}
@@ -1353,8 +1402,8 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
                           "hits_old_half": int(q_k[: n // 2].sum()),
                           "owned_old_half": int(p_owned[: n // 2].sum()),
                           "hits_fresh_half": int(q_k[n // 2 :].sum())}
-        if cfg.counting and TILED:
-            other = OTHER_KERNEL[variant]
+        other = other_kernel(cfg, variant, n, route, True)
+        if other is not None:
             q_o = flat_query(state, probe, l_, cfg, route=route, kernel=other)
             torch.cuda.synchronize()
             check(torch.equal(q_o, q_p), f"flat {op} verdicts m={cfg.m} {out['route']} ({other})")
@@ -1370,6 +1419,7 @@ def flat_vs_plain(cfg: FilterConfig, batch: int, rng, route=None) -> dict:
 def phase_flat_kernel_vs_plain(rng) -> dict:
     one, quarter = ShardRoute(SHARDS, 0, SHARDS), ShardRoute(SHARDS, 16, SHARDS // N_SLOTS)
     cfg5 = flat_sharded_config(LOG2M_FLAT_SHARDED)
+    cfg5_dense = flat_sharded_config(LOG2M_FLAT_SMALL)  # the FPR check's state: the partitioned insert
     cfg45 = flat_sharded_config(LOG2M_FLAT_COUNTING, counting=True)
     runs = {
         "config2": flat_vs_plain(flat_config(), B_FLAT, rng),
@@ -1377,6 +1427,8 @@ def phase_flat_kernel_vs_plain(rng) -> dict:
         "config4": flat_vs_plain(flat_config(LOG2M_FLAT_COUNTING, K, counting=True), B_FLAT_COUNTING, rng),
         "config5_1_slot": flat_vs_plain(cfg5, B_FLAT_SHARDED, rng, one),
         "config5_slot_16_31": flat_vs_plain(cfg5, B_FLAT_SHARDED, rng, quarter),
+        "config5_m2_26_1_slot": flat_vs_plain(cfg5_dense, B_FLAT_SHARDED, rng, one),
+        "config5_m2_26_slot_16_31": flat_vs_plain(cfg5_dense, B_FLAT_SHARDED, rng, quarter),
         "configs4x5_1_slot": flat_vs_plain(cfg45, B_FLAT_COUNTING, rng, one),
         "configs4x5_slot_48_63": flat_vs_plain(cfg45, B_FLAT_COUNTING, rng, ShardRoute(SHARDS, 48, 16)),
     }
@@ -1388,7 +1440,8 @@ def phase_flat_kernel_vs_plain(rng) -> dict:
         return max(errs)
 
     bits, counts = ("config2", "config1_mod"), ("config4",)
-    sbits, scounts = ("config5_1_slot", "config5_slot_16_31"), ("configs4x5_1_slot", "configs4x5_slot_48_63")
+    sbits = ("config5_1_slot", "config5_slot_16_31", "config5_m2_26_1_slot", "config5_m2_26_slot_16_31")
+    scounts = ("configs4x5_1_slot", "configs4x5_slot_48_63")
     errs = {
         "flat_insert": worst(bits, False), "flat_query": worst(bits, True),
         "flat_counting_update": worst(counts, False), "flat_counting_query": worst(counts, True),
@@ -1397,7 +1450,8 @@ def phase_flat_kernel_vs_plain(rng) -> dict:
         "sharded_flat_counting_query": worst(scounts, True),
     }
     for name in FLAT_TILED:
-        names = scounts if name.startswith("sharded") else counts
+        sharded = name.startswith("sharded")
+        names = (sbits if sharded else bits) if "insert" in name else (scounts if sharded else counts)
         errs[name] = worst(names, "query" in name, "tiled")
     emit("flat_kernel_vs_plain", runs=runs, max_abs_err=errs, tolerance=0)
     return errs
@@ -1456,12 +1510,18 @@ def phase_flat_path(rng):
     big = rows(rng, B_FLAT)
     check(f.insert_packed(big) == B_FLAT, "insert_packed count")
     steps["insert_packed"] = sweep.launch_counts()
+    if BIT_TILED:
+        check(steps["insert_packed"]["flat_insert_tiled"] == 1 == steps["insert_packed"]["flat_insert"],
+              "config 2's insert_packed of 2^20 keys took flat_insert_tiled")
     check(f.include_packed(big).all(), "packed replay all present")
     steps["include_packed"] = sweep.launch_counts()
     lens = rng.integers(0, KEY_LEN + 1, 10_000)
     keys = [rng.bytes(int(n)) for n in lens] + [b"", b"a"]
     f.insert_batch(keys)
     steps["insert_batch"] = sweep.launch_counts()
+    if BIT_TILED:
+        check(steps["insert_batch"]["flat_insert"] == 2 and steps["insert_batch"]["flat_insert_tiled"] == 1,
+              "insert_batch of 10,002 bytes keys took the thread-a-key flat_insert")
     check(f.include_batch(keys).all(), "bytes keys all present")
     steps["include_batch"] = sweep.launch_counts()
     out["config2"] = {"n_inserted": f.n_inserted, "stats": f.stats(),
@@ -1543,7 +1603,7 @@ def phase_flat_path(rng):
     launches = sweep.launch_counts()
     for name in FLAT_KERNELS:
         check(launches[name] > 0, f"{name} launched on the flat path")
-    for name in FLAT_TILED:  # both kernels of each counting wrapper
+    for name in FLAT_TILED:  # both kernels of each insert and counting wrapper
         base = name.removesuffix("_tiled")
         check(launches[name] > 0 and launches[base] > launches[name],
               f"{name} and the thread-a-key {base} launched on the flat path")
@@ -1565,68 +1625,204 @@ def flat_footprint(cfg: FilterConfig, keys, lengths, route=None):
     return {**t, "distinct_sectors": int(torch.unique(widx[valid] >> 3).numel())}, widx, valid
 
 
+def query_reads(state, cfg: FilterConfig, keys, lengths, route=None) -> dict:
+    """What the bit query, which stops a key at its first zero bit, needs to
+    read of this state for these keys: each valid (owned) key's positions up
+    to and including its first zero bit (all k of a held key), and the
+    distinct 32-byte sectors of those reads over the launch (what its bound
+    counts)."""
+    valid, pos = bitops.routed_positions(keys, lengths, cfg, route)
+    words = state.view(torch.int32).reshape(-1)
+    zero = ((words[pos >> 5].to(torch.int64) >> (pos & 31)) & 1) == 0
+    k = pos.shape[1]
+    first = torch.where(zero.any(dim=1), zero.to(torch.int32).argmax(dim=1), k - 1)
+    read = (torch.arange(k, device=pos.device)[None, :] <= first[:, None]) & valid[:, None]
+    return {"keys": int(valid.sum()), "positions_read": int(read.sum()),
+            "distinct_sectors": int(torch.unique(pos[read] >> 8).numel())}
+
+
 def flat_bound(cfg: FilterConfig, n_keys: int, fp: dict, *, update: bool, routed: bool):
     """(bound ms, by, bytes): keys x 20 B in, the launch's distinct sectors
     x 32 B (read, and for an update written back), a verdict byte a key
-    out of a query; the flat hash and k position steps a valid key (and
-    the routing hash a key, routed) at the INT32 rate."""
+    out of a query; the flat hash a valid key and a step a position (k a
+    key, or the ``positions_read`` of a query that stops early), and the
+    routing hash a key, routed, at the INT32 rate."""
     nbytes = n_keys * (KEY_LEN + 4) + fp["distinct_sectors"] * 32 * (2 if update else 1)
     nbytes += 0 if update else n_keys
     step = OPS_FLAT_COUNTER if cfg.counting else OPS_FLAT_BIT
-    ops = (OPS_ROUTE * n_keys if routed else 0) + fp["keys"] * (OPS_FLAT_HASH + cfg.k * step)
+    positions = fp.get("positions_read", fp["keys"] * cfg.k)
+    ops = (OPS_ROUTE * n_keys if routed else 0) + fp["keys"] * OPS_FLAT_HASH + positions * step
     return (*bound(nbytes, ops), nbytes)
 
 
-def flat_pair_times(name: str, state, cfg, batches, lengths, fresh, route=None) -> dict:
-    """The times of one flat insert kernel and its query, each beside its
-    bound, its plain version and, for the query, the gather ``words[widx]``
-    of the launch's B k words."""
+def query_group_ms(state, cfg, batches, lengths) -> dict | None:
+    """The bit query's ms a launch with each key's loads issued G at a time,
+    for G in QUERY_GROUPS (flat_bloom.cu ``tpb_flat_query_group``; the
+    kernel ships kFlatQueryGroup), cycling through ``batches``, each G timed
+    twice in turns (1, 2, 4, 4, 2, 1) and averaged; its verdicts are first
+    held against the wrapper's. None in a tree without the entry."""
+    lib = sweep._flat_library()
+    if not hasattr(lib, "tpb_flat_query_group"):
+        return None
+    out = torch.empty(lengths.numel(), dtype=torch.uint8, device=state.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(g):
+        def run(i):
+            keys = batches[i % len(batches)]
+            err = lib.tpb_flat_query_group(state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+                                           out.data_ptr(), keys.shape[0], keys.shape[1], cfg.m, cfg.k,
+                                           cfg.seed, g, stream)
+            check(err == 0, f"tpb_flat_query_group({g}) launch")
+        return run
+
+    for g in QUERY_GROUPS:
+        launch(g)(0)
+        check(torch.equal(out.view(torch.bool), flat_query(state, batches[0], lengths, cfg)),
+              f"query group {g} verdicts")
+    ms = {g: [] for g in QUERY_GROUPS}
+    for g in (*QUERY_GROUPS, *reversed(QUERY_GROUPS)):
+        ms[g].append(cuda_ms(launch(g), 40, warm=4))
+    return {str(g): sum(v) / len(v) for g, v in ms.items()}
+
+
+def bits_set(state: torch.Tensor) -> int:
+    """The set bits of a flat bit state, counted on the card."""
+    table = torch.tensor([bin(b).count("1") for b in range(256)], dtype=torch.uint8, device=state.device)
+    return int(table[state.view(torch.uint8).reshape(-1).to(torch.int64)].sum(dtype=torch.int64))
+
+
+def config2_traffic(cfg, fresh) -> dict:
+    """Config 2's own traffic (benchmarks/run.py config2 at scale 1): on a
+    fresh state, the insert of N_CONFIG2 keys made on the card from SEED in
+    launches of B_FLAT (95, then a tail of 385,280 valid keys, padded), and
+    the fill it reaches (run.py's ~0.606); the query of the first batch
+    inserted (held) and of a fresh batch (absent) in turns, as run.py's query
+    loop alternates seed 0 and seed 10^6, each held against the plain
+    version, and each alone; the query group sizes on that traffic; then the
+    insert of ``fresh`` batches into the full state on each insert kernel."""
+    dev = torch.device("cuda")
+    n = B_FLAT
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def batch():
+        return torch.randint(0, 256, (n, KEY_LEN), dtype=torch.uint8, device=dev, generator=gen)
+
+    full = torch.full((n,), KEY_LEN, dtype=torch.int32, device=dev)
+    steps, tail = divmod(N_CONFIG2, n)
+    state = torch.zeros(cfg.n_words, dtype=torch.int32, device=dev).view(torch.uint32)
+    held = batch()
+    flat_update(state, held, full, cfg)
+    for _ in range(steps - 1):
+        flat_update(state, batch(), full, cfg)
+    t_len = full.clone()
+    t_len[tail:] = -1
+    flat_update(state, batch(), t_len, cfg)
+    absent = batch()
+    out = {"keys": N_CONFIG2, "launches": steps + 1, "fill": bits_set(state) / cfg.m,
+           "model_fill": 1 - math.exp(-cfg.k * N_CONFIG2 / cfg.m)}
+    for label, keys in (("held", held), ("absent", absent)):
+        got = flat_query(state, keys, full, cfg)
+        check(torch.equal(got, flat_query(state, keys, full, cfg, plain=True)),
+              f"config 2 traffic: {label} verdicts")
+        out[f"{label}_hits"] = int(got.sum())
+        out[f"{label}_reads"] = query_reads(state, cfg, keys, full)
+        out[f"{label}_bound_ms"] = flat_bound(cfg, n, out[f"{label}_reads"], update=False, routed=False)[0]
+    out["query_bound_ms"] = (out["held_bound_ms"] + out["absent_bound_ms"]) / 2  # a launch, in turns
+    check(out["held_hits"] == n, "config 2 traffic: the held batch present")
+    pair = [held, absent]
+    out["query_ms"] = cuda_ms(lambda i: flat_query(state, pair[i % 2], full, cfg), 40, warm=4)
+    out["query_held_ms"] = cuda_ms(lambda i: flat_query(state, held, full, cfg), 40, warm=4)
+    out["query_absent_ms"] = cuda_ms(lambda i: flat_query(state, absent, full, cfg), 40, warm=4)
+    out["query_group_ms"] = query_group_ms(state, cfg, pair, full)
+    for kernel in INSERT_KERNELS:
+        out[f"insert_{kernel or 'wrapper'}_ms"] = fresh_ms(
+            state, lambda i: flat_update(state, fresh[i % len(fresh)], full, cfg, kernel=kernel), 20)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def flat_pair_times(name: str, state, cfg, batches, lengths, fresh, crowd, route=None) -> dict:
+    """The times of the flat insert on each of its kernels that can take the
+    shape (in a tree without the partitioned insert, the wrapper's) and of
+    its query, each beside its bound, its plain version and, for the query,
+    the gather ``words[widx]`` of the launch's B k words. The insert's
+    ``ms`` is fresh (``fresh`` batches), ``replay_ms`` a re-insert of
+    ``batches``, ``crowd_ms`` a fresh insert of ``crowd`` (an eighth of it
+    one key). The query's ``ms`` is on ``batches`` before they are
+    inserted (absent keys), ``present_ms`` after; unrouted, also with each
+    group size of loads in flight (``group_ms``, ``present_group_ms``)."""
     n = lengths.numel()
     routed = route is not None
     qname = name.replace("insert", "query")
+    c_keys, c_len = crowd
 
-    def upd(keys, plain=False):
-        return lambda i: flat_update(state, keys(i), lengths, cfg, route=route, plain=plain)
+    def upd(keys, lens=lengths, plain=False, kernel=None):
+        return lambda i: flat_update(state, keys(i), lens, cfg, route=route, plain=plain, kernel=kernel)
 
     def qry(plain=False):
         return lambda i: flat_query(state, batches[i % 4], lengths, cfg, route=route, plain=plain)
 
     q_ms = cuda_ms(qry(), 40, warm=4)  # the batches before they are inserted
-    u = {"replay_ms": cuda_ms(upd(lambda i: batches[i % 4]), 40, warm=4)}  # inserts, then re-inserts
-    u["ms"] = fresh_ms(state, upd(lambda i: fresh[i % 4]), 40)
-    u["plain_ms"] = cuda_ms(upd(lambda i: batches[i % 4], plain=True), 3, warm=1)
+    q_groups = None if routed else query_group_ms(state, cfg, batches, lengths)
+    reads = query_reads(state, cfg, batches[0], lengths, route)
     fp_u, _, _ = flat_footprint(cfg, fresh[0], lengths, route)
+    ub, uby, u_bytes = flat_bound(cfg, n, fp_u, update=True, routed=routed)
+    kernels = [k for k in INSERT_KERNELS
+               if k != "tiled" or sweep.flat_tiled_scratch_bytes(cfg, n, route, query=False) >= 0]
+    out = {}
+    for kernel in kernels:
+        u = {"replay_ms": cuda_ms(upd(lambda i: batches[i % 4], kernel=kernel), 40, warm=4)}
+        u["ms"] = fresh_ms(state, upd(lambda i: fresh[i % 4], kernel=kernel), 40)
+        u["crowd_ms"] = fresh_ms(state, upd(lambda i: c_keys, c_len, kernel=kernel), 20)
+        out[name + ("_tiled" if kernel == "tiled" else "")] = {
+            **u, "keys_per_s": n / u["ms"] * 1e3, "library_ms": None, "bound_ms": ub, "bound_by": uby,
+            "bytes": u_bytes, "share_of_bound": ub / u["ms"], "touched": fp_u, **rates(fp_u, u["ms"])}
+    u_plain = cuda_ms(upd(lambda i: batches[i % 4], plain=True), 3, warm=1)
+    for v in out.values():
+        v["plain_ms"] = u_plain
+    if "tiled" in kernels:  # its six launches, on re-inserts of the fresh batches
+        out[name + "_tiled"]["by_kernel_ms"] = kernel_ms(upd(lambda i: fresh[i % 4], kernel="tiled"))
+        out[name + "_tiled"]["partition"] = flat_partition(cfg, fresh[0], lengths, route)
+        out[name + "_tiled"]["crowd_partition"] = flat_partition(cfg, c_keys, c_len, route)
     qpres_ms = cuda_ms(qry(), 40, warm=4)
+    p_groups = None if routed else query_group_ms(state, cfg, batches, lengths)
+    p_reads = query_reads(state, cfg, batches[0], lengths, route)
     qp_ms = cuda_ms(qry(plain=True), 3, warm=1)
     fp_q, widx, _ = flat_footprint(cfg, batches[0], lengths, route)
     words, flat_idx = state.view(torch.int32).reshape(-1), widx.reshape(-1)
     lib_ms = cuda_ms(lambda i: torch.index_select(words, 0, flat_idx), 40, warm=4)
-    ub, uby, u_bytes = flat_bound(cfg, n, fp_u, update=True, routed=routed)
-    qb, qby, q_bytes = flat_bound(cfg, n, fp_q, update=False, routed=routed)
-    return {
-        name: {**u, "keys_per_s": n / u["ms"] * 1e3, "library_ms": None, "bound_ms": ub,
-               "bound_by": uby, "bytes": u_bytes, "share_of_bound": ub / u["ms"], "touched": fp_u,
-               **rates(fp_u, u["ms"])},
-        qname: {"ms": q_ms, "present_ms": qpres_ms, "keys_per_s": n / q_ms * 1e3, "plain_ms": qp_ms,
-                "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby, "bytes": q_bytes,
-                "share_of_bound": qb / q_ms, "touched": fp_q},
-    }
+    qb, qby, q_bytes = flat_bound(cfg, n, reads, update=False, routed=routed)
+    pb = flat_bound(cfg, n, p_reads, update=False, routed=routed)[0]
+    out[qname] = {"ms": q_ms, "present_ms": qpres_ms, "keys_per_s": n / q_ms * 1e3, "plain_ms": qp_ms,
+                  "library_ms": lib_ms, "bound_ms": qb, "bound_by": qby, "bytes": q_bytes,
+                  "share_of_bound": qb / q_ms, "present_bound_ms": pb, "present_share_of_bound": pb / qpres_ms,
+                  "reads": reads, "present_reads": p_reads, "touched": fp_q, "group_ms": q_groups,
+                  "present_group_ms": p_groups}
+    return out
 
 
 def flat_partition(cfg, keys, lengths, route=None) -> dict:
-    """What a partitioned launch of these keys puts in flat_counting.cu's
+    """What a partitioned launch of these keys puts in flat_partition.cuh's
     tiles (its tile and piece read back from the library): tiles touched,
     the fullest tile's entries, sweep CTAs, and the scratch it plans."""
     n = keys.shape[0]
     tile_log2, piece = sweep.flat_tile_geometry()
-    per_tile = counting.flat_tile_counts_plain(keys, lengths, cfg, tile_log2, route)
+    # a tree before the bit insert's partition counts only counters, in counting
+    tile_counts = getattr(bitops, "flat_tile_counts_plain", None) or counting.flat_tile_counts_plain
+    per_tile = tile_counts(keys, lengths, cfg, tile_log2, route)
     pieces = (per_tile + piece - 1) // piece
     share = 1.0 if route is None else route.shards_per_dev / route.n_shards
-    return {"crossover": sweep.FLAT_TILE_CROSSOVER, "query_crossover": sweep.FLAT_TILE_QUERY_CROSSOVER,
-            "expected_per_sector": n * cfg.k * share / (sweep._state_words(cfg, route) / 8),
+    if cfg.counting:
+        plan = {"crossover": sweep.FLAT_TILE_CROSSOVER, "query_crossover": sweep.FLAT_TILE_QUERY_CROSSOVER,
+                "update_scratch_bytes": sweep.flat_tiled_scratch_bytes(cfg, n, route, query=False),
+                "query_scratch_bytes": sweep.flat_tiled_scratch_bytes(cfg, n, route, query=True)}
+    else:
+        plan = {"crossover": sweep.FLAT_BIT_TILE_CROSSOVER,
+                "insert_scratch_bytes": sweep.flat_tiled_scratch_bytes(cfg, n, route, query=False)}
+    return {**plan, "expected_per_sector": n * cfg.k * share / (sweep._state_words(cfg, route) / 8),
             "tile_log2": tile_log2, "piece": piece, "n_tiles": int(per_tile.numel()),
-            "update_scratch_bytes": sweep.flat_tiled_scratch_bytes(cfg, n, route, query=False),
-            "query_scratch_bytes": sweep.flat_tiled_scratch_bytes(cfg, n, route, query=True),
             "tiles_touched": int((per_tile > 0).sum()), "max_tile_entries": int(per_tile.max()),
             "sweep_ctas": int(pieces.sum())}
 
@@ -1875,6 +2071,31 @@ def flat_counting_times(name: str, state, cfg, batches, lengths, crowd, route=No
     return out
 
 
+def dense_routed_insert(rng) -> dict:
+    """The routed partitioned insert at a dense sharded shape, config 2's
+    m=2^30 bits and k=10 over 64 shards on one slot (config 5 flat's own
+    2^18-key batch on 2^36 bits stays on the thread-a-key kernel, whose
+    plan its 2^17 tiles would exceed too), at config 2's batch: its times
+    as flat_pair_times gives them, and the thread-a-key kernel's
+    (``thread_a_key_ms``) on the same state."""
+    g = ShardedBloomFilter(FilterConfig(m=1 << LOG2M_FLAT, k=K_FLAT, key_len=KEY_LEN, shards=SHARDS))
+    state, route = g.slot_words[0], g.routes[0]
+    dev = state.device
+    flat_update(state, torch.from_numpy(rows(rng, B_FLAT)).to(dev),
+                torch.full((B_FLAT,), KEY_LEN, dtype=torch.int32, device=dev), g.config, route=route)
+    batches = [torch.from_numpy(rows(rng, B_FLAT)).to(dev) for _ in range(4)]
+    fresh = [torch.from_numpy(rows(rng, B_FLAT)).to(dev) for _ in range(4)]
+    lengths = torch.full((B_FLAT,), KEY_LEN, dtype=torch.int32, device=dev)
+    crowd = flat_batch(rng, batches[0], B_FLAT)[:2]
+    t = flat_pair_times("sharded_flat_insert", state, g.config, batches, lengths, fresh, crowd, route)
+    out = t["sharded_flat_insert_tiled"]
+    out.update(shape={"m": g.config.m, "k": g.config.k, "shards": SHARDS, "batch": B_FLAT},
+               thread_a_key_ms=t["sharded_flat_insert"]["ms"], query_ms=t["sharded_flat_query"]["ms"])
+    del g, state, batches, fresh, crowd
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_flat_times(f, c, s1, sc1, rng) -> dict:
     out = {}
     for name, state, cfg, route, batch in (
@@ -1886,28 +2107,50 @@ def phase_flat_times(f, c, s1, sc1, rng) -> dict:
         dev = state.device
         batches = [torch.from_numpy(rows(rng, batch)).to(dev) for _ in range(4)]
         lengths = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
+        crowd = flat_batch(rng, batches[0], batch)[:2]
         if cfg.counting:
-            crowd = flat_batch(rng, batches[0], batch)[:2]
             out.update(flat_counting_times(name, state, cfg, batches, lengths, crowd, route))
-            del crowd
         else:
             fresh = [torch.from_numpy(rows(rng, batch)).to(dev) for _ in range(4)]
-            out.update(flat_pair_times(name, state, cfg, batches, lengths, fresh, route))
+            out.update(flat_pair_times(name, state, cfg, batches, lengths, fresh, crowd, route))
+            if route is None:  # config 2's own traffic, on its insert kernels and query
+                traffic = config2_traffic(cfg, fresh)
+                out["flat_query"]["config2_traffic"] = traffic
+                out["flat_query"]["config2_ms"] = traffic["query_ms"]
+                for kernel in INSERT_KERNELS:
+                    suffix = "_tiled" if kernel == "tiled" else ""
+                    out[name + suffix]["config2_ms"] = traffic[f"insert_{kernel or 'wrapper'}_ms"]
             del fresh
-        del batches
+        del batches, crowd
+    if BIT_TILED:
+        out["sharded_flat_insert_tiled"] = dense_routed_insert(rng)
     emit("flat_times", **out)
     return out
 
 
-def phase_flat_crossover(c, rng) -> dict:
+def crossover_at(runs: list, op: str):
+    """The smallest positions a sector from which the partitioned kernel is
+    the faster at every larger batch of ``runs``, or None."""
+    at = None
+    for r in reversed(runs):
+        if r[f"tiled_{op}_ms"] >= r[f"thread_a_key_{op}_ms"]:
+            break
+        at = r["positions_per_sector"]
+    return at
+
+
+def phase_flat_crossover(f, c, rng) -> dict:
     """Both kernels of the flat counting pair on config 4 flat's state over
     B = 2^13 .. 2^22: an insert then a delete of the same batch, and the
     query on config 4's own traffic (the batch's first half inserted
     before it and deleted after it, so half held and half absent) and on
-    absent keys. The crossover of each is the smallest B from which the
-    partitioned kernel is the faster at every larger B (the query's, on
-    config 4's traffic), given as positions per 32-byte sector of the state
-    (what sweep.FLAT_TILE_CROSSOVER and FLAT_TILE_QUERY_CROSSOVER hold)."""
+    absent keys; and both kernels of the flat insert on config 2's state
+    over B = 2^13 .. 2^20, fresh inserts (the state restored and the L2
+    flushed before each). The crossover of each is the smallest B from
+    which the partitioned kernel is the faster at every larger B (the
+    counting query's, on config 4's traffic), given as positions per
+    32-byte sector of the state (what sweep.FLAT_TILE_CROSSOVER,
+    FLAT_TILE_QUERY_CROSSOVER and FLAT_BIT_TILE_CROSSOVER hold)."""
     cfg, state = c.config, c.words
     sectors = sweep._state_words(cfg) / 8
     top = 1 << max(LOG2B_CROSSOVER)
@@ -1929,19 +2172,28 @@ def phase_flat_crossover(c, rng) -> dict:
             row.update({f"{kernel}_update_ms": (i_ms + d_ms) / 2, f"{kernel}_query_ms": q_ms,
                         f"{kernel}_query_absent_ms": qa_ms})
         runs.append(row)
-
-    def crossover(op: str):
-        at = None
-        for r in reversed(runs):
-            if r[f"tiled_{op}_ms"] >= r[f"thread_a_key_{op}_ms"]:
-                break
-            at = r["positions_per_sector"]
-        return at
-
-    out = {"runs": runs, "update_crossover": crossover("update"), "query_crossover": crossover("query"),
-           "query_absent_crossover": crossover("query_absent"),
+    out = {"runs": runs, "update_crossover": crossover_at(runs, "update"),
+           "query_crossover": crossover_at(runs, "query"),
+           "query_absent_crossover": crossover_at(runs, "query_absent"),
            "crossover_in_use": sweep.FLAT_TILE_CROSSOVER,
            "query_crossover_in_use": sweep.FLAT_TILE_QUERY_CROSSOVER}
+    del big
+    if BIT_TILED:
+        cfg, state = f.config, f.words
+        sectors = cfg.n_words / 8
+        fresh = [torch.from_numpy(rows(rng, 1 << max(LOG2B_BIT_CROSSOVER))).to(state.device)
+                 for _ in range(2)]
+        bit_runs = []
+        for lb in LOG2B_BIT_CROSSOVER:
+            n = 1 << lb
+            row = {"batch": n, "positions_per_sector": n * cfg.k / sectors}
+            for kernel in ("thread_a_key", "tiled"):
+                row[f"{kernel}_insert_ms"] = fresh_ms(
+                    state, lambda i: flat_update(state, fresh[i % 2][:n], full[:n], cfg, kernel=kernel), 20)
+            bit_runs.append(row)
+        out.update(insert_runs=bit_runs, insert_crossover=crossover_at(bit_runs, "insert"),
+                   insert_crossover_in_use=sweep.FLAT_BIT_TILE_CROSSOVER)
+        del fresh
     emit("flat_crossover", **out)
     return out
 
@@ -1950,7 +2202,8 @@ def phase_flat_end_to_end(f, c, s1, s4, rng, times: dict) -> None:
     big, bigc, bigs = rows(rng, B_FLAT), rows(rng, B_FLAT_COUNTING), rows(rng, B_FLAT_SHARDED)
     small = [bytes(r) for r in rows(rng, 1 << 16)]
     emit("flat_end_to_end", **time_calls((
-        ("insert_packed", B_FLAT, lambda: f.insert_packed(big), times["flat_insert"]["ms"]),
+        ("insert_packed", B_FLAT, lambda: f.insert_packed(big),
+         times["flat_insert_tiled" if BIT_TILED else "flat_insert"]["ms"]),
         ("include_packed", B_FLAT, lambda: f.include_packed(big), times["flat_query"]["ms"]),
         ("counting_insert_packed", B_FLAT_COUNTING, lambda: c.insert_packed(bigc),
          times["flat_counting_update_tiled"]["ms"]),
@@ -1972,7 +2225,11 @@ def phase_flat_end_to_end(f, c, s1, s4, rng, times: dict) -> None:
 GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
                 "sharded_blocked_insert", "sharded_blocked_counting_update",
                 "sharded_blocked_query")
-EXTRA_TIMES = ("replay_ms", "present_ms", "delete_ms", "sparse_ms", "mix_ms")
+EXTRA_TIMES = ("replay_ms", "present_ms", "delete_ms", "sparse_ms", "mix_ms", "crowd_ms", "config2_ms")
+# The flat kernels' sources and designs.
+FLAT_SOURCE = {"flat_insert_tiled": "flat_bits.cu", "sharded_flat_insert_tiled": "flat_bits.cu"}
+FLAT_DESIGN = {"flat_query": "thread a key, stops at its first zero bit",
+               "sharded_flat_query": "thread a key, stops at its first zero bit"}
 
 
 # The flat kernels have no Pallas counterpart: each replaces the XLA ops of
@@ -2034,11 +2291,12 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
         launches = f_launches[name] - f_launches.get(f"{name}_tiled", 0)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"tpubloom_torch/csrc/{'flat_counting' if tiled else 'flat_bloom'}.cu",
+            "source": "tpubloom_torch/csrc/" + FLAT_SOURCE.get(name, "flat_counting.cu" if tiled
+                                                               else "flat_bloom.cu"),
             "replaces": FLAT_REPLACES[name.removesuffix("_tiled")], "launches": launches,
             "max_abs_err": f_errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "design": "partitioned by tile" if tiled else "thread a key",
+            "design": "partitioned by tile" if tiled else FLAT_DESIGN.get(name, "thread a key"),
             **{k: t[k] for k in EXTRA_TIMES if k in t},
         })
     return kernels
@@ -2082,7 +2340,7 @@ def times_only() -> dict:
         sc1.insert_packed(rows(rng, B_FLAT_COUNTING))
         out["flat_times"] = phase_flat_times(f, c, s1, sc1, rng)
         if TILED:
-            out["flat_crossover"] = phase_flat_crossover(c, rng)
+            out["flat_crossover"] = phase_flat_crossover(f, c, rng)
     return out
 
 
@@ -2103,7 +2361,8 @@ def phase_ab(other: Path, times: bool = True) -> None:
         run = json.loads(proc.stdout.strip().splitlines()[-1])["times_only"]
         runs.append({"tree": label, "path": str(tree), **run})
         summary = {name: {k: v for k, v in run[phase][name].items()
-                          if k in ("ms", "present_ms", "replay_ms", "delete_ms", "sparse_ms",
+                          if k in ("ms", "present_ms", "replay_ms", "delete_ms", "sparse_ms", "config2_ms",
+                                   "group_ms", "present_group_ms",
                                    "sparse_delete_ms", "sparse_device_ms", "crowd_ms", "half_full_ms",
                                    "mix_ms", "sparse_host", "share_of_bound")}
                    for phase, name in (("times", "blocked_insert"), ("times", "blocked_query"),
@@ -2177,7 +2436,7 @@ def main(argv: list[str]) -> int:
     f_errs = phase_flat_kernel_vs_plain(rng)
     f_launches, ff, fc, fs1, fs4, fsc1 = phase_flat_path(rng)
     f_times = phase_flat_times(ff, fc, fs1, fsc1, rng)
-    phase_flat_crossover(fc, rng)
+    phase_flat_crossover(ff, fc, rng)
     phase_flat_end_to_end(ff, fc, fs1, fs4, rng, f_times)
     del ff, fc, fs1, fs4, fsc1
     torch.cuda.empty_cache()

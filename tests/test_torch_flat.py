@@ -273,7 +273,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert {n for n in sweep.LAUNCHES if "flat" in n} == {
         f"{p}flat_{op}" for p in ("", "sharded_")
         for op in ("insert", "query", "counting_update", "counting_query",
-                   "counting_update_tiled", "counting_query_tiled")
+                   "counting_update_tiled", "counting_query_tiled", "insert_tiled")
     }
 
 

@@ -2,7 +2,7 @@
 from the CPU: the wrapper's choice of kernel (``sweep.flat_takes_tiles``,
 pure Python: positions a state sector against the crossovers, routed
 slots by their owned share), the plain partition
-(``counting.flat_tile_counts_plain``) against positions from
+(``bitops.flat_tile_counts_plain``) against positions from
 ``tpubloom``'s numpy oracle, and the plain flat counting update and query
 against ``tpubloom``'s ``make_counter_fn`` / ``make_counting_query_fn`` on a
 dense batch with a crowd (the shape that takes the partitioned kernels on
@@ -22,7 +22,7 @@ import tpubloom
 from tpubloom.cpu_ref import murmur3_32_np, positions_np
 from tpubloom.filter import make_counter_fn, make_counting_query_fn
 from tpubloom_torch import FilterConfig
-from tpubloom_torch.ops import counting, sweep
+from tpubloom_torch.ops import bitops, counting, sweep
 from tpubloom_torch.ops.hashing import ShardRoute
 
 L = 16
@@ -88,7 +88,7 @@ def test_tile_counts_match_the_oracle(tile_log2):
     rng = np.random.default_rng(tile_log2)
     keys, lengths = _keys(rng, 3000, crowd=200)
     lengths[-50:] = -1
-    got = counting.flat_tile_counts_plain(torch.from_numpy(keys), torch.from_numpy(lengths), cfg,
+    got = bitops.flat_tile_counts_plain(torch.from_numpy(keys), torch.from_numpy(lengths), cfg,
                                           tile_log2)
     pos = positions_np(keys[:-50], lengths[:-50], m=cfg.m, k=cfg.k, seed=cfg.seed)
     want = np.bincount((pos >> np.uint64(tile_log2 + 3)).astype(np.int64).ravel(),
@@ -106,7 +106,7 @@ def test_routed_tile_counts_land_in_the_keys_shards(shard_lo, spd):
     rng = np.random.default_rng(shard_lo + spd)
     keys, lengths = _keys(rng, 4000)
     tile_log2 = 10  # 1,024 words a tile, 8 a shard of 2^16 counters
-    got = counting.flat_tile_counts_plain(torch.from_numpy(keys), torch.from_numpy(lengths), cfg,
+    got = bitops.flat_tile_counts_plain(torch.from_numpy(keys), torch.from_numpy(lengths), cfg,
                                           tile_log2, route).numpy()
     assert got.shape == (spd * 8,)
     shard = murmur3_32_np(keys, lengths, cfg.seed ^ 0x517CC1B7) % 16

@@ -30,6 +30,8 @@ the partitioned query's probe answers most keys; each checks which kernel
 ran from the launch counts, and both kernels are also held on the same
 shapes through the wrappers' private entries."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -132,11 +134,11 @@ def test_flat_kernels_match_plain(cuda, counting_layout, m, k, key_len):
     assert bool(hits.any())
     name = "flat_counting_update" if counting_layout else "flat_insert"
     query = "flat_counting_query" if counting_layout else "flat_query"
-    tiled = _tiled_calls(cfg, [b[0].shape[0] for b in batches], query=False) if counting_layout else 0
-    tiled_q = _tiled_calls(cfg, [probe[0].shape[0]], query=True) if counting_layout else 0
-    assert sweep.launch_counts() == {**dict.fromkeys(sweep.LAUNCHES, 0), name: 4, query: 1,
-                                     **({f"{name}_tiled": tiled, f"{query}_tiled": tiled_q}
-                                        if counting_layout else {})}
+    expect = {name: 4, query: 1,
+              f"{name}_tiled": _tiled_calls(cfg, [b[0].shape[0] for b in batches], query=False)}
+    if counting_layout:
+        expect[f"{query}_tiled"] = _tiled_calls(cfg, [probe[0].shape[0]], query=True)
+    assert sweep.launch_counts() == {**dict.fromkeys(sweep.LAUNCHES, 0), **expect}
 
 
 @pytest.mark.parametrize("counting_layout", [False, True])
@@ -195,10 +197,10 @@ def test_flat_routed_kernels_match_plain(cuda, n_slots, counting_layout, m, key_
             assert bool(owned.any()) and not bool(owned.all())
     name = "sharded_flat_counting_update" if counting_layout else "sharded_flat_insert"
     query = "sharded_flat_counting_query" if counting_layout else "sharded_flat_query"
-    expect = {name: 3 * n_slots, query: n_slots}
+    route = ShardRoute(16, 0, spd)  # every slot has the same geometry
+    expect = {name: 3 * n_slots, query: n_slots,
+              f"{name}_tiled": n_slots * _tiled_calls(cfg, [4096 + 13, 2048, 3000], route)}
     if counting_layout:
-        route = ShardRoute(16, 0, spd)  # every slot has the same geometry
-        expect[f"{name}_tiled"] = n_slots * _tiled_calls(cfg, [4096 + 13, 2048, 3000], route)
         expect[f"{query}_tiled"] = n_slots * _tiled_calls(cfg, [3000], route, query=True)
     assert sweep.launch_counts() == {**dict.fromkeys(sweep.LAUNCHES, 0), **expect}
 
@@ -425,3 +427,220 @@ def test_flat_counting_partitioned_config_4_traffic(cuda, k):
         assert torch.equal(got.cpu(), want.cpu()), tiled
         assert bool(got[n // 2 : n].all()) and not bool(got[n:].any())
         assert int(got[: n // 2].sum()) < n // 8  # the deleted keys: false positives only
+
+
+# -- the partitioned flat bit insert and the early-exit bit query --------------------
+
+
+def _check_insert_ops(state, cfg, batches, route=None):
+    """Each batch through the wrapper's insert, which must take the kernel
+    its crossover names; the other kernel runs it too, on a copy of the
+    state, and the plain version on another: the words of all three must
+    be equal after every batch. Returns the kernels taken, in order."""
+    taken = []
+    other = _clone(state)
+    for step, (keys, lengths) in enumerate(batches):
+        s_p = _clone(state)
+        before = sweep.launch_counts()
+        sweep.flat_insert(state, keys, lengths, cfg, route=route)
+        taken.append(_variant(before))
+        assert taken[-1] == _planned(cfg, keys.shape[0], route, False)
+        sweep._flat_insert_on(taken[-1] != "tiled", other, keys, lengths, cfg, route=route)
+        bitops.flat_insert_plain(s_p, keys, lengths, cfg, route)
+        torch.cuda.synchronize()
+        assert _equal(state, s_p), (step, taken[-1])
+        assert _equal(other, s_p), (step, "the other kernel")
+    return taken
+
+
+def _check_bit_query(state, cfg, keys, lengths, route=None):
+    """The query kernel (and each group size the library times) against
+    the plain version; padding and keys the slot does not own answer
+    False."""
+    got = sweep.flat_query(state, keys, lengths, cfg, route=route)
+    want = bitops.flat_query_plain(state, keys, lengths, cfg, route)
+    assert torch.equal(got.cpu(), want.cpu())
+    owned, _ = bitops.routed_positions(keys, lengths, cfg, route)
+    assert not bool(got[~owned].any())
+    if route is None:
+        fn = sweep._flat_library().tpb_flat_query_group
+        for group in (1, 2, 4):
+            out = torch.empty(keys.shape[0], dtype=torch.uint8, device=state.device)
+            err = fn(state.data_ptr(), keys.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                     keys.shape[0], keys.shape[1], *sweep._flat_args(cfg, None),
+                     group, torch.cuda.current_stream().cuda_stream)
+            assert err == 0
+            assert torch.equal(out.view(torch.bool).cpu(), want.cpu()), group
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 2, 10])
+def test_flat_insert_partitioned_matches_plain(cuda, k):
+    """m = 2^22 bits (8 tiles): a dense batch of 2^16 keys (duplicates,
+    padding) takes the partitioned insert, a batch of 16 keys the
+    thread-a-key one; then a crowd of one key over half a batch."""
+    cfg = FilterConfig(m=1 << 22, k=k, key_len=16)
+    rng = np.random.default_rng(800 + k)
+    state = _zeros(cfg.n_words, cuda)
+    dense, sparse = _batch(rng, 1 << 16, cuda), _batch(rng, 16, cuda)
+    crowd = _batch(rng, 1 << 16, cuda, crowd=1 << 15)
+    taken = _check_insert_ops(state, cfg, [dense, sparse, crowd, dense])
+    assert taken == ["tiled", "thread_a_key", "tiled", "tiled"]
+    probe = (torch.cat([dense[0][: 1 << 15], crowd[0][-(1 << 15):]]),
+             torch.cat([dense[1][: 1 << 15], crowd[1][-(1 << 15):]]))
+    hits = _check_bit_query(state, cfg, *probe)
+    assert bool(hits[: (1 << 15)][probe[1][: 1 << 15] >= 0].all())
+
+
+@pytest.mark.parametrize("m,n_tiles,last", [(10_000_000, 20, 1204), (524_384, 2, 3)])
+def test_flat_insert_partitioned_ragged_m(cuda, m, n_tiles, last):
+    """m = 10,000,000 bits (the mod walk): 312,500 words, 20 tiles, the last
+    of 1,204 words; m = 32 x 16,387 bits: two tiles, the last of 3 words (a
+    bit state's words need not be a multiple of 4). Keys of 28 bytes hash
+    from memory."""
+    cfg = FilterConfig(m=m, k=7, key_len=28)
+    tile_log2, _ = sweep.flat_tile_geometry()
+    assert (-(-cfg.n_words >> tile_log2), cfg.n_words - ((n_tiles - 1) << tile_log2)) == (n_tiles, last)
+    rng = np.random.default_rng(last)
+    state = _zeros(cfg.n_words, cuda)
+    batches = [_batch(rng, 1 << 16, cuda, key_len=28), _batch(rng, 50, cuda, key_len=28),
+               _batch(rng, (1 << 16) + 77, cuda, key_len=28, crowd=1 << 13)]
+    taken = _check_insert_ops(state, cfg, batches)  # the 50 keys: the crossover decides
+    assert taken[0] == taken[2] == "tiled"
+    _check_bit_query(state, cfg, *_batch(rng, 4000, cuda, key_len=28))
+
+
+@pytest.mark.parametrize("k", [1, 7])
+def test_flat_insert_partitioned_shared_tiles(cuda, k):
+    """One tile (m = 2^19 bits) and 2^15 keys: up to 14 sweep CTAs share it,
+    each ORing its own mask tile into the state; the fill stays below 1, so a
+    lost OR would show. Then a crowd of one key over the whole batch."""
+    cfg = FilterConfig(m=1 << 19, k=k, key_len=16)
+    rng = np.random.default_rng(1900 + k)
+    state = _zeros(cfg.n_words, cuda)
+    batches = [_batch(rng, 1 << 15, cuda, n_pad=0), _batch(rng, 1 << 15, cuda, crowd=1 << 15)]
+    assert _check_insert_ops(state, cfg, batches) == ["tiled", "tiled"]
+    words = state.view(torch.int32).cpu().numpy().view(np.uint32)
+    fill = int(np.unpackbits(words.view(np.uint8)).sum()) / cfg.m
+    assert 0.0 < fill < 0.5
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 4])
+@pytest.mark.parametrize("m,key_len", [(1 << 26, 16), (9_999_872, 28)])
+def test_flat_insert_partitioned_routed(cuda, n_slots, m, key_len):
+    """The routed partitioned insert on every slot of 1, 2 and 4 (16
+    shards): the tiles run over the slot's shard-major words; keys other
+    slots own set nothing and answer False in the query."""
+    cfg = FilterConfig(m=m, k=10, key_len=key_len, shards=16)
+    rng = np.random.default_rng(n_slots + key_len + 26)
+    spd = 16 // n_slots
+    for i in range(n_slots):
+        route = ShardRoute(16, i * spd, spd)
+        state = _zeros(sweep._state_words(cfg, route), cuda)
+        dense = _batch(rng, 1 << 16, cuda, key_len)
+        batches = [dense, _batch(rng, 1 << 16, cuda, key_len, crowd=1 << 13),
+                   _batch(rng, 16, cuda, key_len)]
+        taken = _check_insert_ops(state, cfg, batches, route=route)
+        assert taken == ["tiled", "tiled", "thread_a_key"]
+        probe = (torch.cat([dense[0][:2000], _batch(rng, 2000, cuda, key_len)[0]]),
+                 torch.cat([dense[1][:2000], _batch(rng, 2000, cuda, key_len)[1]]))
+        hits = _check_bit_query(state, cfg, *probe, route=route)
+        owned, _ = bitops.routed_positions(probe[0], probe[1], cfg, route)
+        assert bool(hits[:2000][owned[:2000]].all())
+        if n_slots > 1:
+            assert bool(owned.any()) and not bool(owned.all())
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 10])
+@pytest.mark.parametrize("fill", [0.01, 0.6])
+def test_flat_query_stops_at_a_zero_bit(cuda, k, fill):
+    """The query at a low fill (most absent keys stop at their first read)
+    and at config 2's fill of ~0.6 (an absent key reads ~2.5 words), for k
+    of one group, of a whole group, of one more, and config 2's 10: held
+    keys all present, absent keys and padding as the plain version says,
+    false positives included; each group size the library has agrees."""
+    cfg = FilterConfig(m=1 << 20, k=k, key_len=16)
+    n = int(-math.log(1 - fill) * cfg.m / k)
+    rng = np.random.default_rng(int(fill * 100) + k)
+    state = _zeros(cfg.n_words, cuda)
+    held = torch.from_numpy(rng.integers(0, 256, (n, 16), dtype=np.uint8)).to(cuda)
+    full = torch.full((n,), 16, dtype=torch.int32, device=cuda)
+    for lo in range(0, n, 1 << 16):
+        sweep.flat_insert(state, held[lo : lo + (1 << 16)], full[lo : lo + (1 << 16)], cfg)
+    words = state.view(torch.int32).cpu().numpy().view(np.uint32)
+    assert abs(int(np.unpackbits(words.view(np.uint8)).sum()) / cfg.m - fill) < 0.01
+    b = min(n, 1 << 14)
+    absent = torch.from_numpy(rng.integers(0, 256, (b, 16), dtype=np.uint8)).to(cuda)
+    probe = torch.cat([held[:b], absent])
+    lengths = torch.cat([full[:b], full[:b]])
+    lengths[-5:] = -1
+    hits = _check_bit_query(state, cfg, probe, lengths)
+    assert bool(hits[:b].all()) and not bool(hits[-5:].any())
+
+
+def test_flat_query_routed_keys_a_slot_does_not_own(cuda):
+    """The routed query on 4 slots of a filter filled to ~0.6: each slot
+    answers its owned held keys True and every key it does not own False,
+    and the OR over the slots equals the unsharded filter's verdicts."""
+    cfg = FilterConfig(m=1 << 24, k=10, key_len=16, shards=16)
+    rng = np.random.default_rng(416)
+    n = int(-math.log(0.4) * cfg.m / 10)
+    keys = torch.from_numpy(rng.integers(0, 256, (n, 16), dtype=np.uint8)).to(cuda)
+    full = torch.full((n,), 16, dtype=torch.int32, device=cuda)
+    probe = torch.cat([keys[:3000], torch.from_numpy(rng.integers(0, 256, (3000, 16),
+                                                                  dtype=np.uint8)).to(cuda)])
+    p_len = full[:6000].clone()
+    p_len[-3:] = -1
+    verdict = torch.zeros(6000, dtype=torch.bool, device=cuda)
+    for i in range(4):
+        route = ShardRoute(16, 4 * i, 4)
+        state = _zeros(sweep._state_words(cfg, route), cuda)
+        for lo in range(0, n, 1 << 16):
+            sweep.flat_insert(state, keys[lo : lo + (1 << 16)], full[lo : lo + (1 << 16)], cfg,
+                              route=route)
+        verdict |= _check_bit_query(state, cfg, probe, p_len, route=route)
+    assert bool(verdict[:3000].all()) and not bool(verdict[-3:].any())
+    assert 0 < int(verdict[3000:].sum()) < 300  # false positives at 0.6^10
+
+
+def test_flat_insert_takes_the_kernel_its_crossover_gives(cuda):
+    """BloomFilter at config 2 (m = 2^30 bits): insert_packed of 2^20 keys
+    is one partitioned launch; insert_batch of 10 K bytes keys one
+    thread-a-key launch. On a 2^24-bit state the first batch at the
+    crossover takes the partitioned kernel, the batch one key smaller the
+    thread-a-key one."""
+    f = BloomFilter(FilterConfig(m=1 << 30, k=10, key_len=16))
+    rng = np.random.default_rng(2)
+    sweep.reset_launch_counts()
+    f.insert_packed(rng.integers(0, 256, (1 << 20, 16), dtype=np.uint8))
+    assert sweep.launch_counts() == {**dict.fromkeys(sweep.LAUNCHES, 0), "flat_insert": 1,
+                                     "flat_insert_tiled": 1}
+    sweep.reset_launch_counts()
+    f.insert_batch([rng.bytes(int(n)) for n in rng.integers(0, 17, 10_000)])
+    assert sweep.launch_counts() == {**dict.fromkeys(sweep.LAUNCHES, 0), "flat_insert": 1}
+    del f
+    cfg = FilterConfig(m=1 << 24, k=10, key_len=16)
+    first = math.ceil(sweep.FLAT_BIT_TILE_CROSSOVER * (cfg.n_words // 8) / 10)
+    state = _zeros(cfg.n_words, cuda)
+    batches = [_batch(rng, first, cuda, n_pad=0), _batch(rng, first - 1, cuda, n_pad=0)]
+    assert _check_insert_ops(state, cfg, batches) == ["tiled", "thread_a_key"]
+
+
+def test_flat_bits_plan_at_config_2(cuda):
+    """The partition flat_partition.cuh plans for the bit insert at config 2
+    (m = 2^30 bits, k = 10, B = 2^20): 2,048 tiles; 512 chunks' count
+    matrix, the scans and two buffers of 10.5 M entries of 4 bytes; a state
+    of 2^32 bits or more, or more than 2^14 tiles, answers -1 and keeps the
+    thread-a-key kernel; 2^31 bits (4,096 tiles) is held."""
+    cfg = FilterConfig(m=1 << 30, k=10, key_len=16)
+    nbytes = sweep.flat_tiled_scratch_bytes(cfg, 1 << 20, query=False)
+    entries = 10 << 20
+    assert 8 * entries < nbytes < 8 * entries + 5 * 2**20
+    with pytest.raises(ValueError):
+        sweep.flat_tiled_scratch_bytes(cfg, 1 << 20, query=True)
+    big = FilterConfig(m=1 << 32, k=10, key_len=16)
+    assert sweep.flat_tiled_scratch_bytes(big, 1 << 24, query=False) == -1
+    assert sweep.flat_takes_tiles(big, 1 << 24, query=False)
+    assert not sweep._takes_tiles(big, 1 << 24, None, False)
+    assert sweep.flat_tiled_scratch_bytes(FilterConfig(m=1 << 31, k=10, key_len=16),
+                                          1 << 24, query=False) > 0

@@ -42,12 +42,13 @@
 // requests, not its bandwidth, is what these kernels see (a key's k
 // positions are k random sectors, so grouping them by key cannot help).
 // What helps is grouping the batch's positions by place: for a batch that
-// covers much of the state, the counting pair has partitioned kernels
-// (flat_counting.cu) that place each position in the segment of its
-// shared-memory tile and sweep the tiles on chip; the wrapper
-// (ops/sweep.py flat_takes_tiles) keeps these thread-a-key kernels for the
-// small batches below the crossover. The bit pair (flat_insert, flat_query)
-// has no partitioned twin yet.
+// covers much of the state, the insert and the counting pair have
+// partitioned kernels (flat_bits.cu, flat_counting.cu) that place each
+// position in the segment of its shared-memory tile and sweep the tiles on
+// chip; the wrapper (ops/sweep.py flat_takes_tiles) keeps these thread-a-key
+// kernels for the small batches below the crossover. The bit query has no
+// partitioned twin: it issues fewer requests instead, stopping each key at
+// its first zero bit (flat_query_kernel).
 //
 // Built by tpubloom_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -63,8 +64,17 @@
 namespace tpubloom {
 
 constexpr int kFlatThreads = 256;
-// A query issues this many of a key's loads before it tests any of them.
+// The counting query issues this many of a key's loads before it tests any
+// of them.
 constexpr int kFlatGather = 8;
+// The bit query issues a key's loads this many at a time and stops after
+// the first group that holds a zero bit. One is the fastest of 1, 2 and 4
+// on every mix chip_smoke.py times (flat_times, `group_ms`; NVIDIA H100
+// 80GB HBM3, 700 W, config 2, ms): absent keys at ~1 % fill 0.039, 0.065,
+// 0.118; held keys 0.276 each; config 2's own traffic at a fill of 0.606
+// 0.179, 0.186, 0.205. The ~270 K resident keys keep enough loads in
+// flight one at a time.
+constexpr int kFlatQueryGroup = 1;
 
 // ---------------------------------------------------------------------------
 // flat_insert
@@ -98,12 +108,18 @@ flat_insert_kernel(uint32_t* __restrict__ state, const uint8_t* __restrict__ key
 //
 // Replaces make_query_fn + bitops.query_membership (tpubloom/filter.py:
 // 72-83); sharded_flat_query the local query of make_sharded_query_fn
-// (sharded.py:164-186), whose verdicts the caller ORs across slots. k word
-// gathers, kFlatGather of them in flight before their bits are tested, and
-// the AND of the k bits, with no early exit (as query_membership).
+// (sharded.py:164-186), whose verdicts the caller ORs across slots. The
+// key's k word gathers go out kGroup at a time; after each group the AND of
+// the bits so far is tested, and a key that has met a zero bit issues no
+// more. The verdict is the AND of the k bits, as query_membership's: a
+// held key reads all k words, an absent one stops at its first zero (one
+// read in a sparse filter, ~2.5 at config 2's fill of 0.61). The card's
+// random gathers run at ~35 G/s (PERF.md), so each request not issued is
+// time saved; at 256 threads a CTA, a launch of 2^20 keys keeps ~270 K keys
+// resident (132 SMs x 2,048 threads), each with kGroup loads in flight.
 // ---------------------------------------------------------------------------
 
-template <bool kRouted>
+template <bool kRouted, int kGroup>
 __global__ void __launch_bounds__(kFlatThreads)
 flat_query_kernel(const uint32_t* __restrict__ state,
                   const uint8_t* __restrict__ keys,
@@ -118,10 +134,10 @@ flat_query_kernel(const uint32_t* __restrict__ state,
     return;
   }
   bool hit = true;
-  for (int j0 = 0; j0 < s.k; j0 += kFlatGather) {
-    uint32_t v[kFlatGather], b[kFlatGather];
+  for (int j0 = 0; hit && j0 < s.k; j0 += kGroup) {
+    uint32_t v[kGroup], b[kGroup];
 #pragma unroll
-    for (int t = 0; t < kFlatGather; ++t) {
+    for (int t = 0; t < kGroup; ++t) {
       v[t] = 1u;
       b[t] = 0u;
       if (j0 + t < s.k) {
@@ -131,7 +147,7 @@ flat_query_kernel(const uint32_t* __restrict__ state,
       }
     }
 #pragma unroll
-    for (int t = 0; t < kFlatGather; ++t) hit &= ((v[t] >> b[t]) & 1u) != 0u;
+    for (int t = 0; t < kGroup; ++t) hit &= ((v[t] >> b[t]) & 1u) != 0u;
   }
   out[i] = hit ? 1 : 0;
 }
@@ -183,7 +199,8 @@ flat_counting_update_kernel(uint32_t* __restrict__ state,
 // Replaces make_counting_query_fn + counting.counting_membership
 // (tpubloom/filter.py:104-113); sharded_flat_counting_query the local query
 // of make_sharded_counting_query_fn (sharded.py:420-440). k nibble gathers,
-// issued as the bit query's are; present when every nibble is non-zero.
+// kFlatGather of them in flight before their nibbles are tested, with no
+// early exit; present when every nibble is non-zero.
 // ---------------------------------------------------------------------------
 
 template <bool kRouted>
@@ -236,13 +253,13 @@ int launch_flat_insert(void* state, const void* keys, const void* lengths,
   return (int)cudaGetLastError();
 }
 
-template <bool kRouted>
+template <bool kRouted, int kGroup = kFlatQueryGroup>
 int launch_flat_query(const void* state, const void* keys, const void* lengths,
                       void* out, int64_t B, int L, const FlatSpec& s,
                       const RouteSpec& r, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  flat_query_kernel<kRouted><<<flat_grid(B), kFlatThreads, 0, cs>>>(
+  flat_query_kernel<kRouted, kGroup><<<flat_grid(B), kFlatThreads, 0, cs>>>(
       static_cast<const uint32_t*>(state), static_cast<const uint8_t*>(keys),
       static_cast<const int32_t*>(lengths), static_cast<uint8_t*>(out), B, L, s, r);
   return (int)cudaGetLastError();
@@ -298,6 +315,23 @@ extern "C" int tpb_flat_query(const void* state, const void* keys,
   using namespace tpubloom;
   return launch_flat_query<false>(state, keys, lengths, out, B, L,
                                   make_flat_spec(m, k, seed), RouteSpec{}, stream);
+}
+
+// tpb_flat_query with the key's loads issued `group` (1, 2 or 4) at a time
+// instead of kFlatQueryGroup: the same verdicts, for chip_smoke.py to time
+// the choice of kFlatQueryGroup. cudaErrorInvalidValue for another group.
+extern "C" int tpb_flat_query_group(const void* state, const void* keys,
+                                    const void* lengths, void* out, int64_t B, int L,
+                                    int64_t m, int k, uint32_t seed, int group,
+                                    void* stream) {
+  using namespace tpubloom;
+  const FlatSpec s = make_flat_spec(m, k, seed);
+  switch (group) {
+    case 1: return launch_flat_query<false, 1>(state, keys, lengths, out, B, L, s, RouteSpec{}, stream);
+    case 2: return launch_flat_query<false, 2>(state, keys, lengths, out, B, L, s, RouteSpec{}, stream);
+    case 4: return launch_flat_query<false, 4>(state, keys, lengths, out, B, L, s, RouteSpec{}, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int tpb_flat_counting_update(void* state, const void* keys,

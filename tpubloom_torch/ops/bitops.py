@@ -1,5 +1,7 @@
-"""Flat bloom filter in plain PyTorch: the plain versions of the two flat
-bit kernels (``tpubloom_torch/csrc/flat_bloom.cu``).
+"""Flat bloom filter in plain PyTorch: the plain versions of the flat bit
+kernels (``tpubloom_torch/csrc/flat_bloom.cu``, and the partitioned
+insert of ``flat_bits.cu``), and the partition of the partitioned flat
+kernels (``flat_partition.cuh``).
 
 The counterpart of ``tpubloom/ops/bitops.py``. The filter is a packed
 ``uint32[n_words]`` array, bit ``pos`` is ``words[pos >> 5] & (1 << (pos
@@ -64,3 +66,19 @@ def flat_query_plain(state, keys, lengths, config, route=None) -> torch.Tensor:
     valid, pos = routed_positions(keys, lengths, config, route)
     w = _words(state)[pos >> 5].to(torch.int64) & M32
     return (((w >> (pos & 31)) & 1) == 1).all(dim=-1) & valid
+
+
+def flat_tile_counts_plain(
+    keys: torch.Tensor, lengths: torch.Tensor, config, tile_log2: int, route=None,
+) -> torch.Tensor:
+    """The partition of the partitioned flat kernels
+    (``tpubloom_torch/csrc/flat_partition.cuh``): int64 ``[n_tiles]``, the
+    entries each tile of ``2^tile_log2`` words of the state (with a
+    ``route``, the slot's) gets, one a valid (owned) key's position. A word
+    holds 8 counters of a counting config, or 32 bits."""
+    valid, pos = routed_positions(keys, lengths, config, route)
+    per_word_log2 = 3 if config.counting else 5
+    positions = config.m if route is None else route.shards_per_dev * config.m_per_shard
+    n_tiles = -(-(positions >> per_word_log2) >> tile_log2)
+    return torch.bincount((pos[valid] >> (tile_log2 + per_word_log2)).reshape(-1),
+                          minlength=n_tiles)

@@ -131,15 +131,3 @@ def flat_counting_query_plain(
     vals = _words(state)[pos >> 3].to(torch.int64) & M32
     return (((vals >> (4 * (pos & 7))) & 15) > 0).all(dim=-1) & valid
 
-
-def flat_tile_counts_plain(
-    keys: torch.Tensor, lengths: torch.Tensor, config, tile_log2: int, route=None,
-) -> torch.Tensor:
-    """The partition of the partitioned flat counting kernels
-    (``tpubloom_torch/csrc/flat_counting.cu``): int64 ``[n_tiles]``, the
-    entries each tile of ``2^tile_log2`` counter words of the state (with
-    a ``route``, the slot's) gets, one a valid (owned) key's position."""
-    valid, pos = routed_positions(keys, lengths, config, route)
-    counters = config.m if route is None else route.shards_per_dev * config.m_per_shard
-    n_tiles = -(-(counters // 8) >> tile_log2)
-    return torch.bincount((pos[valid] >> (tile_log2 + 3)).reshape(-1), minlength=n_tiles)

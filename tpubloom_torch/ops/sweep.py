@@ -40,12 +40,14 @@ sharded layouts:
 * ``make_counting_query_fn`` + ``counting.counting_membership`` (sharded
   ``make_sharded_counting_query_fn``) -> :func:`flat_counting_query`.
 
-The flat kernels give a key a thread. The counting pair also has
-partitioned kernels (``tpubloom_torch/csrc/flat_counting.cu``) for a
-batch whose positions cover much of the state: the batch's counter
-positions are placed by shared-memory tile and each tile is swept on
-chip, where ``tpubloom`` sorts them; :func:`flat_takes_tiles` picks one
-of the two kernels from the launch's shape.
+The flat kernels give a key a thread; the bit query stops each key at its
+first zero bit. The insert and the counting pair also have partitioned
+kernels (``tpubloom_torch/csrc/flat_bits.cu``, ``flat_counting.cu``, on
+the shared partition of ``flat_partition.cuh``) for a batch whose
+positions cover much of the state: the batch's positions are placed by
+shared-memory tile and each tile is swept on chip, where ``tpubloom``
+sorts them; :func:`flat_takes_tiles` picks one of the two kernels from the
+launch's shape.
 
 Why the sweep algorithm is not carried over: the TPU sorts each batch by
 block, streams the whole filter through VMEM partition by partition and
@@ -88,9 +90,9 @@ import torch
 from tpubloom_torch.ops import _build, bitops, blocked, counting
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`
-#: (CUDA launches only; the plain versions are not counted). A flat
-#: counting call counts once under its name whichever kernel it takes, and
-#: once more under ``<name>_tiled`` when it takes the partitioned one.
+#: (CUDA launches only; the plain versions are not counted). A flat insert
+#: or counting call counts once under its name whichever kernel it takes,
+#: and once more under ``<name>_tiled`` when it takes the partitioned one.
 LAUNCHES: dict[str, int] = {
     "blocked_query": 0, "blocked_insert": 0,
     "blocked_counting_update": 0, "blocked_counting_query": 0,
@@ -102,6 +104,7 @@ LAUNCHES: dict[str, int] = {
     "sharded_flat_counting_update": 0, "sharded_flat_counting_query": 0,
     "flat_counting_update_tiled": 0, "flat_counting_query_tiled": 0,
     "sharded_flat_counting_update_tiled": 0, "sharded_flat_counting_query_tiled": 0,
+    "flat_insert_tiled": 0, "sharded_flat_insert_tiled": 0,
 }
 
 _P = ctypes.c_void_p
@@ -158,6 +161,7 @@ _FLAT = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_ui
 _FLAT_SIGNATURES = {
     "tpb_flat_insert": ([_P, _P, _P, *_FLAT, _P], ctypes.c_int),
     "tpb_flat_query": ([_P, _P, _P, _P, *_FLAT, _P], ctypes.c_int),
+    "tpb_flat_query_group": ([_P, _P, _P, _P, *_FLAT, ctypes.c_int, _P], ctypes.c_int),
     "tpb_flat_counting_update": ([_P, _P, _P, *_FLAT, ctypes.c_int, _P], ctypes.c_int),
     "tpb_flat_counting_query": ([_P, _P, _P, _P, *_FLAT, _P], ctypes.c_int),
     "tpb_sharded_flat_insert": ([_P, _P, _P, *_FLAT, *_ROUTE, _P], ctypes.c_int),
@@ -179,6 +183,11 @@ _FLAT_TILED_SIGNATURES = {
     "tpb_flat_counting_tiled_scratch_bytes": ([_I64, ctypes.c_int, _I64, ctypes.c_int], _I64),
     "tpb_flat_counting_tile_log2": ([], ctypes.c_int),
     "tpb_flat_counting_tile_piece": ([], _I64),
+}
+_FLAT_BITS_SIGNATURES = {
+    "tpb_flat_insert_tiled": ([_P, _P, _P, *_FLAT, _P, _I64, _P], ctypes.c_int),
+    "tpb_sharded_flat_insert_tiled": ([_P, _P, _P, *_FLAT, *_ROUTE, _P, _I64, _P], ctypes.c_int),
+    "tpb_flat_bits_tiled_scratch_bytes": ([_I64, ctypes.c_int, _I64], _I64),
 }
 
 
@@ -205,6 +214,10 @@ def _flat_library() -> ctypes.CDLL:
 
 def _flat_tiled_library() -> ctypes.CDLL:
     return _build.load_library("flat_counting", _FLAT_TILED_SIGNATURES)
+
+
+def _flat_bits_library() -> ctypes.CDLL:
+    return _build.load_library("flat_bits", _FLAT_BITS_SIGNATURES)
 
 
 def _state_words(config, route=None) -> int:
@@ -389,19 +402,23 @@ def _flat_args(config, route):
 
 def flat_insert(state, keys, lengths, config, *, route=None) -> None:
     """Set every valid key's k flat bits in ``state`` (``uint32[n_words]``),
-    in place (with a ``route``, every key the slot owns)."""
+    in place (with a ``route``, every key the slot owns). On the card a
+    batch whose positions cover enough of the state
+    (:func:`flat_takes_tiles`) takes the partitioned kernel, a smaller one
+    the thread-a-key kernel; both give the same words."""
     _check(state, keys, lengths, config, route, flat=True)
     if state.device.type == "cpu":
         bitops.flat_insert_plain(state, keys, lengths, config, route)
         return
-    _launch_update(_flat_library(), "flat_insert", state, keys, lengths,
-                   _flat_args(config, route), route)
+    _flat_insert_on(_takes_tiles(config, keys.shape[0], route, False), state, keys, lengths,
+                    config, route=route)
 
 
 def flat_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
     """Flat membership of each key: ``bool[B]``, False where ``lengths <
     0`` (and, with a ``route``, where the slot does not own the key).
-    ``state`` is only read."""
+    ``state`` is only read. One kernel whatever the batch: a thread a key,
+    which stops at the key's first zero bit."""
     _check(state, keys, lengths, config, route, flat=True)
     if state.device.type == "cpu":
         return bitops.flat_query_plain(state, keys, lengths, config, route)
@@ -409,14 +426,15 @@ def flat_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
                          _flat_args(config, route), route)
 
 
-# -- the partitioned flat counting kernels (csrc/flat_counting.cu) ------------------
+# -- the partitioned flat kernels (csrc/flat_bits.cu, csrc/flat_counting.cu) -------
 
-#: A flat counting launch takes the partitioned kernel when its expected
-#: positions (a routed slot: its owned share of B k) reach this many per
-#: 32-byte sector of the state, and the thread-a-key kernel of flat_bloom.cu
-#: below it; flat_counting.cu sets every size of the partition and refuses
-#: a shape it cannot hold, which then keeps the thread-a-key kernel too.
-#: Both crossovers are chip_smoke.py's flat_crossover phase on an NVIDIA
+#: A flat insert or counting launch takes the partitioned kernel when its
+#: expected positions (a routed slot: its owned share of B k) reach its
+#: crossover, in positions per 32-byte sector of the state, and the
+#: thread-a-key kernel of flat_bloom.cu below it; flat_partition.cuh sets
+#: every size of the partition and refuses a shape it cannot hold, which then
+#: keeps the thread-a-key kernel too.
+#: The crossovers are chip_smoke.py's flat_crossover phase on an NVIDIA
 #: H100 80GB HBM3 (700 W; PERF.md section 6). The update: the partitioned
 #: kernel is the faster from B = 2^19 keys at config 4 flat (7 x 2^19
 #: positions on 2^24 sectors, 0.219; 0.286 against 0.321 ms).
@@ -430,6 +448,12 @@ FLAT_TILE_CROSSOVER = 7 / 32
 #: is 3 % the slower on that traffic (0.476 against 0.463). At config 4's
 #: own launch of 2^24 keys: 1.613 against 2.214 ms.
 FLAT_TILE_QUERY_CROSSOVER = 7 / 4
+#: The bit insert: the partitioned kernel is the faster from B = 2^18 keys
+#: at config 2 (chip_smoke.py's flat_crossover phase, fresh inserts over B =
+#: 2^13 .. 2^20; 10 x 2^18 positions on 2^22 sectors, 0.625; 0.142 against
+#: 0.154 ms, and 0.112 against 0.077 at 2^17). The bit query has no
+#: partitioned kernel.
+FLAT_BIT_TILE_CROSSOVER = 5 / 8
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -437,29 +461,41 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def flat_takes_tiles(config, batch: int, route=None, *, query: bool) -> bool:
-    """Whether a flat counting update (``query=False``) or query of
-    ``batch`` keys on ``config``'s state (with a ``route``, one slot's)
-    reaches its crossover, :data:`FLAT_TILE_CROSSOVER` or
-    :data:`FLAT_TILE_QUERY_CROSSOVER` expected positions a sector. Pure
-    Python and cheap: small batches ask it on every call."""
-    if batch <= 0:
+    """Whether a flat insert or counting update (``query=False``), or a
+    counting query, of ``batch`` keys on ``config``'s state (with a
+    ``route``, one slot's) reaches its crossover
+    (:data:`FLAT_BIT_TILE_CROSSOVER`, :data:`FLAT_TILE_CROSSOVER` or
+    :data:`FLAT_TILE_QUERY_CROSSOVER`) in expected positions a sector;
+    never for a bit query. Pure Python and cheap: small batches ask it on
+    every call."""
+    if batch <= 0 or (query and not config.counting):
         return False
     share = 1.0 if route is None else route.shards_per_dev / route.n_shards
-    crossover = FLAT_TILE_QUERY_CROSSOVER if query else FLAT_TILE_CROSSOVER
+    if not config.counting:
+        crossover = FLAT_BIT_TILE_CROSSOVER
+    else:
+        crossover = FLAT_TILE_QUERY_CROSSOVER if query else FLAT_TILE_CROSSOVER
     return batch * config.k * share >= crossover * _ceil_div(_state_words(config, route), 8)
 
 
 def flat_tiled_scratch_bytes(config, batch: int, route=None, *, query: bool) -> int:
-    """The scratch of a partitioned launch as flat_counting.cu plans it, or
-    -1 where its partition cannot hold the shape (more tiles than its
-    passes' histogram, or B k >= 2^31). Builds the kernels."""
-    return _flat_tiled_library().tpb_flat_counting_tiled_scratch_bytes(
-        batch, config.k, _state_words(config, route), 1 if query else 0)
+    """The scratch of a partitioned launch as flat_partition.cuh plans it,
+    or -1 where its partition cannot hold the shape (more tiles than its
+    passes' histogram, 2^32 positions or more, or B k >= 2^31). Builds the
+    kernels. A bit filter has only the partitioned insert."""
+    words = _state_words(config, route)
+    if config.counting:
+        return _flat_tiled_library().tpb_flat_counting_tiled_scratch_bytes(
+            batch, config.k, words, 1 if query else 0)
+    if query:
+        raise ValueError("the flat bit query has no partitioned kernel")
+    return _flat_bits_library().tpb_flat_bits_tiled_scratch_bytes(batch, config.k, words)
 
 
 def flat_tile_geometry() -> tuple[int, int]:
-    """flat_counting.cu's tile (log2 of its counter words) and piece (the
-    most entries a sweep CTA takes). Builds the kernels."""
+    """flat_partition.cuh's tile (log2 of its words) and piece (the most
+    entries a sweep CTA takes), read back from the counting library, which
+    builds on it as the bit insert does. Builds the kernels."""
     lib = _flat_tiled_library()
     return lib.tpb_flat_counting_tile_log2(), lib.tpb_flat_counting_tile_piece()
 
@@ -471,14 +507,15 @@ def _takes_tiles(config, batch: int, route, query: bool) -> bool:
 
 
 def _launch_tiled(name, state, keys, lengths, spec, config, route, out=None) -> None:
-    """One partitioned launch (``<name>_tiled``, routed with a route) with
-    the scratch its plan needs: ``fn(state, keys, lengths, [out,] B, L,
-    *spec, *routing, scratch, scratch_bytes, stream)``, counted under
-    ``name`` and ``name_tiled``."""
+    """One partitioned launch (``<name>_tiled``, routed with a route; of
+    flat_counting.cu for a counting config, else flat_bits.cu) with the
+    scratch its plan needs: ``fn(state, keys, lengths, [out,] B, L, *spec,
+    *routing, scratch, scratch_bytes, stream)``, counted under ``name`` and
+    ``name_tiled``."""
     B, L = keys.shape
     if not B:
         return
-    lib = _flat_tiled_library()
+    lib = _flat_tiled_library() if config.counting else _flat_bits_library()
     nbytes = flat_tiled_scratch_bytes(config, B, route, query=out is not None)
     if nbytes < 0:
         raise ValueError(f"{name}: the partition cannot hold {B} keys on this state")
@@ -492,6 +529,18 @@ def _launch_tiled(name, state, keys, lengths, spec, config, route, out=None) -> 
     _raise_on(err, counter)
     LAUNCHES[counter] += 1
     LAUNCHES[counter.removesuffix("_tiled")] += 1
+
+
+def _flat_insert_on(tiled: bool, state, keys, lengths, config, *, route=None) -> None:
+    """The flat insert of a checked CUDA state on the kernel named: the
+    partitioned one (``tiled``) or the thread-a-key one. :func:`flat_insert`
+    picks it by shape; chip_smoke.py and the card tests hold each kernel
+    through here."""
+    spec = _flat_args(config, route)
+    if tiled:
+        _launch_tiled("flat_insert", state, keys, lengths, spec, config, route)
+    else:
+        _launch_update(_flat_library(), "flat_insert", state, keys, lengths, spec, route)
 
 
 def _flat_counting_update_on(tiled: bool, state, keys, lengths, config, *, increment: bool,
