@@ -492,12 +492,15 @@ def test_flat_insert_partitioned_matches_plain(cuda, k):
     assert bool(hits[: (1 << 15)][probe[1][: 1 << 15] >= 0].all())
 
 
-@pytest.mark.parametrize("m,n_tiles,last", [(10_000_000, 20, 1204), (524_384, 2, 3)])
+@pytest.mark.parametrize("m,n_tiles,last", [(10_000_000, 20, 1204), (1_048_544, 2, 16_383),
+                                             (524_384, 2, 3)])
 def test_flat_insert_partitioned_ragged_m(cuda, m, n_tiles, last):
     """m = 10,000,000 bits (the mod walk): 312,500 words, 20 tiles, the last
-    of 1,204 words; m = 32 x 16,387 bits: two tiles, the last of 3 words (a
-    bit state's words need not be a multiple of 4). Keys of 28 bytes hash
-    from memory."""
+    of 1,204 words. A bit state's words need not be a multiple of 4: m = 32
+    x 32,767 bits gives a last tile of 16,383 words with thousands of
+    entries (its mask's 16-byte zeroing runs past its words), m = 32 x
+    16,387 a last tile of 3 words with a few (ORed into the state one by
+    one). Keys of 28 bytes hash from memory."""
     cfg = FilterConfig(m=m, k=7, key_len=28)
     tile_log2, _ = sweep.flat_tile_geometry()
     assert (-(-cfg.n_words >> tile_log2), cfg.n_words - ((n_tiles - 1) << tile_log2)) == (n_tiles, last)
