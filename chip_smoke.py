@@ -69,8 +69,8 @@ each, with the seconds it took (``phase_seconds``):
    ``insert_packed`` / ``include_packed`` at B=2^22 and a
    ``delete_batch`` of 2^16 Python ``bytes`` keys;
 11. checkpoint round trip: ``snapshot_blob`` -> ``restore_blob`` of a
-   counting filter at m=2^24 counters (cut from 2^30: the numpy CRC32C's
-   carry chain is a Python loop over 8-byte blocks);
+   counting filter at config 4's m=2^30 counters (512 MiB; the payload's
+   CRC32C made and checked on the card);
 12. sharded kernel vs plain: at config 5, on one slot of all 64 shards and
    on a slot of shards 16-31, an insert and a query of old keys, fresh
    keys, within-batch duplicates and tail padding through each routed
@@ -131,7 +131,29 @@ each, with the seconds it took (``phase_seconds``):
    and on absent keys), both kernels of the flat insert at config 2 over
    B = 2^13 .. 2^20 (fresh inserts), and the batch (in positions per
    sector of the state) from which the partitioned one is the faster;
-20. flat end to end: as phase 6 for the flat filters' packed calls.
+20. flat end to end: as phase 6 for the flat filters' packed calls;
+21. checksum kernel vs plain: the checkpoint payload's kernel pair
+   (``csrc/checksum.cu``: the payload's bytes, bit-reversed for the Redis
+   bitmap or raw words, and their CRC32C) against its plain version on
+   the same random words on the card, tolerance 0, at config 3's m=2^34
+   (2 GiB) and config 1's m=10,000,000, both formats; both against the
+   host CRC32C over the host's Redis bitmap on a 64 MiB slice; times at
+   2 GiB beside the bound, the plain version's time and numpy's CRC32C on
+   8 MiB (scaled to 2 GiB, and so labelled);
+22. stream, BASELINE config 3 (benchmarks/run.py:203-230): a flat
+   BloomFilter at m=2^34 bits, k=7, 28-byte keys, fed
+   ``b"warc-record-%014d" % i`` by a ``StreamInserter`` in batches of 2^16
+   with a FileSink checkpoint every n/10 keys (n cut from 10^9 to 2^25:
+   ``reduced``); keys a second, the spans (``host_prep``, ``h2d``,
+   ``kernel``), each checkpoint's duration and the triggers refused while
+   one was in flight, against the same stream with no sink (the stall);
+   ``close()`` must be durable, the restored words (on the card) equal
+   the live ones, ``resume_offset`` n, 2^20 sampled stream keys present
+   and 2^20 fresh keys within the FPR model; ``prefetch=4`` on 2^22 keys
+   must leave the words of ``prefetch=0``; a short ``utils.tracing``
+   window lists the top device ops. Its FileSink directory is
+   ``.stream_sink/`` in the checkout, checked for room for five 2 GiB
+   blobs first and removed at the end.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -181,6 +203,14 @@ try:  # the flat layout; `--ab` runs this script in trees that predate it
     from tpubloom_torch.ops import bitops
 except ImportError:
     BloomFilter = CountingBloomFilter = bitops = None
+try:  # the stream path (BASELINE config 3); the same for trees that predate it
+    from tpubloom_torch import StreamInserter, resume_offset
+    from tpubloom_torch.ops import checksum
+    from tpubloom_torch.utils import tracing
+    from tpubloom_torch.utils.crc32c import crc32c
+    from tpubloom_torch.utils.packing import words_to_redis_bitmap
+except ImportError:
+    StreamInserter = resume_offset = checksum = tracing = None
 
 SEED = 20260
 LOG2M, K, BLOCK_BITS, KEY_LEN = 32, 7, 512, 16
@@ -204,10 +234,11 @@ OPS_HASH, OPS_ROUTE = 162 + 64 + 28, 54
 OPS_QUERY, OPS_INSERT = OPS_HASH + 28, OPS_HASH + 21
 OPS_COUNT_UPDATE, OPS_COUNT_QUERY = OPS_HASH + 49, OPS_HASH + 28
 # BASELINE config 4, as benchmarks/counting_rate.py:31-42 sets it; the
-# `ap` comparison and the checkpoint round trip are cut (see their phases)
+# `ap` comparison is cut (see its phase); the checkpoint round trip runs at
+# config 4's 512 MiB since its payload's CRC32C is made on the card
 LOG2M_COUNTING, B_COUNTING = 30, 1 << 22
 LOG2M_COUNTING_AP, B_COUNTING_AP = 26, 1 << 20
-LOG2M_CHECKPOINT, B_CHECKPOINT = 24, 1 << 20
+LOG2M_CHECKPOINT, B_CHECKPOINT = 30, 1 << 20
 # BASELINE config 5, as benchmarks/run.py:269-305 sets it (--layout
 # blocked), and its counting twin, configs 4 x 5; nothing cut. The FPR
 # check runs at m=2^26 (λ=64 keys a block), where the model predicts
@@ -263,6 +294,24 @@ N_HALF_FULL_BATCHES = 25
 # hashes (three murmur3 passes, 162, and fnv1a, 64), then a position's
 # 64-bit walk step, mask, word index and bit (8), or nibble (11).
 OPS_FLAT_HASH, OPS_FLAT_BIT, OPS_FLAT_COUNTER = 162 + 64, 8, 11
+# BASELINE config 3 (benchmarks/run.py:203-230): the Common Crawl WARC
+# record-ID stream, m=2^34 bits (2 GiB), k=7, 28-byte keys, batches of
+# 2^16, a FileSink checkpoint every max(n / 10, 2^16) keys. The stream is cut
+# from 10^9 keys to 2^25 by the run's time limit (the host makes and packs
+# ~0.4 us a key); state, k, key width and batch stay as published. The
+# prefetch run streams 2^22 keys; 2^20 stream keys are sampled back, and
+# 2^20 fresh keys probe the FPR.
+LOG2M_STREAM, K_STREAM, KEY_LEN_STREAM, B_STREAM = 34, 7, 28, 1 << 16
+N_STREAM, N_STREAM_PUBLISHED = 1 << 25, 1_000_000_000
+N_STREAM_PREFETCH, STREAM_PREFETCH, N_STREAM_PROBE = 1 << 22, 4, 1 << 20
+TRACE_BATCHES = 8  # the batches of the stream's trace window
+STREAM_DIR = Path(__file__).resolve().parent / ".stream_sink"  # git-ignored; removed at the end
+# The checksum kernels at config 3's 2 GiB and config 1's m=10,000,000; the
+# host CRC32C on a 64 MiB slice, numpy's rate on 8 MiB (a Python loop over
+# 8-byte blocks). Their operations: a word's xor, four table lookups (shift,
+# mask, address, load), and the lane's shift, 32 steps of 4 ops a 128 bytes.
+CRC_SLICE_WORDS, NUMPY_CRC_BYTES = 1 << 24, 8 << 20
+OPS_CRC_WORD = 1 + 4 * 4 + 32 * 4 // 32
 M32 = 0xFFFFFFFF
 L2_FLUSH_BYTES = 128 << 20  # read between fresh launches: 2.5 x the H100's 50 MB L2
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -919,10 +968,7 @@ def phase_checkpoint_roundtrip(rng) -> None:
     check(np.array_equal(f.include_packed(probe), g.include_packed(probe)), "restored verdicts equal")
     check(g.n_inserted == f.n_inserted and g._restored_seq == seq, "restored usage counters and seq")
     emit("checkpoint_roundtrip", log2m=cfg.m.bit_length() - 1, key_name=key_name,
-         blob_bytes=len(blob), snapshot_s=t1 - t0, restore_s=t2 - t1,
-         cut=f"m=2^{LOG2M_CHECKPOINT} counters, not 2^{LOG2M_COUNTING}: the numpy CRC32C's "
-             "carry chain is a Python loop over 8-byte blocks, ~67 M iterations a checksum "
-             "at 512 MiB")
+         blob_bytes=len(blob), snapshot_s=t1 - t0, restore_s=t2 - t1)
 
 
 def sharded_config(log2m: int, **kw) -> FilterConfig:
@@ -2220,6 +2266,268 @@ def phase_flat_end_to_end(f, c, s1, s4, rng, times: dict) -> None:
     )))
 
 
+def warc_keys(lo: int, hi: int):
+    """Config 3's keys, as benchmarks/run.py makes them."""
+    return (b"warc-record-%014d" % i for i in range(lo, hi))
+
+
+def phase_checksum_kernel_vs_plain() -> tuple[dict, dict]:
+    """The checksum pair (payload bytes and CRC32C) against its plain
+    version on the same words on the card, tolerance 0, at config 3's
+    m=2^34 and config 1's m=10,000,000, both payload formats; both against
+    the host CRC32C over the host's Redis bitmap on a 64 MiB slice; times
+    at 2 GiB."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    runs, worst = {}, 0
+    for name, m in (("config3", 1 << LOG2M_STREAM), ("config1", M_FLAT_MOD)):
+        words = torch.randint(-(1 << 31), 1 << 31, (-(-m // 32),), dtype=torch.int32, device="cuda",
+                              generator=gen)
+        nbytes = (m + 7) // 8
+        for rev in (True, False):
+            kp, kc = checksum.payload_crc32c(words, nbytes, rev)
+            pp, pc = checksum.payload_crc32c_plain(words, nbytes, rev)
+            err = max(max_abs_err(kp, pp), abs(kc - pc))
+            runs[f"{name}_{'redis_bitmap' if rev else 'le_words'}"] = {
+                "m": m, "nbytes": nbytes, "crc": kc, "plain_crc": pc, "max_abs_err": err}
+            worst = max(worst, err)
+            del kp, pp
+        if name == "config3":
+            big = words
+        else:
+            del words
+    torch.cuda.empty_cache()
+    # both against the host path on a 64 MiB slice
+    sl = big[:CRC_SLICE_WORDS]
+    host_words = sl.cpu().numpy().view(np.uint32)
+    host_bitmap = words_to_redis_bitmap(host_words, 32 * CRC_SLICE_WORDS)
+    host_crc = crc32c(host_bitmap)
+    kp, kc = checksum.payload_crc32c(sl, 4 * CRC_SLICE_WORDS, True)
+    pp, pc = checksum.payload_crc32c_plain(sl, 4 * CRC_SLICE_WORDS, True)
+    slice_ok = kc == pc == host_crc and kp.cpu().numpy().tobytes() == host_bitmap == \
+        pp.cpu().numpy().tobytes()
+    check(slice_ok, "checksum kernel and plain version equal the host CRC32C on 64 MiB")
+    check(worst == 0, f"checksum kernel equals its plain version (max_abs_err {worst})")
+    del kp, pp
+    # times at config 3's 2 GiB
+    nbytes = (1 << LOG2M_STREAM) // 8
+    ms = cuda_ms(lambda i: checksum.launch_payload_crc32c(big, nbytes, True), n=20)
+    by_kernel = kernel_ms(lambda i: checksum.launch_payload_crc32c(big, nbytes, True), n=10)
+    t1 = time.perf_counter()
+    checksum.payload_crc32c_plain(big, nbytes, True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    data = host_bitmap[:NUMPY_CRC_BYTES]
+    t1 = time.perf_counter()
+    crc32c(data)
+    numpy_s = time.perf_counter() - t1
+    words_bytes = 4 * big.numel()
+    bound_ms, bound_by = bound(words_bytes + nbytes, big.numel() * OPS_CRC_WORD)
+    del big, sl
+    torch.cuda.empty_cache()
+    times = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": None, "share_of_bound": bound_ms / ms, "kernels_ms": by_kernel,
+             "bytes": words_bytes + nbytes, "gb_per_s": (words_bytes + nbytes) / ms / 1e6,
+             "numpy_crc32c_s_8MiB": numpy_s,
+             "numpy_crc32c_s_scaled_to_2GiB": numpy_s * nbytes / NUMPY_CRC_BYTES}
+    emit("checksum_kernel_vs_plain", runs=runs, max_abs_err=worst, tolerance=0,
+         host_slice={"bytes": 4 * CRC_SLICE_WORDS, "crc": host_crc, "equal": slice_ok},
+         seconds=time.perf_counter() - t0, **times)
+    return {"payload_crc32c": worst}, times
+
+
+def top_device_ops(log_dir: Path, n: int = 8) -> list:
+    """The trace's device kernels and copies by total time (ms), from the
+    Chrome trace ``tracing.trace`` writes."""
+    files = sorted(log_dir.glob("*.pt.trace.json"))
+    check(bool(files), f"a trace in {log_dir}")
+    events = json.loads(files[-1].read_text())["traceEvents"]
+    total: dict = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
+            name = e["name"].split("(")[0].removeprefix("void ")
+            total[name] = total.get(name, 0.0) + e["dur"] / 1e3
+    return sorted(([k, v] for k, v in total.items()), key=lambda kv: -kv[1])[:n]
+
+
+class TimedSink(checkpoint.FileSink):
+    """The FileSink config 3 writes to, timing each ``put`` (write, fsync,
+    rename), and reading each landed checkpoint's ``last_duration_seconds``
+    off ``checkpointer`` (set before its count moves) at the next put."""
+
+    def __init__(self, directory: str):
+        super().__init__(directory)
+        self.put_s: list = []
+        self.durations: list = []
+        self.checkpointer = None
+
+    def landed(self) -> None:
+        cp = self.checkpointer
+        if cp is not None and cp.checkpoints_written > len(self.durations):
+            self.durations.append(cp.last_checkpoint_duration_s)
+
+    def put(self, key_name, seq, blob):
+        self.landed()
+        t0 = time.perf_counter()
+        super().put(key_name, seq, blob)
+        self.put_s.append(time.perf_counter() - t0)
+
+
+def timed_stream(f, lo: int, hi: int, **kw) -> tuple[StreamInserter, dict]:
+    """A ``StreamInserter`` run over warc keys [lo, hi) inside a request
+    context: host seconds, keys a second and the phase spans."""
+    ins = StreamInserter(f, batch_size=B_STREAM, **kw)
+    t0 = time.perf_counter()
+    with obs.request("stream") as ctx:
+        stats = ins.run(warc_keys(lo, hi))
+    total = time.perf_counter() - t0
+    check(stats["inserted"] == hi - lo and stats["stream_offset"] == hi, "stream counts")
+    spans = {f"{k}_s": v for k, v in ctx.phases.items()}
+    rest = total - sum(ctx.phases.values())
+    return ins, {"keys": hi - lo, "seconds": total, "stream_keys_per_sec": (hi - lo) / total,
+                 **spans, "other_s (key source, loop, checkpoint triggers)": rest}
+
+
+def phase_stream_config3() -> dict:
+    """BASELINE config 3 through the port's entry points on one card: a
+    flat BloomFilter at m=2^34 fed by a StreamInserter with a FileSink
+    checkpoint every n/10 keys, then the checks; a prefetch run first, the
+    same stream with no sink before and after (the stall), and a short
+    trace window."""
+    t0 = time.perf_counter()
+    cfg = FilterConfig(m=1 << LOG2M_STREAM, k=K_STREAM, key_len=KEY_LEN_STREAM, key_name="stream-bench")
+    payload = (cfg.m + 7) // 8
+    if STREAM_DIR.exists():
+        shutil.rmtree(STREAM_DIR)
+    STREAM_DIR.mkdir()
+    need = (checkpoint.DEFAULT_RETAIN + 1) * (payload + (1 << 20))
+    free = shutil.disk_usage(STREAM_DIR).free
+    check(free >= need, f"{STREAM_DIR} has {free} bytes free, config 3's checkpoints need {need} "
+                        f"({checkpoint.DEFAULT_RETAIN} + 1 blobs of {payload} bytes)")
+    out = {"config": {"m": cfg.m, "k": cfg.k, "key_len": cfg.key_len, "batch": B_STREAM,
+                      "checkpoint_every": max(N_STREAM // 10, 1 << 16), "sink": "FileSink"},
+           "n": N_STREAM, "disk_free_bytes": free, "disk_needed_bytes": need,
+           "reduced": {"stream_keys": [N_STREAM_PUBLISHED, N_STREAM],
+                       "why": "the run's time limit: the host makes and packs ~0.4 us a key; "
+                              "m, k, key width and batch as published"}}
+    # prefetch first (it also warms the process up): the page-locked ring
+    # and the copy stream, against prefetch=0
+    p0, p4 = BloomFilter(cfg), BloomFilter(cfg)
+    _, out["prefetch_0"] = timed_stream(p0, 0, N_STREAM_PREFETCH)
+    _, out[f"prefetch_{STREAM_PREFETCH}"] = timed_stream(p4, 0, N_STREAM_PREFETCH,
+                                                         prefetch=STREAM_PREFETCH)
+    check(max_abs_err(p0.words, p4.words) == 0, "prefetch=4 leaves the words of prefetch=0")
+    del p0
+    torch.cuda.empty_cache()
+    # the same stream with no sink, before and after the checkpointed one:
+    # the insert loop's own time
+    g = BloomFilter(cfg)
+    _, out["no_sink_before"] = timed_stream(g, 0, N_STREAM)
+    # config 3: a checkpoint every n/10 keys, each trigger's outcome and
+    # each landed checkpoint's duration recorded
+    f = BloomFilter(cfg)
+    sink = TimedSink(str(STREAM_DIR))
+    sweep.reset_launch_counts()
+    checksum.reset_launch_counts()
+    ins = StreamInserter(f, batch_size=B_STREAM, sink=sink,
+                         checkpoint_every=max(N_STREAM // 10, 1 << 16))
+    cp = sink.checkpointer = ins.checkpointer
+    fired, refused = [], []
+    trigger = cp.trigger
+
+    def counted_trigger():
+        t = time.perf_counter()
+        ok = trigger()
+        (fired if ok else refused).append(time.perf_counter() - t)
+        return ok
+
+    cp.trigger = counted_trigger
+    t1 = time.perf_counter()
+    with obs.request("stream") as ctx:
+        stats = ins.run(warc_keys(0, N_STREAM))
+    run_s = time.perf_counter() - t1
+    ok = ins.close(final_checkpoint=True)
+    close_s = time.perf_counter() - t1 - run_s
+    sink.landed()  # the final one, landed in close()
+    launches = {**sweep.launch_counts(), **checksum.launch_counts()}
+    check(ok and cp.last_error is None, f"close() durable, last_error {cp.last_error!r}")
+    check(stats["inserted"] == N_STREAM == f.n_inserted, "config 3 stream counts")
+    check(launches["flat_insert"] == N_STREAM // B_STREAM, "one flat insert a batch")
+    check(launches["payload_crc32c"] == len(fired) == cp.checkpoints_written,
+          "one checksum pair a landed checkpoint")
+    spans = {f"{k}_s": v for k, v in ctx.phases.items()}
+    out["with_sink"] = {
+        "keys": N_STREAM, "seconds": run_s, "stream_keys_per_sec": N_STREAM / run_s,
+        **spans, "other_s (key source, loop, checkpoint triggers)": run_s - sum(ctx.phases.values()),
+        "close_s": close_s, "checkpoints_written": cp.checkpoints_written,
+        "triggers_fired": len(fired),
+        # a trigger refused while a write is in flight is retried at every
+        # later batch: attempts, and the n/10 intervals that got no
+        # checkpoint of their own (the final one, from close(), aside)
+        "trigger_attempts_refused_while_busy": len(refused),
+        "intervals_deferred": N_STREAM // max(N_STREAM // 10, 1 << 16) - (len(fired) - 1),
+        "trigger_s": fired, "last_duration_seconds": sink.durations, "sink_put_s": sink.put_s,
+        "obs_stats": cp.obs_stats(), "launches": launches}
+    g.clear()
+    _, out["no_sink_after"] = timed_stream(g, 0, N_STREAM)
+    base_s = (out["no_sink_before"]["seconds"] + out["no_sink_after"]["seconds"]) / 2
+    out["stall"] = run_s / base_s - 1.0
+    out["stall_target (benchmarks/streaming.py, not a gate)"] = 0.05
+    # the checks: restore on the card, resume offset, sampled keys, FPR
+    t1 = time.perf_counter()
+    r = checkpoint.restore(cfg, checkpoint.FileSink(str(STREAM_DIR)))
+    restore_s = time.perf_counter() - t1
+    err = max_abs_err(r.words, f.words)
+    check(r.words.is_cuda, "config 3 restored on the card")
+    check(err == 0, f"restored words equal the live filter's (max_abs_err {err})")
+    check(resume_offset(r) == N_STREAM, f"resume_offset {resume_offset(r)} == {N_STREAM}")
+    check(max_abs_err(g.words, f.words) == 0, "the stream with and without a sink: equal words")
+    del r, g
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 3)
+    sample = rng.choice(N_STREAM, N_STREAM_PROBE, replace=False)
+    held = f.include_batch([b"warc-record-%014d" % int(i) for i in sample])
+    check(bool(held.all()), f"every sampled stream key present ({int(held.sum())} of {held.size})")
+    probe = rng.integers(0, 256, (N_STREAM_PROBE, KEY_LEN_STREAM), dtype=np.uint8)
+    hits = int(f.include_packed(probe).sum())
+    expect = N_STREAM_PROBE * theoretical_fpr(cfg.m, cfg.k, f.n_inserted)
+    tol = max(6.0 * math.sqrt(max(expect, 1.0)), 0.35 * expect, 8.0)
+    check(abs(hits - expect) <= tol, f"config 3 FPR {hits} hits vs model {expect:.3g} ± {tol:.1f}")
+    out["checks"] = {"close_ok": ok, "last_error": None, "restore_s": restore_s,
+                     "restore_max_abs_err": err, "resume_offset": N_STREAM,
+                     "sampled_keys": N_STREAM_PROBE, "sampled_held": int(held.sum()),
+                     "fpr_probes": N_STREAM_PROBE, "fpr_hits": hits, "fpr_model_hits": expect,
+                     "fpr_tolerance": tol}
+    # framing a 2 GiB payload: the one copy out of the host buffer
+    host = np.empty(payload, dtype=np.uint8)
+    t1 = time.perf_counter()
+    blob = checkpoint._frame({"seq": 0}, host, 0)
+    out["frame_2GiB_s"] = time.perf_counter() - t1
+    del blob, host
+    for fn in STREAM_DIR.glob("*.ckpt"):
+        fn.unlink()
+    # a short trace window: a few stream batches and one checkpoint
+    trace_dir = OUT_DIR / "stream_trace"
+    if trace_dir.exists():
+        shutil.rmtree(trace_dir)
+    tcp = checkpoint.AsyncCheckpointer(p4, checkpoint.FileSink(str(STREAM_DIR)))
+    with tracing.trace(str(trace_dir)):
+        with tracing.annotate("stream_batches", batch=B_STREAM):
+            StreamInserter(p4, batch_size=B_STREAM).run(
+                warc_keys(N_STREAM_PREFETCH, N_STREAM_PREFETCH + TRACE_BATCHES * B_STREAM))
+        with tracing.annotate("checkpoint_trigger"):
+            check(tcp.trigger(), "trace window trigger")
+    check(tcp.flush(timeout=300) and tcp.last_error is None, "trace window checkpoint landed")
+    tcp.close(final_checkpoint=False)
+    out["trace_top_device_ms"] = top_device_ops(trace_dir)
+    shutil.rmtree(trace_dir)
+    del p4, f
+    torch.cuda.empty_cache()
+    shutil.rmtree(STREAM_DIR)
+    emit("stream_config3", seconds=time.perf_counter() - t0, **out)
+    return out
+
+
 # The update kernels and the bit filter's query kernels move a key's row
 # with a group of lanes; the counting query kernels keep a thread a key.
 GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
@@ -2248,7 +2556,8 @@ FLAT_REPLACES = {
 
 
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
-                 s_launches, s_errs, s_times, f_launches, f_errs, f_times) -> list[dict]:
+                 s_launches, s_errs, s_times, f_launches, f_errs, f_times,
+                 k_launches, k_errs, k_times) -> list[dict]:
     kernels = []
     for name, src, replaces, lau, err, t in (
         ("blocked_insert", "blocked_bloom.cu", "tpubloom/ops/sweep.py:1463", launches, errs, times),
@@ -2299,6 +2608,18 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
             "design": "partitioned by tile" if tiled else FLAT_DESIGN.get(name, "thread a key"),
             **{k: t[k] for k in EXTRA_TIMES if k in t},
         })
+    # no Pallas counterpart: numpy on the host in tpubloom (bit reversal and CRC32C)
+    kernels.append({
+        "name": "payload_crc32c", "route": "cuda", "source": "tpubloom_torch/csrc/checksum.cu",
+        "replaces": "tpubloom/utils/crc32c.py:47 (_crc32c_numpy, via tpubloom/checkpoint.py:165 "
+                    "_frame) + tpubloom/utils/packing.py:93 (words_to_redis_bitmap)",
+        "launches": k_launches["payload_crc32c"], "max_abs_err": k_errs["payload_crc32c"],
+        "ms": k_times["ms"], "plain_ms": k_times["plain_ms"], "bound_ms": k_times["bound_ms"],
+        "bound_by": k_times["bound_by"], "library_ms": None,
+        "library": "none: torch has no CRC32C",
+        "design": "a warp a run of 4 KiB chunks (slicing-by-4 in shared memory), one CTA combining",
+        "kernels_ms": k_times["kernels_ms"],
+    })
     return kernels
 
 
@@ -2440,8 +2761,12 @@ def main(argv: list[str]) -> int:
     phase_flat_end_to_end(ff, fc, fs1, fs4, rng, f_times)
     del ff, fc, fs1, fs4, fsc1
     torch.cuda.empty_cache()
+    check(checksum is not None, "tpubloom_torch has the stream path")
+    k_errs, k_times = phase_checksum_kernel_vs_plain()
+    stream = phase_stream_config3()
     kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
-                           s_launches, s_errs, s_times, f_launches, f_errs, f_times)
+                           s_launches, s_errs, s_times, f_launches, f_errs, f_times,
+                           stream["with_sink"]["launches"], k_errs, k_times)
     RECORD["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

@@ -453,6 +453,9 @@ def test_migrate_cli_runs_without_jax(tmp_path):
         "    runpy.run_module('tpubloom_torch.migrate', run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    assert not e.code, e.code\n"
+        "import tpubloom_torch.parallel.pipeline, tpubloom_torch.checkpoint\n"
+        "import tpubloom_torch.server.resp, tpubloom_torch.utils.locks\n"
+        "import tpubloom_torch.utils.tracing, tpubloom_torch.ops.checksum\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpubloom')]\n"
         "assert not bad, bad\n"
     )

@@ -22,15 +22,24 @@ reference. This package imports ``torch`` and numpy, never JAX and never
     b = BloomFilter(FilterConfig(m=1 << 30, k=10))  # the flat layout (config 2)
     b.insert_batch([b"alpha"])
     bitmap = b.to_redis_bitmap()         # the reference gem's SETBIT bytes
+
+    from tpubloom_torch.checkpoint import FileSink
+    ins = StreamInserter(b, batch_size=1 << 16, sink=FileSink("ckpt"),
+                         checkpoint_every=1 << 24)    # BASELINE config 3
+    ins.run(b"warc-record-%014d" % i for i in range(1 << 26))
+    assert ins.close()                   # the final checkpoint landed
 """
 
 from tpubloom_torch.config import FilterConfig
 from tpubloom_torch.filter import (
     BlockedBloomFilter, BlockedCountingBloomFilter, BloomFilter, CountingBloomFilter,
 )
+from tpubloom_torch.checkpoint import AsyncCheckpointer
+from tpubloom_torch.parallel.pipeline import StreamInserter, resume_offset
 from tpubloom_torch.parallel.sharded import ShardedBloomFilter
 
 __all__ = [
     "FilterConfig", "BloomFilter", "CountingBloomFilter", "BlockedBloomFilter",
-    "BlockedCountingBloomFilter", "ShardedBloomFilter",
+    "BlockedCountingBloomFilter", "ShardedBloomFilter", "StreamInserter", "resume_offset",
+    "AsyncCheckpointer",
 ]
