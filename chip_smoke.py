@@ -16,8 +16,12 @@ benchmarks/run.py:269-305) and its counting twin, configs 4 x 5 (m=2^30
 counters over 64 shards, batches of 2^22); and the flat layout, each of
 those filters in it (BloomFilter at BASELINE config 2, m=2^30 bits, k=10,
 batches of 2^20; CountingBloomFilter at config 4; the flat sharded arrays
-at configs 5 and 4 x 5, batches of 2^18 and 2^22). Phases, one JSON line
-each, with the seconds it took (``phase_seconds``):
+at configs 5 and 4 x 5, batches of 2^18 and 2^22); BASELINE config 3's
+stream; a ScalableBloomFilter at RedisBloom's ``BF.RESERVE key 0.01
+4194304 EXPANSION 2`` (blocked layers); and the sketch kinds at RedisBloom
+deployments (a CuckooFilter of 2^24 slots, a CountMinSketch and a
+TopKSketch at ``CMS.INITBYPROB key 0.000001 0.001``). Phases, one JSON
+line each, with the seconds it took (``phase_seconds``):
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
@@ -153,14 +157,50 @@ each, with the seconds it took (``phase_seconds``):
    must leave the words of ``prefetch=0``; a short ``utils.tracing``
    window lists the top device ops. Its FileSink directory is
    ``.stream_sink/`` in the checkout, checked for room for five 2 GiB
-   blobs first and removed at the end.
+   blobs first and removed at the end;
+23. scalable path: a ScalableBloomFilter at ``BF.RESERVE key 0.01 4194304
+   EXPANSION 2`` on blocked layers (block_bits 512, chunk hash, 16-byte
+   keys), 2^25 ``bytes`` keys through ``insert_batch`` in calls of 2^20
+   that straddle the growth boundaries, four layers (m = 2^26 .. 2^29, 120
+   MiB); 2^20 held keys (all present) and 2^20 absent ones (FPR within
+   the compound bound, with tests/test_fpr_model.py's tolerance); an
+   ``AsyncCheckpointer`` + ``FileSink`` checkpoint restored on the card
+   with every layer's words equal; a flat-layer stack at capacity 2^20;
+   launch counts read after each stack;
+24. sketch path: a CuckooFilter at m = 2^24 slots filled to 0.90 load in
+   batches of 2^16, then 2^20 keys more (FULL keys and kicks, both > 0;
+   accepted keys equal occupied slots), 2^20 held and absent keys queried,
+   2^16 deleted (all found); a CountMinSketch at ``CMS.INITBYPROB key
+   0.000001 0.001`` (width 2,718,304, depth 7) fed a Zipf(1.1) stream of
+   2^24 unit increments and 2^12 weighted ones, every id's estimate at or
+   above its exact count, with the share above e / width · N; a
+   TopKSketch (top 100) on the same grid whose list the stream's heaviest
+   key leads; launch counts read after the three;
+25. sketch kernel vs plain: each sketch kernel against its plain version
+   on a CPU copy of the same state and keys, tolerance 0: the cuckoo pair
+   at 2^16 slots with an overfill batch, and a 2^12-key batch on a copy of
+   the filled 2^24-slot table; the count-min pair at the path's width and
+   batch (2^20) with duplicates and weights near 2^32;
+26. sketch times: each sketch kernel's ms by CUDA events at the path's
+   shapes (the cuckoo pair 2^16 keys on the filled table, the insert also
+   at a quarter load; the count-min pair 2^20), its result held against
+   its plain version run from the same state (tolerance 0), beside its
+   bound (bytes: each distinct sector the plain walk reads and each the
+   batch changes), the cuckoo walk's latency floor (a dependent read a
+   key and a kick step, at the latency a one-thread pointer chase
+   measures in an L2-resident buffer; also over 64 MiB after an L2
+   flush), the walk with its prefetch lanes against one thread alone, in
+   turns, its plain version's ms and, for the count-min pair,
+   ``index_add_`` / ``index_select`` + ``amin`` on the same positions.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
 exits non-zero without that line; it also fails when no CUDA device is
 present. The full record is written to ``chiprun_out/chip_smoke.json``.
 
-Two other modes compare kernel builds on one card:
+``python3 chip_smoke.py --sketch`` runs the device, build and phases 24-26
+only and writes ``chiprun_out/chip_smoke_sketch.json``. Two other modes
+compare kernel builds on one card:
 
     python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18, 19
     python3 chip_smoke.py --host          # device, build, the flat counting wrappers' host clock
@@ -211,6 +251,13 @@ try:  # the stream path (BASELINE config 3); the same for trees that predate it
     from tpubloom_torch.utils.packing import words_to_redis_bitmap
 except ImportError:
     StreamInserter = resume_offset = checksum = tracing = None
+try:  # the scalable filter and the sketch kinds; the same for trees that predate them
+    from tpubloom_torch import CountMinSketch, CuckooFilter, ScalableBloomFilter, TopKSketch
+    from tpubloom_torch.obs import counters as obs_counters
+    from tpubloom_torch.ops import cms as ops_cms
+    from tpubloom_torch.ops import cuckoo as ops_cuckoo
+except ImportError:
+    CountMinSketch = CuckooFilter = ScalableBloomFilter = TopKSketch = None
 
 SEED = 20260
 LOG2M, K, BLOCK_BITS, KEY_LEN = 32, 7, 512, 16
@@ -312,6 +359,33 @@ STREAM_DIR = Path(__file__).resolve().parent / ".stream_sink"  # git-ignored; re
 # mask, address, load), and the lane's shift, 32 steps of 4 ops a 128 bytes.
 CRC_SLICE_WORDS, NUMPY_CRC_BYTES = 1 << 24, 8 << 20
 OPS_CRC_WORD = 1 + 4 * 4 + 32 * 4 // 32
+# The scalable filter at RedisBloom's `BF.RESERVE key 0.01 4194304 EXPANSION
+# 2` (the default expansion; tightening 0.5, as Almeida et al. 2007) on
+# blocked layers at the main path's layout (block_bits 512, chunk hash,
+# 16-byte keys): 2^25 keys in insert_batch calls of 2^20 bytes keys, the
+# first half a call, push four layers (m = 2^26 .. 2^29, k = 7 .. 10, 120
+# MiB); 2^20 held and 2^20 absent keys queried. A flat-layer stack is cut to
+# a capacity of 2^20 (2^22 keys, 3 layers).
+SCALABLE_CAPACITY, SCALABLE_ERROR, SCALABLE_GROWTH = 1 << 22, 0.01, 2
+N_SCALABLE, B_SCALABLE, N_SCALABLE_PROBE = 1 << 25, 1 << 20, 1 << 20
+SCALABLE_FLAT_CAPACITY, N_SCALABLE_FLAT = 1 << 20, 1 << 22
+# The cuckoo filter at `CF.RESERVE key 16000000`: m = 2^24 slots (64 MiB), 4
+# a bucket, 32 kicks, 16-byte keys, filled to 0.90 load in batches of 2^16,
+# then 2^20 keys more (FULL keys and kicks); 2^20 held and absent keys
+# queried, 2^16 deleted.
+LOG2M_CUCKOO, B_CUCKOO, CUCKOO_FILL = 24, 1 << 16, 0.90
+N_CUCKOO_OVERFILL, N_CUCKOO_PROBE, N_CUCKOO_DELETE = 1 << 20, 1 << 20, 1 << 16
+# The count-min sketch at `CMS.INITBYPROB key 0.000001 0.001`: width
+# ceil(e / 0.000001) = 2,718,282, rounded up to a whole number of u32 words
+# as tpubloom's server rounds it (CMSInitByDim), 2,718,304 (not a power of
+# two: the mod walk); depth ceil(ln(1 / 0.001)) = 7; 72.6 MiB. Fed 2^24 unit
+# increments of a Zipf(1.1) stream over 2^24 ids in batches of 2^20, and
+# 2^12 weighted increments; top-k (`TOPK.RESERVE key 100`) on the same grid,
+# 4 batches of 2^16 of the stream.
+CMS_WIDTH, CMS_DEPTH = 2_718_304, 7
+N_CMS, B_CMS, CMS_ZIPF, CMS_DISTINCT = 1 << 24, 1 << 20, 1.1, 1 << 24
+N_CMS_WEIGHTED, CMS_MAX_WEIGHT = 1 << 12, 1000
+TOPK, B_TOPK, N_TOPK_BATCHES = 100, 1 << 16, 4
 M32 = 0xFFFFFFFF
 L2_FLUSH_BYTES = 128 << 20  # read between fresh launches: 2.5 x the H100's 50 MB L2
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -2528,6 +2602,609 @@ def phase_stream_config3() -> dict:
     return out
 
 
+# -- the scalable filter and the sketch kinds --------------------------------------
+
+
+def nonzero_rows(rng: np.random.Generator, n: int) -> np.ndarray:
+    """Random 16-byte keys whose last byte is not zero (so that
+    :func:`bytes_keys` keeps all 16 bytes)."""
+    r = rows(rng, n)
+    r[:, -1] |= 1
+    return r
+
+
+def bytes_keys(r: np.ndarray) -> list:
+    """Each row of a ``uint8[n, W]`` array as a ``bytes`` key, the way a
+    user passes keys (numpy's fixed-width bytes drop trailing zero bytes,
+    which rows of :func:`nonzero_rows` and :func:`id_rows` do not have)."""
+    return np.ascontiguousarray(r).view(f"S{r.shape[1]}").ravel().tolist()
+
+
+def id_rows(ids: np.ndarray) -> np.ndarray:
+    """The 16-byte key of each id: its 8 little-endian bytes, then
+    ``b"cms-key!"``."""
+    out = np.empty((ids.shape[0], KEY_LEN), dtype=np.uint8)
+    out[:, :8] = ids.astype("<u8").view(np.uint8).reshape(-1, 8)
+    out[:, 8:] = np.frombuffer(b"cms-key!", dtype=np.uint8)
+    return out
+
+
+def zipf_ids(rng: np.random.Generator, n: int) -> np.ndarray:
+    """``n`` draws of a Zipf(CMS_ZIPF) stream over CMS_DISTINCT ids (ranks
+    past CMS_DISTINCT are drawn again), int64 in [0, CMS_DISTINCT)."""
+    out = []
+    while sum(x.size for x in out) < n:
+        z = rng.zipf(CMS_ZIPF, n)
+        out.append(z[z <= CMS_DISTINCT] - 1)
+    return np.concatenate(out)[:n].astype(np.int64)
+
+
+def fpr_bound_check(hits: int, probes: int, bound: float) -> dict:
+    """Absent keys' hits against a design FPR bound, with the acceptance
+    of tests/test_fpr_model.py above it: 6 sigma, 35 %, floor 8."""
+    expect = probes * bound
+    tol = max(6.0 * math.sqrt(max(expect, 1.0)), 0.35 * expect, 8.0)
+    check(hits <= expect + tol, f"FPR {hits} hits over the bound's {expect:.1f} + {tol:.1f}")
+    return {"probes": probes, "hits": hits, "fpr": hits / probes, "bound": bound,
+            "bound_hits": expect, "tolerance": tol}
+
+
+def scalable_run(cfg: FilterConfig, capacity: int, n: int, rng) -> tuple:
+    """A ScalableBloomFilter on the card (no device given) fed ``n`` keys
+    through ``insert_batch`` in calls of B_SCALABLE ``bytes`` keys, the
+    first half a call, so that every growth boundary falls inside a call;
+    then its held keys (a 32nd of them, at most N_SCALABLE_PROBE) and as
+    many absent keys through ``include_batch``. Returns the filter and
+    its record."""
+    f = ScalableBloomFilter(capacity, SCALABLE_ERROR, config=cfg, growth=SCALABLE_GROWTH)
+    check(f.layers[0].words.is_cuda, "the scalable filter's default device is the card")
+    starts = [0, *range(B_SCALABLE // 2, n, B_SCALABLE)]
+    held, straddled, host_s = [], 0, 0.0
+    t0 = time.perf_counter()
+    for lo, hi in zip(starts, [*starts[1:], n]):
+        t = time.perf_counter()
+        r = nonzero_rows(rng, hi - lo)
+        keys = bytes_keys(r)
+        host_s += time.perf_counter() - t
+        before = f.snapshot_meta()["layer_counts"]
+        f.insert_batch(keys)
+        after = f.snapshot_meta()["layer_counts"]
+        straddled += len(after) > len(before) and after[len(before) - 1] > before[-1]
+        held.append(r[::32])
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    held = np.concatenate(held)[:N_SCALABLE_PROBE]
+    t = time.perf_counter()
+    got = f.include_batch(bytes_keys(held))
+    held_s = time.perf_counter() - t
+    check(bool(got.all()), f"no false negatives ({int(got.sum())} of {got.size} held keys)")
+    absent = f.include_batch(bytes_keys(nonzero_rows(rng, held.shape[0])))
+    meta = f.snapshot_meta()
+    rec = {"base": {"block_bits": cfg.block_bits, "block_hash": cfg.block_hash,
+                    "key_len": cfg.key_len},
+           "capacity": capacity, "error_rate": SCALABLE_ERROR, "growth": SCALABLE_GROWTH,
+           "tightening": f.tightening, "keys": n, "calls": len(starts),
+           "calls_straddling_a_growth_boundary": int(straddled),
+           "layers": [{"m": c["m"], "k": c["k"], "keys": k}
+                      for c, k in zip(meta["layer_configs"], meta["layer_counts"])],
+           "state_bytes": sum(c["m"] for c in meta["layer_configs"]) // 8,
+           "insert_s": insert_s, "host_key_making_s": host_s,
+           "keys_per_s": n / insert_s, "held_probes": int(got.size), "held_query_s": held_s,
+           "fpr": fpr_bound_check(int(absent.sum()), int(absent.size), f.compound_fpr_bound()),
+           "stats": f.stats()}
+    return f, rec
+
+
+def phase_scalable_path(rng) -> None:
+    """BF.RESERVE key 0.01 4194304 EXPANSION 2 on blocked layers (the main
+    path's layout): 2^25 keys push four layers (m = 2^26 .. 2^29, 120 MiB);
+    then an async checkpoint of the stack to a FileSink, restored on the
+    card with every layer's words equal; and a flat-layer stack at a cut
+    size. The launch counts are read after each stack's run."""
+    t0 = time.perf_counter()
+    sweep.reset_launch_counts()
+    checksum.reset_launch_counts()
+    cfg = FilterConfig(m=BLOCK_BITS, k=1, key_len=KEY_LEN, block_bits=BLOCK_BITS,
+                       block_hash="chunk", key_name="scalable")
+    f, blocked_rec = scalable_run(cfg, SCALABLE_CAPACITY, N_SCALABLE, rng)
+    check(f.n_layers == 4, f"2^25 keys push 4 layers ({f.n_layers})")
+    check(blocked_rec["calls_straddling_a_growth_boundary"] >= 3, "calls straddle the boundaries")
+    if STREAM_DIR.exists():
+        shutil.rmtree(STREAM_DIR)
+    STREAM_DIR.mkdir()
+    sink = checkpoint.FileSink(str(STREAM_DIR))
+    cp = checkpoint.AsyncCheckpointer(f, sink)
+    t = time.perf_counter()
+    check(cp.trigger(), "scalable checkpoint triggered")
+    check(cp.flush(timeout=300) and cp.last_error is None, f"checkpoint landed ({cp.last_error!r})")
+    cp.close(final_checkpoint=False)
+    ckpt_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    launches = {**sweep.launch_counts(), **checksum.launch_counts()}
+    t = time.perf_counter()
+    r = checkpoint.restore(cfg, sink, expect_scalable=True,
+                           scalable_expect={"capacity": SCALABLE_CAPACITY,
+                                            "error_rate": SCALABLE_ERROR,
+                                            "growth": SCALABLE_GROWTH})
+    restore_s = time.perf_counter() - t
+    errs = [max_abs_err(a.words, b.words) for a, b in zip(r.layers, f.layers, strict=True)]
+    check(r.layers[0].words.is_cuda, "the stack restored on the card")
+    check(max(errs) == 0, f"the restored stack's words equal the live one's ({errs})")
+    shutil.rmtree(STREAM_DIR)
+    for name in ("blocked_insert", "blocked_query", "payload_crc32c"):
+        check(launches[name] > 0, f"{name} launched on the scalable path")
+    blocked_rec.update(checkpoint_s=ckpt_s, restore_s=restore_s, restore_max_abs_err=max(errs),
+                       checkpoint_bytes=4 * sum(a.words.numel() for a in f.layers),
+                       launches=launches)
+    del f, r
+    torch.cuda.empty_cache()
+    # flat layers, cut to a capacity of 2^20 (3 layers, 2^22 keys)
+    sweep.reset_launch_counts()
+    flat_cfg = FilterConfig(m=64, k=1, key_len=KEY_LEN, key_name="scalable-flat")
+    g, flat_rec = scalable_run(flat_cfg, SCALABLE_FLAT_CAPACITY, N_SCALABLE_FLAT, rng)
+    torch.cuda.synchronize()
+    flat_rec["launches"] = sweep.launch_counts()
+    check(g.n_layers == 3, f"2^22 keys push 3 flat layers ({g.n_layers})")
+    for name in ("flat_insert", "flat_query"):
+        check(flat_rec["launches"][name] > 0, f"{name} launched on the flat stack")
+    del g
+    torch.cuda.empty_cache()
+    emit("scalable_path", blocked=blocked_rec, flat=flat_rec,
+         reduced={"flat_stack": "capacity 2^20, 2^22 keys: it covers the flat kernels under "
+                                "the scalable filter; the blocked stack runs at full size"},
+         seconds=time.perf_counter() - t0)
+
+
+def phase_sketch_path(rng) -> tuple:
+    """The sketch kinds through their entry points on the card:
+    CF.RESERVE for ~16 M items (m = 2^24 slots) filled to 0.90 load in
+    batches of 2^16, then pushed 2^20 keys further (FULL keys and kicks),
+    queried and deleted from; CMS.INITBYPROB key 0.000001 0.001 fed a
+    Zipf(1.1) stream of 2^24 unit increments and weighted increments, every
+    id's estimate held to its exact count; TOPK.RESERVE key 100 on the same
+    grid. Launch counts are read after the three."""
+    t0 = time.perf_counter()
+    sweep.reset_launch_counts()
+    kicks0 = obs_counters.get("cuckoo_kicks_total")
+    cfg = FilterConfig(m=1 << LOG2M_CUCKOO, k=2, kind="cuckoo", key_len=KEY_LEN, key_name="cf")
+    cf = CuckooFilter(cfg)
+    check(cf.words.is_cuda, "the cuckoo filter's default device is the card")
+    target = math.ceil(CUCKOO_FILL * cfg.m)
+    sample, stored, fill_full, fill_batches = [], 0, 0, 0
+    t = time.perf_counter()
+    while stored < target:
+        r = nonzero_rows(rng, B_CUCKOO)
+        cf.insert_packed(r)
+        flags = cf.take_insert_flags()
+        stored += int(flags.sum())
+        fill_full += int((~flags).sum())
+        fill_batches += 1
+        sample.append(r[flags][::8])
+    fill_s = time.perf_counter() - t
+    fill_kicks = obs_counters.get("cuckoo_kicks_total") - kicks0
+    load = cf.fill_ratio()
+    check(load >= CUCKOO_FILL, f"the fill reached {load:.4f}")
+    over_full = 0
+    t = time.perf_counter()
+    for _ in range(N_CUCKOO_OVERFILL // B_CUCKOO):
+        r = rows(rng, B_CUCKOO)
+        cf.insert_packed(r)
+        flags = cf.take_insert_flags()
+        stored += int(flags.sum())
+        over_full += int((~flags).sum())
+    over_s = time.perf_counter() - t
+    over_kicks = obs_counters.get("cuckoo_kicks_total") - kicks0 - fill_kicks
+    check(over_full > 0 and over_kicks > 0, f"the overfill rejects ({over_full}) and kicks")
+    occupied = cf.stats()["occupied_slots"]
+    check(occupied == stored, f"honest FULL: {stored} keys accepted, {occupied} slots occupied")
+    held = np.concatenate(sample)[:N_CUCKOO_PROBE]
+    check(bool(cf.include_packed(held).all()), "no false negatives on held keys")
+    absent = int(cf.include_packed(rows(rng, N_CUCKOO_PROBE)).sum())
+    t = time.perf_counter()
+    deleted = cf.delete_batch(bytes_keys(held[:N_CUCKOO_DELETE]))
+    delete_s = time.perf_counter() - t
+    check(bool(deleted.all()), f"every held key deleted ({int(deleted.sum())})")
+    check(cf.stats()["occupied_slots"] == stored - N_CUCKOO_DELETE, "a delete frees one slot")
+    cuckoo = {"m": cfg.m, "bytes": 4 * cfg.m, "batch": B_CUCKOO, "max_kicks": ops_cuckoo.MAX_KICKS,
+              "fill": {"batches": fill_batches, "keys": fill_batches * B_CUCKOO, "seconds": fill_s,
+                       "keys_per_s": fill_batches * B_CUCKOO / fill_s, "load": load,
+                       "full": fill_full, "kicks": fill_kicks},
+              "overfill": {"keys": N_CUCKOO_OVERFILL, "seconds": over_s, "full": over_full,
+                           "kicks": over_kicks, "load": cf.fill_ratio()},
+              "held_probes": int(held.shape[0]), "absent_probes": N_CUCKOO_PROBE,
+              "fpr": absent / N_CUCKOO_PROBE, "deleted": int(deleted.sum()), "delete_s": delete_s}
+    # count-min: the Zipf stream, then weighted increments, then every id
+    ccfg = FilterConfig(m=CMS_WIDTH, k=CMS_DEPTH, kind="cms", key_len=KEY_LEN, key_name="cms")
+    cms = CountMinSketch(ccfg)
+    ids = zipf_ids(rng, N_CMS)
+    t = time.perf_counter()
+    for lo in range(0, N_CMS, B_CMS):
+        cms.insert_packed(id_rows(ids[lo : lo + B_CMS]))
+    torch.cuda.synchronize()
+    cms_s = time.perf_counter() - t
+    exact = np.bincount(ids, minlength=CMS_DISTINCT).astype(np.int64)
+    wid = rng.integers(0, CMS_DISTINCT, N_CMS_WEIGHTED)
+    w = rng.integers(1, CMS_MAX_WEIGHT, N_CMS_WEIGHTED)
+    after = cms.increment_batch(bytes_keys(id_rows(wid)), w.tolist())
+    np.add.at(exact, wid, w)
+    check(bool((after >= exact[wid]).all()), "increment_batch's estimates >= the exact counts")
+    total = N_CMS + int(w.sum())
+    eps_n = math.e / CMS_WIDTH * total
+    below = above = above_seen = seen = 0
+    t = time.perf_counter()
+    for lo in range(0, CMS_DISTINCT, B_CMS):
+        est = cms.estimate_batch(bytes_keys(id_rows(np.arange(lo, lo + B_CMS)))).astype(np.int64)
+        ex = exact[lo : lo + B_CMS]
+        below += int((est < ex).sum())
+        over = est - ex > eps_n
+        above += int(over.sum())
+        above_seen += int((over & (ex > 0)).sum())
+        seen += int((ex > 0).sum())
+    est_s = time.perf_counter() - t
+    check(below == 0, f"no estimate below its exact count ({below})")
+    cms_rec = {"width": CMS_WIDTH, "depth": CMS_DEPTH, "bytes": 4 * CMS_WIDTH * CMS_DEPTH,
+               "zipf": CMS_ZIPF, "distinct_ids": CMS_DISTINCT, "unit_increments": N_CMS,
+               "batch": B_CMS, "update_s": cms_s, "weighted_keys": N_CMS_WEIGHTED,
+               "weighted_total": int(w.sum()), "increments_total": total,
+               "ids_seen": seen, "estimates": CMS_DISTINCT, "estimate_s": est_s,
+               "below_exact": below, "e_over_width_times_n": eps_n,
+               "share_above_e_over_width_n": above / CMS_DISTINCT,
+               "share_above_e_over_width_n_of_seen": above_seen / max(seen, 1),
+               "fill_ratio": cms.fill_ratio()}
+    # top-k on the same grid: the stream's first batches
+    tk = TopKSketch(FilterConfig(m=CMS_WIDTH, k=CMS_DEPTH, kind="topk", topk=TOPK,
+                                 key_len=KEY_LEN, key_name="topk"))
+    stream = ids[: N_TOPK_BATCHES * B_TOPK]
+    t = time.perf_counter()
+    for lo in range(0, stream.size, B_TOPK):
+        tk.insert_packed(id_rows(stream[lo : lo + B_TOPK]))
+    topk_s = time.perf_counter() - t
+    counts = np.bincount(stream)
+    heaviest = int(counts.argmax())
+    top = tk.topk_list()
+    check(top[0][0] == id_rows(np.array([heaviest]))[0].tobytes(),
+          f"the heaviest key (id {heaviest}, {int(counts[heaviest])}) leads topk_list")
+    topk_rec = {"topk": TOPK, "batches": N_TOPK_BATCHES, "batch": B_TOPK, "seconds": topk_s,
+                "heaviest_id": heaviest, "heaviest_count": int(counts[heaviest]),
+                "leader_estimate": top[0][1], "listed": len(top)}
+    torch.cuda.synchronize()
+    launches = sweep.launch_counts()
+    for name in SKETCH_KERNELS:
+        check(launches[name] > 0, f"{name} launched on the sketch path")
+    del tk
+    torch.cuda.empty_cache()
+    emit("sketch_path", cuckoo=cuckoo, cms=cms_rec, topk=topk_rec, launches=launches,
+         seconds=time.perf_counter() - t0)
+    return launches, cf, cms, held, ids
+
+
+def key_batch(r: np.ndarray, pad: int = 0, dup: int = 0):
+    """Keys and lengths of rows ``r`` (16 bytes each) on the card: ``dup``
+    copies of row 0 at the end, then ``pad`` padding rows."""
+    r = r.copy()
+    if dup:
+        r[-dup:] = r[0]
+    keys = np.concatenate([r, np.zeros((pad, r.shape[1]), np.uint8)])
+    lens = np.concatenate([np.full(r.shape[0], r.shape[1], np.int32), np.full(pad, -1, np.int32)])
+    return torch.from_numpy(keys).to("cuda"), torch.from_numpy(lens).to("cuda")
+
+
+def i32(t: torch.Tensor) -> torch.Tensor:
+    """A uint32 tensor's bits on the host, as int32."""
+    return t.view(torch.int32).cpu()
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of a uint32 tensor on the host (a copy even of a CPU one)."""
+    return t.view(torch.int32).to("cpu", copy=True).view(torch.uint32)
+
+
+def cuckoo_vs_plain(state, cfg, batches, deletes) -> dict:
+    """Each batch inserted (then queried) through the cuckoo kernels on
+    ``state`` and through the plain versions on a CPU copy, then the
+    deletes: the worst difference of slots and flags, FULL keys, kicks."""
+    host = host_copy(state)
+    err = {"cuckoo_insert": 0, "cuckoo_query": 0, "cuckoo_delete": 0}
+    full = kicks = 0
+    for keys, lens in batches:
+        ok, k = sweep.cuckoo_insert(state, keys, lens, cfg)
+        pok, pk = sweep.cuckoo_insert(host, keys.cpu(), lens.cpu(), cfg)
+        err["cuckoo_insert"] = max(err["cuckoo_insert"], max_abs_err(i32(state), i32(host)),
+                                   max_abs_err(ok.cpu(), pok), max_abs_err(k.cpu(), pk))
+        full += int(((lens.cpu() >= 0) & ~pok).sum())
+        kicks += int(pk.sum())
+        q = sweep.cuckoo_query(state, keys, lens, cfg)
+        err["cuckoo_query"] = max(err["cuckoo_query"],
+                                  max_abs_err(q.cpu(), sweep.cuckoo_query(host, keys.cpu(), lens.cpu(), cfg)))
+    for keys, lens in deletes:
+        d = sweep.cuckoo_delete(state, keys, lens, cfg)
+        pd = sweep.cuckoo_delete(host, keys.cpu(), lens.cpu(), cfg)
+        err["cuckoo_delete"] = max(err["cuckoo_delete"], max_abs_err(d.cpu(), pd),
+                                   max_abs_err(i32(state), i32(host)))
+    return {"max_abs_err": err, "full": full, "kicks": kicks}
+
+
+def phase_sketch_kernel_vs_plain(rng, cf, cms) -> dict:
+    """Each sketch kernel against its plain version on a CPU copy of the
+    same state and keys, tolerance 0: the cuckoo pair at 2^16 slots with
+    an overfill batch (FULL keys and unwound chains), duplicates and
+    padding, and one 2^12-key batch on a copy of the sketch path's filled
+    2^24-slot table; the count-min pair at the path's width and batch with
+    duplicates and weights near 2^32 (the counters wrap). The cuckoo pair at
+    the path's batch of 2^16 on the filled table is held in
+    :func:`phase_sketch_times`."""
+    t0 = time.perf_counter()
+    small = FilterConfig(m=1 << 16, k=2, kind="cuckoo", key_len=KEY_LEN, seed=SEED)
+    st = torch.zeros(small.m, dtype=torch.int32, device="cuda").view(torch.uint32)
+    first = key_batch(rows(rng, 1 << 15), pad=64, dup=16)
+    over = key_batch(rows(rng, 1 << 16), pad=64, dup=16)
+    run16 = cuckoo_vs_plain(st, small, [first, over], [first])
+    check(run16["full"] > 0 and run16["kicks"] > 0, "the 2^16-slot overfill rejects and kicks")
+    big = clone_u32(cf.words)
+    batch = key_batch(rows(rng, 1 << 12), pad=64, dup=8)
+    run24 = cuckoo_vs_plain(big, cf.config, [batch], [batch])
+    del big, st
+    grid = clone_u32(cms.words)
+    host = host_copy(grid)
+    keys, lens = key_batch(id_rows(zipf_ids(rng, B_CMS - 256)), pad=256, dup=1 << 12)
+    incs = rng.integers(0, 1 << 32, keys.shape[0], dtype=np.uint64).astype(np.uint32)
+    incs[: 1 << 10] = M32 - rng.integers(0, 4, 1 << 10).astype(np.uint32)
+    incs = torch.from_numpy(incs.view(np.int32))  # moved as int32, viewed as uint32
+    sweep.cms_update(grid, keys, lens, cms.config, incs.to(grid.device).view(torch.uint32))
+    sweep.cms_update(host, keys.cpu(), lens.cpu(), cms.config, incs.view(torch.uint32))
+    sweep.cms_update(grid, keys, lens, cms.config)
+    sweep.cms_update(host, keys.cpu(), lens.cpu(), cms.config)
+    cms_err = {"cms_update": max_abs_err(i32(grid), i32(host))}
+    est = sweep.cms_estimate(grid, keys, lens, cms.config)
+    cms_err["cms_estimate"] = max_abs_err(
+        i32(est), i32(sweep.cms_estimate(host, keys.cpu(), lens.cpu(), cms.config)))
+    del grid, host
+    torch.cuda.empty_cache()
+    errs = {name: max(run16["max_abs_err"].get(name, 0), run24["max_abs_err"].get(name, 0),
+                      cms_err.get(name, 0)) for name in SKETCH_KERNELS}
+    check(max(errs.values()) == 0, f"sketch kernels equal their plain versions ({errs})")
+    emit("sketch_kernel_vs_plain", max_abs_err=errs, tolerance=0,
+         cuckoo_2_16_slots=run16, cuckoo_filled_2_24_slots={**run24, "load": cf.fill_ratio()},
+         cms={"width": CMS_WIDTH, "depth": CMS_DEPTH, "keys": int(keys.shape[0]),
+              "weights_near_2_32": 1 << 10, "max_abs_err": cms_err},
+         seconds=time.perf_counter() - t0)
+    return errs
+
+
+# 32-bit integer operations a key of the sketch kernels: the cuckoo hash is
+# two murmur3 passes (108) and the fingerprint's mod and add (4); a bucket
+# probe is 4 compares (4); the count-min mod walk is a murmur3 and fnv1a
+# (118), then each row's step, mod, index and add (8).
+OPS_CUCKOO_HASH, OPS_CUCKOO_PROBE = 112, 4
+OPS_CMS_HASH, OPS_CMS_ROW = 118, 8
+
+
+CHASE_STEPS = 1 << 16  # dependent reads a latency chase times
+# the cuckoo table's size (above the 50 MB L2), and a buffer the L2 holds
+CHASE_TABLE_BYTES, CHASE_L2_BYTES = 64 << 20, 4 << 20
+
+
+def host_ms(fn) -> tuple[float, object]:
+    """Host-clock ms of one call of ``fn`` (a plain version on the CPU),
+    and what it returned."""
+    t = time.perf_counter()
+    got = fn()
+    return (time.perf_counter() - t) * 1e3, got
+
+
+def changed_sectors(pre: torch.Tensor, post: torch.Tensor) -> int:
+    """32-byte sectors (8 words) in which two host copies of a state differ."""
+    return int((pre.view(torch.int32).reshape(-1, 8) != post.view(torch.int32).reshape(-1, 8))
+               .any(1).sum())
+
+
+def chase_us(nbytes: int, warm: bool) -> dict:
+    """µs of one dependent 16-byte row read on one thread, the walk's kick
+    step without its compares and stores: a chase of CHASE_STEPS links of a
+    random cycle through every row of a buffer of ``nbytes``, timed by a
+    CUDA event pair, three times. Before each, the L2 is flushed by a read
+    (``warm`` False: the reads go to device memory), or the whole cycle is
+    walked once (``warm``: the buffer is in L2). ``us`` is the least."""
+    n_rows = nbytes // 16
+    order = torch.randperm(n_rows, device="cuda")
+    buf = torch.zeros(n_rows * 4, dtype=torch.int32, device="cuda")
+    buf[order * 4] = order.roll(-1).to(torch.int32)
+    start, end = int(order[0]), int(order[CHASE_STEPS % n_rows])
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    runs = []
+    for _ in range(3):
+        if warm:
+            sweep._cuckoo_chase(buf, start, n_rows)
+        else:
+            flush.sum()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        got = sweep._cuckoo_chase(buf, start, CHASE_STEPS)
+        b.record()
+        torch.cuda.synchronize()
+        check(int(got[0]) == end, "the chase followed its links")
+        runs.append(a.elapsed_time(b) * 1e3 / CHASE_STEPS)
+    del order, buf, flush
+    return {"bytes": nbytes, "steps": CHASE_STEPS, "in_l2": warm, "us": min(runs), "runs_us": runs}
+
+
+def walk_ab(state, keys, lens, cfg, insert: bool) -> tuple[dict, dict]:
+    """The insert or delete walk's ms on ``state`` (restored and the L2
+    flushed before each launch: fresh_ms, 5 launches) with the prefetch
+    lanes and with one thread alone, in turns prefetch, thread, thread,
+    prefetch; and each variant's ``(state, flags, kicks)`` from a clone of
+    ``state``."""
+    runs = {"prefetch": [], "thread": []}
+    for name in ("prefetch", "thread", "thread", "prefetch"):
+        runs[name].append(fresh_ms(state, lambda i: sweep._cuckoo_walk_on(
+            name == "prefetch", insert, state, keys, lens, cfg), n=5, warm=1))
+    got = {}
+    for name in runs:
+        c = clone_u32(state)
+        got[name] = (c, *sweep._cuckoo_walk_on(name == "prefetch", insert, c, keys, lens, cfg))
+    ab = {**{f"{k}_ms": v for k, v in runs.items()},
+          "thread_over_prefetch": sum(runs["thread"]) / sum(runs["prefetch"]),
+          "noise": max(abs(a - b) / min(a, b) for a, b in runs.values())}
+    return ab, got
+
+
+def walk_err(got: dict, host, flags, kicks=None) -> int:
+    """The worst difference between each walk variant's result and the
+    plain version's (``host`` state, ``flags``, ``kicks``)."""
+    return max(max(max_abs_err(i32(c), i32(host)), max_abs_err(f.cpu(), flags),
+                   0 if kicks is None else max_abs_err(k.cpu(), kicks))
+               for c, f, k in got.values())
+
+
+def cuckoo_insert_times(state, keys, lens, cfg, lat: dict) -> dict:
+    """The cuckoo insert of one batch on ``state``: the wrapper's ms, the
+    plain version's ms on a host copy of the same state, both walks held
+    against it and timed in turns, the byte bound (keys, lengths and
+    flags once, each distinct bucket sector the plain walk reads, and each
+    sector the batch changes) and the latency floor (a dependent read a
+    key and a kick step, each at the L2-resident chase's latency)."""
+    B = keys.shape[0]
+    host = host_copy(state)
+    p_ms, (pok, pk) = host_ms(lambda: sweep.cuckoo_insert(host, keys.cpu(), lens.cpu(), cfg))
+    reads: set = set()
+    ops_cuckoo.cuckoo_insert_plain(host_copy(state), keys.cpu(), lens.cpu(), cfg, reads)
+    read_sectors = len({b >> 1 for b in reads})  # two 16-byte buckets a sector
+    written_sectors = changed_sectors(host_copy(state), host)
+    ab, got = walk_ab(state, keys, lens, cfg, insert=True)
+    err = walk_err(got, host, pok, pk)
+    del got, host
+    ms = fresh_ms(state, lambda i: sweep.cuckoo_insert(state, keys, lens, cfg), n=5, warm=1)
+    n_kicks, n_full = int(pk.sum()), int((~pok).sum())
+    nbytes = B * (KEY_LEN + 4 + 1 + 4) + 32 * (read_sectors + written_sectors)
+    b_ms, b_by = bound(nbytes, B * (OPS_CUCKOO_HASH + 2 * OPS_CUCKOO_PROBE) + n_kicks * 12)
+    dep = B + n_kicks
+    lat_ms = dep * lat["l2"]["us"] / 1e3
+    return {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "keys": B, "kicks": n_kicks, "full": n_full, "load": occupied(state) / cfg.m,
+            "read_sectors": read_sectors, "written_sectors": written_sectors, "bytes": nbytes,
+            "share_of_bound": b_ms / ms, "dependent_reads": dep, "latency_bound_ms": lat_ms,
+            "latency_bound_by": "latency", "share_of_latency_bound": lat_ms / ms,
+            "latency_at_device_memory_ms": dep * lat["device_memory"]["us"] / 1e3,
+            "us_per_key": ms * 1e3 / B, "prefetch_ab": ab}
+
+
+def occupied(state: torch.Tensor) -> int:
+    return int((state.view(torch.int32) != 0).sum())
+
+
+def phase_sketch_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
+    """Each sketch kernel's ms by CUDA events at the sketch path's shapes
+    (the cuckoo pair a batch of 2^16 on its filled table, restored from a
+    snapshot before each launch, and the insert again at a quarter load;
+    the count-min pair a batch of 2^20 on its grid), beside its bound, its
+    plain version's ms on a host copy of the same state, with which its
+    result must agree (tolerance 0), and for the count-min pair one
+    PyTorch call on the same positions. The latency of one dependent read,
+    by a pointer chase, gives the cuckoo walk's latency floor; the walk
+    with its prefetch lanes is timed against one thread alone."""
+    t0 = time.perf_counter()
+    lat = {"l2": chase_us(CHASE_L2_BYTES, warm=True),
+           "device_memory": chase_us(CHASE_TABLE_BYTES, warm=False)}
+    out = {}
+    cfg = cf.config
+    B = B_CUCKOO
+    keys, lens = key_batch(rows(rng, B))
+    out["cuckoo_insert"] = cuckoo_insert_times(cf.words, keys, lens, cfg, lat)
+    clones = [clone_u32(cf.words) for _ in range(4)]
+    out["cuckoo_insert"]["kernels_ms"] = kernel_ms(
+        lambda i: sweep.cuckoo_insert(clones.pop(), keys, lens, cfg), n=3)
+    del clones
+    out["cuckoo_insert"].update(library_ms=None, library="none: torch has no ordered cuckoo walk")
+    # the same batch on a table at a quarter load: keys placed at once, no kicks
+    quarter = torch.zeros(cfg.m, dtype=torch.int32, device="cuda").view(torch.uint32)
+    for _ in range(cfg.m // 4 // B):
+        sweep.cuckoo_insert(quarter, *key_batch(rows(rng, B)), cfg)
+    out["cuckoo_insert"]["quarter_load"] = cuckoo_insert_times(quarter, keys, lens, cfg, lat)
+    del quarter
+    # delete: held keys of the filled table
+    dkeys, dlens = key_batch(held[N_CUCKOO_DELETE : N_CUCKOO_DELETE + B])
+    host = host_copy(cf.words)
+    p_ms, pd = host_ms(lambda: sweep.cuckoo_delete(host, dkeys.cpu(), dlens.cpu(), cfg))
+    reads: set = set()
+    ops_cuckoo.cuckoo_delete_plain(host_copy(cf.words), dkeys.cpu(), dlens.cpu(), cfg, reads)
+    read_sectors = len({b >> 1 for b in reads})
+    written_sectors = changed_sectors(host_copy(cf.words), host)
+    ab, got = walk_ab(cf.words, dkeys, dlens, cfg, insert=False)
+    err = walk_err(got, host, pd)
+    del got, host
+    ms = fresh_ms(cf.words, lambda i: sweep.cuckoo_delete(cf.words, dkeys, dlens, cfg), n=5, warm=1)
+    nbytes = B * (KEY_LEN + 4 + 1) + 32 * (read_sectors + written_sectors)
+    b_ms, b_by = bound(nbytes, B * (OPS_CUCKOO_HASH + 2 * OPS_CUCKOO_PROBE))
+    lat_ms = B * lat["l2"]["us"] / 1e3
+    out["cuckoo_delete"] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": None, "library": "none: torch has no ordered cuckoo walk",
+                            "max_abs_err": err, "keys": B, "read_sectors": read_sectors,
+                            "written_sectors": written_sectors, "bytes": nbytes,
+                            "share_of_bound": b_ms / ms, "dependent_reads": B,
+                            "latency_bound_ms": lat_ms, "latency_bound_by": "latency",
+                            "share_of_latency_bound": lat_ms / ms,
+                            "latency_at_device_memory_ms": B * lat["device_memory"]["us"] / 1e3,
+                            "us_per_key": ms * 1e3 / B, "prefetch_ab": ab}
+    # query: held and absent keys
+    host = host_copy(cf.words)
+    p_ms, want = host_ms(lambda: sweep.cuckoo_query(host, dkeys.cpu(), dlens.cpu(), cfg))
+    err = max_abs_err(sweep.cuckoo_query(cf.words, dkeys, dlens, cfg).cpu(), want)
+    want = sweep.cuckoo_query(host, keys.cpu(), lens.cpu(), cfg)
+    err = max(err, max_abs_err(sweep.cuckoo_query(cf.words, keys, lens, cfg).cpu(), want))
+    ms = cuda_ms(lambda i: sweep.cuckoo_query(cf.words, dkeys, dlens, cfg), n=20)
+    absent_ms = cuda_ms(lambda i: sweep.cuckoo_query(cf.words, keys, lens, cfg), n=20)
+    nbytes = B * (KEY_LEN + 4 + 1) + B * 2 * 32
+    b_ms, b_by = bound(nbytes, B * (OPS_CUCKOO_HASH + 2 * OPS_CUCKOO_PROBE))
+    out["cuckoo_query"] = {"ms": ms, "absent_ms": absent_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": None,
+                           "library": "none: a gather and compare is several calls",
+                           "max_abs_err": err, "keys": B, "bytes": nbytes,
+                           "share_of_bound": b_ms / ms}
+    del host
+    # count-min: a batch of 2^20 of the Zipf stream on a copy of the grid
+    c = cms.config
+    grid = clone_u32(cms.words)
+    hgrid = host_copy(grid)
+    keys, lens = key_batch(id_rows(ids[:B_CMS]))
+    pos = ops_cms.flat_indices(ops_cms.cms_positions(keys, lens, width=c.m, depth=c.k, seed=c.seed),
+                               c.m)
+    sectors = int(torch.unique(pos.reshape(-1) >> 3).numel())
+    sweep.cms_update(grid, keys, lens, c)
+    p_ms, _ = host_ms(lambda: sweep.cms_update(hgrid, keys.cpu(), lens.cpu(), c))
+    u_err = max_abs_err(i32(grid), i32(hgrid))
+    e_p_ms, want = host_ms(lambda: sweep.cms_estimate(hgrid, keys.cpu(), lens.cpu(), c))
+    e_err = max_abs_err(i32(sweep.cms_estimate(grid, keys, lens, c)), i32(want))
+    ms = cuda_ms(lambda i: sweep.cms_update(grid, keys, lens, c), n=20)
+    flat = pos.reshape(-1)
+    ones = torch.ones(flat.numel(), dtype=torch.int32, device=grid.device)
+    g32 = grid.view(torch.int32)
+    lib_ms = cuda_ms(lambda i: g32.index_add_(0, flat, ones), n=20)
+    nbytes = B_CMS * (KEY_LEN + 4) + sectors * 32 * 2
+    b_ms, b_by = bound(nbytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
+    out["cms_update"] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": lib_ms, "library": "index_add_ on the int32 view, "
+                                                         "positions precomputed",
+                         "max_abs_err": u_err, "keys": B_CMS, "sectors": sectors, "bytes": nbytes,
+                         "share_of_bound": b_ms / ms}
+    ms = cuda_ms(lambda i: sweep.cms_estimate(grid, keys, lens, c), n=20)
+    lib_ms = cuda_ms(lambda i: g32.index_select(0, flat).view(-1, c.k).amin(1), n=20)
+    nbytes = B_CMS * (KEY_LEN + 4 + 4) + sectors * 32
+    b_ms, b_by = bound(nbytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
+    out["cms_estimate"] = {"ms": ms, "plain_ms": e_p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": lib_ms, "library": "index_select + amin, positions "
+                                                           "precomputed",
+                           "max_abs_err": e_err, "keys": B_CMS, "sectors": sectors,
+                           "bytes": nbytes, "share_of_bound": b_ms / ms}
+    del grid, hgrid, g32, pos, flat, ones
+    torch.cuda.empty_cache()
+    errs = {name: out[name]["max_abs_err"] for name in SKETCH_KERNELS}
+    errs["cuckoo_insert_quarter_load"] = out["cuckoo_insert"]["quarter_load"]["max_abs_err"]
+    check(max(errs.values()) == 0, f"sketch kernels equal their plain versions at the path's "
+                                   f"batches ({errs})")
+    emit("sketch_times", latency=lat, **out, seconds=time.perf_counter() - t0)
+    return out
+
+
 # The update kernels and the bit filter's query kernels move a key's row
 # with a group of lanes; the counting query kernels keep a thread a key.
 GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
@@ -2538,6 +3215,25 @@ EXTRA_TIMES = ("replay_ms", "present_ms", "delete_ms", "sparse_ms", "mix_ms", "c
 FLAT_SOURCE = {"flat_insert_tiled": "flat_bits.cu", "sharded_flat_insert_tiled": "flat_bits.cu"}
 FLAT_DESIGN = {"flat_query": "thread a key, stops at its first zero bit",
                "sharded_flat_query": "thread a key, stops at its first zero bit"}
+
+
+# The sketch kernels have no Pallas counterpart either: each replaces the
+# XLA ops of a tpubloom function. name -> (source, replaces, design).
+SKETCH_KERNELS = {
+    "cuckoo_insert": ("cuckoo.cu", "tpubloom/ops/cuckoo.py:101 (cuckoo_insert, a lax.scan over "
+                      "the batch with a fixed-trip kick chain and unwind)",
+                      "a thread a key hashes; then one warp: lane 0 walks the batch in order, "
+                      "the other lanes prefetch the next 32 keys' rows into L2"),
+    "cuckoo_delete": ("cuckoo.cu", "tpubloom/ops/cuckoo.py:184 (cuckoo_delete, a lax.scan)",
+                      "a thread a key hashes; then one warp: lane 0 walks the batch in order, "
+                      "the other lanes prefetch the next 32 keys' rows into L2"),
+    "cuckoo_query": ("cuckoo.cu", "tpubloom/ops/cuckoo.py:172 (cuckoo_query)",
+                     "thread a key: two 16-byte bucket loads"),
+    "cms_update": ("cms.cu", "tpubloom/ops/cms.py:53 (cms_update, words.at[flat].add)",
+                   "thread a key: depth atomicAdd"),
+    "cms_estimate": ("cms.cu", "tpubloom/ops/cms.py:71 (cms_estimate, a gather and row minimum)",
+                     "thread a key: depth gathers in flight, then their minimum"),
+}
 
 
 # The flat kernels have no Pallas counterpart: each replaces the XLA ops of
@@ -2557,7 +3253,7 @@ FLAT_REPLACES = {
 
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                  s_launches, s_errs, s_times, f_launches, f_errs, f_times,
-                 k_launches, k_errs, k_times) -> list[dict]:
+                 k_launches, k_errs, k_times, sk_launches, sk_errs, sk_times) -> list[dict]:
     kernels = []
     for name, src, replaces, lau, err, t in (
         ("blocked_insert", "blocked_bloom.cu", "tpubloom/ops/sweep.py:1463", launches, errs, times),
@@ -2620,6 +3316,18 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
         "design": "a warp a run of 4 KiB chunks (slicing-by-4 in shared memory), one CTA combining",
         "kernels_ms": k_times["kernels_ms"],
     })
+    for name, (src, replaces, design) in SKETCH_KERNELS.items():
+        t = sk_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"tpubloom_torch/csrc/{src}",
+            "replaces": replaces, "launches": sk_launches[name], "max_abs_err": sk_errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
+            "design": design,
+            **{k: t[k] for k in ("absent_ms", "us_per_key", "latency_bound_ms",
+                                 "latency_bound_by", "share_of_latency_bound") if k in t},
+            **({"quarter_load_ms": t["quarter_load"]["ms"]} if "quarter_load" in t else {}),
+        })
     return kernels
 
 
@@ -2720,6 +3428,9 @@ def main(argv: list[str]) -> int:
                          "writes chiprun_out/ab_times.json and ab_host.json")
     ap.add_argument("--host", action="store_true",
                     help="device, build and the flat counting wrappers' host clock at 2^16 keys only")
+    ap.add_argument("--sketch", action="store_true",
+                    help="device, build and the sketch phases only; writes "
+                         "chiprun_out/chip_smoke_sketch.json")
     args = ap.parse_args(argv)
     dev = phase_device()
     if args.ab:
@@ -2731,6 +3442,14 @@ def main(argv: list[str]) -> int:
         return 0
     if args.times:
         print(json.dumps({"times_only": {**times_only(), "build": RECORD["build"]}}), flush=True)
+        return 0
+    if args.sketch:
+        rng = np.random.default_rng(SEED)
+        _, cf, cms, held, ids = phase_sketch_path(rng)
+        phase_sketch_kernel_vs_plain(rng, cf, cms)
+        phase_sketch_times(cf, cms, held, ids, rng)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_sketch.json").write_text(json.dumps(RECORD, indent=1))
         return 0
     rng = np.random.default_rng(SEED)
     errs = phase_kernel_vs_plain(rng)
@@ -2764,9 +3483,18 @@ def main(argv: list[str]) -> int:
     check(checksum is not None, "tpubloom_torch has the stream path")
     k_errs, k_times = phase_checksum_kernel_vs_plain()
     stream = phase_stream_config3()
+    check(ScalableBloomFilter is not None, "tpubloom_torch has the scalable filter and sketches")
+    phase_scalable_path(rng)
+    sk_launches, cf, cms, held, ids = phase_sketch_path(rng)
+    sk_errs = phase_sketch_kernel_vs_plain(rng, cf, cms)
+    sk_times = phase_sketch_times(cf, cms, held, ids, rng)
+    sk_errs = {name: max(err, sk_times[name]["max_abs_err"]) for name, err in sk_errs.items()}
+    del cf, cms
+    torch.cuda.empty_cache()
     kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                            s_launches, s_errs, s_times, f_launches, f_errs, f_times,
-                           stream["with_sink"]["launches"], k_errs, k_times)
+                           stream["with_sink"]["launches"], k_errs, k_times,
+                           sk_launches, sk_errs, sk_times)
     RECORD["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

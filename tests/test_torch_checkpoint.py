@@ -10,7 +10,8 @@ tpubloom's (tpubloom.checkpoint), on the CPU:
 * a FileSink directory written by one package restores in the other;
 * a corrupt newest generation is quarantined and the previous one
   restores; v1 blobs still restore; mismatched configs raise;
-* kinds the port does not have raise NotImplementedError, naming them."""
+* the kinds the port once lacked restore; a payload format it does not
+  know raises NotImplementedError, naming it."""
 
 import json
 import os
@@ -176,17 +177,35 @@ def test_v1_blob_restores_and_mismatch_raises():
 
 
 def _foreign_blob(kind):
-    words = np.zeros(1 << 7, np.uint32)
+    """A tpubloom blob of a kind the port once lacked, and its filter."""
     if kind == "scalable":
-        base = tpubloom.FilterConfig(m=1 << 12, k=3)
-        return jck._serialize_scalable(base, {}, 1, [words])
-    cfg = {
-        "kind='cuckoo'": dict(m=1 << 10, k=2, kind="cuckoo"),
-    }[kind]
-    return jck._serialize(tpubloom.FilterConfig(**cfg), 1, words)
+        from tpubloom.scalable import ScalableBloomFilter
+
+        ref = ScalableBloomFilter(100, 0.01, config=tpubloom.FilterConfig(m=1 << 12, k=3))
+    else:
+        from tpubloom.sketch.cuckoo import CuckooFilter
+
+        ref = CuckooFilter(tpubloom.FilterConfig(m=1 << 10, k=2, kind="cuckoo"))
+    ref.insert_batch([b"key-%d" % i for i in range(300)])
+    return jck.snapshot_blob(ref, seq=1)[2], ref
 
 
 @pytest.mark.parametrize("kind", ["kind='cuckoo'", "scalable"])
 def test_unsupported_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match=kind):
-        ck.restore_blob(_foreign_blob(kind), device="cpu")
+    """The kinds the port once lacked (a sketch, a scalable stack) restore;
+    a payload format the port does not know still raises
+    NotImplementedError naming it."""
+    blob, ref = _foreign_blob(kind)
+    f = ck.restore_blob(blob, device="cpu")
+    if kind == "scalable":
+        assert f.n_layers == ref.n_layers == 2
+        for a, b in zip(f.layers, ref.layers, strict=True):
+            np.testing.assert_array_equal(a.words_logical, np.asarray(b.words))
+    else:
+        np.testing.assert_array_equal(f.words_logical, np.asarray(ref.words))
+    assert f.include_batch([b"key-%d" % i for i in range(300)]).all()
+    src = BlockedBloomFilter(FilterConfig(**KINDS["blocked"][0]), "cpu")
+    header, payload = ck._deserialize(bytes(ck.snapshot_blob(src, seq=2)[2]))
+    odd = jck._frame({**header, "format": "hll_registers"}, payload)
+    with pytest.raises(NotImplementedError, match="hll_registers"):
+        ck.restore_blob(odd, device="cpu")

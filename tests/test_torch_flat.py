@@ -456,6 +456,12 @@ def test_migrate_cli_runs_without_jax(tmp_path):
         "import tpubloom_torch.parallel.pipeline, tpubloom_torch.checkpoint\n"
         "import tpubloom_torch.server.resp, tpubloom_torch.utils.locks\n"
         "import tpubloom_torch.utils.tracing, tpubloom_torch.ops.checksum\n"
+        "import tpubloom_torch.scalable, tpubloom_torch.faults, tpubloom_torch.obs.counters\n"
+        "import tpubloom_torch.ops.cuckoo, tpubloom_torch.ops.cms, tpubloom_torch.sketch\n"
+        "import tpubloom_torch.sketch.registry, tpubloom_torch.sketch.cuckoo\n"
+        "import tpubloom_torch.sketch.cms, tpubloom_torch.interop\n"
+        "for k in tpubloom_torch.sketch.registry.sketch_kinds():\n"
+        "    tpubloom_torch.sketch.registry.spec(k).resolve()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpubloom')]\n"
         "assert not bad, bad\n"
     )

@@ -361,14 +361,24 @@ def test_async_checkpointer_failures_raise_from_trigger(tmp_path):
     assert cp.trigger() and cp.flush(timeout=60)
     assert cp.close(final_checkpoint=False) and cp.checkpoints_written == 1
 
-    class Layers:  # a scalable layer stack: not in the port yet
-        layers = []
-        config = f.config
+    # a scalable layer stack: a layer whose snapshot fails fails the trigger
+    from tpubloom_torch import ScalableBloomFilter
 
-    scp = ck.AsyncCheckpointer(Layers(), ck.FileSink(str(tmp_path / "s")))
-    with pytest.raises(NotImplementedError, match="scalable"):
+    sf = ScalableBloomFilter(1000, 0.01, config=FilterConfig(m=64, k=1, key_len=24,
+                                                             key_name="stack"), device="cpu")
+    sf.insert_batch(list(_key_stream(0, 3000)))
+    assert sf.n_layers == 2
+    scp = ck.AsyncCheckpointer(sf, ck.FileSink(str(tmp_path / "s")))
+    sf.layers[1]._state_tensors = boom
+    with pytest.raises(RuntimeError, match="payload kernel failed"):
         scp.trigger()
-    scp.close(final_checkpoint=False)
+    assert not scp.obs_stats()["in_flight"], "a failed trigger leaves no write in flight"
+    del sf.layers[1]._state_tensors
+    assert scp.trigger() and scp.flush(timeout=60)
+    assert scp.close(final_checkpoint=False) and scp.checkpoints_written == 1
+    g = ck.restore(sf.config, ck.FileSink(str(tmp_path / "s")), device="cpu")
+    for a, b in zip(g.layers, sf.layers, strict=True):
+        np.testing.assert_array_equal(a.words_logical, b.words_logical)
 
 
 # -- blobs and sinks across the packages -------------------------------------------

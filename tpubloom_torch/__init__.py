@@ -28,6 +28,20 @@ reference. This package imports ``torch`` and numpy, never JAX and never
                          checkpoint_every=1 << 24)    # BASELINE config 3
     ins.run(b"warc-record-%014d" % i for i in range(1 << 26))
     assert ins.close()                   # the final checkpoint landed
+
+    g = ScalableBloomFilter(1 << 22, 0.01, config=FilterConfig(m=64, k=1, block_bits=512))
+    g.insert_batch([b"alpha"])           # BF.RESERVE ... EXPANSION 2: grows when full
+
+    cf = CuckooFilter(FilterConfig(m=1 << 24, k=2, kind="cuckoo"))
+    cf.insert_batch([b"alpha"])
+    assert cf.take_insert_flags().all()  # False would be FULL
+    cf.delete_batch([b"alpha"])
+
+    cms = CountMinSketch(FilterConfig(m=2_718_304, k=7, kind="cms"))
+    cms.increment_batch([b"alpha"], [3])  # -> the estimates after the update
+    top = TopKSketch(FilterConfig(m=2_718_304, k=7, kind="topk", topk=100))
+    top.insert_batch([b"alpha"] * 5)
+    top.topk_list()                      # [(b"alpha", 5)]
 """
 
 from tpubloom_torch.config import FilterConfig
@@ -37,9 +51,12 @@ from tpubloom_torch.filter import (
 from tpubloom_torch.checkpoint import AsyncCheckpointer
 from tpubloom_torch.parallel.pipeline import StreamInserter, resume_offset
 from tpubloom_torch.parallel.sharded import ShardedBloomFilter
+from tpubloom_torch.scalable import ScalableBloomFilter
+from tpubloom_torch.sketch.cms import CountMinSketch, TopKSketch
+from tpubloom_torch.sketch.cuckoo import CuckooFilter
 
 __all__ = [
     "FilterConfig", "BloomFilter", "CountingBloomFilter", "BlockedBloomFilter",
     "BlockedCountingBloomFilter", "ShardedBloomFilter", "StreamInserter", "resume_offset",
-    "AsyncCheckpointer",
+    "AsyncCheckpointer", "ScalableBloomFilter", "CuckooFilter", "CountMinSketch", "TopKSketch",
 ]

@@ -1,7 +1,9 @@
 """Checkpoint blobs of the port's filters: the codec of ``tpubloom/checkpoint.py``
-for the kinds the port has, flat and blocked, bit and counting, on one
-device or sharded (``shards > 1``,
-:class:`~tpubloom_torch.parallel.sharded.ShardedBloomFilter`).
+for every kind: flat and blocked, bit and counting, on one device or
+sharded (``shards > 1``,
+:class:`~tpubloom_torch.parallel.sharded.ShardedBloomFilter`), the
+scalable layer stack (:class:`~tpubloom_torch.scalable.ScalableBloomFilter`)
+and the sketch kinds (:mod:`tpubloom_torch.sketch`).
 
 A blob is format v2, byte for byte as ``tpubloom`` writes it::
 
@@ -12,19 +14,23 @@ the sequence number, the payload format (``blocked_le_words`` or
 ``counting_le_words``: the state's row-major little-endian words;
 ``redis_bitmap`` for a flat bit filter: the reference gem's SETBIT string
 bitmap, ``ceil(m / 8)`` bytes), the wall-clock time, ``extra``
-(``n_inserted`` / ``n_queried``), and the payload's length and CRC32C. A
-sharded filter's payload is its words shard-major (``tpubloom``'s global
-array). v1 blobs (``TPUBLOOM1``, no CRC) still decode. A blob of either
-package restores in the other; a :class:`FileSink` directory too, since
-the file names are the same (``<key_name>.<seq:012d>.ckpt``).
+(``n_inserted`` / ``n_queried``, and a top-k sketch's heap), and the
+payload's length and CRC32C. A sharded filter's payload is its words
+shard-major (``tpubloom``'s global array). A sketch's payload is its raw
+LE words under its kind's tag (``sketch_{cuckoo,cms,topk}_le_words``, from
+:mod:`tpubloom_torch.sketch.registry`). A scalable filter's
+(``scalable_stack``) is its layers' raw LE words one after the other, its
+header naming the base config and, under ``scalable``, the growth policy,
+each layer's config, count and byte length. v1 blobs (``TPUBLOOM1``, no
+CRC) still decode. A blob of either package restores in the other; a
+:class:`FileSink` directory too, since the file names are the same
+(``<key_name>.<seq:012d>.ckpt``). A payload format the port does not know
+raises ``NotImplementedError`` naming it; nothing falls back.
 
-Kinds the port does not have yet — ``scalable_stack`` and the sketch
-kinds — raise ``NotImplementedError`` naming the kind; nothing falls
-back.
-
-The snapshot copies the state on its device first: the port updates a
-filter in place, so the copy must be taken in stream order, before any
-later launch can write the state. The payload's bytes (the bit reversal
+The snapshot copies the state on its device first (a scalable filter's
+layers into one tensor): the port updates a filter in place, so the copy
+must be taken in stream order, before any later launch can write the
+state. The payload's bytes (the bit reversal
 of the Redis bitmap, or the raw words) and its CRC32C are then made from
 that copy where it lies (:mod:`tpubloom_torch.ops.checksum`: one kernel
 pair on the card, its plain version on the CPU), and only the payload
@@ -62,6 +68,7 @@ from tpubloom_torch.config import FilterConfig, identity_mismatch
 from tpubloom_torch.filter import resolve_device
 from tpubloom_torch.interop import new_filter
 from tpubloom_torch.ops import checksum
+from tpubloom_torch.sketch import registry as sketch_registry
 from tpubloom_torch.utils import locks
 from tpubloom_torch.utils.crc32c import crc32c
 from tpubloom_torch.utils.packing import redis_bitmap_to_words
@@ -79,6 +86,15 @@ DEFAULT_RETAIN = 4
 
 _CKPT_RE = re.compile(r"^(?P<name>.+)\.(?P<seq>\d{12,})\.ckpt$")
 
+#: Base-config identity of a scalable checkpoint: the template's m / k are
+#: placeholders (each layer derives its own from the growth policy), so only
+#: the fields every layer inherits take part.
+IDENTITY_FIELDS_SCALABLE = ("seed", "counting", "shards", "block_bits", "block_hash")
+
+#: Growth-policy fields that a restore request may pin: they fix every
+#: layer's (m, k, seed).
+SCALABLE_POLICY_FIELDS = ("capacity", "error_rate", "growth", "tightening")
+
 
 class CheckpointCorruptError(ValueError):
     """A blob failed integrity validation (torn, truncated, bit-rotted).
@@ -88,28 +104,24 @@ class CheckpointCorruptError(ValueError):
     error that must surface."""
 
 
-def _kind_name(config: FilterConfig) -> Optional[str]:
-    """The name of the config's kind when the port cannot hold it yet,
-    else None."""
-    if config.kind != "bloom":
-        return f"kind={config.kind!r}"
-    return None
-
-
 def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"tpubloom_torch has no {what} filter yet; its checkpoints restore "
-        "only in tpubloom"
+        f"tpubloom_torch cannot read a {what}; such checkpoints restore only "
+        "in tpubloom"
     )
 
 
-def _payload_format(config: FilterConfig) -> Tuple[str, bool]:
-    """``(format, bit_reverse)`` of a config's payload: the flat bit filter
-    stores the Redis bitmap (what the reference's SETBIT loop would have
-    produced: each byte's bits reversed), the others their raw LE words."""
-    kind = _kind_name(config)
-    if kind is not None:
-        raise _unsupported(kind)
+def _payload_format(filter_obj) -> Tuple[str, bool]:
+    """``(format, bit_reverse)`` of a live filter's payload: the flat bit
+    filter stores the Redis bitmap (what the reference's SETBIT loop would
+    have produced: each byte's bits reversed), the others their raw LE
+    words (a sketch under its kind's tag, a scalable filter its layers'
+    words one after the other)."""
+    if hasattr(filter_obj, "layers"):
+        return "scalable_stack", False
+    config = filter_obj.config
+    if sketch_registry.is_sketch(config):
+        return sketch_registry.blob_format(config), False
     if config.counting:
         return "counting_le_words", False
     if config.block_bits:
@@ -117,34 +129,46 @@ def _payload_format(config: FilterConfig) -> Tuple[str, bool]:
     return "redis_bitmap", True
 
 
-def _payload_nbytes(config: FilterConfig, n_words: int) -> int:
+def _payload_nbytes(fmt: str, config: FilterConfig, n_words: int) -> int:
     """Payload bytes: ``ceil(m / 8)`` for a Redis bitmap, else 4 a word."""
-    if _payload_format(config)[0] == "redis_bitmap":
+    if fmt == "redis_bitmap":
         return (config.m + 7) // 8
     return 4 * n_words
 
 
-def _header(config: FilterConfig, seq: int, fmt: str, extra: Optional[dict]) -> dict:
-    return {
-        "config": config.to_dict(),
+def _header(filter_obj, seq: int, fmt: str, extra: Optional[dict]) -> dict:
+    """The header of a live filter's checkpoint, taken with its snapshot. A
+    scalable filter's names its base config and holds, under
+    ``scalable``, its stack meta (``snapshot_meta``) with each layer's
+    payload bytes, as ``tpubloom``'s ``_serialize_scalable`` records it."""
+    stack = fmt == "scalable_stack"
+    header = {
+        "config": (filter_obj.base_config if stack else filter_obj.config).to_dict(),
         "seq": seq,
         "format": fmt,
         "time": time.time(),
         "extra": extra or {},
     }
+    if stack:
+        header["scalable"] = {
+            **filter_obj.snapshot_meta(),
+            "layer_nbytes": [4 * sum(t.numel() for t in layer._state_tensors())
+                             for layer in filter_obj.layers],
+        }
+    return header
 
 
-def _serialize(
-    config: FilterConfig, seq: int, words: torch.Tensor, extra: Optional[dict] = None
-) -> bytearray:
-    """Self-describing checkpoint: framing + json header + payload, from
-    a snapshot of the state's words (a tensor this call may consume) on
-    its device; the payload and its CRC32C are made there."""
-    fmt, bit_reverse = _payload_format(config)
+def _serialize(filter_obj, seq: int, words: torch.Tensor,
+               extra: Optional[dict] = None) -> bytearray:
+    """Self-describing checkpoint of ``filter_obj``: framing + json header
+    + payload, from a snapshot of its state's words (a tensor this call may
+    consume) on its device; the payload and its CRC32C are made there."""
+    fmt, bit_reverse = _payload_format(filter_obj)
+    header = _header(filter_obj, seq, fmt, extra)
     payload, crc = checksum.payload_crc32c(
-        words, _payload_nbytes(config, words.numel()), bit_reverse
+        words, _payload_nbytes(fmt, filter_obj.config, words.numel()), bit_reverse
     )
-    return _frame(_header(config, seq, fmt, extra), payload.cpu().numpy(), crc)
+    return _frame(header, payload.cpu().numpy(), crc)
 
 
 def _uninitialized_bytearray(n: int) -> bytearray:
@@ -237,7 +261,9 @@ def _deserialize(data: bytes, device=None) -> Tuple[dict, bytes]:
 
 def payload_to_words(config: FilterConfig, header: dict, payload: bytes) -> np.ndarray:
     """The payload's ``uint32`` words (raw LE words, or a Redis bitmap)."""
-    if header["format"] in ("counting_le_words", "blocked_le_words"):
+    if header["format"] in ("counting_le_words", "blocked_le_words") or (
+        header["format"].startswith("sketch_")
+    ):
         return np.frombuffer(payload, dtype="<u4").astype(np.uint32)
     if header["format"] == "redis_bitmap":
         return redis_bitmap_to_words(payload, config.m)
@@ -588,11 +614,16 @@ def _device_snapshot(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 def _usage_extra(filter_obj) -> dict:
     """Usage counters recorded in every checkpoint so a restore can
-    rebuild the filter's stats."""
-    return {
+    rebuild the filter's stats, and the host state a kind declares (a
+    top-k sketch's heap: the counter grid alone cannot name the hot keys)."""
+    out = {
         "n_inserted": getattr(filter_obj, "n_inserted", 0),
         "n_queried": getattr(filter_obj, "n_queried", 0),
     }
+    sketch_extra = getattr(filter_obj, "sketch_extra", None)
+    if sketch_extra is not None:
+        out.update(sketch_extra())
+    return out
 
 
 def snapshot_blob(
@@ -605,20 +636,29 @@ def snapshot_blob(
     seq = seq if seq is not None else int(time.time() * 1000)
     full_extra = {**_usage_extra(filter_obj), **(extra or {})}
     words = _device_snapshot(filter_obj._state_tensors())
-    blob = _serialize(filter_obj.config, seq, words, full_extra)
+    blob = _serialize(filter_obj, seq, words, full_extra)
     return filter_obj.config.key_name, seq, blob
 
 
-def restore_blob(blob: bytes, config: Optional[FilterConfig] = None, *, device=None):
+def restore_blob(
+    blob: bytes,
+    config: Optional[FilterConfig] = None,
+    *,
+    device=None,
+    scalable_expect: Optional[dict] = None,
+    expect_scalable: Optional[bool] = None,
+):
     """Rebuild a live filter from one in-memory blob (integrity-checked
     like any sink read). With no ``config`` the blob's own stored config
-    is adopted. ``device`` as for :func:`~tpubloom_torch.interop.new_filter`
-    (the card unless given)."""
+    is adopted (for a ``scalable_stack`` blob, its base config).
+    ``device`` as for :func:`~tpubloom_torch.interop.new_filter` (the card
+    unless given); ``scalable_expect`` / ``expect_scalable`` as for
+    :func:`restore`."""
     dev = resolve_device(device)
     header, payload = _deserialize(blob, dev)
     if config is None:
         config = FilterConfig.from_dict(header["config"])
-    return _build_filter(config, header, payload, device)
+    return _build_filter(config, header, payload, device, scalable_expect, expect_scalable)
 
 
 def save(filter_obj, sink, *, seq: Optional[int] = None, extra: Optional[dict] = None) -> int:
@@ -628,9 +668,24 @@ def save(filter_obj, sink, *, seq: Optional[int] = None, extra: Optional[dict] =
     return seq
 
 
-def restore(config: FilterConfig, sink, *, seq: Optional[int] = None, device=None):
+def restore(
+    config: FilterConfig,
+    sink,
+    *,
+    seq: Optional[int] = None,
+    device=None,
+    scalable_expect: Optional[dict] = None,
+    expect_scalable: Optional[bool] = None,
+):
     """Rebuild a filter from the newest intact (or the given) checkpoint in
     ``sink``, or None if the sink has none.
+
+    For a ``scalable_stack`` blob ``config`` is the base config, whose
+    identity fields (:data:`IDENTITY_FIELDS_SCALABLE`) must match the
+    stored one, and ``scalable_expect`` may pin the growth policy
+    (:data:`SCALABLE_POLICY_FIELDS`). ``expect_scalable`` (when not None)
+    refuses a blob of the other kind (a layer stack where a fixed-size
+    filter was asked for, or the reverse) before any state is built.
 
     With no ``seq`` on a sink that lists its generations (``list_seqs``),
     the walk goes newest to oldest: a corrupt blob is quarantined (where
@@ -668,20 +723,73 @@ def restore(config: FilterConfig, sink, *, seq: Optional[int] = None, device=Non
                     f", quarantined to {qpath}" if qpath else "",
                 )
                 continue
-            return _build_filter(config, header, payload, device)
+            return _build_filter(config, header, payload, device, scalable_expect,
+                                 expect_scalable)
         return None
     blob = sink.get(config.key_name, seq)
     if blob is None:
         return None
     header, payload = _deserialize(blob, dev)
-    return _build_filter(config, header, payload, device)
+    return _build_filter(config, header, payload, device, scalable_expect, expect_scalable)
 
 
-def _build_filter(config: FilterConfig, header: dict, payload: bytes, device=None):
+def _restore_scalable(config: FilterConfig, header: dict, payload: bytes, device=None,
+                      expect: Optional[dict] = None):
+    """A :class:`~tpubloom_torch.scalable.ScalableBloomFilter` from a
+    ``scalable_stack`` blob: ``config`` is the base config, ``expect``
+    optionally pins the growth policy; each layer's geometry is derived
+    again and checked against the stored one."""
+    from tpubloom_torch.scalable import ScalableBloomFilter
+
+    saved = header["config"]
+    field = identity_mismatch(saved, config, IDENTITY_FIELDS_SCALABLE)
+    if field is not None:
+        raise ValueError(
+            f"scalable checkpoint/config mismatch on base {field}: "
+            f"saved={saved.get(field, '<absent: default>')} "
+            f"requested={getattr(config, field)}"
+        )
+    meta = header["scalable"]
+    if expect is not None:
+        for name in SCALABLE_POLICY_FIELDS:
+            if name in expect and expect[name] != meta[name]:
+                raise ValueError(
+                    f"scalable checkpoint/policy mismatch on {name}: "
+                    f"saved={meta[name]} requested={expect[name]}"
+                )
+    f = ScalableBloomFilter(
+        meta["capacity"], meta["error_rate"], config=config,
+        growth=meta["growth"], tightening=meta["tightening"], device=device,
+    )
+    words, off = [], 0
+    for nbytes in meta["layer_nbytes"]:
+        words.append(np.frombuffer(payload[off : off + nbytes], dtype="<u4").astype(np.uint32))
+        off += nbytes
+    f._load_layers(meta, words)
+    f._restored_seq = header["seq"]
+    f._restored_meta = header.get("extra", {})
+    return f
+
+
+def _build_filter(
+    config: FilterConfig,
+    header: dict,
+    payload: bytes,
+    device=None,
+    scalable_expect: Optional[dict] = None,
+    expect_scalable: Optional[bool] = None,
+):
     """Validated header + payload -> live filter, routed as
-    ``tpubloom.checkpoint._build_filter`` routes the kinds the port has."""
-    if header["format"] == "scalable_stack":
-        raise _unsupported("scalable (scalable_stack)")
+    ``tpubloom.checkpoint._build_filter`` routes them."""
+    is_stack = header["format"] == "scalable_stack"
+    if expect_scalable is not None and is_stack != expect_scalable:
+        raise ValueError(
+            f"checkpoint for {config.key_name!r} holds a "
+            f"{'scalable layer stack' if is_stack else 'fixed-size filter'}; "
+            f"requested a {'scalable' if expect_scalable else 'fixed-size'} filter"
+        )
+    if is_stack:
+        return _restore_scalable(config, header, payload, device, scalable_expect)
     saved = header["config"]
     field = identity_mismatch(saved, config)
     if field is not None:
@@ -692,11 +800,17 @@ def _build_filter(config: FilterConfig, header: dict, payload: bytes, device=Non
             f"saved={saved.get(field, '<absent: default>')} "
             f"requested={getattr(config, field)}"
         )
-    kind = _kind_name(config)
-    if kind is not None:
-        raise _unsupported(kind)
-    f = new_filter(config, device)
+    if sketch_registry.is_sketch(config):
+        # identity_mismatch refuses a kind flip; this guards a mislabelled
+        # payload tag
+        want = sketch_registry.blob_format(config)
+        if header["format"] != want:
+            raise ValueError(
+                f"checkpoint payload tag {header['format']!r} does not match "
+                f"kind {config.kind!r} (want {want!r})"
+            )
     words = payload_to_words(config, header, payload)
+    f = new_filter(config, device)
     n_words = sum(t.numel() for t in f._state_tensors())
     if words.size != n_words:
         raise ValueError(
@@ -704,6 +818,9 @@ def _build_filter(config: FilterConfig, header: dict, payload: bytes, device=Non
             f"needs {n_words}"
         )
     f._set_words(words)
+    loader = getattr(f, "load_sketch_extra", None)
+    if loader is not None:
+        loader(header.get("extra", {}))
     f._restored_seq = header["seq"]
     f._restored_meta = header.get("extra", {})
     f.n_inserted = int(f._restored_meta.get("n_inserted", 0))
@@ -834,16 +951,16 @@ class AsyncCheckpointer:
             ),
         }
 
-    def _start_payload(self, config: FilterConfig):
-        """Queue the snapshot, its payload and CRC32C, and (on the card)
-        the copy to the host; returns a callable that waits for them and
-        gives ``(payload bytes-like, crc)``."""
-        fmt, bit_reverse = _payload_format(config)
+    def _start_payload(self, fmt: str, bit_reverse: bool):
+        """Queue the snapshot (a scalable filter's layers concatenated into
+        one tensor), its payload and CRC32C, and (on the card) the copy to
+        the host; returns a callable that waits for them and gives
+        ``(payload bytes-like, crc)``."""
         snap = _device_snapshot(self.filter._state_tensors())
-        nbytes = _payload_nbytes(config, snap.numel())
+        nbytes = _payload_nbytes(fmt, self.filter.config, snap.numel())
         if snap.device.type != "cuda":
             payload, crc = checksum.payload_crc32c(snap, nbytes, bit_reverse)
-            return fmt, lambda: (payload.numpy(), crc)
+            return lambda: (payload.numpy(), crc)
         dev = snap.device
         if self._side is None:
             self._side = torch.cuda.Stream(dev)
@@ -869,19 +986,19 @@ class AsyncCheckpointer:
             landed.synchronize()
             return host.array, int(crc_host[0]) & 0xFFFFFFFF
 
-        return fmt, wait
+        return wait
 
     def trigger(self) -> bool:
         """Start an async checkpoint now; False if one is still in flight.
 
         Call it from the thread that launches the inserts (or under the
         caller's own exclusion), so that the snapshot lands between two
-        of them in stream order."""
+        of them in stream order. A scalable filter's stack meta is taken
+        with its layers' words, and its layers are concatenated on their
+        device before one payload kernel pair runs over them."""
         with self._trigger_lock:
             if self._stop or self._busy.is_set():
                 return False
-            if hasattr(self.filter, "layers"):
-                raise _unsupported("scalable (scalable_stack)")
             self._busy.set()
             try:
                 # a landed trigger restarts the lag window — manual
@@ -892,17 +1009,18 @@ class AsyncCheckpointer:
                 if self.meta_fn:
                     extra.update(self.meta_fn())
                 seq = self._seq
-                cfg = self.filter.config
-                fmt, payload_fn = self._start_payload(cfg)
+                fmt, bit_reverse = _payload_format(self.filter)
+                header = _header(self.filter, seq, fmt, extra)
+                payload_fn = self._start_payload(fmt, bit_reverse)
             except BaseException:
                 self._busy.clear()
                 raise
 
             def blob_fn():
                 payload, crc = payload_fn()
-                return _frame(_header(cfg, seq, fmt, extra), payload, crc)
+                return _frame(header, payload, crc)
 
-        self._queue.put((seq, cfg.key_name, blob_fn, extra))
+        self._queue.put((seq, self.filter.config.key_name, blob_fn, extra))
         return True
 
     def flush(self, timeout: float = 60.0) -> bool:

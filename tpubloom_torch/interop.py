@@ -1,7 +1,8 @@
 """State carried between ``tpubloom`` and the port.
 
 Both packages hold a filter (flat or blocked, bit or counting, on one
-device or sharded) as the same row-major little-endian ``uint32`` words,
+device or sharded; a cuckoo filter, a count-min or top-k sketch) as the
+same row-major little-endian ``uint32`` words,
 so moving one across is a copy of its words and of its config's fields.
 The functions take plain dicts and numpy arrays, so this module needs
 nothing of ``tpubloom``:
@@ -25,11 +26,12 @@ from tpubloom_torch.filter import (
     BlockedBloomFilter, BlockedCountingBloomFilter, BloomFilter, CountingBloomFilter,
 )
 from tpubloom_torch.parallel.sharded import ShardedBloomFilter
+from tpubloom_torch.sketch import registry as sketch_registry
 
 PortFilter = (
     BloomFilter | CountingBloomFilter | BlockedBloomFilter | BlockedCountingBloomFilter
     | ShardedBloomFilter
-)
+)  # or a sketch (tpubloom_torch.sketch), built through its registry
 
 
 def config_from_dict(d: dict) -> FilterConfig:
@@ -40,10 +42,13 @@ def config_from_dict(d: dict) -> FilterConfig:
 
 def new_filter(config: FilterConfig, device=None) -> PortFilter:
     """An empty port filter of the config's layout, as ``tpubloom``'s
-    checkpoint restore routes them: a :class:`ShardedBloomFilter` for
-    ``shards > 1`` (one slot on ``device``, or with none one slot per
-    visible card), else the flat or blocked, bit or counting class (on
+    checkpoint restore routes them: a sketch kind's class from
+    :mod:`tpubloom_torch.sketch.registry`; a :class:`ShardedBloomFilter`
+    for ``shards > 1`` (one slot on ``device``, or with none one slot per
+    visible card); else the flat or blocked, bit or counting class (on
     ``device``, or the card)."""
+    if sketch_registry.is_sketch(config):
+        return sketch_registry.build(config, device)
     if config.shards > 1:
         return ShardedBloomFilter(config, None if device is None else [device])
     if config.block_bits:

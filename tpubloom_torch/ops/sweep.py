@@ -76,6 +76,20 @@ A tensor on the CPU goes to the plain version in
 to the kernel, or the wrapper raises. It never falls back from one to the
 other.
 
+The sketch kinds have no Pallas kernel in ``tpubloom`` either: their
+device ops are XLA. Each has a CUDA kernel here, with its plain version in
+:mod:`tpubloom_torch.ops.cuckoo` or :mod:`tpubloom_torch.ops.cms`:
+
+* the cuckoo insert's and delete's ``lax.scan`` over the batch
+  (``tpubloom/ops/cuckoo.py`` ``cuckoo_insert``, ``cuckoo_delete``) ->
+  :func:`cuckoo_insert`, :func:`cuckoo_delete` (``csrc/cuckoo.cu``: a hash
+  launch, then one warp whose lane 0 walks the batch in order);
+* the cuckoo query (``cuckoo_query``) -> :func:`cuckoo_query`;
+* the count-min scatter-add and gather with row minimum
+  (``tpubloom/ops/cms.py`` ``cms_update``, ``cms_estimate``) ->
+  :func:`cms_update`, :func:`cms_estimate` (``csrc/cms.cu``, a thread a
+  key).
+
 Every wrapper counts its kernel launches in :data:`LAUNCHES`, the routed
 launches under their own names, so a run can show that its main path
 went through the kernels.
@@ -87,7 +101,7 @@ import ctypes
 
 import torch
 
-from tpubloom_torch.ops import _build, bitops, blocked, counting
+from tpubloom_torch.ops import _build, bitops, blocked, cms, counting, cuckoo
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`
 #: (CUDA launches only; the plain versions are not counted). A flat insert
@@ -105,6 +119,8 @@ LAUNCHES: dict[str, int] = {
     "flat_counting_update_tiled": 0, "flat_counting_query_tiled": 0,
     "sharded_flat_counting_update_tiled": 0, "sharded_flat_counting_query_tiled": 0,
     "flat_insert_tiled": 0, "sharded_flat_insert_tiled": 0,
+    "cuckoo_insert": 0, "cuckoo_delete": 0, "cuckoo_query": 0,
+    "cms_update": 0, "cms_estimate": 0,
 }
 
 _P = ctypes.c_void_p
@@ -190,6 +206,23 @@ _FLAT_BITS_SIGNATURES = {
     "tpb_flat_bits_tiled_scratch_bytes": ([_I64, ctypes.c_int, _I64], _I64),
 }
 
+# B, L, n_buckets, seed (cuckoo); B, L, width, depth, seed (count-min)
+_CUCKOO = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32]
+_CUCKOO_SIGNATURES = {
+    "tpb_cuckoo_insert": ([_P, _P, _P, _P, _P, _P, *_CUCKOO, _P], ctypes.c_int),
+    "tpb_cuckoo_delete": ([_P, _P, _P, _P, _P, *_CUCKOO, _P], ctypes.c_int),
+    "tpb_cuckoo_query": ([_P, _P, _P, _P, *_CUCKOO, _P], ctypes.c_int),
+    "tpb_cuckoo_walk_variant": (
+        [_P, _P, _P, _P, _P, _P, *_CUCKOO, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int,
+    ),
+    "tpb_cuckoo_chase": ([_P, ctypes.c_uint32, ctypes.c_int64, _P, _P], ctypes.c_int),
+}
+_CMS = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32]
+_CMS_SIGNATURES = {
+    "tpb_cms_update": ([_P, _P, _P, _P, *_CMS, _P], ctypes.c_int),
+    "tpb_cms_estimate": ([_P, _P, _P, _P, *_CMS, _P], ctypes.c_int),
+}
+
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
@@ -220,6 +253,14 @@ def _flat_bits_library() -> ctypes.CDLL:
     return _build.load_library("flat_bits", _FLAT_BITS_SIGNATURES)
 
 
+def _cuckoo_library() -> ctypes.CDLL:
+    return _build.load_library("cuckoo", _CUCKOO_SIGNATURES)
+
+
+def _cms_library() -> ctypes.CDLL:
+    return _build.load_library("cms", _CMS_SIGNATURES)
+
+
 def _state_words(config, route=None) -> int:
     """Words of the state a kernel takes: the whole filter, or with a
     ``route`` one slot's ``shards_per_dev`` shards."""
@@ -244,6 +285,19 @@ def _check(state, keys, lengths, config, route=None, *, counters: bool = False,
             f"{'flat' if not config.block_bits else 'blocked'} config given to a "
             f"{'flat' if flat else 'blocked'}-layout kernel"
         )
+    if route is not None and (route.n_shards != config.shards or not (
+        0 <= route.shard_lo and route.shards_per_dev > 0
+        and route.shard_lo + route.shards_per_dev <= config.shards
+    )):
+        raise ValueError(f"{route} does not fit a config of {config.shards} shards")
+    _check_tensors(state, keys, lengths, _state_words(config, route),
+                   "config" if route is None else "slot")
+
+
+def _check_tensors(state, keys, lengths, need: int, whose: str) -> None:
+    """What every wrapper checks of its tensors: one device (the CPU or a
+    card), a ``uint32`` state of ``need`` words, ``uint8[B, L]`` keys and
+    ``int32[B]`` lengths, and on the card contiguous, aligned tensors."""
     if keys.device != state.device or lengths.device != state.device:
         raise ValueError(
             f"state, keys and lengths must share a device "
@@ -253,17 +307,8 @@ def _check(state, keys, lengths, config, route=None, *, counters: bool = False,
         raise ValueError(f"unsupported device {state.device}")
     if state.dtype != torch.uint32:
         raise TypeError(f"state must be uint32, got {state.dtype}")
-    if route is not None and (route.n_shards != config.shards or not (
-        0 <= route.shard_lo and route.shards_per_dev > 0
-        and route.shard_lo + route.shards_per_dev <= config.shards
-    )):
-        raise ValueError(f"{route} does not fit a config of {config.shards} shards")
-    need = _state_words(config, route)
     if state.numel() != need:
-        raise ValueError(
-            f"state holds {state.numel()} words, the "
-            f"{'config' if route is None else 'slot'} needs {need}"
-        )
+        raise ValueError(f"state holds {state.numel()} words, the {whose} needs {need}")
     if keys.dtype != torch.uint8 or keys.dim() != 2 or keys.shape[1] % 4:
         raise ValueError(f"keys must be uint8[B, L], L % 4 == 0; got {keys.dtype}{tuple(keys.shape)}")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (keys.shape[0],):
@@ -595,6 +640,152 @@ def flat_counting_query(state, keys, lengths, config, *, route=None) -> torch.Te
         return counting.flat_counting_query_plain(state, keys, lengths, config, route)
     return _flat_counting_query_on(_takes_tiles(config, keys.shape[0], route, True), state, keys,
                                    lengths, config, route=route)
+
+
+# -- the sketch kinds (csrc/cuckoo.cu, csrc/cms.cu) ------------------------------
+
+
+def _check_sketch(state, keys, lengths, config, kind: str) -> None:
+    """The checks of :func:`_check` for a sketch kind's state: ``config.m``
+    slots (cuckoo) or ``config.k * config.m`` counters (count-min, top-k)."""
+    kinds = ("cuckoo",) if kind == "cuckoo" else ("cms", "topk")
+    if config.kind not in kinds:
+        raise ValueError(f"kind={config.kind!r} config given to a {kind} kernel")
+    _check_tensors(state, keys, lengths, config.m if kind == "cuckoo" else config.m * config.k,
+                   "config")
+
+
+def _launch(lib, name: str, state, *args, counter: str | None = None) -> None:
+    """One call of ``tpb_<name>(*args, stream)`` on ``state``'s device,
+    counted under ``counter`` (``name`` when not given)."""
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = getattr(lib, f"tpb_{name}")(*args, stream)
+    _raise_on(err, name)
+    LAUNCHES[counter or name] += 1
+
+
+def _cuckoo_walk(name: str, state, keys, lengths, config, *outs) -> None:
+    """The insert or delete walk (two launches: the hash, then the walk of
+    one warp in batch order) into ``outs``, with the (fp, i1) scratch."""
+    B, L = keys.shape
+    if not B:
+        return
+    fi = torch.empty((2 * B,), dtype=torch.int32, device=state.device)
+    _launch(_cuckoo_library(), name, state, state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+            fi.data_ptr(), *(o.data_ptr() for o in outs), B, L,
+            config.m // cuckoo.BUCKET_SIZE, config.seed)
+
+
+def _cuckoo_walk_on(prefetch: bool, insert: bool, state, keys, lengths, config):
+    """The insert (``insert``) or delete walk of a checked CUDA state on
+    either second launch: the warp whose other lanes prefetch the next
+    keys' rows (``prefetch``), or one thread alone. chip_smoke.py times the
+    two; counted under ``cuckoo_insert`` / ``cuckoo_delete``. Returns
+    ``(flags bool[B], kicks int32[B] or None)``."""
+    B, L = keys.shape
+    flag = torch.zeros((B,), dtype=torch.uint8, device=state.device)
+    kicks = torch.zeros((B,), dtype=torch.int32, device=state.device) if insert else None
+    if B:
+        fi = torch.empty((2 * B,), dtype=torch.int32, device=state.device)
+        _launch(_cuckoo_library(), "cuckoo_walk_variant", state, state.data_ptr(),
+                keys.data_ptr(), lengths.data_ptr(), fi.data_ptr(), flag.data_ptr(),
+                None if kicks is None else kicks.data_ptr(), B, L,
+                config.m // cuckoo.BUCKET_SIZE, config.seed, int(insert), int(prefetch),
+                counter="cuckoo_insert" if insert else "cuckoo_delete")
+    return flag.view(torch.bool), kicks
+
+
+def _cuckoo_chase(rows: torch.Tensor, start: int, steps: int) -> torch.Tensor:
+    """``steps`` dependent 16-byte row reads on one thread over ``rows``
+    (a CUDA ``uint32[n * 4]`` whose rows' first words link them), from row
+    ``start``: chip_smoke.py's measure of the latency the walk meets.
+    Returns the last row index (``int32[1]``); counted nowhere."""
+    out = torch.zeros((1,), dtype=torch.int32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = _cuckoo_library().tpb_cuckoo_chase(rows.data_ptr(), start, steps, out.data_ptr(),
+                                                 stream)
+    _raise_on(err, "cuckoo_chase")
+    return out
+
+
+def cuckoo_insert(state, keys, lengths, config) -> tuple[torch.Tensor, torch.Tensor]:
+    """Insert each valid key's fingerprint into the cuckoo table ``state``
+    (``uint32[config.m]``, 4 slots a bucket), in batch order, in place;
+    ``(ok bool[B], kicks int32[B])``: False for a key rejected FULL (its
+    kick chain unwound, the table as before it) and for padding, and the
+    kick steps each key took."""
+    _check_sketch(state, keys, lengths, config, "cuckoo")
+    if state.device.type == "cpu":
+        return cuckoo.cuckoo_insert_plain(state, keys, lengths, config)
+    B = keys.shape[0]
+    ok = torch.empty((B,), dtype=torch.uint8, device=state.device)
+    kicks = torch.empty((B,), dtype=torch.int32, device=state.device)
+    _cuckoo_walk("cuckoo_insert", state, keys, lengths, config, ok, kicks)
+    return ok.view(torch.bool), kicks
+
+
+def cuckoo_delete(state, keys, lengths, config) -> torch.Tensor:
+    """Remove one stored copy of each valid key's fingerprint, in batch
+    order, in place; ``bool[B]``, whether a copy was there."""
+    _check_sketch(state, keys, lengths, config, "cuckoo")
+    if state.device.type == "cpu":
+        return cuckoo.cuckoo_delete_plain(state, keys, lengths, config)
+    deleted = torch.empty((keys.shape[0],), dtype=torch.uint8, device=state.device)
+    _cuckoo_walk("cuckoo_delete", state, keys, lengths, config, deleted)
+    return deleted.view(torch.bool)
+
+
+def cuckoo_query(state, keys, lengths, config) -> torch.Tensor:
+    """Cuckoo membership: ``bool[B]``, True where the key's fingerprint is
+    in either of its buckets, False for padding. ``state`` is only read."""
+    _check_sketch(state, keys, lengths, config, "cuckoo")
+    if state.device.type == "cpu":
+        return cuckoo.cuckoo_query_plain(state, keys, lengths, config)
+    B, L = keys.shape
+    out = torch.empty((B,), dtype=torch.uint8, device=state.device)
+    if B:
+        _launch(_cuckoo_library(), "cuckoo_query", state, state.data_ptr(), keys.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), B, L, config.m // cuckoo.BUCKET_SIZE,
+                config.seed)
+    return out.view(torch.bool)
+
+
+def cms_update(state, keys, lengths, config, increments=None) -> None:
+    """Add each valid key's increment (``increments``: ``uint32[B]`` on
+    ``state``'s device; None for 1 a key) to its ``config.k`` counters of
+    the count-min grid ``state`` (``uint32[k * m]``, row-major), mod 2^32,
+    in place."""
+    _check_sketch(state, keys, lengths, config, "cms")
+    if increments is not None and (increments.dtype != torch.uint32
+                                   or increments.device != state.device
+                                   or tuple(increments.shape) != (keys.shape[0],)):
+        raise ValueError(f"increments must be uint32[{keys.shape[0]}] on {state.device}")
+    if state.device.type == "cpu":
+        cms.cms_update_plain(state, keys, lengths, config, increments)
+        return
+    B, L = keys.shape
+    if not B:
+        return
+    incs = None if increments is None else increments.contiguous()
+    _launch(_cms_library(), "cms_update", state, state.data_ptr(), keys.data_ptr(),
+            lengths.data_ptr(), None if incs is None else incs.data_ptr(), B, L, config.m,
+            config.k, config.seed)
+
+
+def cms_estimate(state, keys, lengths, config) -> torch.Tensor:
+    """Each key's count-min estimate, the minimum of its ``config.k``
+    counters: ``uint32[B]``, 0 for padding. ``state`` is only read."""
+    _check_sketch(state, keys, lengths, config, "cms")
+    if state.device.type == "cpu":
+        return cms.cms_estimate_plain(state, keys, lengths, config)
+    B, L = keys.shape
+    out = torch.empty((B,), dtype=torch.int32, device=state.device)
+    if B:
+        _launch(_cms_library(), "cms_estimate", state, state.data_ptr(), keys.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), B, L, config.m, config.k, config.seed)
+    return out.view(torch.uint32)
 
 
 def record_fence(device: torch.device):
