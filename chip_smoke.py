@@ -2809,7 +2809,8 @@ def phase_sketch_path(rng) -> tuple:
               "fill": {"batches": fill_batches, "keys": fill_batches * B_CUCKOO, "seconds": fill_s,
                        "keys_per_s": fill_batches * B_CUCKOO / fill_s, "load": load,
                        "full": fill_full, "kicks": fill_kicks},
-              "overfill": {"keys": N_CUCKOO_OVERFILL, "seconds": over_s, "full": over_full,
+              "overfill": {"keys": N_CUCKOO_OVERFILL, "seconds": over_s,
+                           "keys_per_s": N_CUCKOO_OVERFILL / over_s, "full": over_full,
                            "kicks": over_kicks, "load": cf.fill_ratio()},
               "held_probes": int(held.shape[0]), "absent_probes": N_CUCKOO_PROBE,
               "fpr": absent / N_CUCKOO_PROBE, "deleted": int(deleted.sum()), "delete_s": delete_s}
@@ -2899,29 +2900,64 @@ def host_copy(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32).to("cpu", copy=True).view(torch.uint32)
 
 
+def rounds_vs_model(pre, keys, lens, cfg, insert: bool, got, window: int = 0) -> dict:
+    """The round walk's (rounds, keys re-walked) on a copy ``pre`` of a
+    state as it was before the insert or delete of ``keys``, against the
+    plain model's (``ops_cuckoo.cuckoo_walk_rounds``) at the same window on
+    a host copy; and the worst difference of that launch's and the model's
+    state, flags and kicks from ``got`` (the plain walk's state, flags and,
+    for an insert, kicks)."""
+    W = window or sweep.cuckoo_window()
+    host = host_copy(pre)
+    fp, i1 = ops_cuckoo.derive(keys.cpu(), lens.cpu(), n_buckets=cfg.m // ops_cuckoo.BUCKET_SIZE,
+                               seed=cfg.seed)
+    t = time.perf_counter()
+    mflags, _, rounds, rewalked = ops_cuckoo.cuckoo_walk_rounds(host, fp, i1, lens.cpu() >= 0,
+                                                                window=W, insert=insert)
+    model_s = time.perf_counter() - t
+    flags, kicks, stats = sweep._cuckoo_walk_on("rounds", insert, pre, keys, lens, cfg, window)
+    kernel = stats.cpu().tolist()
+    err = max(max_abs_err(i32(pre), i32(got[0])), max_abs_err(flags.cpu(), got[1].cpu()),
+              max_abs_err(i32(host), i32(got[0])), max_abs_err(mflags, got[1].cpu()),
+              0 if kicks is None else max_abs_err(kicks.cpu(), got[2].cpu()))
+    check(kernel == [rounds, rewalked],
+          f"the round walk's (rounds, re-walked) {kernel} equal the model's {[rounds, rewalked]}")
+    return {"window": W, "rounds": kernel[0], "rewalked": kernel[1], "model": [rounds, rewalked],
+            "keys": int(keys.shape[0]), "keys_per_round": keys.shape[0] / kernel[0],
+            "max_abs_err": err, "model_s": model_s}
+
+
 def cuckoo_vs_plain(state, cfg, batches, deletes) -> dict:
     """Each batch inserted (then queried) through the cuckoo kernels on
     ``state`` and through the plain versions on a CPU copy, then the
-    deletes: the worst difference of slots and flags, FULL keys, kicks."""
+    deletes: the worst difference of slots and flags, FULL keys, kicks;
+    and each launch's (rounds, re-walked) against the plain model's."""
     host = host_copy(state)
     err = {"cuckoo_insert": 0, "cuckoo_query": 0, "cuckoo_delete": 0}
     full = kicks = 0
+    rounds = []
     for keys, lens in batches:
+        pre = clone_u32(state)
         ok, k = sweep.cuckoo_insert(state, keys, lens, cfg)
         pok, pk = sweep.cuckoo_insert(host, keys.cpu(), lens.cpu(), cfg)
         err["cuckoo_insert"] = max(err["cuckoo_insert"], max_abs_err(i32(state), i32(host)),
                                    max_abs_err(ok.cpu(), pok), max_abs_err(k.cpu(), pk))
+        rounds.append({"insert": True, **rounds_vs_model(pre, keys, lens, cfg, True, (host, pok, pk))})
+        err["cuckoo_insert"] = max(err["cuckoo_insert"], rounds[-1]["max_abs_err"])
         full += int(((lens.cpu() >= 0) & ~pok).sum())
         kicks += int(pk.sum())
         q = sweep.cuckoo_query(state, keys, lens, cfg)
         err["cuckoo_query"] = max(err["cuckoo_query"],
                                   max_abs_err(q.cpu(), sweep.cuckoo_query(host, keys.cpu(), lens.cpu(), cfg)))
     for keys, lens in deletes:
+        pre = clone_u32(state)
         d = sweep.cuckoo_delete(state, keys, lens, cfg)
         pd = sweep.cuckoo_delete(host, keys.cpu(), lens.cpu(), cfg)
         err["cuckoo_delete"] = max(err["cuckoo_delete"], max_abs_err(d.cpu(), pd),
                                    max_abs_err(i32(state), i32(host)))
-    return {"max_abs_err": err, "full": full, "kicks": kicks}
+        rounds.append({"insert": False, **rounds_vs_model(pre, keys, lens, cfg, False, (host, pd))})
+        err["cuckoo_delete"] = max(err["cuckoo_delete"], rounds[-1]["max_abs_err"])
+    return {"max_abs_err": err, "full": full, "kicks": kicks, "rounds": rounds}
 
 
 def phase_sketch_kernel_vs_plain(rng, cf, cms) -> dict:
@@ -3028,41 +3064,70 @@ def chase_us(nbytes: int, warm: bool) -> dict:
     return {"bytes": nbytes, "steps": CHASE_STEPS, "in_l2": warm, "us": min(runs), "runs_us": runs}
 
 
-def walk_ab(state, keys, lens, cfg, insert: bool) -> tuple[dict, dict]:
-    """The insert or delete walk's ms on ``state`` (restored and the L2
-    flushed before each launch: fresh_ms, 5 launches) with the prefetch
-    lanes and with one thread alone, in turns prefetch, thread, thread,
-    prefetch; and each variant's ``(state, flags, kicks)`` from a clone of
-    ``state``."""
-    runs = {"prefetch": [], "thread": []}
-    for name in ("prefetch", "thread", "thread", "prefetch"):
+WALK_WINDOWS = (128, 256, 512, 1024)  # the round walk's windows timed against each other
+
+
+def walk_ab(state, keys, lens, cfg, insert: bool, plain) -> tuple[dict, int]:
+    """The insert or delete's second launches on ``state`` (restored and
+    the L2 flushed before each launch: fresh_ms, 5 launches): the round
+    walk, the warp walk and one thread, in turns rounds, warp, thread,
+    thread, warp, rounds; then the round walk at each of WALK_WINDOWS, in
+    turns up and down, with its (rounds, keys re-walked) against the plain
+    model's. Returns the times and the worst difference of any variant's
+    state, flags and kicks from ``plain`` (the plain walk's)."""
+    runs = {name: [] for name in sweep.CUCKOO_WALKS}
+    for name in (*sweep.CUCKOO_WALKS, *reversed(sweep.CUCKOO_WALKS)):
         runs[name].append(fresh_ms(state, lambda i: sweep._cuckoo_walk_on(
-            name == "prefetch", insert, state, keys, lens, cfg), n=5, warm=1))
-    got = {}
-    for name in runs:
+            name, insert, state, keys, lens, cfg), n=5, warm=1))
+    err = 0
+    for name in sweep.CUCKOO_WALKS:
         c = clone_u32(state)
-        got[name] = (c, *sweep._cuckoo_walk_on(name == "prefetch", insert, c, keys, lens, cfg))
-    ab = {**{f"{k}_ms": v for k, v in runs.items()},
-          "thread_over_prefetch": sum(runs["thread"]) / sum(runs["prefetch"]),
-          "noise": max(abs(a - b) / min(a, b) for a, b in runs.values())}
-    return ab, got
+        flags, kicks, _ = sweep._cuckoo_walk_on(name, insert, c, keys, lens, cfg)
+        err = max(err, max_abs_err(i32(c), i32(plain[0])), max_abs_err(flags.cpu(), plain[1]),
+                  0 if kicks is None else max_abs_err(kicks.cpu(), plain[2]))
+        del c
+    windows = {w: {"ms": []} for w in WALK_WINDOWS}
+    for w in (*WALK_WINDOWS, *reversed(WALK_WINDOWS)):
+        windows[w]["ms"].append(fresh_ms(state, lambda i: sweep._cuckoo_walk_on(
+            "rounds", insert, state, keys, lens, cfg, w), n=5, warm=1))
+    for w in WALK_WINDOWS:
+        r = rounds_vs_model(clone_u32(state), keys, lens, cfg, insert, plain, w)
+        err = max(err, r.pop("max_abs_err"))
+        ms = sum(windows[w]["ms"]) / len(windows[w]["ms"])
+        windows[w].update(r, ms_per_round=ms / r["rounds"])
+    ab = {**{f"{k}_ms": v for k, v in runs.items()}, "window": sweep.cuckoo_window(),
+          "warp_over_rounds": sum(runs["warp"]) / sum(runs["rounds"]),
+          "thread_over_rounds": sum(runs["thread"]) / sum(runs["rounds"]),
+          "noise": max(abs(a - b) / min(a, b) for a, b in runs.values()),
+          "windows": windows}
+    return ab, err
 
 
-def walk_err(got: dict, host, flags, kicks=None) -> int:
-    """The worst difference between each walk variant's result and the
-    plain version's (``host`` state, ``flags``, ``kicks``)."""
-    return max(max(max_abs_err(i32(c), i32(host)), max_abs_err(f.cpu(), flags),
-                   0 if kicks is None else max_abs_err(k.cpu(), kicks))
-               for c, f, k in got.values())
+def walk_record(ms: float, B: int, ab: dict, lat: dict, dep: int) -> dict:
+    """The round walk's rounds and keys a round at the main path's window,
+    and the sequential latency floor of the warp walk (``dep`` dependent
+    reads at the L2-resident chase's latency, and at the device memory's)
+    beside the warp walk's time."""
+    main = ab["windows"][ab["window"]]
+    warp_ms = sum(ab["warp_ms"]) / len(ab["warp_ms"])
+    floor = dep * lat["l2"]["us"] / 1e3
+    return {"rounds": main["rounds"], "rewalked": main["rewalked"],
+            "keys_per_round": B / main["rounds"], "ms_per_round": ms / main["rounds"],
+            "us_per_key": ms * 1e3 / B, "dependent_reads": dep,
+            "warp_latency_floor_ms": floor, "warp_latency_floor_by": "latency",
+            "warp_share_of_latency_floor": floor / warp_ms,
+            "warp_latency_at_device_memory_ms": dep * lat["device_memory"]["us"] / 1e3,
+            "walk_ab": ab}
 
 
 def cuckoo_insert_times(state, keys, lens, cfg, lat: dict) -> dict:
-    """The cuckoo insert of one batch on ``state``: the wrapper's ms, the
-    plain version's ms on a host copy of the same state, both walks held
-    against it and timed in turns, the byte bound (keys, lengths and
-    flags once, each distinct bucket sector the plain walk reads, and each
-    sector the batch changes) and the latency floor (a dependent read a
-    key and a kick step, each at the L2-resident chase's latency)."""
+    """The cuckoo insert of one batch on ``state``: the wrapper's ms (the
+    round walk), the plain version's ms on a host copy of the same state,
+    the three second launches held against it and timed in turns, the byte
+    bound (keys, lengths and flags once, each distinct bucket sector the
+    plain walk reads, and each sector the batch changes), and beside it the
+    warp walk's sequential latency floor (a dependent read a key and a kick
+    step, each at the L2-resident chase's latency)."""
     B = keys.shape[0]
     host = host_copy(state)
     p_ms, (pok, pk) = host_ms(lambda: sweep.cuckoo_insert(host, keys.cpu(), lens.cpu(), cfg))
@@ -3070,22 +3135,16 @@ def cuckoo_insert_times(state, keys, lens, cfg, lat: dict) -> dict:
     ops_cuckoo.cuckoo_insert_plain(host_copy(state), keys.cpu(), lens.cpu(), cfg, reads)
     read_sectors = len({b >> 1 for b in reads})  # two 16-byte buckets a sector
     written_sectors = changed_sectors(host_copy(state), host)
-    ab, got = walk_ab(state, keys, lens, cfg, insert=True)
-    err = walk_err(got, host, pok, pk)
-    del got, host
+    ab, err = walk_ab(state, keys, lens, cfg, True, (host, pok, pk))
+    del host
     ms = fresh_ms(state, lambda i: sweep.cuckoo_insert(state, keys, lens, cfg), n=5, warm=1)
     n_kicks, n_full = int(pk.sum()), int((~pok).sum())
     nbytes = B * (KEY_LEN + 4 + 1 + 4) + 32 * (read_sectors + written_sectors)
     b_ms, b_by = bound(nbytes, B * (OPS_CUCKOO_HASH + 2 * OPS_CUCKOO_PROBE) + n_kicks * 12)
-    dep = B + n_kicks
-    lat_ms = dep * lat["l2"]["us"] / 1e3
     return {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
             "keys": B, "kicks": n_kicks, "full": n_full, "load": occupied(state) / cfg.m,
             "read_sectors": read_sectors, "written_sectors": written_sectors, "bytes": nbytes,
-            "share_of_bound": b_ms / ms, "dependent_reads": dep, "latency_bound_ms": lat_ms,
-            "latency_bound_by": "latency", "share_of_latency_bound": lat_ms / ms,
-            "latency_at_device_memory_ms": dep * lat["device_memory"]["us"] / 1e3,
-            "us_per_key": ms * 1e3 / B, "prefetch_ab": ab}
+            "share_of_bound": b_ms / ms, **walk_record(ms, B, ab, lat, B + n_kicks)}
 
 
 def occupied(state: torch.Tensor) -> int:
@@ -3099,9 +3158,10 @@ def phase_sketch_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
     the count-min pair a batch of 2^20 on its grid), beside its bound, its
     plain version's ms on a host copy of the same state, with which its
     result must agree (tolerance 0), and for the count-min pair one
-    PyTorch call on the same positions. The latency of one dependent read,
-    by a pointer chase, gives the cuckoo walk's latency floor; the walk
-    with its prefetch lanes is timed against one thread alone."""
+    PyTorch call on the same positions. The cuckoo pair's round walk is
+    timed against the warp walk and one thread alone, and at each of
+    WALK_WINDOWS; the latency of one dependent read, by a pointer chase,
+    gives the warp walk's sequential latency floor."""
     t0 = time.perf_counter()
     lat = {"l2": chase_us(CHASE_L2_BYTES, warm=True),
            "device_memory": chase_us(CHASE_TABLE_BYTES, warm=False)}
@@ -3129,22 +3189,16 @@ def phase_sketch_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
     ops_cuckoo.cuckoo_delete_plain(host_copy(cf.words), dkeys.cpu(), dlens.cpu(), cfg, reads)
     read_sectors = len({b >> 1 for b in reads})
     written_sectors = changed_sectors(host_copy(cf.words), host)
-    ab, got = walk_ab(cf.words, dkeys, dlens, cfg, insert=False)
-    err = walk_err(got, host, pd)
-    del got, host
+    ab, err = walk_ab(cf.words, dkeys, dlens, cfg, False, (host, pd))
+    del host
     ms = fresh_ms(cf.words, lambda i: sweep.cuckoo_delete(cf.words, dkeys, dlens, cfg), n=5, warm=1)
     nbytes = B * (KEY_LEN + 4 + 1) + 32 * (read_sectors + written_sectors)
     b_ms, b_by = bound(nbytes, B * (OPS_CUCKOO_HASH + 2 * OPS_CUCKOO_PROBE))
-    lat_ms = B * lat["l2"]["us"] / 1e3
     out["cuckoo_delete"] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": None, "library": "none: torch has no ordered cuckoo walk",
                             "max_abs_err": err, "keys": B, "read_sectors": read_sectors,
                             "written_sectors": written_sectors, "bytes": nbytes,
-                            "share_of_bound": b_ms / ms, "dependent_reads": B,
-                            "latency_bound_ms": lat_ms, "latency_bound_by": "latency",
-                            "share_of_latency_bound": lat_ms / ms,
-                            "latency_at_device_memory_ms": B * lat["device_memory"]["us"] / 1e3,
-                            "us_per_key": ms * 1e3 / B, "prefetch_ab": ab}
+                            "share_of_bound": b_ms / ms, **walk_record(ms, B, ab, lat, B)}
     # query: held and absent keys
     host = host_copy(cf.words)
     p_ms, want = host_ms(lambda: sweep.cuckoo_query(host, dkeys.cpu(), dlens.cpu(), cfg))
@@ -3217,16 +3271,16 @@ FLAT_DESIGN = {"flat_query": "thread a key, stops at its first zero bit",
                "sharded_flat_query": "thread a key, stops at its first zero bit"}
 
 
+ROUND_DESIGN = ("a thread a key hashes; then one CTA walks a window of keys at once against "
+                "the table (private logs), checks them in batch order by bucket owners and "
+                "commits the valid prefix, round after round")
 # The sketch kernels have no Pallas counterpart either: each replaces the
 # XLA ops of a tpubloom function. name -> (source, replaces, design).
 SKETCH_KERNELS = {
     "cuckoo_insert": ("cuckoo.cu", "tpubloom/ops/cuckoo.py:101 (cuckoo_insert, a lax.scan over "
-                      "the batch with a fixed-trip kick chain and unwind)",
-                      "a thread a key hashes; then one warp: lane 0 walks the batch in order, "
-                      "the other lanes prefetch the next 32 keys' rows into L2"),
+                      "the batch with a fixed-trip kick chain and unwind)", ROUND_DESIGN),
     "cuckoo_delete": ("cuckoo.cu", "tpubloom/ops/cuckoo.py:184 (cuckoo_delete, a lax.scan)",
-                      "a thread a key hashes; then one warp: lane 0 walks the batch in order, "
-                      "the other lanes prefetch the next 32 keys' rows into L2"),
+                      ROUND_DESIGN),
     "cuckoo_query": ("cuckoo.cu", "tpubloom/ops/cuckoo.py:172 (cuckoo_query)",
                      "thread a key: two 16-byte bucket loads"),
     "cms_update": ("cms.cu", "tpubloom/ops/cms.py:53 (cms_update, words.at[flat].add)",
@@ -3324,8 +3378,9 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
             "design": design,
-            **{k: t[k] for k in ("absent_ms", "us_per_key", "latency_bound_ms",
-                                 "latency_bound_by", "share_of_latency_bound") if k in t},
+            **{k: t[k] for k in ("absent_ms", "us_per_key", "rounds", "keys_per_round",
+                                 "ms_per_round", "warp_latency_floor_ms",
+                                 "warp_share_of_latency_floor") if k in t},
             **({"quarter_load_ms": t["quarter_load"]["ms"]} if "quarter_load" in t else {}),
         })
     return kernels

@@ -10,7 +10,9 @@ version on a CPU copy of the same state and keys:
 
 * the cuckoo insert, delete and query at 2^6 to 2^16 slots, key widths 8,
   16 and 32, with an overfill (FULL keys and unwound chains), duplicates
-  and padded lanes, one launch counted a call;
+  and padded lanes, one launch counted a call; each second launch of the
+  walk (rounds at several windows, warp, thread), the round walk's
+  (rounds, keys re-walked) equal to the plain model's;
 * the count-min update and estimate at power-of-two and other widths, with
   unit increments, weights near 2^32 that wrap, duplicates and padding;
 * ``CuckooFilter``, ``CountMinSketch``, ``TopKSketch`` and
@@ -25,7 +27,7 @@ from tpubloom_torch import (
     CountMinSketch, CuckooFilter, FilterConfig, ScalableBloomFilter, TopKSketch,
 )
 from tpubloom_torch import checkpoint as ck
-from tpubloom_torch.ops import sweep
+from tpubloom_torch.ops import cuckoo, sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -93,25 +95,47 @@ def test_cuckoo_kernels_equal_plain(cuda, log2m, batch, n_batches, L):
     assert _count("cuckoo_delete") == 2
 
 
-@pytest.mark.parametrize("prefetch", [True, False])
+@pytest.mark.parametrize("variant,window", [("rounds", 0), ("rounds", 1), ("rounds", 64),
+                                            ("rounds", 1024), ("warp", 0), ("thread", 0)])
 @pytest.mark.parametrize("log2m,batch", [(6, 40), (12, 2560), (16, 30000)])
-def test_cuckoo_walk_variants_equal_plain(cuda, log2m, batch, prefetch):
-    """Both second launches of the walk (the warp with its prefetch lanes,
-    and one thread alone) against the plain version, an overfill included."""
+def test_cuckoo_walk_variants_equal_plain(cuda, log2m, batch, variant, window):
+    """Each second launch of the walk (the round walk at the main path's
+    window and at 1, 64 and 1024 threads; the warp with its prefetch lanes;
+    one thread alone) against the plain version, an overfill included, one
+    launch counted a call; the round walk's (rounds, keys re-walked)
+    against the plain model's at the same window."""
     rng = np.random.default_rng(log2m)
     cfg = FilterConfig(m=1 << log2m, k=2, kind="cuckoo", seed=log2m)
-    dev_state, cpu_state = _zeros(cfg.m, cuda), _zeros(cfg.m, "cpu")
-    for _ in range(3):
+    dev_state, cpu_state, model_state = _zeros(cfg.m, cuda), _zeros(cfg.m, "cpu"), _zeros(cfg.m, "cpu")
+    W = window or sweep.cuckoo_window()
+    sweep.reset_launch_counts()
+
+    def model(keys, lens, insert):
+        fp, i1 = cuckoo.derive(keys, lens, n_buckets=cfg.m // cuckoo.BUCKET_SIZE, seed=cfg.seed)
+        return cuckoo.cuckoo_walk_rounds(model_state, fp, i1, lens >= 0, window=W, insert=insert)
+
+    for b in range(3):
         keys, lens = _batch(rng, batch, pad=24, dup=5)
-        ok, kicks = sweep._cuckoo_walk_on(prefetch, True, dev_state, keys.to(cuda),
-                                          lens.to(cuda), cfg)
+        ok, kicks, stats = sweep._cuckoo_walk_on(variant, True, dev_state, keys.to(cuda),
+                                                 lens.to(cuda), cfg, window)
         pok, pkicks = sweep.cuckoo_insert(cpu_state, keys, lens, cfg)
+        assert _count("cuckoo_insert") == b + 1
         assert _same(dev_state, cpu_state)
         assert torch.equal(ok.cpu(), pok) and torch.equal(kicks.cpu(), pkicks)
-    d, none = sweep._cuckoo_walk_on(prefetch, False, dev_state, keys.to(cuda), lens.to(cuda), cfg)
-    assert none is None
+        if variant == "rounds":
+            _, _, rounds, rewalked = model(keys, lens, True)
+            assert stats.cpu().tolist() == [rounds, rewalked]
+            if window == 1:
+                assert rounds == keys.shape[0] and rewalked == 0
+        else:
+            assert stats is None
+    d, none, stats = sweep._cuckoo_walk_on(variant, False, dev_state, keys.to(cuda),
+                                           lens.to(cuda), cfg, window)
+    assert none is None and _count("cuckoo_delete") == 1
     assert torch.equal(d.cpu(), sweep.cuckoo_delete(cpu_state, keys, lens, cfg))
     assert _same(dev_state, cpu_state)
+    if variant == "rounds":
+        assert stats.cpu().tolist() == list(model(keys, lens, False)[2:])
 
 
 def test_cuckoo_chase_follows_its_links(cuda):
@@ -151,6 +175,8 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     cfg = FilterConfig(m=1 << 10, k=2, kind="cuckoo")
     keys, lens = _batch(np.random.default_rng(0), 64)
     buf = _zeros(cfg.m + 4, cuda)
+    with pytest.raises(RuntimeError, match="cuckoo_walk_variant"):
+        sweep._cuckoo_walk_on("rounds", True, buf[: cfg.m], keys.to(cuda), lens.to(cuda), cfg, 1025)
     with pytest.raises(ValueError, match="16-byte"):
         sweep.cuckoo_insert(buf[1 : cfg.m + 1], keys.to(cuda), lens.to(cuda), cfg)
     with pytest.raises(ValueError, match="share a device"):

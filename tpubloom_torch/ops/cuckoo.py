@@ -158,6 +158,106 @@ def cuckoo_delete(slots: torch.Tensor, fp: torch.Tensor, i1: torch.Tensor,
     return torch.from_numpy(deleted)
 
 
+def _speculate(tbl: np.ndarray, f: int, b1: int, mask: int, insert: bool):
+    """One key's insert or delete walked against ``tbl`` without writing
+    to it: ``(flag, kicks, reads, log)``. Each row the walk loads is
+    patched with the walk's own earlier log entries, so a chain that comes
+    back to a bucket sees its own swap. ``reads`` lists the buckets whose
+    rows the outcome depends on: ``b1``; ``b2`` when ``b1`` had no empty
+    slot (insert) or no match (delete); each chain bucket. ``log`` is the
+    net write set as ``(bucket, slot, value)`` in walk order: empty for a
+    FULL key or a delete that found nothing."""
+    log: list = []
+
+    def row(b):
+        r = tbl[b].tolist()
+        for lb, ls, lv in log:
+            if lb == b:
+                r[ls] = lv
+        return r
+
+    want = 0 if insert else f
+    reads = [b1]
+    s = _first(row(b1), want)
+    if s >= 0:
+        return True, 0, reads, [(b1, s, f if insert else 0)]
+    b = alt_bucket(b1, f, mask)
+    reads.append(b)
+    r = row(b)
+    s = _first(r, want)
+    if s >= 0:
+        return True, 0, reads, [(b, s, f if insert else 0)]
+    if not insert:
+        return False, 0, reads, []
+    for t in range(MAX_KICKS):
+        s = (f + t) % BUCKET_SIZE
+        victim = r[s]
+        log.append((b, s, f))
+        nb = alt_bucket(b, victim, mask)
+        reads.append(nb)
+        r = row(nb)  # after the swap: sees it when nb == b
+        e = _first(r, 0)
+        if e >= 0:
+            log.append((nb, e, victim))
+            return True, t + 1, reads, log
+        f, b = victim, nb
+    return False, MAX_KICKS, reads, []  # FULL: the swaps unwind, nothing is written
+
+
+def cuckoo_walk_rounds(slots: torch.Tensor, fp: torch.Tensor, i1: torch.Tensor,
+                       valid: torch.Tensor, *, window: int, insert: bool):
+    """A plain model of the round walk of ``csrc/cuckoo.cu``
+    (``cuckoo_rounds_kernel``): the insert (``insert``) or delete of a
+    batch in place, as ``window`` keys a round, each round
+
+    1. speculating each key of the window against the table as the round
+       found it (:func:`_speculate`: no writes, a private log);
+    2. claiming each bucket of a key's net write set with the key's place
+       in the window (the least place wins);
+    3. finding the first key that read a bucket claimed by an earlier key
+       of the window (``window`` keys when none did);
+    4. committing the logs of the keys before it, and starting the next
+       round there.
+
+    A committed key read only buckets no earlier key of its round wrote,
+    so it did what the sequential walk does: the table and the flags equal
+    :func:`cuckoo_insert` / :func:`cuckoo_delete`'s. Returns ``(ok, kicks,
+    rounds, rewalked)`` for an insert, ``(deleted, None, rounds, rewalked)``
+    for a delete; ``rewalked`` counts the keys a round walked and did not
+    commit (the kernel walks the whole window; this model stops at the
+    first invalid key, which decides the same round). Tests and
+    chip_smoke.py use it; the main path does not."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    tbl = _table(slots)
+    mask = tbl.shape[0] - 1
+    fps, b1s, vs = fp.tolist(), i1.tolist(), valid.tolist()
+    B = len(fps)
+    flag = np.zeros(B, dtype=bool)
+    kicks = np.zeros(B, dtype=np.int32)
+    p = rounds = rewalked = 0
+    while p < B:
+        n = min(window, B - p)
+        owner: dict = {}  # bucket -> the least place in the window claiming it
+        walks = []
+        for t in range(n):
+            i = p + t
+            w = _speculate(tbl, fps[i], b1s[i], mask, insert) if vs[i] else (False, 0, [], [])
+            if any(owner.get(b, n) < t for b in w[2]):
+                break
+            for b, _, _ in w[3]:
+                owner.setdefault(b, t)
+            walks.append(w)
+        for t, (ok, nk, _, log) in enumerate(walks):
+            for b, s, v in log:
+                tbl[b, s] = v
+            flag[p + t], kicks[p + t] = ok, nk
+        rounds += 1
+        rewalked += n - len(walks)
+        p += len(walks)
+    return (torch.from_numpy(flag), torch.from_numpy(kicks) if insert else None, rounds, rewalked)
+
+
 def cuckoo_query(slots: torch.Tensor, fp: torch.Tensor, i1: torch.Tensor,
                  valid: torch.Tensor) -> torch.Tensor:
     """Membership: the fingerprint in either bucket (``tpubloom.ops.

@@ -83,7 +83,9 @@ device ops are XLA. Each has a CUDA kernel here, with its plain version in
 * the cuckoo insert's and delete's ``lax.scan`` over the batch
   (``tpubloom/ops/cuckoo.py`` ``cuckoo_insert``, ``cuckoo_delete``) ->
   :func:`cuckoo_insert`, :func:`cuckoo_delete` (``csrc/cuckoo.cu``: a hash
-  launch, then one warp whose lane 0 walks the batch in order);
+  launch, then one CTA that walks a window of keys at once against the
+  table, checks the walks in batch order and commits the valid prefix,
+  round after round; bit-identical to the walk in order);
 * the cuckoo query (``cuckoo_query``) -> :func:`cuckoo_query`;
 * the count-min scatter-add and gather with row minimum
   (``tpubloom/ops/cms.py`` ``cms_update``, ``cms_estimate``) ->
@@ -209,13 +211,15 @@ _FLAT_BITS_SIGNATURES = {
 # B, L, n_buckets, seed (cuckoo); B, L, width, depth, seed (count-min)
 _CUCKOO = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32]
 _CUCKOO_SIGNATURES = {
-    "tpb_cuckoo_insert": ([_P, _P, _P, _P, _P, _P, *_CUCKOO, _P], ctypes.c_int),
-    "tpb_cuckoo_delete": ([_P, _P, _P, _P, _P, *_CUCKOO, _P], ctypes.c_int),
+    "tpb_cuckoo_insert": ([_P, _P, _P, _P, _P, _P, _P, _P, *_CUCKOO, _P], ctypes.c_int),
+    "tpb_cuckoo_delete": ([_P, _P, _P, _P, _P, _P, _P, *_CUCKOO, _P], ctypes.c_int),
     "tpb_cuckoo_query": ([_P, _P, _P, _P, *_CUCKOO, _P], ctypes.c_int),
     "tpb_cuckoo_walk_variant": (
-        [_P, _P, _P, _P, _P, _P, *_CUCKOO, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _P, _P, *_CUCKOO, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+        ctypes.c_int,
     ),
     "tpb_cuckoo_chase": ([_P, ctypes.c_uint32, ctypes.c_int64, _P, _P], ctypes.c_int),
+    "tpb_cuckoo_window": ([], ctypes.c_int),
 }
 _CMS = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32]
 _CMS_SIGNATURES = {
@@ -665,35 +669,59 @@ def _launch(lib, name: str, state, *args, counter: str | None = None) -> None:
     LAUNCHES[counter or name] += 1
 
 
+#: The second launches of the cuckoo insert and delete (``csrc/cuckoo.cu``):
+#: the round walk (the main path's), the ordered walk on one warp with its
+#: prefetch lanes, and the ordered walk on one thread alone.
+CUCKOO_WALKS = ("rounds", "warp", "thread")
+
+
+def cuckoo_window() -> int:
+    """The round walk's window on the main path (threads of its CTA)."""
+    return _cuckoo_library().tpb_cuckoo_window()
+
+
+def _cuckoo_scratch(state, B: int, config):
+    """The walk's ``(fp, i1)`` scratch (``int32[2 B]``) and the round
+    walk's bucket owners (``int32[n_buckets]``, set by the entry)."""
+    return (torch.empty((2 * B,), dtype=torch.int32, device=state.device),
+            torch.empty((config.m // cuckoo.BUCKET_SIZE,), dtype=torch.int32, device=state.device))
+
+
 def _cuckoo_walk(name: str, state, keys, lengths, config, *outs) -> None:
-    """The insert or delete walk (two launches: the hash, then the walk of
-    one warp in batch order) into ``outs``, with the (fp, i1) scratch."""
+    """The insert or delete (two launches: the hash, then the round walk)
+    into ``outs``, with its scratch; no stats."""
     B, L = keys.shape
     if not B:
         return
-    fi = torch.empty((2 * B,), dtype=torch.int32, device=state.device)
+    fi, owner = _cuckoo_scratch(state, B, config)
     _launch(_cuckoo_library(), name, state, state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
-            fi.data_ptr(), *(o.data_ptr() for o in outs), B, L,
+            fi.data_ptr(), owner.data_ptr(), *(o.data_ptr() for o in outs), None, B, L,
             config.m // cuckoo.BUCKET_SIZE, config.seed)
 
 
-def _cuckoo_walk_on(prefetch: bool, insert: bool, state, keys, lengths, config):
-    """The insert (``insert``) or delete walk of a checked CUDA state on
-    either second launch: the warp whose other lanes prefetch the next
-    keys' rows (``prefetch``), or one thread alone. chip_smoke.py times the
-    two; counted under ``cuckoo_insert`` / ``cuckoo_delete``. Returns
-    ``(flags bool[B], kicks int32[B] or None)``."""
+def _cuckoo_walk_on(variant: str, insert: bool, state, keys, lengths, config, window: int = 0):
+    """The insert (``insert``) or delete of a checked CUDA state on the
+    second launch named in :data:`CUCKOO_WALKS`; the round walk with
+    ``window`` threads (0: the main path's). chip_smoke.py times the three
+    against each other; counted under ``cuckoo_insert`` / ``cuckoo_delete``.
+    Returns ``(flags bool[B], kicks int32[B] or None, stats)``: ``stats``
+    is the round walk's ``int32[2]`` (rounds, keys walked and not
+    committed) on the card, None for the other two."""
     B, L = keys.shape
     flag = torch.zeros((B,), dtype=torch.uint8, device=state.device)
     kicks = torch.zeros((B,), dtype=torch.int32, device=state.device) if insert else None
+    stats = (torch.zeros((2,), dtype=torch.int32, device=state.device)
+             if variant == "rounds" else None)
     if B:
-        fi = torch.empty((2 * B,), dtype=torch.int32, device=state.device)
+        fi, owner = _cuckoo_scratch(state, B, config)
         _launch(_cuckoo_library(), "cuckoo_walk_variant", state, state.data_ptr(),
-                keys.data_ptr(), lengths.data_ptr(), fi.data_ptr(), flag.data_ptr(),
-                None if kicks is None else kicks.data_ptr(), B, L,
-                config.m // cuckoo.BUCKET_SIZE, config.seed, int(insert), int(prefetch),
+                keys.data_ptr(), lengths.data_ptr(), fi.data_ptr(), owner.data_ptr(),
+                flag.data_ptr(), None if kicks is None else kicks.data_ptr(),
+                None if stats is None else stats.data_ptr(), B, L,
+                config.m // cuckoo.BUCKET_SIZE, config.seed, int(insert),
+                CUCKOO_WALKS.index(variant), window,
                 counter="cuckoo_insert" if insert else "cuckoo_delete")
-    return flag.view(torch.bool), kicks
+    return flag.view(torch.bool), kicks, stats
 
 
 def _cuckoo_chase(rows: torch.Tensor, start: int, steps: int) -> torch.Tensor:
