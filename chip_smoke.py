@@ -175,12 +175,16 @@ line each, with the seconds it took (``phase_seconds``):
    2^24 unit increments and 2^12 weighted ones, every id's estimate at or
    above its exact count, with the share above e / width · N; a
    TopKSketch (top 100) on the same grid whose list the stream's heaviest
-   key leads; launch counts read after the three;
+   key leads; launch counts read after the three (the stream's batches of
+   2^20 take ``cms_update_tiled``, the weighted and top-k batches the
+   thread-a-key ``cms_update``);
 25. sketch kernel vs plain: each sketch kernel against its plain version
    on a CPU copy of the same state and keys, tolerance 0: the cuckoo pair
    at 2^16 slots with an overfill batch, and a 2^12-key batch on a copy of
    the filled 2^24-slot table; the count-min pair at the path's width and
-   batch (2^20) with duplicates and weights near 2^32;
+   batch (2^20) with duplicates and weights near 2^32, the update through
+   each of its kernels (the thread-a-key one and the partitioned one, whose
+   entries a tile are also held against the plain partition);
 26. sketch times: each sketch kernel's ms by CUDA events at the path's
    shapes (the cuckoo pair 2^16 keys on the filled table, the insert also
    at a quarter load; the count-min pair 2^20), its result held against
@@ -191,14 +195,28 @@ line each, with the seconds it took (``phase_seconds``):
    measures in an L2-resident buffer; also over 64 MiB after an L2
    flush), the walk with its prefetch lanes against one thread alone, in
    turns, its plain version's ms and, for the count-min pair,
-   ``index_add_`` / ``index_select`` + ``amin`` on the same positions.
+   ``index_add_`` / ``index_select`` + ``amin`` on the same positions. The
+   count-min update's two kernels, ``index_add_``, the estimate and
+   ``index_select`` +
+   ``amin`` are timed in turns on the path's Zipf batch and on a batch of
+   2^20 distinct ids, with what each batch puts in the tiles, and the
+   thread-a-key kernel on a grid of 2^18 x 7 counters (7 MiB, held in L2)
+   beside the path's;
+27. count-min crossover: both update kernels over unit batches of the Zipf
+   stream, half an octave apart, in turns, on four grids: ``CMS.INITBYDIM
+   key 2000 5`` (2,016 x 5), ``CMS.INITBYPROB key 0.00001 0.001``
+   (271,840 x 7), the path's and ``CMS.INITBYPROB key 0.0000001 0.001``
+   (27,182,848 x 7); on each the batch (in positions, and positions a
+   sector of the grid) from which the partitioned one is the faster, and
+   whether ``sweep.cms_takes_tiles`` picks the faster kernel at each batch:
+   what ``sweep.CMS_TILE_CROSSOVER`` (positions) is set from.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
 exits non-zero without that line; it also fails when no CUDA device is
 present. The full record is written to ``chiprun_out/chip_smoke.json``.
 
-``python3 chip_smoke.py --sketch`` runs the device, build and phases 24-26
+``python3 chip_smoke.py --sketch`` runs the device, build and phases 24-27
 only and writes ``chiprun_out/chip_smoke_sketch.json``. Two other modes
 compare kernel builds on one card:
 
@@ -385,6 +403,18 @@ N_CUCKOO_OVERFILL, N_CUCKOO_PROBE, N_CUCKOO_DELETE = 1 << 20, 1 << 20, 1 << 16
 CMS_WIDTH, CMS_DEPTH = 2_718_304, 7
 N_CMS, B_CMS, CMS_ZIPF, CMS_DISTINCT = 1 << 24, 1 << 20, 1.1, 1 << 24
 N_CMS_WEIGHTED, CMS_MAX_WEIGHT = 1 << 12, 1000
+# The count-min update's kernels are timed in CMS_TURNS rounds of turns; the
+# thread-a-key kernel also on a grid of 2^18 x 7 counters (7 MiB), which the
+# 50 MB L2 holds. The crossover: grid name -> (width, depth, the unit
+# batches' log2 range, in half octaves); the widths are tpubloom's, rounded
+# up to 32.
+CMS_TURNS, LOG2_CMS_L2_WIDTH = 3, 18
+CMS_CROSSOVER_GRIDS = {
+    "CMS.INITBYDIM key 2000 5": (2_016, 5, (8, 20)),
+    "CMS.INITBYPROB key 0.00001 0.001": (271_840, 7, (10, 20)),
+    "CMS.INITBYPROB key 0.000001 0.001": (CMS_WIDTH, CMS_DEPTH, (13, 20)),
+    "CMS.INITBYPROB key 0.0000001 0.001": (27_182_848, 7, (14, 22)),
+}
 TOPK, B_TOPK, N_TOPK_BATCHES = 100, 1 << 16, 4
 M32 = 0xFFFFFFFF
 L2_FLUSH_BYTES = 128 << 20  # read between fresh launches: 2.5 x the H100's 50 MB L2
@@ -2818,9 +2848,12 @@ def phase_sketch_path(rng) -> tuple:
     ccfg = FilterConfig(m=CMS_WIDTH, k=CMS_DEPTH, kind="cms", key_len=KEY_LEN, key_name="cms")
     cms = CountMinSketch(ccfg)
     ids = zipf_ids(rng, N_CMS)
+    call_s = []
     t = time.perf_counter()
     for lo in range(0, N_CMS, B_CMS):
+        c0 = time.perf_counter()
         cms.insert_packed(id_rows(ids[lo : lo + B_CMS]))
+        call_s.append(time.perf_counter() - c0)
     torch.cuda.synchronize()
     cms_s = time.perf_counter() - t
     exact = np.bincount(ids, minlength=CMS_DISTINCT).astype(np.int64)
@@ -2845,7 +2878,8 @@ def phase_sketch_path(rng) -> tuple:
     check(below == 0, f"no estimate below its exact count ({below})")
     cms_rec = {"width": CMS_WIDTH, "depth": CMS_DEPTH, "bytes": 4 * CMS_WIDTH * CMS_DEPTH,
                "zipf": CMS_ZIPF, "distinct_ids": CMS_DISTINCT, "unit_increments": N_CMS,
-               "batch": B_CMS, "update_s": cms_s, "weighted_keys": N_CMS_WEIGHTED,
+               "batch": B_CMS, "update_s": cms_s, "update_call_s": call_s,
+               "weighted_keys": N_CMS_WEIGHTED,
                "weighted_total": int(w.sum()), "increments_total": total,
                "ids_seen": seen, "estimates": CMS_DISTINCT, "estimate_s": est_s,
                "below_exact": below, "e_over_width_times_n": eps_n,
@@ -2872,6 +2906,8 @@ def phase_sketch_path(rng) -> tuple:
     launches = sweep.launch_counts()
     for name in SKETCH_KERNELS:
         check(launches[name] > 0, f"{name} launched on the sketch path")
+    check(launches["cms_update"] > launches["cms_update_tiled"],
+          "the thread-a-key cms_update launched on the sketch path")
     del tk
     torch.cuda.empty_cache()
     emit("sketch_path", cuckoo=cuckoo, cms=cms_rec, topk=topk_rec, launches=launches,
@@ -2960,6 +2996,46 @@ def cuckoo_vs_plain(state, cfg, batches, deletes) -> dict:
     return {"max_abs_err": err, "full": full, "kicks": kicks, "rounds": rounds}
 
 
+def cms_vs_plain(cms, rng) -> dict:
+    """A weighted update (weights near 2^32 that wrap) then a unit one of a
+    Zipf batch of the path's size with a crowd and padding, through each
+    update kernel on a copy of the sketch path's grid, and the estimate,
+    against the plain versions on a host copy: the worst difference of
+    each. The partitioned kernel's entries a tile, read from its scratch
+    after each launch, are held against the plain partition
+    (``ops_cms.cms_tile_counts_plain``) and count in its difference."""
+    host = host_copy(cms.words)
+    keys, lens = key_batch(id_rows(zipf_ids(rng, B_CMS - 256)), pad=256, dup=1 << 12)
+    incs = rng.integers(0, 1 << 32, keys.shape[0], dtype=np.uint64).astype(np.uint32)
+    incs[: 1 << 10] = M32 - rng.integers(0, 4, 1 << 10).astype(np.uint32)
+    incs = torch.from_numpy(incs.view(np.int32))  # moved as int32, viewed as uint32
+    d_incs = incs.to(cms.words.device).view(torch.uint32)
+    sweep.cms_update(host, keys.cpu(), lens.cpu(), cms.config, incs.view(torch.uint32))
+    sweep.cms_update(host, keys.cpu(), lens.cpu(), cms.config)
+    c, B = cms.config, keys.shape[0]
+    want = ops_cms.cms_tile_counts_plain(
+        ops_cms.cms_positions(keys, lens, width=c.m, depth=c.k, seed=c.seed), c.m,
+        sweep.flat_tile_geometry()[0], lens >= 0)
+    cms_err = {}
+    for name, tiled in CMS_UPDATES.items():
+        grid = clone_u32(cms.words)
+        err = 0
+        for weights in (d_incs, None):
+            scratch = (sweep.cms_tiled_scratch(c, B, grid.device, weighted=weights is not None)
+                       if tiled else None)
+            sweep._cms_update_on(tiled, grid, keys, lens, c, weights, scratch=scratch)
+            if tiled:
+                got = sweep.cms_tile_counts(scratch, c, B, weighted=weights is not None)
+                err = max(err, max_abs_err(got, want))
+        cms_err[name] = max(err, max_abs_err(i32(grid), i32(host)))
+    est = sweep.cms_estimate(grid, keys, lens, c)
+    cms_err["cms_estimate"] = max_abs_err(
+        i32(est), i32(sweep.cms_estimate(host, keys.cpu(), lens.cpu(), c)))
+    del grid, host
+    torch.cuda.empty_cache()
+    return cms_err
+
+
 def phase_sketch_kernel_vs_plain(rng, cf, cms) -> dict:
     """Each sketch kernel against its plain version on a CPU copy of the
     same state and keys, tolerance 0: the cuckoo pair at 2^16 slots with
@@ -2980,31 +3056,21 @@ def phase_sketch_kernel_vs_plain(rng, cf, cms) -> dict:
     batch = key_batch(rows(rng, 1 << 12), pad=64, dup=8)
     run24 = cuckoo_vs_plain(big, cf.config, [batch], [batch])
     del big, st
-    grid = clone_u32(cms.words)
-    host = host_copy(grid)
-    keys, lens = key_batch(id_rows(zipf_ids(rng, B_CMS - 256)), pad=256, dup=1 << 12)
-    incs = rng.integers(0, 1 << 32, keys.shape[0], dtype=np.uint64).astype(np.uint32)
-    incs[: 1 << 10] = M32 - rng.integers(0, 4, 1 << 10).astype(np.uint32)
-    incs = torch.from_numpy(incs.view(np.int32))  # moved as int32, viewed as uint32
-    sweep.cms_update(grid, keys, lens, cms.config, incs.to(grid.device).view(torch.uint32))
-    sweep.cms_update(host, keys.cpu(), lens.cpu(), cms.config, incs.view(torch.uint32))
-    sweep.cms_update(grid, keys, lens, cms.config)
-    sweep.cms_update(host, keys.cpu(), lens.cpu(), cms.config)
-    cms_err = {"cms_update": max_abs_err(i32(grid), i32(host))}
-    est = sweep.cms_estimate(grid, keys, lens, cms.config)
-    cms_err["cms_estimate"] = max_abs_err(
-        i32(est), i32(sweep.cms_estimate(host, keys.cpu(), lens.cpu(), cms.config)))
-    del grid, host
-    torch.cuda.empty_cache()
+    cms_err = cms_vs_plain(cms, rng)
     errs = {name: max(run16["max_abs_err"].get(name, 0), run24["max_abs_err"].get(name, 0),
                       cms_err.get(name, 0)) for name in SKETCH_KERNELS}
     check(max(errs.values()) == 0, f"sketch kernels equal their plain versions ({errs})")
     emit("sketch_kernel_vs_plain", max_abs_err=errs, tolerance=0,
          cuckoo_2_16_slots=run16, cuckoo_filled_2_24_slots={**run24, "load": cf.fill_ratio()},
-         cms={"width": CMS_WIDTH, "depth": CMS_DEPTH, "keys": int(keys.shape[0]),
+         cms={"width": CMS_WIDTH, "depth": CMS_DEPTH, "keys": B_CMS,
               "weights_near_2_32": 1 << 10, "max_abs_err": cms_err},
          seconds=time.perf_counter() - t0)
     return errs
+
+
+# The count-min update's kernels as chip_smoke.py holds them: name -> the
+# partitioned kernel.
+CMS_UPDATES = {"cms_update_tiled": True, "cms_update": False}
 
 
 # 32-bit integer operations a key of the sketch kernels: the cuckoo hash is
@@ -3147,8 +3213,184 @@ def cuckoo_insert_times(state, keys, lens, cfg, lat: dict) -> dict:
             "share_of_bound": b_ms / ms, **walk_record(ms, B, ab, lat, B + n_kicks)}
 
 
+def turns(ops: dict, rounds: int = CMS_TURNS, n: int = 20) -> dict:
+    """Each op's mean ms a call over ``n`` calls (:func:`cuda_ms`), the ops
+    taken in turns, ``rounds`` times: the median round as ``ms``, and every
+    round."""
+    runs = {name: [] for name in ops}
+    for _ in range(rounds):
+        for name, fn in ops.items():
+            runs[name].append(cuda_ms(fn, n))
+    return {name: {"ms": sorted(r)[len(r) // 2], "rounds": r} for name, r in runs.items()}
+
+
+def cms_update_vs_plain(grid, keys, lens, c) -> tuple[float, dict]:
+    """The plain update's ms on a host copy of ``grid``, and the worst
+    difference from it of each update of CMS_UPDATES, one launch on a copy
+    of ``grid``."""
+    host = host_copy(grid)
+    p_ms, _ = host_ms(lambda: sweep.cms_update(host, keys.cpu(), lens.cpu(), c))
+    err = {}
+    for name, tiled in CMS_UPDATES.items():
+        g = clone_u32(grid)
+        sweep._cms_update_on(tiled, g, keys, lens, c)
+        err[name] = max_abs_err(i32(g), i32(host))
+    return p_ms, err
+
+
+def cms_estimate_vs_plain(grid, keys, lens, c) -> tuple[float, int]:
+    """The plain estimate's ms on a host copy of ``grid``, and the kernel's
+    worst difference from it."""
+    host = host_copy(grid)
+    p_ms, want = host_ms(lambda: sweep.cms_estimate(host, keys.cpu(), lens.cpu(), c))
+    return p_ms, max_abs_err(i32(sweep.cms_estimate(grid, keys, lens, c)), i32(want))
+
+
+def index_select_amin(grid, flat, c) -> torch.Tensor:
+    return grid.view(torch.int32).index_select(0, flat).view(-1, c.k).amin(1)
+
+
+def cms_turns(grid, keys, lens, c) -> dict:
+    """The count-min update's two kernels, ``index_add_``, the estimate and
+    ``index_select`` + ``amin`` on ``keys``, in turns on ``grid``
+    (:func:`turns`); and the distinct 32-byte sectors of the batch's
+    counters."""
+    flat = ops_cms.flat_indices(ops_cms.cms_positions(keys, lens, width=c.m, depth=c.k,
+                                                      seed=c.seed), c.m).reshape(-1)
+    ones = torch.ones(flat.numel(), dtype=torch.int32, device=grid.device)
+    g32 = grid.view(torch.int32)
+    out = turns({
+        "tiled": lambda i: sweep._cms_update_on(True, grid, keys, lens, c),
+        "per_key": lambda i: sweep._cms_update_on(False, grid, keys, lens, c),
+        "index_add": lambda i: g32.index_add_(0, flat, ones),
+        "estimate": lambda i: sweep.cms_estimate(grid, keys, lens, c),
+        "index_select_amin": lambda i: index_select_amin(grid, flat, c),
+    })
+    out["sectors"] = int(torch.unique(flat >> 3).numel())
+    return out
+
+
+def cms_partition(keys, lens, c) -> dict:
+    """What a batch puts in the partitioned update's tiles
+    (ops_cms.cms_tile_counts_plain at the kernel's tile): tiles touched,
+    tiles that take more than one piece, sweep pieces, the fullest tile, and
+    the plan's scratch."""
+    log2, piece = sweep.flat_tile_geometry()
+    pos = ops_cms.cms_positions(keys, lens, width=c.m, depth=c.k, seed=c.seed)
+    n = ops_cms.cms_tile_counts_plain(pos, c.m, log2, lens >= 0)
+    pieces = (n + piece - 1) // piece
+    return {"tile_counters": 1 << log2, "piece": piece, "tiles": int(n.numel()),
+            "tiles_touched": int((n > 0).sum()), "shared_tiles": int((pieces > 1).sum()),
+            "pieces": int(pieces.sum()), "max_tile_entries": int(n.max()),
+            "scratch_bytes": sweep.cms_tiled_scratch(c, int(keys.shape[0]), keys.device,
+                                                     weighted=False).numel()}
+
+
+def cms_crossover_grid(width: int, depth: int, log2b: tuple, ids: np.ndarray, seed: int,
+                       device) -> dict:
+    """Both count-min update kernels on unit batches of the Zipf stream,
+    half an octave apart over ``log2b``, in turns on a zeroed grid of
+    ``width`` x ``depth``; the smallest batch from which the partitioned
+    one is the faster at every larger batch; and, at each batch, whether
+    ``sweep.cms_takes_tiles`` picks the faster kernel and by how much its
+    pick is slower than the faster one."""
+    c = FilterConfig(m=width, k=depth, kind="cms", key_len=KEY_LEN, seed=seed)
+    grid = torch.zeros(width * depth, dtype=torch.int32, device=device).view(torch.uint32)
+    sectors = depth * width / 8
+    runs = []
+    for b in sorted({round(2 ** (h / 2)) for h in range(2 * log2b[0], 2 * log2b[1] + 1)}):
+        keys, lens = key_batch(id_rows(ids[:b]))
+        t = turns({"tiled": lambda i: sweep._cms_update_on(True, grid, keys, lens, c),
+                   "per_key": lambda i: sweep._cms_update_on(False, grid, keys, lens, c)})
+        tiled, per_key = t["tiled"]["ms"], t["per_key"]["ms"]
+        takes = sweep.cms_takes_tiles(c, b)
+        runs.append({"keys": b, "positions": b * depth, "positions_per_sector": b * depth / sectors,
+                     "tiled_update_ms": tiled, "thread_a_key_update_ms": per_key,
+                     "takes_tiles": takes, "picks_the_faster": takes == (tiled < per_key),
+                     "pick_over_faster": (tiled if takes else per_key) / min(tiled, per_key),
+                     "rounds": t})
+    del grid
+    torch.cuda.empty_cache()
+    at = crossover_at(runs, "update")
+    return {"width": width, "depth": depth, "bytes": 4 * width * depth, "runs": runs,
+            "crossover_positions_per_sector": at,
+            "crossover_positions": None if at is None else at * sectors,
+            "worst_pick_over_faster": max(r["pick_over_faster"] for r in runs)}
+
+
+def phase_cms_crossover(cms, ids: np.ndarray) -> dict:
+    """Both count-min update kernels on each grid of CMS_CROSSOVER_GRIDS
+    (:func:`cms_crossover_grid`): what sweep.CMS_TILE_CROSSOVER (the
+    batch's positions, B depth) is set from."""
+    t0 = time.perf_counter()
+    grids = {name: cms_crossover_grid(w, d, r, ids, cms.config.seed, cms.words.device)
+             for name, (w, d, r) in CMS_CROSSOVER_GRIDS.items()}
+    emit("cms_crossover", grids=grids, constant=sweep.CMS_TILE_CROSSOVER,
+         seconds=time.perf_counter() - t0)
+    return grids
+
+
 def occupied(state: torch.Tensor) -> int:
     return int((state.view(torch.int32) != 0).sum())
+
+
+def cms_times(cms, ids: np.ndarray, rng) -> dict:
+    """The count-min pair's records for phase_sketch_times: a batch of 2^20
+    of the Zipf stream, and 2^20 distinct ids, on a copy of the path's grid;
+    each update kernel held against the plain version; the kernels and the
+    library calls in turns (:func:`cms_turns`); the thread-a-key kernel on a
+    grid the L2 holds; the partition of both batches."""
+    out = {}
+    c = cms.config
+    grid = clone_u32(cms.words)
+    zipf = key_batch(id_rows(ids[:B_CMS]))
+    uniform = key_batch(id_rows(rng.permutation(CMS_DISTINCT)[:B_CMS]))
+    p_ms, err = cms_update_vs_plain(grid, *zipf, c)
+    e_p_ms, e_err = cms_estimate_vs_plain(grid, *zipf, c)
+    z, u = cms_turns(grid, *zipf, c), cms_turns(grid, *uniform, c)
+    nbytes = B_CMS * (KEY_LEN + 4) + z["sectors"] * 32 * 2
+    b_ms, b_by = bound(nbytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
+    u_bytes = B_CMS * (KEY_LEN + 4) + u["sectors"] * 32 * 2
+    u_b_ms, _ = bound(u_bytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
+    # the thread-a-key kernel on a grid the L2 holds: its atomics' rate
+    # without misses to device memory
+    small = FilterConfig(m=1 << LOG2_CMS_L2_WIDTH, k=c.k, kind="cms", key_len=KEY_LEN, seed=c.seed)
+    sgrid = torch.zeros(small.m * small.k, dtype=torch.int32, device=grid.device).view(torch.uint32)
+    l2 = {"width": small.m, "bytes": 4 * small.m * small.k}
+    for label, (keys, lens) in (("zipf", zipf), ("uniform", uniform)):
+        runs = turns({"per_key": lambda i: sweep._cms_update_on(False, sgrid, keys, lens, small),
+                      "path_grid": lambda i: sweep._cms_update_on(False, grid, keys, lens, c)})
+        l2[label] = {"ms": runs["per_key"]["ms"], "path_grid_ms": runs["path_grid"]["ms"],
+                     "atomics_per_s": B_CMS * c.k / runs["per_key"]["ms"] * 1e3, "runs": runs}
+    del sgrid
+    common = {"plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": z["index_add"]["ms"],
+              "library": "index_add_ on the int32 view, positions precomputed",
+              "keys": B_CMS, "sectors": z["sectors"], "bytes": nbytes}
+    for name, key in (("cms_update", "per_key"), ("cms_update_tiled", "tiled")):
+        out[name] = {"ms": z[key]["ms"], "max_abs_err": err[name], **common,
+                     "share_of_bound": b_ms / z[key]["ms"], "uniform_ms": u[key]["ms"],
+                     "uniform_bound_ms": u_b_ms, "uniform_sectors": u["sectors"],
+                     "uniform_library_ms": u["index_add"]["ms"]}
+    out["cms_update"]["l2_resident"] = l2
+    out["cms_update_tiled"].update(
+        partition=cms_partition(*zipf, c), uniform_partition=cms_partition(*uniform, c),
+        turns={"zipf": z, "uniform": u},
+        kernels_ms=kernel_ms(lambda i: sweep._cms_update_on(True, grid, *zipf, c), n=10))
+    nbytes = B_CMS * (KEY_LEN + 4 + 4) + z["sectors"] * 32
+    b_ms, b_by = bound(nbytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
+    u_bytes = B_CMS * (KEY_LEN + 4 + 4) + u["sectors"] * 32
+    out["cms_estimate"] = {"ms": z["estimate"]["ms"], "plain_ms": e_p_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": z["index_select_amin"]["ms"],
+                           "library": "index_select + amin, positions precomputed",
+                           "max_abs_err": e_err, "keys": B_CMS, "sectors": z["sectors"],
+                           "bytes": nbytes, "share_of_bound": b_ms / z["estimate"]["ms"],
+                           "uniform_ms": u["estimate"]["ms"],
+                           "uniform_library_ms": u["index_select_amin"]["ms"],
+                           "uniform_bound_ms": bound(u_bytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))[0]}
+    del grid
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_sketch_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
@@ -3215,42 +3457,7 @@ def phase_sketch_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
                            "max_abs_err": err, "keys": B, "bytes": nbytes,
                            "share_of_bound": b_ms / ms}
     del host
-    # count-min: a batch of 2^20 of the Zipf stream on a copy of the grid
-    c = cms.config
-    grid = clone_u32(cms.words)
-    hgrid = host_copy(grid)
-    keys, lens = key_batch(id_rows(ids[:B_CMS]))
-    pos = ops_cms.flat_indices(ops_cms.cms_positions(keys, lens, width=c.m, depth=c.k, seed=c.seed),
-                               c.m)
-    sectors = int(torch.unique(pos.reshape(-1) >> 3).numel())
-    sweep.cms_update(grid, keys, lens, c)
-    p_ms, _ = host_ms(lambda: sweep.cms_update(hgrid, keys.cpu(), lens.cpu(), c))
-    u_err = max_abs_err(i32(grid), i32(hgrid))
-    e_p_ms, want = host_ms(lambda: sweep.cms_estimate(hgrid, keys.cpu(), lens.cpu(), c))
-    e_err = max_abs_err(i32(sweep.cms_estimate(grid, keys, lens, c)), i32(want))
-    ms = cuda_ms(lambda i: sweep.cms_update(grid, keys, lens, c), n=20)
-    flat = pos.reshape(-1)
-    ones = torch.ones(flat.numel(), dtype=torch.int32, device=grid.device)
-    g32 = grid.view(torch.int32)
-    lib_ms = cuda_ms(lambda i: g32.index_add_(0, flat, ones), n=20)
-    nbytes = B_CMS * (KEY_LEN + 4) + sectors * 32 * 2
-    b_ms, b_by = bound(nbytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
-    out["cms_update"] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": lib_ms, "library": "index_add_ on the int32 view, "
-                                                         "positions precomputed",
-                         "max_abs_err": u_err, "keys": B_CMS, "sectors": sectors, "bytes": nbytes,
-                         "share_of_bound": b_ms / ms}
-    ms = cuda_ms(lambda i: sweep.cms_estimate(grid, keys, lens, c), n=20)
-    lib_ms = cuda_ms(lambda i: g32.index_select(0, flat).view(-1, c.k).amin(1), n=20)
-    nbytes = B_CMS * (KEY_LEN + 4 + 4) + sectors * 32
-    b_ms, b_by = bound(nbytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
-    out["cms_estimate"] = {"ms": ms, "plain_ms": e_p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                           "library_ms": lib_ms, "library": "index_select + amin, positions "
-                                                           "precomputed",
-                           "max_abs_err": e_err, "keys": B_CMS, "sectors": sectors,
-                           "bytes": nbytes, "share_of_bound": b_ms / ms}
-    del grid, hgrid, g32, pos, flat, ones
-    torch.cuda.empty_cache()
+    out.update(cms_times(cms, ids, rng))
     errs = {name: out[name]["max_abs_err"] for name in SKETCH_KERNELS}
     errs["cuckoo_insert_quarter_load"] = out["cuckoo_insert"]["quarter_load"]["max_abs_err"]
     check(max(errs.values()) == 0, f"sketch kernels equal their plain versions at the path's "
@@ -3284,7 +3491,10 @@ SKETCH_KERNELS = {
     "cuckoo_query": ("cuckoo.cu", "tpubloom/ops/cuckoo.py:172 (cuckoo_query)",
                      "thread a key: two 16-byte bucket loads"),
     "cms_update": ("cms.cu", "tpubloom/ops/cms.py:53 (cms_update, words.at[flat].add)",
-                   "thread a key: depth atomicAdd"),
+                   "thread a key: depth atomicAdd (batches sweep.cms_takes_tiles leaves it)"),
+    "cms_update_tiled": ("cms.cu", "tpubloom/ops/cms.py:53 (cms_update, words.at[flat].add)",
+                         "partitioned by 64 KiB tile of the grid (flat_partition.cuh, u32 "
+                         "counters, row-major), each tile added in shared memory"),
     "cms_estimate": ("cms.cu", "tpubloom/ops/cms.py:71 (cms_estimate, a gather and row minimum)",
                      "thread a key: depth gathers in flight, then their minimum"),
 }
@@ -3372,15 +3582,18 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
     })
     for name, (src, replaces, design) in SKETCH_KERNELS.items():
         t = sk_times[name]
+        # an update's count is its calls; those on the partitioned kernel also
+        # count under cms_update_tiled
+        launches = sk_launches[name] - (sk_launches["cms_update_tiled"] if name == "cms_update" else 0)
         kernels.append({
             "name": name, "route": "cuda", "source": f"tpubloom_torch/csrc/{src}",
-            "replaces": replaces, "launches": sk_launches[name], "max_abs_err": sk_errs[name],
+            "replaces": replaces, "launches": launches, "max_abs_err": sk_errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
             "design": design,
             **{k: t[k] for k in ("absent_ms", "us_per_key", "rounds", "keys_per_round",
                                  "ms_per_round", "warp_latency_floor_ms",
-                                 "warp_share_of_latency_floor") if k in t},
+                                 "warp_share_of_latency_floor", "uniform_ms") if k in t},
             **({"quarter_load_ms": t["quarter_load"]["ms"]} if "quarter_load" in t else {}),
         })
     return kernels
@@ -3503,6 +3716,7 @@ def main(argv: list[str]) -> int:
         _, cf, cms, held, ids = phase_sketch_path(rng)
         phase_sketch_kernel_vs_plain(rng, cf, cms)
         phase_sketch_times(cf, cms, held, ids, rng)
+        phase_cms_crossover(cms, ids)
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_sketch.json").write_text(json.dumps(RECORD, indent=1))
         return 0
@@ -3543,6 +3757,7 @@ def main(argv: list[str]) -> int:
     sk_launches, cf, cms, held, ids = phase_sketch_path(rng)
     sk_errs = phase_sketch_kernel_vs_plain(rng, cf, cms)
     sk_times = phase_sketch_times(cf, cms, held, ids, rng)
+    phase_cms_crossover(cms, ids)
     sk_errs = {name: max(err, sk_times[name]["max_abs_err"]) for name, err in sk_errs.items()}
     del cf, cms
     torch.cuda.empty_cache()

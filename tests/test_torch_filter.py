@@ -247,7 +247,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
          "sharded_flat_counting_query", "flat_counting_update_tiled", "flat_counting_query_tiled",
          "sharded_flat_counting_update_tiled", "sharded_flat_counting_query_tiled",
          "flat_insert_tiled", "sharded_flat_insert_tiled",
-         "cuckoo_insert", "cuckoo_delete", "cuckoo_query", "cms_update", "cms_estimate"), 0
+         "cuckoo_insert", "cuckoo_delete", "cuckoo_query", "cms_update", "cms_estimate",
+         "cms_update_tiled"), 0
     )
     with pytest.raises(ValueError, match="share a device"):
         sweep.blocked_query(f.words, torch.zeros((4, L), dtype=torch.uint8, device="meta"),

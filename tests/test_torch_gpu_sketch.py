@@ -13,8 +13,11 @@ version on a CPU copy of the same state and keys:
   and padded lanes, one launch counted a call; each second launch of the
   walk (rounds at several windows, warp, thread), the round walk's
   (rounds, keys re-walked) equal to the plain model's;
-* the count-min update and estimate at power-of-two and other widths, with
-  unit increments, weights near 2^32 that wrap, duplicates and padding;
+* the count-min update (each of its kernels: the thread-a-key one, the
+  partitioned one, whose entries a tile are held against the plain
+  partition, and the wrapper's choice) and the estimate at power-of-two and other widths, with unit
+  increments, weights near 2^32 that wrap, duplicates, padding and a crowd
+  of one key whose tiles take several pieces;
 * ``CuckooFilter``, ``CountMinSketch``, ``TopKSketch`` and
   ``ScalableBloomFilter`` (flat and blocked layers) on the card against the
   same classes on the CPU, and their checkpoints restored on the card."""
@@ -27,6 +30,7 @@ from tpubloom_torch import (
     CountMinSketch, CuckooFilter, FilterConfig, ScalableBloomFilter, TopKSketch,
 )
 from tpubloom_torch import checkpoint as ck
+from tpubloom_torch.ops import cms as pcms
 from tpubloom_torch.ops import cuckoo, sweep
 
 pytestmark = pytest.mark.gpu
@@ -148,27 +152,64 @@ def test_cuckoo_chase_follows_its_links(cuda):
         assert int(sweep._cuckoo_chase(buf, int(order[0]), steps)[0]) == int(order[steps % n_rows])
 
 
+#: The count-min update's kernels, as test_cms_kernels_equal_plain drives
+#: them: the wrapper's choice (None), or the partitioned kernel (True) or
+#: the thread-a-key one (False).
+CMS_KERNELS = {"auto": None, "per_key": False, "tiled": True}
+
+
+@pytest.mark.parametrize("kernel", list(CMS_KERNELS))
 @pytest.mark.parametrize("width,depth", [(1 << 12, 4), (992, 7), (2_718_304, 7)])
-def test_cms_kernels_equal_plain(cuda, width, depth):
+def test_cms_kernels_equal_plain(cuda, width, depth, kernel):
+    """Unit and weighted updates (weights near 2^32 that wrap), duplicates
+    and padding, then a crowd of one key over half of a 40,000-key batch
+    (its counters' tiles take more than a piece of 2^14 entries, so pieces
+    share them), through each update kernel, and the estimate, against the
+    plain versions; the partitioned kernel's entries a tile against the
+    plain partition; the launch counts show which kernel ran."""
     rng = np.random.default_rng(width)
     cfg = FilterConfig(m=width, k=depth, kind="cms", seed=width & 0xFFFF)
     dev_state, cpu_state = _zeros(width * depth, cuda), _zeros(width * depth, "cpu")
     sweep.reset_launch_counts()
-    for b in range(3):
-        keys, lens = _batch(rng, 20000, pad=40, dup=500)
+    choice = CMS_KERNELS[kernel]
+    tiled = 0
+
+    def update(keys, lens, incs=None):
+        nonlocal tiled
+        d_incs = None if incs is None else incs.to(cuda).view(torch.uint32)
+        if choice is None:
+            sweep.cms_update(dev_state, keys.to(cuda), lens.to(cuda), cfg, d_incs)
+            tiled += sweep.cms_takes_tiles(cfg, keys.shape[0])
+        elif choice:
+            scratch = sweep.cms_tiled_scratch(cfg, keys.shape[0], cuda, weighted=incs is not None)
+            sweep._cms_update_on(True, dev_state, keys.to(cuda), lens.to(cuda), cfg, d_incs,
+                                 scratch=scratch)
+            tiled += 1
+            pos = pcms.cms_positions(keys, lens, width=width, depth=depth, seed=cfg.seed)
+            want = pcms.cms_tile_counts_plain(pos, width, sweep.flat_tile_geometry()[0], lens >= 0)
+            got = sweep.cms_tile_counts(scratch, cfg, keys.shape[0], weighted=incs is not None)
+            assert torch.equal(got.cpu(), want)
+        else:
+            sweep._cms_update_on(False, dev_state, keys.to(cuda), lens.to(cuda), cfg, d_incs)
+        sweep.cms_update(cpu_state, keys, lens, cfg, None if incs is None else incs.view(torch.uint32))
+
+    batches = [_batch(rng, 20000, pad=40, dup=500) for _ in range(3)]
+    batches.append(_batch(rng, 40000, pad=40, dup=20000))
+    for keys, lens in batches:
         incs = rng.integers(0, 1 << 32, keys.shape[0], dtype=np.uint64).astype(np.uint32)
         incs[:300] = 0xFFFFFFFF - rng.integers(0, 3, 300).astype(np.uint32)
+        incs[-20000:] = 0xFFFFFFFF - rng.integers(0, 3, 20000).astype(np.uint32)
         incs = torch.from_numpy(incs.view(np.int32))  # moved as int32, viewed as uint32
-        sweep.cms_update(dev_state, keys.to(cuda), lens.to(cuda), cfg,
-                         incs.to(cuda).view(torch.uint32))
-        sweep.cms_update(cpu_state, keys, lens, cfg, incs.view(torch.uint32))
-        sweep.cms_update(dev_state, keys.to(cuda), lens.to(cuda), cfg)
-        sweep.cms_update(cpu_state, keys, lens, cfg)
+        update(keys, lens, incs)
+        update(keys, lens)
         assert _same(dev_state, cpu_state)
         est = sweep.cms_estimate(dev_state, keys.to(cuda), lens.to(cuda), cfg)
         assert _same(est, sweep.cms_estimate(cpu_state, keys, lens, cfg))
         assert not est.view(torch.int32)[-40:].any()
-    assert _count("cms_update") == 6 and _count("cms_estimate") == 3
+    assert _count("cms_update") == 8 and _count("cms_estimate") == 4
+    assert _count("cms_update_tiled") == tiled
+    if kernel == "tiled":
+        assert tiled == 8
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda):

@@ -1,15 +1,23 @@
-// The partition of a flat launch's positions by tile, shared by the
-// partitioned flat kernels: the counting update and query
-// (flat_counting.cu) and the bit insert (flat_bits.cu). Each position of
-// the batch is placed in the segment of its tile (a fixed run of state
-// words), so that a sweep can then apply each tile's segment on chip
-// instead of giving each position its own random L2 request.
+// The partition of a launch's positions by tile, shared by the
+// partitioned kernels: the flat counting update and query
+// (flat_counting.cu), the flat bit insert (flat_bits.cu) and the count-min
+// update (cms.cu). Each position of the batch is placed in the segment of
+// its tile (a fixed run of state words), so that a sweep can then apply
+// each tile's segment on chip instead of giving each position its own
+// random L2 request.
 //
 // The passes are templates on the position's width, kPosLog2: the log2 of
-// the positions a 32-bit word holds, kCounterLog2 (8 4-bit counters) or
-// kBitLog2 (32 bits). A tile is 2^kTileLog2 words whatever the width
-// (64 KiB: 2^17 counters or 2^19 bits), so an entry's index in its tile
-// fits a u32 either way.
+// the positions a 32-bit word holds, kCounterLog2 (8 4-bit counters),
+// kBitLog2 (32 bits) or kU32Log2 (one u32 counter). A tile is 2^kTileLog2
+// words whatever the width (64 KiB: 2^17 counters, 2^19 bits or 2^14 u32
+// counters), so an entry's index in its tile fits a u32 either way. Two
+// more flags serve the count-min grid (a [depth, width] grid of u32
+// counters stored row-major): kRowMajor, where a key's position j is
+// j * m + flat_position(j) (row j of the grid, m = width) instead of
+// base + flat_position(j); and kKeyed, where an entry carries its key's
+// index beside its index in the tile (8 bytes), as a query's does, so that
+// a weighted update's sweep can read the key's increment. A query is
+// always keyed; an update is keyed only with weights.
 //
 // Five launches on the caller's stream, then the caller's sweep:
 //   1. tile_count_kernel: `chunks` CTAs, each a contiguous chunk of keys;
@@ -40,14 +48,16 @@
 // segment (sweep_piece); a tile with no entries takes no CTA.
 //
 // Tiles run over the state's words, or a routed slot's shard-major words at
-// base + pos; the last may be ragged (m need not be a multiple of the
-// tile). Positions travel as u32 (the plan refuses a state of 2^32
-// positions or more, so kNoEntry is never one), the segments' offsets too
-// (the plan refuses B k >= 2^31 entries). A counter tile's words are a
-// multiple of 4 (m, and a shard's m, divide by 32), so a sweep may move it
-// in 16-byte copies; a bit tile's (m / 32) need not be. This header alone
-// sets the partition's sizes; the wrapper asks the library for the scratch
-// (make_tile_plan) and allocates it.
+// base + pos, or the count-min grid's rows one after another (a tile may
+// straddle two rows: the partition sees flat indices only); the last may
+// be ragged (m need not be a multiple of the tile). Positions travel as
+// u32 (the plan refuses a state of 2^32 positions or more, so kNoEntry is
+// never one), the segments' offsets too (the plan refuses B k >= 2^31
+// entries). A counter tile's words are a multiple of 4 (m, and a shard's
+// m, divide by 32; a count-min grid's depth * width words too), so a
+// sweep may move it in 16-byte copies; a bit tile's (m / 32) need not be.
+// This header alone sets the partition's sizes; the wrapper asks the
+// library for the scratch (make_tile_plan) and allocates it.
 
 #pragma once
 
@@ -58,6 +68,7 @@
 
 namespace tpubloom {
 
+constexpr int kU32Log2 = 0;      // u32 counters a word: 1
 constexpr int kCounterLog2 = 3;  // 4-bit counters a word: 8
 constexpr int kBitLog2 = 5;      // bits a word: 32
 
@@ -125,9 +136,9 @@ inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 // 2^pos_log2 positions; false where the partition cannot hold it: more
 // tiles than the passes' histogram, 2^32 positions or more (a u32 entry),
 // or B k at 2^31 entries (the segments' u32 offsets). An entry is 4 bytes
-// (a position, then its index in the tile) or, for a query, 8 (and its
-// key's index).
-inline bool make_tile_plan(int64_t B, int k, int64_t n_words, int pos_log2, bool query,
+// (a position, then its index in the tile) or, keyed (a query, a weighted
+// update), 8 (and its key's index).
+inline bool make_tile_plan(int64_t B, int k, int64_t n_words, int pos_log2, bool keyed,
                            TilePlan* g) {
   const int64_t entries = B * k;
   const int64_t n_tiles = ceil_div(n_words, (int64_t)1 << kTileLog2);
@@ -142,7 +153,7 @@ inline bool make_tile_plan(int64_t B, int k, int64_t n_words, int pos_log2, bool
   g->chunks = (int)ceil_div(B, g->chunk_keys);
   g->sweep_grid = (int)(n_tiles + ceil_div(entries, kPiece));
   g->sort_grid = (int)(g->n_buckets + ceil_div(entries, kSortPiece));
-  const int64_t entry_bytes = query ? 8 : 4;
+  const int64_t entry_bytes = keyed ? 8 : 4;
   g->counts_at = 0;
   g->starts_at = 4 * (int64_t)g->chunks * n_tiles;
   g->cursor_at = g->starts_at + 8 * (n_tiles + 1);
@@ -167,12 +178,25 @@ __device__ __forceinline__ uint32_t index_in_tile(uint64_t p) {
   return (uint32_t)(p & ((1ull << (kTileLog2 + kPosLog2)) - 1ull));
 }
 
-// The value at position p of its word: a counter (4 bits) or a bit.
+// Position j of a key's walk in the state: base + its walk's position j,
+// or (kRowMajor, the count-min grid) row j's flat index, j * m + it.
+template <bool kRowMajor>
+__device__ __forceinline__ uint64_t walk_at(int j, const FlatWalk& w, const FlatSpec& s,
+                                            uint64_t base) {
+  return (kRowMajor ? (uint64_t)j * s.m : base) + flat_position(j, w, s);
+}
+
+// The value at position p of its word: a counter (4 bits), a bit, or the
+// whole word.
 template <int kPosLog2>
 __device__ __forceinline__ uint32_t value_at(uint32_t word, uint64_t p) {
-  constexpr int kWidth = 32 >> kPosLog2;
-  const int sh = kWidth * (int)(p & ((1u << kPosLog2) - 1u));
-  return (word >> sh) & ((1u << kWidth) - 1u);
+  if constexpr (kPosLog2 == kU32Log2) {
+    return word;  // a 32-bit mask would shift by 32
+  } else {
+    constexpr int kWidth = 32 >> kPosLog2;
+    const int sh = kWidth * (int)(p & ((1u << kPosLog2) - 1u));
+    return (word >> sh) & ((1u << kWidth) - 1u);
+  }
 }
 
 // The exclusive prefix of v over the kThreads threads of the block, and in
@@ -217,7 +241,7 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t* s, uint32_t v
 // in flight together; an update thread one.
 // ---------------------------------------------------------------------------
 
-template <int kPosLog2, bool kRouted, bool kQuery>
+template <int kPosLog2, bool kRouted, bool kQuery, bool kRowMajor = false>
 __global__ void __launch_bounds__(kPassThreads)
 tile_count_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict__ lengths,
                   const uint32_t* __restrict__ state, uint8_t* __restrict__ out, int64_t B,
@@ -240,7 +264,7 @@ tile_count_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict__ 
       ok[u] = i < hi && flat_key<kRouted>(keys, lengths, i, L, s, route, w[u], base[u]);
       probe[u] = 1u;
       if (kQuery && ok[u]) {
-        const uint64_t p = base[u] + flat_position(0, w[u], s);
+        const uint64_t p = walk_at<kRowMajor>(0, w[u], s, base[u]);
         probe[u] = value_at<kPosLog2>(__ldg(state + (p >> kPosLog2)), p);
       }
     }
@@ -253,7 +277,7 @@ tile_count_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict__ 
       }
       if (!ok[u]) continue;
       for (int j = j0; j < s.k; ++j)
-        atomicAdd(&hist[tile_of<kPosLog2>(base[u] + flat_position(j, w[u], s))], 1u);
+        atomicAdd(&hist[tile_of<kPosLog2>(walk_at<kRowMajor>(j, w[u], s, base[u]))], 1u);
     }
   }
   __syncthreads();
@@ -356,7 +380,7 @@ tile_scan_kernel(uint32_t* __restrict__ tile_start, uint32_t* __restrict__ piece
 // ---------------------------------------------------------------------------
 // 4. Place, level 1: the same keys and positions as the count pass (a
 // query: the keys whose probe found a non-zero value, from out), written as
-// the positions themselves (u32; a query: and the key's index) into the
+// the positions themselves (u32; keyed: and the key's index) into the
 // segment of their bucket (2^kBucketLog2 tiles). Writing each entry where
 // it goes would be one random partial-sector write an entry, as costly as
 // the random requests this design removes. So a chunk takes its keys in
@@ -373,7 +397,7 @@ tile_scan_kernel(uint32_t* __restrict__ tile_start, uint32_t* __restrict__ piece
 // first slot in the order and in the segment, the scan.
 constexpr int kPlaceSmemWords = 2 * kPlaceEntries + kPassWarps * kMaxBuckets + 2 * kMaxBuckets + 32;
 
-template <int kPosLog2, bool kRouted, bool kQuery>
+template <int kPosLog2, bool kRouted, bool kQuery, bool kRowMajor = false, bool kKeyed = kQuery>
 __global__ void __launch_bounds__(kPassThreads)
 bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict__ lengths,
                     const uint8_t* __restrict__ out, int64_t B, int L, FlatSpec s,
@@ -413,7 +437,7 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
       for (int j = 0; j < s.k; ++j) {
         uint32_t p = kNoEntry;
         if (ok && (!kQuery || j > 0)) {
-          p = (uint32_t)(off + flat_position(j, w, s));
+          p = (uint32_t)walk_at<kRowMajor>(j, w, s, off);
           atomicAdd(&my_bins[p >> shift], 1u);
         }
         pos[q * s.k + j] = p;
@@ -448,7 +472,7 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
     for (int x = threadIdx.x; x < (int)total; x += blockDim.x) {
       const uint32_t e = order[x], p = pos[e], b = p >> shift;
       const uint32_t dst = base[b] + ((uint32_t)x - first[b]);
-      if constexpr (kQuery)
+      if constexpr (kKeyed)
         static_cast<uint2*>(bucketed)[dst] = make_uint2(p, (uint32_t)(k0 + e / s.k));
       else
         static_cast<uint32_t*>(bucketed)[dst] = p;
@@ -464,22 +488,22 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
 
 // ---------------------------------------------------------------------------
 // 4b. Sort, level 2: sort CTA q takes a piece of one bucket's segment and
-// moves each entry into its tile's segment as the index in its tile (a
-// query: with its key): a histogram of its entries over the bucket's
+// moves each entry into its tile's segment as the index in its tile
+// (keyed: with its key): a histogram of its entries over the bucket's
 // tiles, one global atomic a (CTA, tile) on tile_cursor to reserve its
 // runs, then shared cursors. CTAs run bucket by bucket, so what they write
 // at a time is a few buckets' segments, which stay in L2 until their
 // sectors are whole.
 // ---------------------------------------------------------------------------
 
-// Shared memory of tile_sort_kernel: the piece's positions (a query: and
+// Shared memory of tile_sort_kernel: the piece's positions (keyed: and
 // key indices) as read and as ordered by tile, and the scan.
-template <bool kQuery>
+template <bool kKeyed>
 constexpr int sort_smem_bytes() {
-  return (int)sizeof(uint32_t) * ((kQuery ? 4 : 2) * (int)kSortPiece + 32);
+  return (int)sizeof(uint32_t) * ((kKeyed ? 4 : 2) * (int)kSortPiece + 32);
 }
 
-template <int kPosLog2, bool kQuery>
+template <int kPosLog2, bool kKeyed>
 __global__ void __launch_bounds__(kPassThreads)
 tile_sort_kernel(const void* __restrict__ bucketed, void* __restrict__ entries,
                  const uint32_t* __restrict__ tile_start, uint32_t* __restrict__ tile_cursor,
@@ -493,9 +517,9 @@ tile_sort_kernel(const void* __restrict__ bucketed, void* __restrict__ entries,
   if (q >= sort_start[g.n_buckets]) return;
   uint32_t* in_p = smem;
   uint32_t* st_p = in_p + kSortPiece;
-  uint32_t* in_k = st_p + kSortPiece;                     // a query only
-  uint32_t* st_k = in_k + (kQuery ? kSortPiece : 0u);     // a query only
-  uint32_t* scan = st_k + (kQuery ? kSortPiece : 0u);
+  uint32_t* in_k = st_p + kSortPiece;                     // keyed only
+  uint32_t* st_k = in_k + (kKeyed ? kSortPiece : 0u);     // keyed only
+  uint32_t* scan = st_k + (kKeyed ? kSortPiece : 0u);
   const int b = (int)sort_bucket[q];
   const int t0 = b << kBucketLog2, nt = min(g.n_tiles - t0, 1 << kBucketLog2);
   const uint32_t e0 = tile_start[t0] + (q - sort_start[b]) * kSortPiece;
@@ -512,7 +536,7 @@ tile_sort_kernel(const void* __restrict__ bucketed, void* __restrict__ entries,
       pv[u] = kNoEntry;
       kv[u] = 0u;
       if (e < n) {
-        if constexpr (kQuery) {
+        if constexpr (kKeyed) {
           const uint2 x = __ldcs(p64 + e);
           pv[u] = x.x;
           kv[u] = x.y;
@@ -526,7 +550,7 @@ tile_sort_kernel(const void* __restrict__ bucketed, void* __restrict__ entries,
       if (pv[u] == kNoEntry) continue;
       const int e = e0_ + u * kPassThreads;
       in_p[e] = pv[u];
-      if constexpr (kQuery) in_k[e] = kv[u];
+      if constexpr (kKeyed) in_k[e] = kv[u];
       atomicAdd(&cursor[tile_of<kPosLog2>(pv[u]) - t0], 1u);
     }
   }
@@ -543,14 +567,14 @@ tile_sort_kernel(const void* __restrict__ bucketed, void* __restrict__ entries,
     const uint32_t p = in_p[e];
     const uint32_t slot = atomicAdd(&cursor[tile_of<kPosLog2>(p) - t0], 1u);
     st_p[slot] = p;
-    if constexpr (kQuery) st_k[slot] = in_k[e];
+    if constexpr (kKeyed) st_k[slot] = in_k[e];
   }
   __syncthreads();
   for (int e = threadIdx.x; e < n; e += blockDim.x) {  // each tile's run whole
     const uint32_t p = st_p[e];
     const int t = tile_of<kPosLog2>(p) - t0;
     const uint32_t slot = dst[t] + ((uint32_t)e - first[t]);
-    if constexpr (kQuery)
+    if constexpr (kKeyed)
       static_cast<uint2*>(entries)[slot] = make_uint2(index_in_tile<kPosLog2>(p), st_k[e]);
     else
       static_cast<uint32_t*>(entries)[slot] = index_in_tile<kPosLog2>(p);
@@ -631,17 +655,19 @@ int launch_plan(int64_t B, int64_t m, int k, bool query, const RouteSpec& r,
   return (int)cudaSuccess;
 }
 
-template <int kPosLog2, bool kRouted, bool kQuery>
+template <int kPosLog2, bool kRouted, bool kQuery, bool kRowMajor = false, bool kKeyed = kQuery>
 int launch_partition(const void* state, const void* keys, const void* lengths, void* out,
                      int64_t B, int L, const FlatSpec& s, const RouteSpec& r, const TilePlan& g,
                      const Scratch& x, cudaStream_t cs) {
   const int hist_bytes = g.n_tiles * (int)sizeof(uint32_t);
-  cudaFuncSetAttribute(tile_count_kernel<kPosLog2, kRouted, kQuery>,
+  static_assert(!(kRouted && kRowMajor), "the count-min grid is not routed");
+  static_assert(kKeyed || !kQuery, "a query's entries carry their keys");
+  cudaFuncSetAttribute(tile_count_kernel<kPosLog2, kRouted, kQuery, kRowMajor>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, hist_bytes);
   const uint8_t* k8 = static_cast<const uint8_t*>(keys);
   const int32_t* len = static_cast<const int32_t*>(lengths);
   uint8_t* verdict = static_cast<uint8_t*>(out);
-  tile_count_kernel<kPosLog2, kRouted, kQuery><<<g.chunks, kPassThreads, hist_bytes, cs>>>(
+  tile_count_kernel<kPosLog2, kRouted, kQuery, kRowMajor><<<g.chunks, kPassThreads, hist_bytes, cs>>>(
       k8, len, static_cast<const uint32_t*>(state), verdict, B, L, s, r, g, x.counts);
   int err = (int)cudaGetLastError();
   if (err) return err;
@@ -655,15 +681,16 @@ int launch_partition(const void* state, const void* keys, const void* lengths, v
       x.tile_start, x.piece_start, x.tile_cursor, x.piece_tile, x.sort_start, x.sort_bucket, g);
   if ((err = (int)cudaGetLastError())) return err;
   const int place_bytes = kPlaceSmemWords * (int)sizeof(uint32_t);
-  cudaFuncSetAttribute(bucket_place_kernel<kPosLog2, kRouted, kQuery>,
+  cudaFuncSetAttribute(bucket_place_kernel<kPosLog2, kRouted, kQuery, kRowMajor, kKeyed>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, place_bytes);
-  bucket_place_kernel<kPosLog2, kRouted, kQuery><<<g.chunks, kPassThreads, place_bytes, cs>>>(
+  bucket_place_kernel<kPosLog2, kRouted, kQuery, kRowMajor, kKeyed>
+      <<<g.chunks, kPassThreads, place_bytes, cs>>>(
       k8, len, verdict, B, L, s, r, g, x.counts, x.tile_start, x.bucketed);
   if ((err = (int)cudaGetLastError())) return err;
-  const int sort_bytes = sort_smem_bytes<kQuery>();
-  cudaFuncSetAttribute(tile_sort_kernel<kPosLog2, kQuery>,
+  const int sort_bytes = sort_smem_bytes<kKeyed>();
+  cudaFuncSetAttribute(tile_sort_kernel<kPosLog2, kKeyed>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, sort_bytes);
-  tile_sort_kernel<kPosLog2, kQuery><<<g.sort_grid, kPassThreads, sort_bytes, cs>>>(
+  tile_sort_kernel<kPosLog2, kKeyed><<<g.sort_grid, kPassThreads, sort_bytes, cs>>>(
       x.bucketed, x.entries, x.tile_start, x.tile_cursor, x.sort_start, x.sort_bucket, g);
   return (int)cudaGetLastError();
 }

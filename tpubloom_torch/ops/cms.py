@@ -1,6 +1,7 @@
 """Count-min sketch in plain PyTorch: the plain versions of the count-min
 kernels (``tpubloom_torch/csrc/cms.cu``), held bit for bit against
-``tpubloom/ops/cms.py``.
+``tpubloom/ops/cms.py``, and the plain partition of its partitioned
+update.
 
 The sketch is a ``[depth, width]`` grid of ``uint32`` counters, stored
 flat and row-major (``uint32[depth * width]``; ``width = config.m``,
@@ -38,6 +39,22 @@ def flat_indices(pos: torch.Tensor, width: int) -> torch.Tensor:
     """``[B, depth]`` row-major indices ``r * width + pos`` into the flat grid."""
     depth = pos.shape[-1]
     return torch.arange(depth, dtype=torch.int64, device=pos.device)[None, :] * width + pos
+
+
+def cms_tile_counts_plain(positions: torch.Tensor, width: int, tile_log2: int,
+                          valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The partition of the partitioned count-min update (``csrc/cms.cu`` on
+    ``csrc/flat_partition.cuh``, one u32 counter a word, row-major): int64
+    ``[n_tiles]``, the entries each tile of ``2^tile_log2`` counters of the
+    flat ``[depth * width]`` grid gets, one for each row of each valid key
+    (``positions``: ``[B, depth]`` from :func:`cms_positions`; ``valid``
+    bool[B], None for all). A tile may straddle two rows; the last may be
+    ragged."""
+    flat = flat_indices(positions.to(torch.int64), width)
+    if valid is not None:
+        flat = flat[valid]
+    n_tiles = -(-(positions.shape[-1] * width) >> tile_log2)
+    return torch.bincount((flat >> tile_log2).reshape(-1), minlength=n_tiles)
 
 
 def _positions(keys, lengths, config) -> torch.Tensor:

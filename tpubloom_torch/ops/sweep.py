@@ -90,7 +90,9 @@ device ops are XLA. Each has a CUDA kernel here, with its plain version in
 * the count-min scatter-add and gather with row minimum
   (``tpubloom/ops/cms.py`` ``cms_update``, ``cms_estimate``) ->
   :func:`cms_update`, :func:`cms_estimate` (``csrc/cms.cu``, a thread a
-  key).
+  key; the update of a batch whose counters cover much of the grid
+  partitioned by 64 KiB tile on ``flat_partition.cuh`` and added in shared
+  memory, chosen by :func:`cms_takes_tiles`).
 
 Every wrapper counts its kernel launches in :data:`LAUNCHES`, the routed
 launches under their own names, so a run can show that its main path
@@ -107,8 +109,9 @@ from tpubloom_torch.ops import _build, bitops, blocked, cms, counting, cuckoo
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`
 #: (CUDA launches only; the plain versions are not counted). A flat insert
-#: or counting call counts once under its name whichever kernel it takes,
-#: and once more under ``<name>_tiled`` when it takes the partitioned one.
+#: or counting call, and a count-min update, counts once under its name
+#: whichever kernel it takes, and once more under ``<name>_tiled`` when it
+#: takes the partitioned one.
 LAUNCHES: dict[str, int] = {
     "blocked_query": 0, "blocked_insert": 0,
     "blocked_counting_update": 0, "blocked_counting_query": 0,
@@ -122,7 +125,7 @@ LAUNCHES: dict[str, int] = {
     "sharded_flat_counting_update_tiled": 0, "sharded_flat_counting_query_tiled": 0,
     "flat_insert_tiled": 0, "sharded_flat_insert_tiled": 0,
     "cuckoo_insert": 0, "cuckoo_delete": 0, "cuckoo_query": 0,
-    "cms_update": 0, "cms_estimate": 0,
+    "cms_update": 0, "cms_estimate": 0, "cms_update_tiled": 0,
 }
 
 _P = ctypes.c_void_p
@@ -225,6 +228,9 @@ _CMS = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_uin
 _CMS_SIGNATURES = {
     "tpb_cms_update": ([_P, _P, _P, _P, *_CMS, _P], ctypes.c_int),
     "tpb_cms_estimate": ([_P, _P, _P, _P, *_CMS, _P], ctypes.c_int),
+    "tpb_cms_update_tiled": ([_P, _P, _P, _P, *_CMS, _P, _I64, _P], ctypes.c_int),
+    "tpb_cms_tiled_scratch_bytes": ([_I64, _I64, ctypes.c_int, ctypes.c_int], _I64),
+    "tpb_cms_tile_starts_at": ([_I64, _I64, ctypes.c_int, ctypes.c_int], _I64),
 }
 
 
@@ -780,11 +786,81 @@ def cuckoo_query(state, keys, lengths, config) -> torch.Tensor:
     return out.view(torch.bool)
 
 
+#: A count-min update takes the partitioned kernel (``cms_update_tiled``)
+#: when the batch's positions (B depth) reach this many, and the
+#: thread-a-key kernel below it; a shape the partition's plan cannot hold
+#: keeps the thread-a-key kernel too. From chip_smoke.py's cms_crossover
+#: phase (unit updates of the Zipf stream, half an octave apart, on four
+#: grids from 2,016 x 5 to 27,182,848 x 7; NVIDIA H100 80GB HBM3, 700 W;
+#: PERF.md section 6): on the two grids larger than the L2 the partitioned
+#: kernel is the faster from 1,835,008 positions (B = 2^18 at depth 7) and
+#: a thread a key up to 1,297,548, whatever the width (0.771 and 0.077
+#: positions a sector); the partitioned kernel's six launches cost
+#: 0.05-0.1 ms at any batch. Grids the L2 holds cross later (2.6 M
+#: positions at 2,016 x 5, 3.7-5.2 M at 271,840 x 7), where this pick is
+#: up to 1.43x the faster kernel's time.
+CMS_TILE_CROSSOVER = 3 << 19
+
+
+def cms_takes_tiles(config, batch: int) -> bool:
+    """Whether a count-min update of ``batch`` keys on ``config``'s grid
+    reaches :data:`CMS_TILE_CROSSOVER` positions. Pure Python and cheap:
+    small batches ask it on every call."""
+    return batch > 0 and batch * config.k >= CMS_TILE_CROSSOVER
+
+
+def cms_tiled_scratch(config, batch: int, device, *, weighted: bool) -> torch.Tensor | None:
+    """The scratch of a partitioned count-min update (``uint8`` on
+    ``device``) as ``csrc/cms.cu`` plans it, or None where its partition
+    cannot hold the shape (more than 2^28 counters, or B depth >= 2^31).
+    Builds the kernels."""
+    nbytes = _cms_library().tpb_cms_tiled_scratch_bytes(batch, config.m, config.k, int(weighted))
+    return None if nbytes < 0 else torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def cms_tile_counts(scratch: torch.Tensor, config, batch: int, *, weighted: bool) -> torch.Tensor:
+    """The entries each 64 KiB tile of the grid took in the last partitioned
+    update of ``batch`` keys that ran in ``scratch`` (int64 ``[n_tiles]``,
+    from the plan's tile starts; on the card), to hold the kernel's
+    partition against :func:`tpubloom_torch.ops.cms.cms_tile_counts_plain`."""
+    at = _cms_library().tpb_cms_tile_starts_at(batch, config.m, config.k, int(weighted))
+    n_tiles = _ceil_div(config.m * config.k, 1 << flat_tile_geometry()[0])
+    starts = scratch[at : at + 4 * (n_tiles + 1)].view(torch.int32).to(torch.int64)
+    return starts.diff()
+
+
+def _cms_update_on(tiled: bool, state, keys, lengths, config, increments=None, *,
+                   scratch: torch.Tensor | None = None) -> None:
+    """The count-min update of a checked CUDA state on the kernel named:
+    the partitioned one (``tiled``, in ``scratch``, from
+    :func:`cms_tiled_scratch` when None) or the thread-a-key one.
+    :func:`cms_update` picks it by shape; chip_smoke.py and the card tests
+    hold each kernel through here. A partitioned launch counts under
+    ``cms_update`` and ``cms_update_tiled``."""
+    B, L = keys.shape
+    if not B:
+        return
+    incs = None if increments is None else increments.contiguous()
+    args = (state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
+            None if incs is None else incs.data_ptr(), B, L, config.m, config.k, config.seed)
+    if not tiled:
+        _launch(_cms_library(), "cms_update", state, *args)
+        return
+    if scratch is None:
+        scratch = cms_tiled_scratch(config, B, state.device, weighted=incs is not None)
+        if scratch is None:
+            raise ValueError(f"cms_update_tiled: the partition cannot hold {B} keys on this grid")
+    _launch(_cms_library(), "cms_update_tiled", state, *args, scratch.data_ptr(), scratch.numel())
+    LAUNCHES["cms_update"] += 1
+
+
 def cms_update(state, keys, lengths, config, increments=None) -> None:
     """Add each valid key's increment (``increments``: ``uint32[B]`` on
     ``state``'s device; None for 1 a key) to its ``config.k`` counters of
     the count-min grid ``state`` (``uint32[k * m]``, row-major), mod 2^32,
-    in place."""
+    in place. On the card a batch whose positions cover enough of the grid
+    (:func:`cms_takes_tiles`) takes the partitioned kernel, a smaller one
+    the thread-a-key kernel; both give the same words."""
     _check_sketch(state, keys, lengths, config, "cms")
     if increments is not None and (increments.dtype != torch.uint32
                                    or increments.device != state.device
@@ -793,13 +869,10 @@ def cms_update(state, keys, lengths, config, increments=None) -> None:
     if state.device.type == "cpu":
         cms.cms_update_plain(state, keys, lengths, config, increments)
         return
-    B, L = keys.shape
-    if not B:
-        return
-    incs = None if increments is None else increments.contiguous()
-    _launch(_cms_library(), "cms_update", state, state.data_ptr(), keys.data_ptr(),
-            lengths.data_ptr(), None if incs is None else incs.data_ptr(), B, L, config.m,
-            config.k, config.seed)
+    B = keys.shape[0]
+    scratch = (cms_tiled_scratch(config, B, state.device, weighted=increments is not None)
+               if cms_takes_tiles(config, B) else None)
+    _cms_update_on(scratch is not None, state, keys, lengths, config, increments, scratch=scratch)
 
 
 def cms_estimate(state, keys, lengths, config) -> torch.Tensor:
