@@ -176,32 +176,41 @@ line each, with the seconds it took (``phase_seconds``):
    above its exact count, with the share above e / width · N; a
    TopKSketch (top 100) on the same grid whose list the stream's heaviest
    key leads; launch counts read after the three (the stream's batches of
-   2^20 take ``cms_update_tiled``, the weighted and top-k batches the
-   thread-a-key ``cms_update``);
+   2^20 take ``cms_update_tiled`` and the estimate check's
+   ``cms_estimate_rows``, the weighted and top-k batches the thread-a-key
+   ``cms_update`` and ``cms_estimate``);
 25. sketch kernel vs plain: each sketch kernel against its plain version
    on a CPU copy of the same state and keys, tolerance 0: the cuckoo pair
    at 2^16 slots with an overfill batch, and a 2^12-key batch on a copy of
    the filled 2^24-slot table; the count-min pair at the path's width and
    batch (2^20) with duplicates and weights near 2^32, the update through
    each of its kernels (the thread-a-key one and the partitioned one, whose
-   entries a tile are also held against the plain partition);
-26. sketch times: each sketch kernel's ms by CUDA events at the path's
-   shapes (the cuckoo pair 2^16 keys on the filled table, the insert also
-   at a quarter load; the count-min pair 2^20), its result held against
-   its plain version run from the same state (tolerance 0), beside its
-   bound (bytes: each distinct sector the plain walk reads and each the
-   batch changes), the cuckoo walk's latency floor (a dependent read a
-   key and a kick step, at the latency a one-thread pointer chase
+   entries a tile are also held against the plain partition), the estimate
+   through each of its kernels (a thread a key, row-phased);
+26. sketch times: each sketch kernel's ms at the path's shapes (the
+   cuckoo walks 2^16 keys on the filled table, the insert also at a
+   quarter load, by CUDA events; the count-min update 2^20), its result
+   held against its plain version run from the same state (tolerance 0),
+   beside its bound (bytes: each distinct sector the plain walk reads and
+   each the batch changes), the cuckoo walk's latency floor (a dependent
+   read a key and a kick step, at the latency a one-thread pointer chase
    measures in an L2-resident buffer; also over 64 MiB after an L2
    flush), the walk with its prefetch lanes against one thread alone, in
-   turns, its plain version's ms and, for the count-min pair,
-   ``index_add_`` / ``index_select`` + ``amin`` on the same positions. The
-   count-min update's two kernels, ``index_add_``, the estimate and
-   ``index_select`` +
-   ``amin`` are timed in turns on the path's Zipf batch and on a batch of
-   2^20 distinct ids, with what each batch puts in the tiles, and the
-   thread-a-key kernel on a grid of 2^18 x 7 counters (7 MiB, held in L2)
-   beside the path's;
+   turns, its plain version's ms and, for the count-min update,
+   ``index_add_`` on the same positions. The update's two kernels and
+   ``index_add_`` are timed in turns on the path's Zipf batch and on a
+   batch of 2^20 distinct ids, with what each batch puts in the tiles, and
+   the thread-a-key kernel on a grid of 2^18 x 7 counters (7 MiB, held in
+   L2) beside the path's. The two queries (``query_times``, also alone
+   with ``--queries``) by the card's own time (the profiler's, ``ms``)
+   beside their call time by CUDA events (``call_ms``) and the launch
+   floor (an empty launch through the same ctypes path): the cuckoo query
+   on 2^16 held and fresh keys; the estimate's two kernels and
+   ``index_select`` + ``amin`` on the path's Zipf batch and 2^12, 2^16 and
+   2^20 distinct ids in turns, on the 7 MiB grid, on a 761 MB grid
+   (27,182,848 x 7, a row larger than the L2), and on batches an octave
+   apart from 2^12 to 2^20 of both kinds: what ``sweep.CMS_ROWS_CROSSOVER``
+   is set from;
 27. count-min crossover: both update kernels over unit batches of the Zipf
    stream, half an octave apart, in turns, on four grids: ``CMS.INITBYDIM
    key 2000 5`` (2,016 x 5), ``CMS.INITBYPROB key 0.00001 0.001``
@@ -224,7 +233,13 @@ compare kernel builds on one card:
     python3 chip_smoke.py --host          # device, build, the flat counting wrappers' host clock
     python3 chip_smoke.py --ab DIR        # --times in DIR, here, here, DIR; --host in turns
     python3 chip_smoke.py --ab DIR --host # --host in DIR and here in turns only
+    python3 chip_smoke.py --queries       # device, build, phase 24, the two query kernels' times
+    python3 chip_smoke.py --ab DIR --queries  # --queries in DIR, here, here, DIR
 
+``--queries`` runs phase 24 and the two queries' times (``query_times``)
+and ends with one JSON line of them; ``--ab DIR --queries`` runs it in
+DIR (with this script copied in), here, here and DIR, each in a process
+of its own, to ``chiprun_out/ab_queries.json``.
 ``--times`` fills the filters as the full run does before its timing
 phases and ends with one JSON line of the kernels' times. ``--ab`` copies
 this script into DIR (another checkout of the repository, for example a
@@ -478,20 +493,32 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def kernel_ms(fn, n: int = 20) -> dict:
+def kernel_ms(fn, n: int = 20, tries: int = 3) -> dict:
     """Mean ms a call of the card's own time in each kernel ``fn(i)``
     launches (by name, its argument list dropped), by ``torch.profiler``
     over ``n`` calls after one warm call: without the host's gaps, which
-    the event pairs of a small launch include."""
+    the event pairs of a small launch include. Each kernel's time is its
+    mean a launch times its launches a call (its events over ``n``,
+    rounded), so that an event the window gains or loses at its edges does
+    not count as a launch's worth of time. A window in which the profiler
+    saw no device event is run again, up to ``tries`` times; then the
+    result is empty."""
     fn(0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
-    return {e.key.split("(")[0].removeprefix("void "): e.self_device_time_total / n / 1e3
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        # device events only: a torch op's CPU event carries its kernels' time too
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        if seen:
+            return {e.key.split("(")[0].removeprefix("void "):
+                    e.self_device_time_total / e.count * max(1, round(e.count / n)) / 1e3
+                    for e in seen}
+    return {}
 
 
 def device_ms(fn, n: int = 20) -> float:
@@ -2904,10 +2931,12 @@ def phase_sketch_path(rng) -> tuple:
                 "leader_estimate": top[0][1], "listed": len(top)}
     torch.cuda.synchronize()
     launches = sweep.launch_counts()
-    for name in SKETCH_KERNELS:
-        check(launches[name] > 0, f"{name} launched on the sketch path")
-    check(launches["cms_update"] > launches["cms_update_tiled"],
-          "the thread-a-key cms_update launched on the sketch path")
+    for name in SKETCH_KERNELS:  # (`--ab` runs this in trees that predate a kernel)
+        check(launches.get(name, 0) > 0 or name not in launches,
+              f"{name} launched on the sketch path")
+    for name, other in COUNTED_WITH.items():
+        check(launches[name] > launches.get(other, 0),
+              f"the thread-a-key {name} launched on the sketch path")
     del tk
     torch.cuda.empty_cache()
     emit("sketch_path", cuckoo=cuckoo, cms=cms_rec, topk=topk_rec, launches=launches,
@@ -2999,8 +3028,9 @@ def cuckoo_vs_plain(state, cfg, batches, deletes) -> dict:
 def cms_vs_plain(cms, rng) -> dict:
     """A weighted update (weights near 2^32 that wrap) then a unit one of a
     Zipf batch of the path's size with a crowd and padding, through each
-    update kernel on a copy of the sketch path's grid, and the estimate,
-    against the plain versions on a host copy: the worst difference of
+    update kernel on a copy of the sketch path's grid, and the estimate
+    through each of its kernels, against the plain versions on a host copy:
+    the worst difference of
     each. The partitioned kernel's entries a tile, read from its scratch
     after each launch, are held against the plain partition
     (``ops_cms.cms_tile_counts_plain``) and count in its difference."""
@@ -3028,9 +3058,9 @@ def cms_vs_plain(cms, rng) -> dict:
                 got = sweep.cms_tile_counts(scratch, c, B, weighted=weights is not None)
                 err = max(err, max_abs_err(got, want))
         cms_err[name] = max(err, max_abs_err(i32(grid), i32(host)))
-    est = sweep.cms_estimate(grid, keys, lens, c)
-    cms_err["cms_estimate"] = max_abs_err(
-        i32(est), i32(sweep.cms_estimate(host, keys.cpu(), lens.cpu(), c)))
+    want = i32(sweep.cms_estimate(host, keys.cpu(), lens.cpu(), c))
+    for name, kernel in (("cms_estimate", "thread_a_key"), ("cms_estimate_rows", "rows")):
+        cms_err[name] = max_abs_err(i32(sweep._cms_estimate_on(kernel, grid, keys, lens, c)), want)
     del grid, host
     torch.cuda.empty_cache()
     return cms_err
@@ -3238,33 +3268,27 @@ def cms_update_vs_plain(grid, keys, lens, c) -> tuple[float, dict]:
     return p_ms, err
 
 
-def cms_estimate_vs_plain(grid, keys, lens, c) -> tuple[float, int]:
-    """The plain estimate's ms on a host copy of ``grid``, and the kernel's
-    worst difference from it."""
-    host = host_copy(grid)
-    p_ms, want = host_ms(lambda: sweep.cms_estimate(host, keys.cpu(), lens.cpu(), c))
-    return p_ms, max_abs_err(i32(sweep.cms_estimate(grid, keys, lens, c)), i32(want))
-
-
 def index_select_amin(grid, flat, c) -> torch.Tensor:
     return grid.view(torch.int32).index_select(0, flat).view(-1, c.k).amin(1)
 
 
-def cms_turns(grid, keys, lens, c) -> dict:
-    """The count-min update's two kernels, ``index_add_``, the estimate and
-    ``index_select`` + ``amin`` on ``keys``, in turns on ``grid``
-    (:func:`turns`); and the distinct 32-byte sectors of the batch's
-    counters."""
-    flat = ops_cms.flat_indices(ops_cms.cms_positions(keys, lens, width=c.m, depth=c.k,
+def cms_flat(keys, lens, c) -> torch.Tensor:
+    """The batch's counters as flat indices into the grid (int64, row-major)."""
+    return ops_cms.flat_indices(ops_cms.cms_positions(keys, lens, width=c.m, depth=c.k,
                                                       seed=c.seed), c.m).reshape(-1)
+
+
+def cms_turns(grid, keys, lens, c) -> dict:
+    """The count-min update's two kernels and ``index_add_`` on ``keys``, in
+    turns on ``grid`` (:func:`turns`); and the distinct 32-byte sectors of
+    the batch's counters."""
+    flat = cms_flat(keys, lens, c)
     ones = torch.ones(flat.numel(), dtype=torch.int32, device=grid.device)
     g32 = grid.view(torch.int32)
     out = turns({
         "tiled": lambda i: sweep._cms_update_on(True, grid, keys, lens, c),
         "per_key": lambda i: sweep._cms_update_on(False, grid, keys, lens, c),
         "index_add": lambda i: g32.index_add_(0, flat, ones),
-        "estimate": lambda i: sweep.cms_estimate(grid, keys, lens, c),
-        "index_select_amin": lambda i: index_select_amin(grid, flat, c),
     })
     out["sectors"] = int(torch.unique(flat >> 3).numel())
     return out
@@ -3335,18 +3359,17 @@ def occupied(state: torch.Tensor) -> int:
 
 
 def cms_times(cms, ids: np.ndarray, rng) -> dict:
-    """The count-min pair's records for phase_sketch_times: a batch of 2^20
-    of the Zipf stream, and 2^20 distinct ids, on a copy of the path's grid;
-    each update kernel held against the plain version; the kernels and the
-    library calls in turns (:func:`cms_turns`); the thread-a-key kernel on a
-    grid the L2 holds; the partition of both batches."""
+    """The count-min update's records for phase_sketch_times: a batch of
+    2^20 of the Zipf stream, and 2^20 distinct ids, on a copy of the path's
+    grid; each update kernel held against the plain version; the kernels
+    and the library call in turns (:func:`cms_turns`); the thread-a-key
+    kernel on a grid the L2 holds; the partition of both batches."""
     out = {}
     c = cms.config
     grid = clone_u32(cms.words)
     zipf = key_batch(id_rows(ids[:B_CMS]))
     uniform = key_batch(id_rows(rng.permutation(CMS_DISTINCT)[:B_CMS]))
     p_ms, err = cms_update_vs_plain(grid, *zipf, c)
-    e_p_ms, e_err = cms_estimate_vs_plain(grid, *zipf, c)
     z, u = cms_turns(grid, *zipf, c), cms_turns(grid, *uniform, c)
     nbytes = B_CMS * (KEY_LEN + 4) + z["sectors"] * 32 * 2
     b_ms, b_by = bound(nbytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
@@ -3377,33 +3400,246 @@ def cms_times(cms, ids: np.ndarray, rng) -> dict:
         partition=cms_partition(*zipf, c), uniform_partition=cms_partition(*uniform, c),
         turns={"zipf": z, "uniform": u},
         kernels_ms=kernel_ms(lambda i: sweep._cms_update_on(True, grid, *zipf, c), n=10))
-    nbytes = B_CMS * (KEY_LEN + 4 + 4) + z["sectors"] * 32
-    b_ms, b_by = bound(nbytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
-    u_bytes = B_CMS * (KEY_LEN + 4 + 4) + u["sectors"] * 32
-    out["cms_estimate"] = {"ms": z["estimate"]["ms"], "plain_ms": e_p_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "library_ms": z["index_select_amin"]["ms"],
-                           "library": "index_select + amin, positions precomputed",
-                           "max_abs_err": e_err, "keys": B_CMS, "sectors": z["sectors"],
-                           "bytes": nbytes, "share_of_bound": b_ms / z["estimate"]["ms"],
-                           "uniform_ms": u["estimate"]["ms"],
-                           "uniform_library_ms": u["index_select_amin"]["ms"],
-                           "uniform_bound_ms": bound(u_bytes, B_CMS * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))[0]}
     del grid
     torch.cuda.empty_cache()
     return out
 
 
+def device_turns(ops: dict, rounds: int = CMS_TURNS, n: int = 20) -> dict:
+    """As :func:`turns`, by the card's own time in each op's kernels
+    (:func:`device_ms`): without the host's gaps between short launches."""
+    runs = {name: [] for name in ops}
+    for _ in range(rounds):
+        for name, fn in ops.items():
+            ms = device_ms(fn, n)
+            check(ms > 0, f"the profiler saw {name}'s kernels")
+            runs[name].append(ms)
+    return {name: {"ms": sorted(r)[len(r) // 2], "rounds": r} for name, r in runs.items()}
+
+
+def launch_floor() -> dict:
+    """The card's own ms of an empty launch through the kernels' ctypes path
+    (a chase of no links, ``sweep._cuckoo_chase(rows, 0, 0)``: one thread
+    that loads nothing), by the profiler, and the ms a call of it costs by
+    CUDA events (the wrapper's one-word ``torch.zeros`` included)."""
+    buf = torch.zeros(4, dtype=torch.int32, device="cuda")
+
+    def empty(i):
+        return sweep._cuckoo_chase(buf, 0, 0)
+
+    chase = [v for k, v in kernel_ms(empty, n=50).items() if "cuckoo_chase" in k]
+    check(len(chase) == 1, "the profiler saw the empty launch")
+    return {"launch_floor_ms": chase[0], "launch_floor_call_ms": cuda_ms(empty, 50)}
+
+
+def cuckoo_query_times(cf, held: tuple, absent: tuple, floor: dict, lat: dict) -> dict:
+    """The cuckoo query of 2^16 held and 2^16 absent keys on the filled
+    table: held against the plain version on a host copy (tolerance 0);
+    the card's own ms (``ms``, ``absent_ms``, :func:`device_turns`) beside
+    the ms a call costs by CUDA events (``call_ms``, ``absent_call_ms``),
+    both in turns, the launch floor, one dependent device-memory read, and
+    the byte bound (keys, lengths and verdicts once, two bucket sectors a
+    key), whose share is taken of the device time."""
+    cfg = cf.config
+    host = host_copy(cf.words)
+    p_ms, want = host_ms(lambda: sweep.cuckoo_query(host, held[0].cpu(), held[1].cpu(), cfg))
+    err = max_abs_err(sweep.cuckoo_query(cf.words, *held, cfg).cpu(), want)
+    want = sweep.cuckoo_query(host, absent[0].cpu(), absent[1].cpu(), cfg)
+    err = max(err, max_abs_err(sweep.cuckoo_query(cf.words, *absent, cfg).cpu(), want))
+    del host
+    ops = {"held": lambda i: sweep.cuckoo_query(cf.words, *held, cfg),
+           "absent": lambda i: sweep.cuckoo_query(cf.words, *absent, cfg)}
+    calls, dev = turns(ops), device_turns(ops)
+    B = held[0].shape[0]
+    nbytes = B * (KEY_LEN + 4 + 1) + B * 2 * 32
+    b_ms, b_by = bound(nbytes, B * (OPS_CUCKOO_HASH + 2 * OPS_CUCKOO_PROBE))
+    ms = dev["held"]["ms"]
+    return {"ms": ms, "absent_ms": dev["absent"]["ms"], "call_ms": calls["held"]["ms"],
+            "absent_call_ms": calls["absent"]["ms"], **floor,
+            "over_launch_floor": ms / floor["launch_floor_ms"],
+            "device_memory_read_ms": lat["device_memory"]["us"] / 1e3,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "none: a gather and compare is several calls", "max_abs_err": err,
+            "keys": B, "bytes": nbytes, "share_of_bound": b_ms / ms,
+            "call_share_of_bound": b_ms / calls["held"]["ms"],
+            "turns": {"call": calls, "device": dev}}
+
+
+# The estimate's batches on the sketch path: the weighted increments' 2^12
+# keys, a top-k batch of 2^16 and the estimate check's 2^20 (distinct ids),
+# the ends of its crossover's range; and a grid whose row (108 MB) the L2
+# cannot hold, CMS.INITBYPROB key 0.0000001 0.001 (761 MB).
+EST_LOG2B = (12, 16, 20)
+CMS_ROW_OVER_L2_WIDTH = 27_182_848
+
+
+def estimate_ops(grid, keys, lens, c) -> dict:
+    """The count-min estimate of ``keys`` on ``grid`` as ops of
+    :func:`turns`: each of its kernels (``sweep.CMS_ESTIMATES``), or in a
+    tree with one kernel its wrapper (``estimate``)."""
+    if not hasattr(sweep, "CMS_ESTIMATES"):
+        return {"estimate": lambda i: sweep.cms_estimate(grid, keys, lens, c)}
+    return {k: lambda i, k=k: sweep._cms_estimate_on(k, grid, keys, lens, c)
+            for k in sweep.CMS_ESTIMATES}
+
+
+def picked(batch: int) -> str:
+    """The op of :func:`estimate_ops` that the wrapper runs at ``batch``."""
+    if not hasattr(sweep, "CMS_ESTIMATES"):
+        return "estimate"
+    return "rows" if sweep.cms_takes_rows(batch) else "thread_a_key"
+
+
+def estimate_crossover(grid, zipf: np.ndarray, distinct: np.ndarray, c) -> dict:
+    """Each estimate kernel on batches of the Zipf stream and of distinct
+    ids, an octave apart from 2^EST_LOG2B[0] to 2^EST_LOG2B[-1], by the
+    card's own time (:func:`device_turns`, one round); at each batch the
+    faster kernel and whether the wrapper's pick (``sweep.cms_takes_rows``)
+    is it, and by how much it is slower; and the smallest batch from which
+    the row-phased kernel is the faster at every larger one: what
+    ``sweep.CMS_ROWS_CROSSOVER`` is set from."""
+    out = {}
+    for label, ids in (("zipf", zipf), ("distinct", distinct)):
+        runs = []
+        for b in range(EST_LOG2B[0], EST_LOG2B[-1] + 1):
+            keys, lens = key_batch(id_rows(ids[: 1 << b]))
+            t = device_turns(estimate_ops(grid, keys, lens, c), rounds=1)
+            ms = {k: v["ms"] for k, v in t.items()}
+            pick = "rows" if sweep.cms_takes_rows(1 << b) else "thread_a_key"
+            runs.append({"keys": 1 << b, **{f"{k}_ms": v for k, v in ms.items()},
+                         "faster": min(ms, key=ms.get), "pick": pick,
+                         "pick_over_faster": ms[pick] / min(ms.values())})
+        rows_from = None
+        for r in reversed(runs):
+            if r["rows_ms"] >= r["thread_a_key_ms"]:
+                break
+            rows_from = r["keys"]
+        out[label] = {"runs": runs, "rows_faster_from": rows_from,
+                      "worst_pick_over_faster": max(r["pick_over_faster"] for r in runs)}
+    return {**out, "constant": sweep.CMS_ROWS_CROSSOVER}
+
+
+def estimate_record(batch: dict, op: str) -> dict:
+    """One estimate kernel's record at one batch of :func:`cms_estimate_times`."""
+    d, c = batch["turns"]["device"], batch["turns"]["call"]
+    ms = d[op]["ms"]
+    return {"keys": batch["keys"], "ms": ms, "call_ms": c[op]["ms"], "plain_ms": batch["plain_ms"],
+            "bound_ms": batch["bound_ms"], "bound_by": batch["bound_by"],
+            "share_of_bound": batch["bound_ms"] / ms, "library_ms": batch["library_ms"],
+            "library_call_ms": batch["library_call_ms"],
+            "library": "index_select + amin, positions precomputed",
+            "max_abs_err": batch["max_abs_err"], "sectors": batch["sectors"],
+            "bytes": batch["bytes"]}
+
+
+def cms_estimate_times(cms, ids: np.ndarray, rng) -> dict:
+    """The count-min estimate on the sketch path's grid: the Zipf batch of
+    2^20 (``zipf_2^20``) and 2^12, 2^16 and 2^20 distinct ids; each kernel
+    held against the plain version on a host copy (tolerance 0), then the
+    kernels and ``index_select`` + ``amin`` on the same positions in turns,
+    by the card's own time (``ms``) and by CUDA events a call
+    (``call_ms``), beside the byte bound (keys and lengths read, estimates
+    written, each distinct 32-byte sector of the batch's counters read
+    once), whose share is taken of the device time. Then the 2^20 batches
+    on a grid the L2 holds (2^18 x 7, 7 MiB: the floor of the same gathers
+    without misses to device memory), 2^20 distinct ids on a grid whose row
+    the L2 cannot hold (27,182,848 x 7), and in a tree with both kernels
+    :func:`estimate_crossover`. Returns a record for each kernel: the
+    thread-a-key ``cms_estimate`` at the top-k batch's 2^16 keys, the
+    row-phased ``cms_estimate_rows`` at the estimate check's 2^20 distinct
+    ids, each with its Zipf 2^20 time (``zipf_ms``)."""
+    c = cms.config
+    grid = cms.words
+    perm = rng.permutation(CMS_DISTINCT)
+    distinct = id_rows(perm[:B_CMS])
+    batches = {"zipf_2^20": key_batch(id_rows(ids[:B_CMS])),
+               **{f"distinct_2^{b}": key_batch(distinct[: 1 << b]) for b in EST_LOG2B}}
+    host = host_copy(grid)
+    out = {}
+    for label, (keys, lens) in batches.items():
+        p_ms, want = host_ms(lambda: sweep.cms_estimate(host, keys.cpu(), lens.cpu(), c))
+        ops = estimate_ops(grid, keys, lens, c)
+        err = max(max_abs_err(i32(op(0)), i32(want)) for op in ops.values())
+        flat = cms_flat(keys, lens, c)
+        ops["index_select_amin"] = lambda i, flat=flat: index_select_amin(grid, flat, c)
+        calls, dev = turns(ops), device_turns(ops)
+        B = keys.shape[0]
+        sectors = int(torch.unique(flat >> 3).numel())
+        nbytes = B * (KEY_LEN + 4 + 4) + sectors * 32
+        b_ms, b_by = bound(nbytes, B * (OPS_CMS_HASH + c.k * OPS_CMS_ROW))
+        op = picked(B)
+        out[label] = {"keys": B, "sectors": sectors, "bytes": nbytes, "kernel": op,
+                      "ms": dev[op]["ms"], "call_ms": calls[op]["ms"],
+                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "share_of_bound": b_ms / dev[op]["ms"],
+                      "library_ms": dev["index_select_amin"]["ms"],
+                      "library_call_ms": calls["index_select_amin"]["ms"], "max_abs_err": err,
+                      "turns": {"call": calls, "device": dev}}
+    del host
+    small = FilterConfig(m=1 << LOG2_CMS_L2_WIDTH, k=c.k, kind="cms", key_len=KEY_LEN, seed=c.seed)
+    sgrid = torch.zeros(small.m * small.k, dtype=torch.int32, device=grid.device).view(torch.uint32)
+    l2 = {"width": small.m, "bytes": 4 * small.m * small.k}
+    for label in ("zipf_2^20", f"distinct_2^{EST_LOG2B[-1]}"):
+        runs = device_turns(estimate_ops(sgrid, *batches[label], small), rounds=1)
+        floor = runs[picked(1)]["ms"]  # a thread a key
+        l2[label] = {"ms": floor, "path_over_floor": out[label]["ms"] / floor, "runs": runs}
+    del sgrid
+    big = FilterConfig(m=CMS_ROW_OVER_L2_WIDTH, k=c.k, kind="cms", key_len=KEY_LEN, seed=c.seed)
+    bgrid = torch.zeros(big.m * big.k, dtype=torch.int32, device=grid.device).view(torch.uint32)
+    keys, lens = batches[f"distinct_2^{EST_LOG2B[-1]}"]
+    flat = cms_flat(keys, lens, big)
+    ops = {**estimate_ops(bgrid, keys, lens, big),
+           "index_select_amin": lambda i: index_select_amin(bgrid, flat, big)}
+    runs = device_turns(ops, rounds=1)
+    sectors = int(torch.unique(flat >> 3).numel())
+    nbytes = B_CMS * (KEY_LEN + 4 + 4) + sectors * 32
+    row_over_l2 = {"width": big.m, "bytes": 4 * big.m * big.k, "keys": B_CMS, "sectors": sectors,
+                   "ms": runs[picked(B_CMS)]["ms"], "bound_ms": bound(nbytes, 0)[0],
+                   "library_ms": runs["index_select_amin"]["ms"], "runs": runs}
+    del bgrid, flat
+    torch.cuda.empty_cache()
+    common = {"batches": out, "l2_resident": l2, "row_over_l2": row_over_l2}
+    z, small_b, big_b = (out["zipf_2^20"], out[f"distinct_2^{EST_LOG2B[1]}"],
+                         out[f"distinct_2^{EST_LOG2B[-1]}"])
+    if not hasattr(sweep, "CMS_ESTIMATES"):  # a tree with the thread-a-key kernel alone
+        return {"cms_estimate": {**estimate_record(big_b, "estimate"),
+                                 "zipf_ms": z["turns"]["device"]["estimate"]["ms"], **common}}
+    common["crossover"] = estimate_crossover(grid, ids, perm, c)
+    return {"cms_estimate": {**estimate_record(small_b, "thread_a_key"),
+                             "zipf_ms": z["turns"]["device"]["thread_a_key"]["ms"],
+                             "path_2^20_ms": big_b["turns"]["device"]["thread_a_key"]["ms"]},
+            "cms_estimate_rows": {**estimate_record(big_b, "rows"),
+                                  "zipf_ms": z["turns"]["device"]["rows"]["ms"], **common}}
+
+
+def phase_query_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
+    """The two query kernels' records (:func:`cuckoo_query_times` on 2^16
+    held keys and 2^16 fresh ones, :func:`cms_estimate_times`), with the
+    launch floor and the latency of one dependent device-memory read."""
+    t0 = time.perf_counter()
+    lat = {"device_memory": chase_us(CHASE_TABLE_BYTES, warm=False)}
+    floor = launch_floor()
+    held_keys = key_batch(held[N_CUCKOO_DELETE : N_CUCKOO_DELETE + B_CUCKOO])
+    out = {"cuckoo_query": cuckoo_query_times(cf, held_keys, key_batch(rows(rng, B_CUCKOO)),
+                                              floor, lat),
+           **cms_estimate_times(cms, ids, rng)}
+    emit("query_times", latency=lat, **out, seconds=time.perf_counter() - t0)
+    return out
+
+
 def phase_sketch_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
     """Each sketch kernel's ms by CUDA events at the sketch path's shapes
-    (the cuckoo pair a batch of 2^16 on its filled table, restored from a
+    (the cuckoo walks a batch of 2^16 on the filled table, restored from a
     snapshot before each launch, and the insert again at a quarter load;
-    the count-min pair a batch of 2^20 on its grid), beside its bound, its
-    plain version's ms on a host copy of the same state, with which its
-    result must agree (tolerance 0), and for the count-min pair one
+    the count-min update a batch of 2^20 on its grid), beside its bound,
+    its plain version's ms on a host copy of the same state, with which its
+    result must agree (tolerance 0), and for the count-min update one
     PyTorch call on the same positions. The cuckoo pair's round walk is
     timed against the warp walk and one thread alone, and at each of
     WALK_WINDOWS; the latency of one dependent read, by a pointer chase,
-    gives the warp walk's sequential latency floor."""
+    gives the warp walk's sequential latency floor. The two queries
+    (:func:`cuckoo_query_times`, :func:`cms_estimate_times`) by the card's
+    own time beside their call time and the launch floor."""
     t0 = time.perf_counter()
     lat = {"l2": chase_us(CHASE_L2_BYTES, warm=True),
            "device_memory": chase_us(CHASE_TABLE_BYTES, warm=False)}
@@ -3413,8 +3649,8 @@ def phase_sketch_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
     keys, lens = key_batch(rows(rng, B))
     out["cuckoo_insert"] = cuckoo_insert_times(cf.words, keys, lens, cfg, lat)
     clones = [clone_u32(cf.words) for _ in range(4)]
-    out["cuckoo_insert"]["kernels_ms"] = kernel_ms(
-        lambda i: sweep.cuckoo_insert(clones.pop(), keys, lens, cfg), n=3)
+    out["cuckoo_insert"]["kernels_ms"] = kernel_ms(  # a fresh table a call: no second window
+        lambda i: sweep.cuckoo_insert(clones.pop(), keys, lens, cfg), n=3, tries=1)
     del clones
     out["cuckoo_insert"].update(library_ms=None, library="none: torch has no ordered cuckoo walk")
     # the same batch on a table at a quarter load: keys placed at once, no kicks
@@ -3441,23 +3677,10 @@ def phase_sketch_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
                             "max_abs_err": err, "keys": B, "read_sectors": read_sectors,
                             "written_sectors": written_sectors, "bytes": nbytes,
                             "share_of_bound": b_ms / ms, **walk_record(ms, B, ab, lat, B)}
-    # query: held and absent keys
-    host = host_copy(cf.words)
-    p_ms, want = host_ms(lambda: sweep.cuckoo_query(host, dkeys.cpu(), dlens.cpu(), cfg))
-    err = max_abs_err(sweep.cuckoo_query(cf.words, dkeys, dlens, cfg).cpu(), want)
-    want = sweep.cuckoo_query(host, keys.cpu(), lens.cpu(), cfg)
-    err = max(err, max_abs_err(sweep.cuckoo_query(cf.words, keys, lens, cfg).cpu(), want))
-    ms = cuda_ms(lambda i: sweep.cuckoo_query(cf.words, dkeys, dlens, cfg), n=20)
-    absent_ms = cuda_ms(lambda i: sweep.cuckoo_query(cf.words, keys, lens, cfg), n=20)
-    nbytes = B * (KEY_LEN + 4 + 1) + B * 2 * 32
-    b_ms, b_by = bound(nbytes, B * (OPS_CUCKOO_HASH + 2 * OPS_CUCKOO_PROBE))
-    out["cuckoo_query"] = {"ms": ms, "absent_ms": absent_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "library_ms": None,
-                           "library": "none: a gather and compare is several calls",
-                           "max_abs_err": err, "keys": B, "bytes": nbytes,
-                           "share_of_bound": b_ms / ms}
-    del host
+    floor = launch_floor()
+    out["cuckoo_query"] = cuckoo_query_times(cf, (dkeys, dlens), (keys, lens), floor, lat)
     out.update(cms_times(cms, ids, rng))
+    out.update(cms_estimate_times(cms, ids, rng))
     errs = {name: out[name]["max_abs_err"] for name in SKETCH_KERNELS}
     errs["cuckoo_insert_quarter_load"] = out["cuckoo_insert"]["quarter_load"]["max_abs_err"]
     check(max(errs.values()) == 0, f"sketch kernels equal their plain versions at the path's "
@@ -3489,15 +3712,24 @@ SKETCH_KERNELS = {
     "cuckoo_delete": ("cuckoo.cu", "tpubloom/ops/cuckoo.py:184 (cuckoo_delete, a lax.scan)",
                       ROUND_DESIGN),
     "cuckoo_query": ("cuckoo.cu", "tpubloom/ops/cuckoo.py:172 (cuckoo_query)",
-                     "thread a key: two 16-byte bucket loads"),
+                     "thread a key: length and key words in one trip, then both 16-byte bucket "
+                     "rows in flight"),
     "cms_update": ("cms.cu", "tpubloom/ops/cms.py:53 (cms_update, words.at[flat].add)",
                    "thread a key: depth atomicAdd (batches sweep.cms_takes_tiles leaves it)"),
     "cms_update_tiled": ("cms.cu", "tpubloom/ops/cms.py:53 (cms_update, words.at[flat].add)",
                          "partitioned by 64 KiB tile of the grid (flat_partition.cuh, u32 "
                          "counters, row-major), each tile added in shared memory"),
     "cms_estimate": ("cms.cu", "tpubloom/ops/cms.py:71 (cms_estimate, a gather and row minimum)",
-                     "thread a key: depth gathers in flight, then their minimum"),
+                     "thread a key: depth gathers in flight, then their minimum (batches "
+                     "sweep.cms_takes_rows leaves it)"),
+    "cms_estimate_rows": ("cms.cu", "tpubloom/ops/cms.py:71 (cms_estimate, a gather and row "
+                          "minimum)", "row-phased: one resident launch, up to 8 keys a thread "
+                          "loaded with their lengths in one trip and hashed once, then the rows "
+                          "in order, a row's gathers issued together with the next row in flight"),
 }
+# A count-min wrapper counts each call under its name, and under its other
+# kernel's name too when that one ran.
+COUNTED_WITH = {"cms_update": "cms_update_tiled", "cms_estimate": "cms_estimate_rows"}
 
 
 # The flat kernels have no Pallas counterpart: each replaces the XLA ops of
@@ -3582,18 +3814,19 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
     })
     for name, (src, replaces, design) in SKETCH_KERNELS.items():
         t = sk_times[name]
-        # an update's count is its calls; those on the partitioned kernel also
-        # count under cms_update_tiled
-        launches = sk_launches[name] - (sk_launches["cms_update_tiled"] if name == "cms_update" else 0)
+        # a count-min call counts under its name, those on the partitioned
+        # update or the row-phased estimate also under that kernel's
+        launches = sk_launches[name] - sk_launches.get(COUNTED_WITH.get(name), 0)
         kernels.append({
             "name": name, "route": "cuda", "source": f"tpubloom_torch/csrc/{src}",
             "replaces": replaces, "launches": launches, "max_abs_err": sk_errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
             "design": design,
-            **{k: t[k] for k in ("absent_ms", "us_per_key", "rounds", "keys_per_round",
-                                 "ms_per_round", "warp_latency_floor_ms",
-                                 "warp_share_of_latency_floor", "uniform_ms") if k in t},
+            **{k: t[k] for k in ("absent_ms", "call_ms", "absent_call_ms", "launch_floor_ms",
+                                 "us_per_key", "rounds", "keys_per_round", "ms_per_round",
+                                 "warp_latency_floor_ms", "warp_share_of_latency_floor",
+                                 "uniform_ms", "uniform_call_ms") if k in t},
             **({"quarter_load_ms": t["quarter_load"]["ms"]} if "quarter_load" in t else {}),
         })
     return kernels
@@ -3639,6 +3872,50 @@ def times_only() -> dict:
         if TILED:
             out["flat_crossover"] = phase_flat_crossover(f, c, rng)
     return out
+
+
+def queries_only() -> dict:
+    """The sketch path (phase 24), which fills the cuckoo table and the
+    count-min grid, then :func:`phase_query_times`."""
+    rng = np.random.default_rng(SEED)
+    _, cf, cms, held, ids = phase_sketch_path(rng)
+    return phase_query_times(cf, cms, held, ids, rng)
+
+
+AB_TURNS = ("other", "this", "this", "other")
+
+
+def ab_queries(other: Path) -> None:
+    """``--queries`` in ``other`` (with this script copied in), here, here
+    and ``other``, each in a process of its own on the same card; the four
+    runs to ``chiprun_out/ab_queries.json``, and a line of each run's
+    times."""
+    here = Path(__file__).resolve()
+    shutil.copy(here, other / here.name)
+    runs = []
+    for label in AB_TURNS:
+        tree = other if label == "other" else here.parent
+        proc = subprocess.run([sys.executable, here.name, "--queries"], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"--queries in {tree} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])["queries"]
+        runs.append({"tree": label, "path": str(tree), **run})
+        q, e = run["cuckoo_query"], run.get("cms_estimate_rows", run["cms_estimate"])
+        emit("ab_queries", tree=label,
+             cuckoo_query={k: q[k] for k in ("ms", "absent_ms", "call_ms", "absent_call_ms",
+                                             "launch_floor_ms", "share_of_bound")},
+             cms_estimate={b: {op: {"ms": r["turns"]["device"][op]["ms"],
+                                    "call_ms": r["turns"]["call"][op]["ms"]}
+                               for op in r["turns"]["device"]}
+                           for b, r in e["batches"].items()},
+             l2_resident={b: r["runs"] for b, r in e["l2_resident"].items() if isinstance(r, dict)},
+             row_over_l2=e["row_over_l2"]["runs"],
+             crossover={d: [{k: v for k, v in r.items() if k.endswith("ms") or k == "keys"}
+                            for r in x["runs"]]
+                        for d, x in e.get("crossover", {}).items() if isinstance(x, dict)})
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "ab_queries.json").write_text(json.dumps(runs, indent=1))
 
 
 def phase_ab(other: Path, times: bool = True) -> None:
@@ -3699,12 +3976,21 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--sketch", action="store_true",
                     help="device, build and the sketch phases only; writes "
                          "chiprun_out/chip_smoke_sketch.json")
+    ap.add_argument("--queries", action="store_true",
+                    help="device, build, the sketch path and the two query kernels' times only; "
+                         "with --ab DIR, those in DIR, here, here and DIR")
     args = ap.parse_args(argv)
     dev = phase_device()
+    if args.ab and args.queries:
+        ab_queries(args.ab.resolve())
+        return 0
     if args.ab:
         phase_ab(args.ab.resolve(), times=not args.host)
         return 0
     phase_build()
+    if args.queries:
+        print(json.dumps({"queries": queries_only()}), flush=True)
+        return 0
     if args.host:
         print(json.dumps({"host_only": host_only()}), flush=True)
         return 0

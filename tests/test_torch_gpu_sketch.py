@@ -18,6 +18,10 @@ version on a CPU copy of the same state and keys:
   partition, and the wrapper's choice) and the estimate at power-of-two and other widths, with unit
   increments, weights near 2^32 that wrap, duplicates, padding and a crowd
   of one key whose tiles take several pieces;
+* the estimate alone, each of its kernels, at depths 1 to 64, from one key
+  to more than one resident pass, with counters at 2^32 - 1; the query's
+  one-trip key load at key widths 8, 16, 28 and 32; padding rows whose key
+  bytes are nonzero;
 * ``CuckooFilter``, ``CountMinSketch``, ``TopKSketch`` and
   ``ScalableBloomFilter`` (flat and blocked layers) on the card against the
   same classes on the CPU, and their checkpoints restored on the card."""
@@ -210,6 +214,76 @@ def test_cms_kernels_equal_plain(cuda, width, depth, kernel):
     assert _count("cms_update_tiled") == tiled
     if kernel == "tiled":
         assert tiled == 8
+
+
+def _padded(rng, n, L, every=5):
+    """Keys as _batch makes them, with every ``every``-th row padding whose
+    key bytes stay nonzero (a kernel must not read them as a key)."""
+    keys, lens = _batch(rng, n, L)
+    keys[::every] = torch.from_numpy(rng.integers(1, 256, (keys[::every].shape[0], L), dtype=np.uint8))
+    lens[::every] = -1
+    return keys, lens
+
+
+@pytest.mark.parametrize("kernel", ["auto", *sweep.CMS_ESTIMATES])
+@pytest.mark.parametrize("width,depth", [(1 << 12, 1), (992, 7), (1 << 12, 9), (10_016, 64)])
+def test_cms_estimate_equals_plain(cuda, width, depth, kernel):
+    """The estimate alone, through each of its kernels and the wrapper's
+    choice, against the plain version: depths 1, 7, 9 (past the thread-a-key
+    kernel's eight gathers in flight) and 64 (the most), a power-of-two
+    width and mod-walk widths, on a grid with counters at 2^32 - 1; B = 1,
+    4,099 keys of 28 bytes, 2^16 + 3, and a batch larger than one resident
+    pass (the row-phased kernel loops over passes); padding interleaved
+    with nonzero key bytes. One launch counted a call, the row-phased ones
+    also under ``cms_estimate_rows``."""
+    rng = np.random.default_rng(width + depth)
+    cfg = FilterConfig(m=width, k=depth, kind="cms", seed=depth)
+    g = rng.integers(0, 1 << 32, width * depth, dtype=np.uint64).astype(np.uint32)
+    g[rng.random(g.size) < 0.3] = 0xFFFFFFFF
+    if depth == 9:  # most keys' every counter at 2^32 - 1
+        g[rng.random(g.size) < 0.99] = 0xFFFFFFFF
+    cpu_state = torch.from_numpy(g.view(np.int32)).view(torch.uint32)
+    dev_state = cpu_state.to(cuda)
+    sweep.reset_launch_counts()
+    batches = [(1, 32), (4099, 28), ((1 << 16) + 3, 16)]
+    if depth <= 9:
+        batches.append(((1 << 20) + (1 << 18), 16))
+    rows = 0
+    for n, (B, L) in enumerate(batches):
+        keys, lens = _padded(rng, B, L)
+        want = sweep.cms_estimate(cpu_state, keys, lens, cfg)
+        if kernel == "auto":
+            got = sweep.cms_estimate(dev_state, keys.to(cuda), lens.to(cuda), cfg)
+            rows += sweep.cms_takes_rows(B)
+        else:
+            got = sweep._cms_estimate_on(kernel, dev_state, keys.to(cuda), lens.to(cuda), cfg)
+            rows += kernel != "thread_a_key"
+        assert _count("cms_estimate") == n + 1 and _count("cms_estimate_rows") == rows
+        assert _same(got, want)
+        assert not got.view(torch.int32)[::5].any()
+    if depth == 9:
+        assert (want.view(torch.int32) == -1).any(), "some estimates at 2^32 - 1"
+
+
+@pytest.mark.parametrize("L", [8, 16, 28, 32])
+def test_cuckoo_query_equals_plain(cuda, L):
+    """The query's one-trip key load at each key width (16-byte loads at 16
+    and 32, 4-byte ones at 8 and 28) against the plain version, on a table
+    that holds half the keys: B = 1 and 2^16 + 3, padding rows with nonzero
+    key bytes, one launch counted a call."""
+    rng = np.random.default_rng(L)
+    cfg = FilterConfig(m=1 << 18, k=2, kind="cuckoo", key_len=L, seed=L)
+    keys, lens = _padded(rng, (1 << 16) + 3, L)
+    cpu_state = _zeros(cfg.m, "cpu")
+    ok, _ = sweep.cuckoo_insert(cpu_state, keys[::2].contiguous(), lens[::2].contiguous(), cfg)
+    dev_state = cpu_state.to(cuda)
+    sweep.reset_launch_counts()
+    for n, (k, ln) in enumerate([(keys[1:2], lens[1:2]), (keys, lens)]):
+        want = sweep.cuckoo_query(cpu_state, k, ln, cfg)
+        got = sweep.cuckoo_query(dev_state, k.to(cuda), ln.to(cuda), cfg)
+        assert _count("cuckoo_query") == n + 1
+        assert torch.equal(got.cpu(), want)
+    assert want[::2][ok].all() and not want[::5].any()  # every key stored is found
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda):

@@ -106,20 +106,20 @@ __device__ __forceinline__ uint32_t fnv1a_32(const uint32_t* __restrict__ kw,
   return h;
 }
 
-// murmur3_32 and fnv1a_32 over a key of NW words held in registers: the
-// same functions, with loops of a fixed trip count (a word or byte at or
-// past `len` is skipped, which is where the loops above stop), so that
-// every index into `r` is a constant and `r` stays in registers. A key of
-// 4 words (L = 16, the main path's) is loaded once and hashed this way;
-// on an H100 that made the routing pass of a slot owning a quarter of the
-// keys 11 % faster.
+// murmur3_32 and fnv1a_32 over a key of nw <= NW words held in registers
+// (nw = NW unless given): the same functions, with loops of a fixed trip
+// count (a word or byte at or past `len` or past the key's nw words is
+// skipped, which is where the loops above stop), so that every index into
+// `r` is a constant and `r` stays in registers. A key of 4 words (L = 16,
+// the main path's) is loaded once and hashed this way; on an H100 that
+// made the routing pass of a slot owning a quarter of the keys 11 % faster.
 template <int NW>
 __device__ __forceinline__ uint32_t murmur3_32_regs(const uint32_t (&r)[NW],
-                                                    int len, uint32_t seed) {
+                                                    int len, uint32_t seed, int nw = NW) {
   uint32_t h = seed;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
-    if (4 * i >= len) continue;
+    if (4 * i >= len || i >= nw) continue;
     uint32_t kk = r[i] * kC1;
     kk = rotl32(kk, 15);
     kk *= kC2;
@@ -140,12 +140,37 @@ __device__ __forceinline__ uint32_t murmur3_32_regs(const uint32_t (&r)[NW],
 
 template <int NW>
 __device__ __forceinline__ uint32_t fnv1a_32_regs(const uint32_t (&r)[NW],
-                                                  int len) {
+                                                  int len, int nw = NW) {
   uint32_t h = kFnvOffset;
 #pragma unroll
   for (int j = 0; j < 4 * NW; ++j)
-    if (j < len) h = (h ^ ((r[j >> 2] >> (8 * (j & 3))) & 0xFFu)) * kFnvPrime;
+    if (j < len && j < 4 * nw) h = (h ^ ((r[j >> 2] >> (8 * (j & 3))) & 0xFFu)) * kFnvPrime;
   return h;
+}
+
+// Words 0 .. L/4 - 1 of key i (L <= 4 NW) into r, the rest 0, in one trip:
+// every load issued before any is used, 16 bytes at a time where `vec`
+// (L % 16 == 0 and the keys 16-byte aligned), else 4. Streaming loads
+// (__ldcs): a key is read once, and the L2 is left to the state.
+template <int NW>
+__device__ __forceinline__ void load_key_words(const uint8_t* __restrict__ keys, int64_t i,
+                                               int L, bool vec, uint32_t (&r)[NW]) {
+  const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+  const int nw = L >> 2;
+  if (vec) {
+#pragma unroll
+    for (int v = 0; v < NW / 4; ++v) {
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      if (4 * v < nw) q = __ldcs(reinterpret_cast<const uint4*>(kw) + v);
+      r[4 * v] = q.x;
+      r[4 * v + 1] = q.y;
+      r[4 * v + 2] = q.z;
+      r[4 * v + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) r[w] = w < nw ? __ldcs(kw + w) : 0u;
+  }
 }
 
 // The hashes one key needs: its block and the in-block hash pool.
@@ -236,28 +261,37 @@ struct FlatWalk {
   uint64_t start, stride;
 };
 
+// The walk of a key of nw <= NW words held in registers (as
+// murmur3_32_regs). The mod walk needs only h_a and g_a.
+template <int NW>
+__device__ __forceinline__ FlatWalk flat_walk_regs(const uint32_t (&r)[NW], int nw, int len,
+                                                   const FlatSpec& s) {
+  uint32_t hb = 0u, gb = 0u;
+  const uint32_t ha = murmur3_32_regs(r, len, s.seed, nw), ga = fnv1a_32_regs(r, len, nw);
+  if (s.pow2) {
+    hb = murmur3_32_regs(r, len, s.seed ^ kSeedXorHB, nw);
+    gb = murmur3_32_regs(r, len, s.seed ^ kSeedXorGB, nw);
+  }
+  FlatWalk w;
+  w.start = ((uint64_t)hb << 32) | ha;
+  w.stride = ((uint64_t)gb << 32) | (ga | 1u);
+  return w;
+}
+
 // The four base hashes of the spec, with the full h_a: a key of 4 words is
-// hashed from registers, any other from memory. The mod walk needs only
-// h_a and g_a.
+// hashed from registers, any other from memory.
 __device__ __forceinline__ FlatWalk flat_walk(const uint32_t* __restrict__ kw,
                                               int nw, int len,
                                               const FlatSpec& s) {
-  uint32_t ha, hb = 0u, ga, gb = 0u;
   if (nw == 4) {
     const uint32_t r[4] = {kw[0], kw[1], kw[2], kw[3]};
-    ha = murmur3_32_regs(r, len, s.seed);
-    ga = fnv1a_32_regs(r, len);
-    if (s.pow2) {
-      hb = murmur3_32_regs(r, len, s.seed ^ kSeedXorHB);
-      gb = murmur3_32_regs(r, len, s.seed ^ kSeedXorGB);
-    }
-  } else {
-    ha = murmur3_32(kw, nw, len, s.seed);
-    ga = fnv1a_32(kw, nw, len);
-    if (s.pow2) {
-      hb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorHB);
-      gb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorGB);
-    }
+    return flat_walk_regs(r, 4, len, s);
+  }
+  uint32_t hb = 0u, gb = 0u;
+  const uint32_t ha = murmur3_32(kw, nw, len, s.seed), ga = fnv1a_32(kw, nw, len);
+  if (s.pow2) {
+    hb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorHB);
+    gb = murmur3_32(kw, nw, len, s.seed ^ kSeedXorGB);
   }
   FlatWalk w;
   w.start = ((uint64_t)hb << 32) | ha;

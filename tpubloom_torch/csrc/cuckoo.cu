@@ -75,8 +75,16 @@
 // its longer rounds and its threads' local-memory logs cost more at load
 // 0.95.
 //
-// cuckoo_query: one thread a key, the same hash, the two rows as two uint4
-// loads, 4-lane compares; reads never race, so no order is needed.
+// cuckoo_query: a thread a key; reads never race, so no order is needed.
+// Bound: bytes, each key's L + 4 input bytes, its verdict and its two
+// 32-byte bucket sectors, ~0.0017 ms a 2^16-key batch at 3.35 TB/s, below
+// any launch. So its time is the launch and its chain of dependent reads:
+// the length and the key's words come in one trip (16-byte streaming
+// loads for a 16- or 32-byte key), then, after the hash, both bucket rows
+// as two uint4 __ldcg loads in flight together: two device-memory round
+// trips where the walks' shared hash (length, then words, then rows) makes
+// three. CTAs of kQueryThreads = 128 threads spread a 2^16 batch over 512
+// CTAs, all resident at once on the 132 SMs.
 //
 // Built by tpubloom_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -94,6 +102,7 @@
 namespace tpubloom {
 
 constexpr int kCuckooThreads = 256;
+constexpr int kQueryThreads = 128;  // a 2^16-key query: 512 CTAs, 3-4 on each of 132 SMs
 constexpr int kCuckooBucket = 4;
 constexpr int kCuckooMaxKicks = 32;
 constexpr uint32_t kCuckooAltMix = 0x5BD1E995u;
@@ -467,21 +476,50 @@ cuckoo_chase_kernel(const uint4* __restrict__ rows, uint32_t start, int64_t step
   *out = i;
 }
 
-__global__ void __launch_bounds__(kCuckooThreads)
+// The query's own front end (cuckoo_hash, which the walks' hash launch
+// shares, loads the length first and the words after its branch): the
+// length and the key's words in one trip, the two hashes from registers
+// (NW > 0: a key of up to NW words; NW = 0: a longer one, hashed from
+// memory), then both rows in flight at once, 8 compares, one byte.
+template <int NW>
+__global__ void __launch_bounds__(kQueryThreads)
 cuckoo_query_kernel(const uint32_t* __restrict__ state, const uint8_t* __restrict__ keys,
                     const int32_t* __restrict__ lengths, uint8_t* __restrict__ out,
-                    int64_t B, int L, uint32_t mask, uint32_t seed) {
+                    int64_t B, int L, int vec, uint32_t mask, uint32_t seed) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  const uint2 k = cuckoo_hash(keys, lengths, i, L, mask, seed);
-  if (!k.x) {
+  const int len = __ldcs(lengths + i);
+  uint32_t r[NW > 0 ? NW : 1];
+  if constexpr (NW > 0) load_key_words<NW>(keys, i, L, vec, r);
+  if (len < 0) {
     out[i] = 0;
     return;
   }
+  uint32_t ha, hb;
+  if constexpr (NW > 0) {
+    ha = murmur3_32_regs(r, len, seed, L / 4);
+    hb = murmur3_32_regs(r, len, seed ^ kSeedXorHB, L / 4);
+  } else {
+    const uint32_t* kw = reinterpret_cast<const uint32_t*>(keys + i * L);
+    ha = murmur3_32(kw, L / 4, len, seed);
+    hb = murmur3_32(kw, L / 4, len, seed ^ kSeedXorHB);
+  }
+  const uint32_t fp = ha % 0xFFFFu + 1u, b1 = hb & mask;
   const uint4* rows = reinterpret_cast<const uint4*>(state);
-  const uint4 r1 = __ldg(rows + k.y);
-  const uint4 r2 = __ldg(rows + cuckoo_alt(k.y, k.x, mask));
-  out[i] = (first_slot(r1, k.x) >= 0 || first_slot(r2, k.x) >= 0) ? 1 : 0;
+  const uint4 r1 = __ldcg(rows + b1), r2 = __ldcg(rows + cuckoo_alt(b1, fp, mask));
+  out[i] = (r1.x == fp) | (r1.y == fp) | (r1.z == fp) | (r1.w == fp) | (r2.x == fp) |
+           (r2.y == fp) | (r2.z == fp) | (r2.w == fp);
+}
+
+template <int NW>
+int launch_cuckoo_query(const void* state, const void* keys, const void* lengths, void* out,
+                        int64_t B, int L, uint32_t mask, uint32_t seed, cudaStream_t cs) {
+  const int vec = L % 16 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0;
+  cuckoo_query_kernel<NW><<<(unsigned)((B + kQueryThreads - 1) / kQueryThreads), kQueryThreads,
+                            0, cs>>>(
+      static_cast<const uint32_t*>(state), static_cast<const uint8_t*>(keys),
+      static_cast<const int32_t*>(lengths), static_cast<uint8_t*>(out), B, L, vec, mask, seed);
+  return (int)cudaGetLastError();
 }
 
 inline unsigned cuckoo_grid(int64_t B) {
@@ -586,9 +624,8 @@ extern "C" int tpb_cuckoo_query(const void* state, const void* keys, const void*
   if (n_buckets <= 0 || (n_buckets & (n_buckets - 1)) || n_buckets > (1ll << 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  cuckoo_query_kernel<<<cuckoo_grid(B), kCuckooThreads, 0, cs>>>(
-      static_cast<const uint32_t*>(state), static_cast<const uint8_t*>(keys),
-      static_cast<const int32_t*>(lengths), static_cast<uint8_t*>(out), B, L,
-      (uint32_t)(n_buckets - 1), seed);
-  return (int)cudaGetLastError();
+  const uint32_t mask = (uint32_t)(n_buckets - 1);
+  if (L <= 16) return launch_cuckoo_query<4>(state, keys, lengths, out, B, L, mask, seed, cs);
+  if (L <= 32) return launch_cuckoo_query<8>(state, keys, lengths, out, B, L, mask, seed, cs);
+  return launch_cuckoo_query<0>(state, keys, lengths, out, B, L, mask, seed, cs);
 }

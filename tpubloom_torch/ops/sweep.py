@@ -92,7 +92,9 @@ device ops are XLA. Each has a CUDA kernel here, with its plain version in
   :func:`cms_update`, :func:`cms_estimate` (``csrc/cms.cu``, a thread a
   key; the update of a batch whose counters cover much of the grid
   partitioned by 64 KiB tile on ``flat_partition.cuh`` and added in shared
-  memory, chosen by :func:`cms_takes_tiles`).
+  memory, chosen by :func:`cms_takes_tiles`; the estimate of a large batch
+  gathered row by row, while the L2 holds that row, by one resident
+  launch, chosen by :func:`cms_takes_rows`).
 
 Every wrapper counts its kernel launches in :data:`LAUNCHES`, the routed
 launches under their own names, so a run can show that its main path
@@ -111,7 +113,8 @@ from tpubloom_torch.ops import _build, bitops, blocked, cms, counting, cuckoo
 #: (CUDA launches only; the plain versions are not counted). A flat insert
 #: or counting call, and a count-min update, counts once under its name
 #: whichever kernel it takes, and once more under ``<name>_tiled`` when it
-#: takes the partitioned one.
+#: takes the partitioned one; a count-min estimate once more under
+#: ``cms_estimate_rows`` when it takes the row-phased kernel.
 LAUNCHES: dict[str, int] = {
     "blocked_query": 0, "blocked_insert": 0,
     "blocked_counting_update": 0, "blocked_counting_query": 0,
@@ -125,7 +128,7 @@ LAUNCHES: dict[str, int] = {
     "sharded_flat_counting_update_tiled": 0, "sharded_flat_counting_query_tiled": 0,
     "flat_insert_tiled": 0, "sharded_flat_insert_tiled": 0,
     "cuckoo_insert": 0, "cuckoo_delete": 0, "cuckoo_query": 0,
-    "cms_update": 0, "cms_estimate": 0, "cms_update_tiled": 0,
+    "cms_update": 0, "cms_estimate": 0, "cms_update_tiled": 0, "cms_estimate_rows": 0,
 }
 
 _P = ctypes.c_void_p
@@ -228,6 +231,7 @@ _CMS = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_uin
 _CMS_SIGNATURES = {
     "tpb_cms_update": ([_P, _P, _P, _P, *_CMS, _P], ctypes.c_int),
     "tpb_cms_estimate": ([_P, _P, _P, _P, *_CMS, _P], ctypes.c_int),
+    "tpb_cms_estimate_rows": ([_P, _P, _P, _P, *_CMS, _P], ctypes.c_int),
     "tpb_cms_update_tiled": ([_P, _P, _P, _P, *_CMS, _P, _I64, _P], ctypes.c_int),
     "tpb_cms_tiled_scratch_bytes": ([_I64, _I64, ctypes.c_int, ctypes.c_int], _I64),
     "tpb_cms_tile_starts_at": ([_I64, _I64, ctypes.c_int, ctypes.c_int], _I64),
@@ -875,18 +879,59 @@ def cms_update(state, keys, lengths, config, increments=None) -> None:
     _cms_update_on(scratch is not None, state, keys, lengths, config, increments, scratch=scratch)
 
 
-def cms_estimate(state, keys, lengths, config) -> torch.Tensor:
-    """Each key's count-min estimate, the minimum of its ``config.k``
-    counters: ``uint32[B]``, 0 for padding. ``state`` is only read."""
-    _check_sketch(state, keys, lengths, config, "cms")
-    if state.device.type == "cpu":
-        return cms.cms_estimate_plain(state, keys, lengths, config)
+#: The count-min estimate's kernels (``csrc/cms.cu``), by their entries:
+#: the row-phased gather and a thread a key.
+CMS_ESTIMATES = {"rows": "cms_estimate_rows", "thread_a_key": "cms_estimate"}
+
+#: A count-min estimate of this many keys or more takes the row-phased
+#: kernel (``cms_estimate_rows``), a smaller one a thread a key. From
+#: chip_smoke.py's estimate crossover (both kernels on the sketch path's
+#: 2,718,304 x 7 grid, batches an octave apart from 2^12 to 2^20 of the
+#: Zipf(1.1) stream and of distinct ids; NVIDIA H100 80GB HBM3, 700 W;
+#: PERF.md section 6): on distinct ids the row-phased kernel is the faster
+#: from 2^18 keys (1.05x) and 1.49x at 2^20; on the Zipf stream, whose hot
+#: counters the thread-a-key kernel finds in the L1 at once, only at 2^20.
+#: Below 2^16 the row-phased kernel's chain of row phases costs ~5 µs
+#: against ~3. At 2^19 the pick is at worst 1.14x the faster kernel (the
+#: Zipf stream); at 2^18 it would be 1.29x, at 2^20 1.27x.
+CMS_ROWS_CROSSOVER = 1 << 19
+
+
+def cms_takes_rows(batch: int) -> bool:
+    """Whether a count-min estimate of ``batch`` keys takes the row-phased
+    kernel (:data:`CMS_ROWS_CROSSOVER`)."""
+    return batch >= CMS_ROWS_CROSSOVER
+
+
+def _cms_estimate_on(kernel: str, state, keys, lengths, config) -> torch.Tensor:
+    """The count-min estimate of a checked CUDA state on the kernel named in
+    :data:`CMS_ESTIMATES`: :func:`cms_estimate` picks it by batch,
+    chip_smoke.py times them against each other, the card tests hold each.
+    Every launch counts under ``cms_estimate``, a row-phased one also under
+    ``cms_estimate_rows``."""
     B, L = keys.shape
     out = torch.empty((B,), dtype=torch.int32, device=state.device)
     if B:
-        _launch(_cms_library(), "cms_estimate", state, state.data_ptr(), keys.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), B, L, config.m, config.k, config.seed)
+        _launch(_cms_library(), CMS_ESTIMATES[kernel], state, state.data_ptr(), keys.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), B, L, config.m, config.k, config.seed,
+                counter="cms_estimate")
+        if kernel != "thread_a_key":
+            LAUNCHES["cms_estimate_rows"] += 1
     return out.view(torch.uint32)
+
+
+def cms_estimate(state, keys, lengths, config) -> torch.Tensor:
+    """Each key's count-min estimate, the minimum of its ``config.k``
+    counters: ``uint32[B]``, 0 for padding. ``state`` is only read. On the
+    card a batch of :data:`CMS_ROWS_CROSSOVER` keys or more takes the
+    row-phased kernel, a smaller one a thread a key; both give the same
+    estimates."""
+    _check_sketch(state, keys, lengths, config, "cms")
+    if state.device.type == "cpu":
+        return cms.cms_estimate_plain(state, keys, lengths, config)
+    B = keys.shape[0]
+    return _cms_estimate_on("rows" if cms_takes_rows(B) else "thread_a_key", state, keys, lengths,
+                            config)
 
 
 def record_fence(device: torch.device):
