@@ -218,7 +218,18 @@ line each, with the seconds it took (``phase_seconds``):
    (27,182,848 x 7); on each the batch (in positions, and positions a
    sector of the grid) from which the partitioned one is the faster, and
    whether ``sweep.cms_takes_tiles`` picks the faster kernel at each batch:
-   what ``sweep.CMS_TILE_CROSSOVER`` (positions) is set from.
+   what ``sweep.CMS_TILE_CROSSOVER`` (positions) is set from;
+28. server path: the port's gRPC server (``tpubloom_torch.server``) on
+   the card with the ingest coalescer at up to 2^19 keys a flush; the
+   main path's filter created over gRPC; 2^23 keys inserted as 128
+   ``InsertBatch`` requests of 2^16, fixed-width frames of the rows sent
+   by 8 ``BloomClient`` threads in 4 client processes, then 2^20 held and
+   2^20 fresh keys queried the same way, each part's keys/s on the host
+   clock beside the card's own time in it (``torch.profiler``), the
+   flushes and keys a flush, and the dispatcher's time in the flushes; a
+   presence batch, a ``Checkpoint`` restored by a second service, and the
+   CF / CMS verbs; every result held against a filter or sketch fed the
+   same keys directly (words with tolerance 0).
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -226,7 +237,9 @@ exits non-zero without that line; it also fails when no CUDA device is
 present. The full record is written to ``chiprun_out/chip_smoke.json``.
 
 ``python3 chip_smoke.py --sketch`` runs the device, build and phases 24-27
-only and writes ``chiprun_out/chip_smoke_sketch.json``. Two other modes
+only and writes ``chiprun_out/chip_smoke_sketch.json``; ``--server`` runs
+the device, build and phase 28 only and writes
+``chiprun_out/chip_smoke_server.json``. Two other modes
 compare kernel builds on one card:
 
     python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18, 19
@@ -705,17 +718,23 @@ def phase_kernel_vs_plain(rng) -> dict:
     return errs
 
 
+def fpr_bound(hits: int, probes: int, n_inserted: int, c: FilterConfig) -> dict:
+    """Fresh keys' hits against the blocked FPR model, with the acceptance
+    of tests/test_fpr_model.py: 6 sigma, 35% model tolerance, floor 8."""
+    expect = probes * blocked_fpr(n_inserted, m=c.m, k=c.k, block_bits=c.block_bits,
+                                  block_hash=c.block_hash)
+    tol = max(6.0 * math.sqrt(max(expect, 1.0)), 0.35 * expect, 8.0)
+    check(abs(hits - expect) <= tol, f"FPR {hits} hits vs model {expect:.1f} ± {tol:.1f}")
+    return {"probes": probes, "hits": hits, "model_hits": expect, "tolerance": tol}
+
+
 def fpr_check(f: BlockedBloomFilter, rng, n_probe: int) -> dict:
     """Fresh keys' hits against the blocked FPR model, with the acceptance
     of tests/test_fpr_model.py: 6 sigma, 35% model tolerance, floor 8."""
     hits = int(f.include_packed(rows(rng, n_probe)).sum())
     c = f.config
-    expect = n_probe * blocked_fpr(f.n_inserted, m=c.m, k=c.k, block_bits=c.block_bits,
-                                   block_hash=c.block_hash)
-    tol = max(6.0 * math.sqrt(max(expect, 1.0)), 0.35 * expect, 8.0)
-    check(abs(hits - expect) <= tol, f"FPR {hits} hits vs model {expect:.1f} ± {tol:.1f}")
-    return {"log2m": c.m.bit_length() - 1, "n_inserted": f.n_inserted, "probes": n_probe,
-            "hits": hits, "model_hits": expect, "tolerance": tol}
+    return {"log2m": c.m.bit_length() - 1, "n_inserted": f.n_inserted,
+            **fpr_bound(hits, n_probe, f.n_inserted, c)}
 
 
 def phase_main_path(rng) -> tuple[dict, BlockedBloomFilter]:
@@ -3747,6 +3766,382 @@ FLAT_REPLACES = {
 }
 
 
+SERVER_DIR = Path(__file__).resolve().parent / ".server_sink"  # git-ignored; removed at the end
+SERVER_KEYS = 1 << 23  # the insert traffic: 128 InsertBatch requests of 2^16 keys
+SERVER_REQUEST = 1 << 16
+SERVER_THREADS = 8  # BloomClient threads in all
+SERVER_CLIENT_PROCS = 4  # client processes, SERVER_THREADS // SERVER_CLIENT_PROCS threads each
+SERVER_PROBES = 1 << 20  # held keys queried, and as many fresh ones
+SERVER_COALESCE_KEYS = 1 << 19  # up to eight 2^16-key requests a flush (8 MiB max_bytes)
+SERVER_SKETCH_KEYS = 1 << 16
+SERVER_KERNELS = ("blocked_insert", "blocked_query", "cuckoo_insert", "cuckoo_query",
+                  "cms_update", "cms_estimate", "payload_crc32c")
+
+
+def key_list(r: np.ndarray) -> list:
+    """Fixed-width ``uint8[n, 16]`` rows as the list of 16-byte ``bytes``
+    a client passes (one C-level conversion, no per-key Python loop)."""
+    return np.ascontiguousarray(r).view(f"V{r.shape[1]}").ravel().tolist()
+
+
+class FlushClock:
+    """The dispatcher's time in the coalescer's flushes, timed from
+    outside: each flush's wall time and keys by flush kind; inside a flush,
+    the seconds of its merge of the parked requests' keys (``_merge``) and
+    of the served filter's ``stage_batch`` (padding and the pageable H2D
+    copy), ``launch_insert`` and ``launch_query`` calls; and the time the
+    dispatcher waits on the previous insert's completion fence
+    (``InFlight.take``). It opens no request context, so every flush runs
+    as it does in production."""
+
+    def __init__(self, coalescer, filt):
+        self.spans: dict = {}
+        self.fence_s = 0.0
+        self._acc = None
+        inner = coalescer._flush_inner
+
+        def timed(name, kind, entries, ftrace):
+            acc = self._acc = self.spans.setdefault(kind, {"flushes": 0, "keys": 0, "wall_s": 0.0})
+            t0 = time.perf_counter()
+            try:
+                return inner(name, kind, entries, ftrace)
+            finally:
+                acc["flushes"] += 1
+                acc["keys"] += sum(e.nkeys for e in entries)
+                acc["wall_s"] += time.perf_counter() - t0
+                self._acc = None
+
+        coalescer._flush_inner = timed
+        coalescer._inflight.take = self._timed(coalescer._inflight.take, None)
+        coalescer._merge = self._timed(coalescer._merge, "merge_s")
+        for attr in ("stage_batch", "launch_insert", "launch_query"):
+            setattr(filt, attr, self._timed(getattr(filt, attr), f"{attr}_s"))
+
+    def _timed(self, fn, bucket):
+        """``fn`` adding its seconds to the fence, or to ``bucket`` of the
+        flush it runs in."""
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                if bucket is None:
+                    self.fence_s += dt
+                elif self._acc is not None:
+                    self._acc[bucket] = self._acc.get(bucket, 0.0) + dt
+        return call
+
+    def report(self) -> dict:
+        out = {kind: {**acc, "keys_per_flush": acc["keys"] / acc["flushes"]}
+               for kind, acc in self.spans.items()}
+        out["insert_fence_s"] = self.fence_s
+        return out
+
+
+def traffic_client(p: int, addr: str, jobs, barrier, results) -> None:
+    """Client process ``p`` of the server path's traffic: its jobs (the
+    insert jobs and the query jobs, from the queue ``jobs``) over
+    ``SERVER_THREADS // SERVER_CLIENT_PROCS`` ``BloomClient`` threads, each
+    request one fixed-width frame built from the rows (``keys_fixed``:
+    ``rows.tobytes()``, width 16), as a client holding ``uint8[n, 16]``
+    keys sends it. Connected, it meets the server's process at ``barrier``;
+    then the inserts run between the next two meetings and the queries
+    between the two after. The verdicts go back on ``results`` in job
+    order, or the error that stopped the process."""
+    import threading
+
+    from tpubloom_torch.server.client import BloomClient
+
+    def frame(r):
+        return {"name": "main", "keys_fixed": {"data": r.tobytes(), "width": KEY_LEN, "n": len(r)}}
+
+    def fan(jobs, call) -> list:
+        n_threads = SERVER_THREADS // SERVER_CLIENT_PROCS
+        out, errors = [None] * len(jobs), []
+
+        def worker(t):
+            try:
+                for i in range(t, len(jobs), n_threads):
+                    out[i] = call(clients[t], jobs[i])
+            except Exception as e:  # noqa: BLE001 — raised below, after the join
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        return out
+
+    def insert(cl, r):
+        check(cl._rpc("InsertBatch", frame(r))["n"] == len(r), "InsertBatch count")
+
+    def query(cl, r):
+        return BloomClient._unpack_bool(cl._rpc("QueryBatch", frame(r)), "hits")
+
+    clients = []
+    try:
+        inserts, queries = jobs.get()
+        clients = [BloomClient(addr) for _ in range(SERVER_THREADS // SERVER_CLIENT_PROCS)]
+        for cl in clients:
+            cl.health()
+        barrier.wait()
+        barrier.wait()
+        fan(inserts, insert)
+        barrier.wait()
+        barrier.wait()
+        hits = fan(queries, query)
+        barrier.wait()
+        results.put((p, hits, None))
+    except BaseException as e:  # noqa: BLE001 — reported to the server's process
+        barrier.abort()
+        results.put((p, None, repr(e)))
+    finally:
+        for cl in clients:
+            cl.close()
+
+
+def device_split(prof) -> dict:
+    """The card's own ms in each kernel or copy of a profiler window (its
+    device events, by name without the argument list)."""
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            key = e.key.split("(")[0].removeprefix("void ").strip()
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
+def server_traffic(addr: str, inserts: list, queries: list) -> dict:
+    """The server path's traffic from ``SERVER_CLIENT_PROCS`` client
+    processes (:func:`traffic_client`), so that no client shares the
+    server's GIL: every insert job, then every query job, each part timed
+    on the host clock from the moment the processes start it together to
+    the last reply, under a ``torch.profiler`` window that reads the card's
+    own time. Returns each part's seconds and device split (and the
+    seconds its profiler window held), the seconds the processes took to
+    connect, and the verdicts in job order."""
+    import multiprocessing
+    import threading
+
+    ctx = multiprocessing.get_context("spawn")
+    n = SERVER_CLIENT_PROCS
+    barrier = ctx.Barrier(n + 1, timeout=600)
+    results = ctx.Queue()
+    # the jobs go on queues once every process runs: as arguments they
+    # would be written to each process before the next one starts
+    jobs = [ctx.Queue() for _ in range(n)]
+    procs = [ctx.Process(target=traffic_client, daemon=True,
+                         args=(p, addr, jobs[p], barrier, results)) for p in range(n)]
+    t_start = time.perf_counter()
+    for pr in procs:
+        pr.start()
+    for p, q in enumerate(jobs):
+        q.put((inserts[p::n], queries[p::n]))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    try:
+        try:
+            barrier.wait()
+            out["clients_ready_s"] = time.perf_counter() - t_start
+            for part in ("insert", "query"):
+                t_prof = time.perf_counter()
+                with torch.profiler.profile(activities=acts) as prof:
+                    barrier.wait()
+                    t0 = time.perf_counter()
+                    barrier.wait()
+                    seconds = time.perf_counter() - t0
+                    torch.cuda.synchronize()
+                device = device_split(prof)
+                out[part] = {"seconds": seconds, "device_ms": device,
+                             "device_busy_share": sum(device.values()) / 1e3 / seconds,
+                             "profiled_s": time.perf_counter() - t_prof}
+        except threading.BrokenBarrierError:
+            pass  # a client failed: its error is on the queue
+        got = {}
+        for _ in range(n):
+            p, hits, err = results.get(timeout=120)
+            check(err is None, f"client process {p} failed: {err}")
+            got[p] = hits
+        for pr in procs:
+            pr.join(timeout=60)
+            check(pr.exitcode == 0, f"client process exit code {pr.exitcode}")
+        check("query" in out, "the client processes ran the traffic")
+    finally:
+        barrier.abort()
+        for pr in procs:
+            if pr.is_alive():
+                pr.terminate()
+                pr.join()
+    out["hits"] = np.concatenate([got[i % n][i // n] for i in range(len(queries))])
+    return out
+
+
+def phase_server_path(rng, dev: dict) -> dict:
+    """The port's gRPC server on the card (``tpubloom_torch.server``), the
+    coalescer on at up to 2^19 keys a flush: the main path's filter
+    (m=2^32, k=7, block_bits=512, 16-byte keys) created over gRPC, 2^23
+    keys inserted as 128 ``InsertBatch`` requests of 2^16 from 8
+    ``BloomClient`` threads in 4 client processes (fixed-width frames of
+    the rows), 2^20 held and 2^20 fresh keys queried the same way, one
+    ``InsertBatch(return_presence)`` of 2^16 keys half held, a
+    ``Checkpoint`` restored by a second service, and CF / CMS verbs at 2^16
+    keys; every result held against a filter or sketch fed the same keys
+    directly (words with tolerance 0)."""
+    from tpubloom_torch.server import ingest, service
+    from tpubloom_torch.server.client import BloomClient
+
+    t_phase = time.perf_counter()
+    if SERVER_DIR.exists():
+        shutil.rmtree(SERVER_DIR)
+    SERVER_DIR.mkdir()
+
+    def sink(config):
+        return checkpoint.FileSink(str(SERVER_DIR))
+
+    svc = service.BloomService(
+        sink_factory=sink, coalesce=ingest.CoalesceConfig(max_keys=SERVER_COALESCE_KEYS))
+    srv, port = service.build_server(svc, "127.0.0.1:0")
+    srv.start()
+    addr = f"127.0.0.1:{port}"
+    # block_hash named: a config dict without it restores as "ap", the
+    # legacy wire default, while the main path's filter hashes "chunk"
+    cfg = {"m": 1 << LOG2M, "k": K, "block_bits": BLOCK_BITS, "key_len": KEY_LEN,
+           "block_hash": "chunk"}
+    keys = rows(rng, SERVER_KEYS)
+    inserts = [keys[i:i + SERVER_REQUEST] for i in range(0, SERVER_KEYS, SERVER_REQUEST)]
+    held = keys[rng.choice(SERVER_KEYS, SERVER_PROBES, replace=False)]
+    fresh = rows(rng, SERVER_PROBES)
+    queries = [r[i:i + SERVER_REQUEST] for r in (held, fresh)
+               for i in range(0, SERVER_PROBES, SERVER_REQUEST)]
+    pres = np.concatenate([keys[: SERVER_REQUEST // 2], rows(rng, SERVER_REQUEST // 2)])
+    sk_keys, sk_fresh = rows(rng, SERVER_SKETCH_KEYS), rows(rng, SERVER_SKETCH_KEYS)
+    weights = rng.integers(1, 1000, SERVER_SKETCH_KEYS // 16)
+    try:
+        with BloomClient(addr) as c:
+            health = c.health()
+            check(health["backend"] == "cuda", f"Health backend {health['backend']}")
+            check(health["devices"][0] == torch.cuda.get_device_name(0), "Health names the card")
+            c.create_filter("main", config=cfg)
+        served = svc._filters["main"].filter
+        check(served.words.is_cuda, "the served filter lives on the card")
+        clock = FlushClock(svc._coalescer, served)
+        metrics0 = svc.metrics.snapshot()["counters"]
+        sweep.reset_launch_counts()
+        checksum.reset_launch_counts()
+
+        t0 = time.perf_counter()
+        traffic = server_traffic(addr, inserts, queries)
+        traffic_s = time.perf_counter() - t0
+        hits = traffic.pop("hits")
+        after_traffic = svc.metrics.snapshot()["counters"]
+        pre = served.words.clone()  # the state the direct filter must reach
+        flush_wall = clock.report()
+        with BloomClient(addr) as c:
+            presence = c.insert_batch("main", key_list(pres), return_presence=True)
+            t0 = time.perf_counter()
+            c.checkpoint("main")
+            checkpoint_s = time.perf_counter() - t0
+            cf_cfg = c.cf_reserve("cf", SERVER_SKETCH_KEYS, key_len=KEY_LEN)["config"]
+            cf_added = c.cf_add("cf", key_list(sk_keys))
+            cf_hits = c.cf_exists("cf", key_list(np.concatenate([sk_keys, sk_fresh])))
+            cms_cfg = c.cms_init_by_dim("cms", SERVER_SKETCH_KEYS, 5, key_len=KEY_LEN)["config"]
+            c.cms_incrby("cms", key_list(sk_keys))
+            w_counts = c.cms_incrby("cms", key_list(sk_keys[: len(weights)]), weights.tolist())
+            cms_counts = c.cms_query("cms", key_list(np.concatenate([sk_keys, sk_fresh])))
+        torch.cuda.synchronize()
+        launches = {**sweep.launch_counts(), **checksum.launch_counts()}
+        for name in SERVER_KERNELS:
+            check(launches[name] > 0, f"{name} launched on the server path")
+        counters_ = svc.metrics.snapshot()["counters"]
+        rpc = svc.metrics.snapshot()
+        # a second service on the card restores the checkpoint
+        svc2 = service.BloomService(sink_factory=sink)
+        t0 = time.perf_counter()
+        restored = svc2.CreateFilter({"name": "main", "config": cfg})
+        restore_s = time.perf_counter() - t0
+        check(restored["restored_seq"] is not None, "the second service restored the checkpoint")
+        restored_err = max_abs_err(svc2._filters["main"].filter.words, served.words)
+        check(restored_err == 0, "restored words equal the served words")
+        svc2.DropFilter({"name": "main", "final_checkpoint": False})
+
+        # the same keys fed directly to the port's filter and sketches
+        direct = BlockedBloomFilter(FilterConfig(key_name="main", **cfg))
+        direct.insert_packed(keys)
+        insert_err = max_abs_err(pre, direct.words)
+        check(insert_err == 0, "served words equal the direct filter's")
+        n_held = SERVER_PROBES
+        check(hits[:n_held].all(), "every held key hits over gRPC")
+        want_fresh = direct.include_packed(fresh)
+        check(np.array_equal(hits[n_held:], want_fresh), "fresh verdicts equal the direct filter's")
+        fpr = fpr_bound(int(hits[n_held:].sum()), SERVER_PROBES, SERVER_KEYS, direct.config)
+        want_pres = direct.insert_batch(key_list(pres), return_presence=True)
+        check(np.array_equal(presence, want_pres), "presence equals the direct test-and-insert")
+        check(presence[: SERVER_REQUEST // 2].all(), "held half of the presence batch present")
+        presence_err = max_abs_err(served.words, direct.words)
+        check(presence_err == 0, "words after the presence batch equal the direct filter's")
+        del pre, direct
+
+        cf = CuckooFilter(FilterConfig.from_dict(cf_cfg))
+        cf.insert_batch(key_list(sk_keys))
+        check(np.array_equal(cf_added, cf.take_insert_flags()), "CFAdd verdicts equal the direct filter's")
+        check(np.array_equal(cf_hits, cf.include_batch(key_list(np.concatenate([sk_keys, sk_fresh])))),
+              "CFExists equals the direct filter's")
+        cf_err = max_abs_err(svc._filters["cf"].filter.words, cf.words)
+        cms = CountMinSketch(FilterConfig.from_dict(cms_cfg))
+        cms.insert_batch(key_list(sk_keys))
+        want_w = cms.increment_batch(key_list(sk_keys[: len(weights)]), weights.tolist())
+        check(w_counts == [int(x) for x in want_w], "weighted CMSIncrBy equals the direct sketch's")
+        check(np.array_equal(cms_counts, cms.estimate_batch(key_list(np.concatenate([sk_keys, sk_fresh])))),
+              "CMSQuery equals the direct sketch's")
+        cms_err = max_abs_err(svc._filters["cms"].filter.words, cms.words)
+        check(cf_err == 0 and cms_err == 0, "served sketches' words equal the direct ones'")
+        del cf, cms
+    finally:
+        srv.stop(grace=None)
+        for name in list(svc._filters):
+            svc.DropFilter({"name": name, "final_checkpoint": False})
+        svc.shutdown()
+        shutil.rmtree(SERVER_DIR, ignore_errors=True)
+    names = ("ingest_flushes", "ingest_query_flushes", "ingest_requests_coalesced",
+             "ingest_keys_coalesced")
+
+    def delta(after, before):
+        return {k: after.get(k, 0) - before.get(k, 0) for k in names}
+
+    flushes = {"traffic": delta(after_traffic, metrics0), "phase": delta(counters_, metrics0)}
+    for kind in ("insert", "query"):
+        if kind in flush_wall:
+            flush_wall[kind]["dispatcher_busy_share"] = flush_wall[kind]["wall_s"] / traffic[kind]["seconds"]
+    del served
+    torch.cuda.empty_cache()
+    out = {
+        "config": cfg, "coalesce_max_keys": SERVER_COALESCE_KEYS, "threads": SERVER_THREADS,
+        "client_processes": SERVER_CLIENT_PROCS, "request_keys": SERVER_REQUEST,
+        "encoding": "keys_fixed, width 16, rows.tobytes()",
+        "insert": {"keys": SERVER_KEYS, "requests": len(inserts), **traffic["insert"],
+                   "keys_per_s": SERVER_KEYS / traffic["insert"]["seconds"]},
+        "query": {"keys": 2 * SERVER_PROBES, "requests": len(queries), **traffic["query"],
+                  "keys_per_s": 2 * SERVER_PROBES / traffic["query"]["seconds"]},
+        "traffic_s": traffic_s, "clients_ready_s": traffic["clients_ready_s"],
+        "flushes": flushes, "flush_wall": flush_wall,
+        "rpc_mean_us": {m: h.get("mean_us") for m, h in rpc["latency"].items()},
+        "rpc_phase_mean_us": {p: h.get("mean_us") for p, h in rpc["phases"].items()},
+        "launches": launches,
+        "max_abs_err": {"insert": insert_err, "presence": presence_err, "restored": restored_err,
+                        "cuckoo": cf_err, "cms": cms_err},
+        "tolerance": 0, "fpr": fpr, "presence_held_present": True,
+        "checkpoint_s": checkpoint_s, "restore_s": restore_s,
+        "health": {"backend": health["backend"], "devices": health["devices"]},
+        "nvidia_smi": dev["nvidia_smi"],
+    }
+    emit("server_path", **out, seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                  s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                  k_launches, k_errs, k_times, sk_launches, sk_errs, sk_times) -> list[dict]:
@@ -3976,6 +4371,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--sketch", action="store_true",
                     help="device, build and the sketch phases only; writes "
                          "chiprun_out/chip_smoke_sketch.json")
+    ap.add_argument("--server", action="store_true",
+                    help="device, build and the gRPC server phase (server_path) only")
     ap.add_argument("--queries", action="store_true",
                     help="device, build, the sketch path and the two query kernels' times only; "
                          "with --ab DIR, those in DIR, here, here and DIR")
@@ -3993,6 +4390,14 @@ def main(argv: list[str]) -> int:
         return 0
     if args.host:
         print(json.dumps({"host_only": host_only()}), flush=True)
+        return 0
+    if args.server:
+        phase_server_path(np.random.default_rng(SEED), dev)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_server.json").write_text(json.dumps(RECORD, indent=1))
+        print(dev["nvidia_smi"], flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
+                                                  "count": dev["count"]}}), flush=True)
         return 0
     if args.times:
         print(json.dumps({"times_only": {**times_only(), "build": RECORD["build"]}}), flush=True)
@@ -4047,6 +4452,7 @@ def main(argv: list[str]) -> int:
     sk_errs = {name: max(err, sk_times[name]["max_abs_err"]) for name, err in sk_errs.items()}
     del cf, cms
     torch.cuda.empty_cache()
+    phase_server_path(rng, dev)
     kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                            s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                            stream["with_sink"]["launches"], k_errs, k_times,

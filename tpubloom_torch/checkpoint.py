@@ -47,6 +47,15 @@ and the framed generations beside it). :class:`AsyncCheckpointer`
 snapshots a filter in the background every ``every_n_inserts`` keys,
 with ``tpubloom``'s interface and semantics (the streaming pipeline's
 checkpoints, :mod:`tpubloom_torch.parallel.pipeline`).
+
+Fault points (:mod:`tpubloom_torch.faults`), as in ``tpubloom``:
+``ckpt.write`` (before the temporary write; the ``torn`` directive writes
+half the blob, the case the restore-side CRC walk must catch),
+``ckpt.fsync`` (before fsync and rename: a raise leaves no partial final
+file) and ``ckpt.restore_read`` (before a blob is read back). Counters
+(:mod:`tpubloom_torch.obs.counters`): ``ckpt_corrupt_detected``,
+``ckpt_restore_read_errors`` and ``ckpt_quarantine_evicted``, which a
+server's Health reasons and metrics read.
 """
 
 from __future__ import annotations
@@ -64,9 +73,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tpubloom_torch import faults
 from tpubloom_torch.config import FilterConfig, identity_mismatch
 from tpubloom_torch.filter import resolve_device
 from tpubloom_torch.interop import new_filter
+from tpubloom_torch.obs import counters as _counters
 from tpubloom_torch.ops import checksum
 from tpubloom_torch.sketch import registry as sketch_registry
 from tpubloom_torch.utils import locks
@@ -303,9 +314,16 @@ class FileSink:
         final = self._path(key_name, seq)
         tmp = final + ".tmp"
         try:
+            directive = faults.fire("ckpt.write")
+            if directive == "torn":
+                # a torn write: the write "succeeds" from the process's
+                # view but half the blob is gone; only the restore-side
+                # CRC walk can catch it
+                blob = blob[: max(1, len(blob) // 2)]
             with open(tmp, "wb") as f:
                 f.write(blob)
                 f.flush()
+                faults.fire("ckpt.fsync")
                 os.fsync(f.fileno())
             os.replace(tmp, final)
         except BaseException:
@@ -339,6 +357,7 @@ class FileSink:
         path = self._path(key_name, seq)
         if not os.path.exists(path):
             return None
+        faults.fire("ckpt.restore_read")
         with open(path, "rb") as f:
             return f.read()
 
@@ -379,6 +398,7 @@ class FileSink:
             try:
                 os.unlink(path)
                 total -= size
+                _counters.incr("ckpt_quarantine_evicted")
             except OSError:
                 pass
 
@@ -689,19 +709,28 @@ def restore(
 
     With no ``seq`` on a sink that lists its generations (``list_seqs``),
     the walk goes newest to oldest: a corrupt blob is quarantined (where
-    the sink can) and the next older one is tried; a blob that cannot be
-    read (``OSError``) is skipped, not quarantined, since its bytes may be
-    fine. Config identity mismatches are not skipped: a wrong config
+    the sink can, counted as ``ckpt_corrupt_detected``) and the next older
+    one is tried; a blob that cannot be read (an I/O error, or the
+    ``ckpt.restore_read`` fault point) is skipped, not quarantined, since
+    its bytes may be fine, and counted as ``ckpt_restore_read_errors``.
+    Config identity mismatches are not skipped: a wrong config
     raises rather than fall back to an older blob that happens to match.
     The payload's CRC32C is checked on the device the filter is rebuilt
     on (the card unless ``device`` names another).
     """
+    locks.note_blocking(
+        "ckpt.restore",
+        allow=("service.registry",),
+        reason="restore-on-create IS the create's commit point and must "
+        "serialize under the registry lock; control-plane-rare",
+    )
     dev = resolve_device(device)
     if seq is None and hasattr(sink, "list_seqs"):
         for s in sink.list_seqs(config.key_name):
             try:
                 blob = sink.get(config.key_name, s)
-            except OSError as e:
+            except Exception as e:
+                _counters.incr("ckpt_restore_read_errors")
                 log.warning(
                     "checkpoint %r seq %d unreadable (%s); trying older",
                     config.key_name, s, e,
@@ -712,6 +741,7 @@ def restore(
             try:
                 header, payload = _deserialize(blob, dev)
             except CheckpointCorruptError as e:
+                _counters.incr("ckpt_corrupt_detected")
                 qpath = (
                     sink.quarantine(config.key_name, s)
                     if hasattr(sink, "quarantine")

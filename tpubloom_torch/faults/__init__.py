@@ -9,11 +9,14 @@ tests and operators arm it with :func:`arm` or the environment. Disarmed
 
 The port fires ``cuckoo.kick`` (a cuckoo insert, before its kernel runs)
 and ``cms.update`` (a count-min or top-k update, before its kernel), so a
-failed-then-retried batch applies exactly once. The other points of
-:data:`KNOWN_POINTS` are the serving, durability and sharding planes'
-(``ckpt.*``, ``rpc.*``, ``repl.*``, ``shard.*`` ...); they are known here
-so that a configuration naming them parses, and the port's modules fire
-them as those planes are ported.
+failed-then-retried batch applies exactly once; ``ckpt.write``,
+``ckpt.fsync`` and ``ckpt.restore_read`` in its checkpoint sink;
+``shard.insert`` / ``shard.query`` / ``shard.delete`` in its sharded
+filter, once per shard a batch routes to, with ``shard=<index>``; and the
+server's ``rpc.*``, ``ingest.*`` and ``stream.*`` points. The replication,
+cluster, storage and HA points are known here so that a configuration
+naming them parses; the port's copies of those planes are not wired to a
+server yet.
 
 Trigger policies (``policy`` argument / env syntax):
 

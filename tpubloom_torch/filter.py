@@ -41,6 +41,7 @@ import torch
 
 from tpubloom_torch.config import FilterConfig
 from tpubloom_torch.obs import context as obs
+from tpubloom_torch.obs import counters as obs_counters
 from tpubloom_torch.ops import sweep
 from tpubloom_torch.params import blocked_fpr
 from tpubloom_torch.utils.packing import (
@@ -464,6 +465,10 @@ class BlockedBloomFilter(_FilterBase):
         return sweep.blocked_test_insert(self.words, keys, lengths, self.config)
 
     def _query(self, keys, lengths) -> torch.Tensor:
+        # tpubloom counts each blocked query launch by the path it took
+        # (sweep or gather); the port has one query kernel, so every launch
+        # counts as a sweep and query_gather_launches stays 0
+        obs_counters.incr("query_sweep_launches")
         return sweep.blocked_query(self.words, keys, lengths, self.config)
 
     def stats(self) -> dict:

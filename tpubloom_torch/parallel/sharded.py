@@ -31,9 +31,14 @@ Layout (the same as ``tpubloom``'s, byte for byte):
   the first slot's device and ORed there, are the answer — the
   counterpart of ``tpubloom``'s ``psum`` over the mesh.
 
-The multi-host join (``parallel/distributed.py``), an NCCL all-reduce
-across cards and the ``shard.*`` fault points are not ported yet (ROADMAP
-queue 1 items 4 and 6).
+Fault points: ``shard.insert``, ``shard.query`` and ``shard.delete``
+(:mod:`tpubloom_torch.faults`) fire once per shard a batch routes to, with
+``shard=<index>``, on every entry point (list, packed and staged), as in
+``tpubloom``; an armed ``shard=N`` predicate fails only the batches that
+touch shard N.
+
+The multi-host join (``parallel/distributed.py``) and an NCCL all-reduce
+across cards are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -45,11 +50,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from tpubloom_torch import faults
 from tpubloom_torch.config import FilterConfig
 from tpubloom_torch.filter import _FilterBase
 from tpubloom_torch.obs import context as obs
 from tpubloom_torch.ops import sweep
-from tpubloom_torch.ops.hashing import M32, ShardRoute
+from tpubloom_torch.ops.hashing import M32, ShardRoute, route_shards
 from tpubloom_torch.utils.packing import redis_bitmap_to_words, words_to_redis_bitmap
 
 
@@ -185,6 +191,63 @@ class ShardedBloomFilter(_FilterBase):
     def _state_tensors(self) -> list[torch.Tensor]:
         return self.slot_words
 
+    # -- per-shard fault points -------------------------------------------------
+
+    def _fire_shard_faults_packed(self, point: str, keys_u8, lengths) -> None:
+        """Fire ``point`` once per shard this packed host batch routes to,
+        with ``shard=<index>``. Disarmed it costs one dict lookup; the
+        host-side routing hash runs only while the point is armed."""
+        if not faults.is_armed(point):
+            return
+        lengths = np.asarray(lengths)
+        routes = route_shards(
+            torch.from_numpy(np.ascontiguousarray(keys_u8)),
+            torch.from_numpy(np.ascontiguousarray(lengths)),
+            self.config.shards, self.config.seed,
+        ).numpy()
+        for shard in sorted({int(r) for r, ln in zip(routes, lengths) if ln >= 0}):
+            faults.fire(point, shard=shard)
+
+    def _fire_shard_faults(self, point: str, keys) -> None:
+        """The list path's hook: packs, then routes."""
+        if not faults.is_armed(point):
+            return
+        keys_u8, lengths, _ = self._pack_padded(keys)
+        self._fire_shard_faults_packed(point, keys_u8, lengths)
+
+    def insert_batch(self, keys) -> None:
+        self._fire_shard_faults("shard.insert", keys)
+        super().insert_batch(keys)
+
+    def include_batch(self, keys) -> np.ndarray:
+        self._fire_shard_faults("shard.query", keys)
+        return super().include_batch(keys)
+
+    #: tells a server's ``_staged_ok`` gate that the staged and packed
+    #: paths keep this filter's fault points
+    staged_fault_points = True
+
+    def stage_batch(self, keys=None, *, rows=None):
+        """A staged batch that also carries the packed host arrays, so
+        that the launches route them for the fault points without packing
+        again. Opaque to callers."""
+        if rows is not None:
+            keys_u8, lengths, B = self._prep_packed(np.asarray(rows, np.uint8))
+        else:
+            keys_u8, lengths, B = self._pack_padded(keys)
+        d_keys, d_lengths = self._stage_batch(keys_u8, lengths)
+        return d_keys, d_lengths, B, keys_u8, lengths
+
+    def launch_insert(self, staged):
+        d_keys, d_lengths, B, keys_u8, lengths = staged
+        self._fire_shard_faults_packed("shard.insert", keys_u8, lengths)
+        return super().launch_insert((d_keys, d_lengths, B))
+
+    def launch_query(self, staged):
+        d_keys, d_lengths, B, keys_u8, lengths = staged
+        self._fire_shard_faults_packed("shard.query", keys_u8, lengths)
+        return super().launch_query((d_keys, d_lengths, B))
+
     # -- staging and the per-slot launches -----------------------------------
 
     def _stage_batch(self, keys_u8: np.ndarray, lengths: np.ndarray):
@@ -256,6 +319,7 @@ class ShardedBloomFilter(_FilterBase):
         """Remove one copy of each key (counting configs only)."""
         if not self.config.counting:
             raise ValueError("delete requires a counting config")
+        self._fire_shard_faults("shard.delete", keys)
         B = self._update_batch(keys, self._delete)
         self.n_inserted = max(0, self.n_inserted - B)
 
