@@ -229,7 +229,35 @@ line each, with the seconds it took (``phase_seconds``):
    flushes and keys a flush, and the dispatcher's time in the flushes; a
    presence batch, a ``Checkpoint`` restored by a second service, and the
    CF / CMS verbs; every result held against a filter or sketch fed the
-   same keys directly (words with tolerance 0).
+   same keys directly (words with tolerance 0);
+29. durable path: the op log, replication and tenant residency
+   (``tpubloom_torch.repl``, ``tpubloom_torch.storage``) on the card, in
+   this process, with the client processes of phase 28's design. A: a
+   primary with an op log and a sink fills 8 tenants of m=2^30 and a
+   counting tenant of 2^28 counters (128 MiB each) with 2^19 keys each
+   (``cnt`` 2^20; the tenants' fill cut from 2^20, ``DUR_CUTS``),
+   and a read-only replica takes the full resync: its seconds and bytes,
+   split into the primary's snapshot (the copy and ``payload_crc32c``, the
+   D2H, the framing), the replica's install (``bytes_crc32c`` and the
+   restore's H2D) and the rest (the transfer). B: the main path's filter
+   created with the replica attached, 2^23 keys as 128 ``InsertBatch``
+   requests of 2^16 under ``min_replicas=1`` with the stream killed once
+   (``repl.stream_send``), one more counting batch; keys/s beside phase
+   28's, the appends' seconds and their host CRC32C's share, the replica's
+   lag, the partial resyncs; the main path's keys queried at the replica
+   and at the primary. C: the primary stopped as a crash leaves it (no
+   final checkpoints) and a fresh service replaying its log: seconds and
+   records/s. D: 128 tenants of m=2^27 (2 GiB) on a 512 MiB budget with a
+   512 MiB warm pool, 2^15 keys each (cut from 2^16), then 2^22 keys
+   inserted and 2^21 queried in requests of 2^14 to tenants picked by
+   Zipf(1.1), sheds retried after their hint; evictions, WARM and COLD
+   hydrations with their p50 / p99 ms, ``memory_allocated`` after every
+   eviction against the budget plus two tenants plus the coalescer's
+   staging; then a restart over the same directories. The replica's words equal the
+   primary's, the replayed words the stopped primary's, every tenant and
+   verdict a direct filter's (tolerance 0); ``blocked_insert``,
+   ``blocked_query``, ``blocked_counting_update`` and ``payload_crc32c``
+   launched on both the primary's side and the replica's.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -239,7 +267,8 @@ present. The full record is written to ``chiprun_out/chip_smoke.json``.
 ``python3 chip_smoke.py --sketch`` runs the device, build and phases 24-27
 only and writes ``chiprun_out/chip_smoke_sketch.json``; ``--server`` runs
 the device, build and phase 28 only and writes
-``chiprun_out/chip_smoke_server.json``. Two other modes
+``chiprun_out/chip_smoke_server.json``; ``--durable`` the device, build
+and phase 29 only, to ``chiprun_out/chip_smoke_durable.json``. Two other modes
 compare kernel builds on one card:
 
     python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18, 19
@@ -3839,71 +3868,6 @@ class FlushClock:
         return out
 
 
-def traffic_client(p: int, addr: str, jobs, barrier, results) -> None:
-    """Client process ``p`` of the server path's traffic: its jobs (the
-    insert jobs and the query jobs, from the queue ``jobs``) over
-    ``SERVER_THREADS // SERVER_CLIENT_PROCS`` ``BloomClient`` threads, each
-    request one fixed-width frame built from the rows (``keys_fixed``:
-    ``rows.tobytes()``, width 16), as a client holding ``uint8[n, 16]``
-    keys sends it. Connected, it meets the server's process at ``barrier``;
-    then the inserts run between the next two meetings and the queries
-    between the two after. The verdicts go back on ``results`` in job
-    order, or the error that stopped the process."""
-    import threading
-
-    from tpubloom_torch.server.client import BloomClient
-
-    def frame(r):
-        return {"name": "main", "keys_fixed": {"data": r.tobytes(), "width": KEY_LEN, "n": len(r)}}
-
-    def fan(jobs, call) -> list:
-        n_threads = SERVER_THREADS // SERVER_CLIENT_PROCS
-        out, errors = [None] * len(jobs), []
-
-        def worker(t):
-            try:
-                for i in range(t, len(jobs), n_threads):
-                    out[i] = call(clients[t], jobs[i])
-            except Exception as e:  # noqa: BLE001 — raised below, after the join
-                errors.append(e)
-
-        threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        if errors:
-            raise errors[0]
-        return out
-
-    def insert(cl, r):
-        check(cl._rpc("InsertBatch", frame(r))["n"] == len(r), "InsertBatch count")
-
-    def query(cl, r):
-        return BloomClient._unpack_bool(cl._rpc("QueryBatch", frame(r)), "hits")
-
-    clients = []
-    try:
-        inserts, queries = jobs.get()
-        clients = [BloomClient(addr) for _ in range(SERVER_THREADS // SERVER_CLIENT_PROCS)]
-        for cl in clients:
-            cl.health()
-        barrier.wait()
-        barrier.wait()
-        fan(inserts, insert)
-        barrier.wait()
-        barrier.wait()
-        hits = fan(queries, query)
-        barrier.wait()
-        results.put((p, hits, None))
-    except BaseException as e:  # noqa: BLE001 — reported to the server's process
-        barrier.abort()
-        results.put((p, None, repr(e)))
-    finally:
-        for cl in clients:
-            cl.close()
-
-
 def device_split(prof) -> dict:
     """The card's own ms in each kernel or copy of a profiler window (its
     device events, by name without the argument list)."""
@@ -3915,68 +3879,182 @@ def device_split(prof) -> dict:
     return out
 
 
-def server_traffic(addr: str, inserts: list, queries: list) -> dict:
-    """The server path's traffic from ``SERVER_CLIENT_PROCS`` client
-    processes (:func:`traffic_client`), so that no client shares the
-    server's GIL: every insert job, then every query job, each part timed
-    on the host clock from the moment the processes start it together to
-    the last reply, under a ``torch.profiler`` window that reads the card's
-    own time. Returns each part's seconds and device split (and the
-    seconds its profiler window held), the seconds the processes took to
-    connect, and the verdicts in job order."""
-    import multiprocessing
+def pool_client(p: int, jobs, barrier, results) -> None:
+    """Client process ``p`` of the server and durable paths
+    (``SERVER_THREADS // SERVER_CLIENT_PROCS`` ``BloomClient`` threads, each
+    request one ``keys_fixed`` frame of the rows, as a client holding
+    ``uint8[n, 16]`` keys sends it). It stays up across parts: it takes
+    ``(address, requests)`` parts from the queue ``jobs``
+    until None, each request ``(method, name, rows, extra fields)``; it
+    meets the server's process at ``barrier`` twice before a part and once
+    after. A request shed with ``RESOURCE_EXHAUSTED`` goes again after its
+    ``retry_after_ms``. Each part puts ``(p, verdicts, sheds, error)`` on
+    ``results`` (verdicts None for an insert)."""
     import threading
 
-    ctx = multiprocessing.get_context("spawn")
-    n = SERVER_CLIENT_PROCS
-    barrier = ctx.Barrier(n + 1, timeout=600)
-    results = ctx.Queue()
-    # the jobs go on queues once every process runs: as arguments they
-    # would be written to each process before the next one starts
-    jobs = [ctx.Queue() for _ in range(n)]
-    procs = [ctx.Process(target=traffic_client, daemon=True,
-                         args=(p, addr, jobs[p], barrier, results)) for p in range(n)]
-    t_start = time.perf_counter()
-    for pr in procs:
-        pr.start()
-    for p, q in enumerate(jobs):
-        q.put((inserts[p::n], queries[p::n]))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    out = {}
-    try:
+    from tpubloom_torch.server.client import BloomClient
+    from tpubloom_torch.server.protocol import BloomServiceError
+
+    n_threads = SERVER_THREADS // SERVER_CLIENT_PROCS
+    part_no = 0
+
+    def call(cl, job, sheds, redrives, t, rid):
+        method, name, r, extra = job
+        req = {"name": name, "keys_fixed": {"data": r.tobytes(), "width": r.shape[1], "n": len(r)},
+               "rid": rid, **extra}
+        while True:
+            try:
+                resp = cl._call_once(method, req, timeout=600)
+                break
+            except BloomServiceError as e:
+                if e.code == "NOT_ENOUGH_REPLICAS" and e.details.get("applied"):
+                    # applied and logged, but the replica was not connected
+                    # (its stream reconnecting): the same rid again waits on
+                    # the quorum once more
+                    redrives[t] += 1
+                    time.sleep(0.02)
+                    continue
+                if e.code != "RESOURCE_EXHAUSTED":
+                    raise
+                sheds[t] += 1
+                time.sleep(float(e.details.get("retry_after_ms") or 50) / 1e3)
+        if method == "QueryBatch":
+            return BloomClient._unpack_bool(resp, "hits")
+        check(resp["n"] == len(r), f"{method} count")
+        return None
+
+    while True:
+        part = jobs.get()
+        if part is None:
+            return
+        addr, reqs = part
+        part_no += 1
+        clients = []
         try:
+            clients = [BloomClient(addr) for _ in range(n_threads)]
+            for cl in clients:
+                cl.health()
+            out, errors = [None] * len(reqs), []
+            sheds, redrives = [0] * n_threads, [0] * n_threads
+
+            def worker(t):
+                try:
+                    for i in range(t, len(reqs), n_threads):
+                        out[i] = call(clients[t], reqs[i], sheds, redrives, t, f"pool-{p}-{part_no}-{i}")
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+
             barrier.wait()
-            out["clients_ready_s"] = time.perf_counter() - t_start
-            for part in ("insert", "query"):
-                t_prof = time.perf_counter()
-                with torch.profiler.profile(activities=acts) as prof:
-                    barrier.wait()
-                    t0 = time.perf_counter()
-                    barrier.wait()
-                    seconds = time.perf_counter() - t0
-                    torch.cuda.synchronize()
-                device = device_split(prof)
-                out[part] = {"seconds": seconds, "device_ms": device,
-                             "device_busy_share": sum(device.values()) / 1e3 / seconds,
-                             "profiled_s": time.perf_counter() - t_prof}
+            barrier.wait()
+            threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            if errors:
+                raise errors[0]
+            barrier.wait()
+            results.put((p, out, (sum(sheds), sum(redrives)), None))
+        except BaseException as e:  # noqa: BLE001 — reported to the server's process
+            barrier.abort()
+            results.put((p, None, (0, 0), repr(e)))
+            return
+        finally:
+            for cl in clients:
+                cl.close()
+
+
+class ClientPool:
+    """``SERVER_CLIENT_PROCS`` spawned :func:`pool_client` processes,
+    started once for every part of a phase; a part's requests go on queues
+    once every process runs (as spawn arguments they would be written to
+    one process before the next starts)."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.n = SERVER_CLIENT_PROCS
+        self.barrier = ctx.Barrier(self.n + 1, timeout=900)
+        self.results = ctx.Queue()
+        self.jobs = [ctx.Queue() for _ in range(self.n)]
+        self.procs = [ctx.Process(target=pool_client, daemon=True,
+                                  args=(p, self.jobs[p], self.barrier, self.results))
+                      for p in range(self.n)]
+        for pr in self.procs:
+            pr.start()
+
+    def run(self, addr: str, reqs: list, window=None) -> dict:
+        """One part: the requests dealt round robin to the processes, run
+        together from one start; its seconds (from the start to the last
+        reply; ``window()``, when given, runs right after, inside the
+        caller's profiler window), the verdicts in request order, the sheds
+        retried, and the seconds the processes took to connect."""
+        import threading
+
+        for p, q in enumerate(self.jobs):
+            q.put((addr, reqs[p::self.n]))
+        t_ready = time.perf_counter()
+        seconds = None
+        try:
+            self.barrier.wait()
+            ready = time.perf_counter() - t_ready
+            self.barrier.wait()
+            t0 = time.perf_counter()
+            self.barrier.wait()
+            seconds = time.perf_counter() - t0
+            if window is not None:
+                window()
         except threading.BrokenBarrierError:
             pass  # a client failed: its error is on the queue
         got = {}
-        for _ in range(n):
-            p, hits, err = results.get(timeout=120)
+        for _ in range(self.n):
+            p, out, sheds, err = self.results.get(timeout=900)
             check(err is None, f"client process {p} failed: {err}")
-            got[p] = hits
-        for pr in procs:
-            pr.join(timeout=60)
-            check(pr.exitcode == 0, f"client process exit code {pr.exitcode}")
-        check("query" in out, "the client processes ran the traffic")
-    finally:
-        barrier.abort()
-        for pr in procs:
+            got[p] = (out, sheds)
+        check(seconds is not None, "the client processes ran the part")
+        return {"seconds": seconds, "ready_s": ready,
+                "out": [got[i % self.n][0][i // self.n] for i in range(len(reqs))],
+                "sheds": sum(s[0] for _, s in got.values()),
+                "quorum_redrives": sum(s[1] for _, s in got.values())}
+
+    def close(self) -> None:
+        for q in self.jobs:
+            q.put(None)
+        for pr in self.procs:
+            pr.join(timeout=30)
             if pr.is_alive():
                 pr.terminate()
                 pr.join()
-    out["hits"] = np.concatenate([got[i % n][i // n] for i in range(len(queries))])
+
+
+def server_traffic(addr: str, inserts: list, queries: list) -> dict:
+    """The server path's traffic from a :class:`ClientPool`, so that no
+    client shares the server's GIL: every insert job, then every query job
+    (``uint8[n, 16]`` rows of the filter "main"), each part timed on the
+    host clock from the moment the processes start it together to the last
+    reply, under a ``torch.profiler`` window that reads the card's own
+    time. Returns each part's seconds and device split (and the seconds its
+    profiler window held), the seconds the processes took to connect, and
+    the verdicts in job order."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    pool = ClientPool()
+    try:
+        for part, method, jobs in (("insert", "InsertBatch", inserts),
+                                   ("query", "QueryBatch", queries)):
+            t_prof = time.perf_counter()
+            with torch.profiler.profile(activities=acts) as prof:
+                run = pool.run(addr, [(method, "main", r, {}) for r in jobs],
+                               window=torch.cuda.synchronize)
+            device = device_split(prof)
+            out.setdefault("clients_ready_s", run["ready_s"])
+            out[part] = {"seconds": run["seconds"], "device_ms": device,
+                         "device_busy_share": sum(device.values()) / 1e3 / run["seconds"],
+                         "profiled_s": time.perf_counter() - t_prof}
+    finally:
+        pool.close()
+    out["hits"] = np.concatenate(run["out"])
     return out
 
 
@@ -4140,6 +4218,624 @@ def phase_server_path(rng, dev: dict) -> dict:
     }
     emit("server_path", **out, seconds=time.perf_counter() - t_phase)
     return out
+
+
+# -- the durable planes: the op log, replication under a sync quorum, residency --
+
+DURABLE_DIR = Path(__file__).resolve().parent / ".durable_state"  # git-ignored; removed at the end
+DUR_TENANTS, DUR_TENANT_LOG2M, DUR_TENANT_KEYS = 8, 30, 1 << 19  # A: 8 x 128 MiB, under the 256 MiB cap
+DUR_CNT_LOG2M, DUR_CNT_KEYS = 28, 1 << 20  # A: the counting tenant, 2^28 4-bit counters (128 MiB)
+DUR_MAIN_KEYS = SERVER_KEYS  # B: 128 InsertBatch requests of 2^16 into the main path's filter
+DUR_QUORUM_TIMEOUT_MS = 120_000
+DUR_RES_TENANTS, DUR_RES_LOG2M, DUR_RES_FILL = 128, 27, 1 << 15  # D: 128 x 16 MiB, 4x the budget
+DUR_RES_INSERTS, DUR_RES_QUERIES, DUR_RES_REQUEST = 1 << 22, 1 << 21, 1 << 14
+DUR_RES_BUDGET = DUR_RES_WARM = 512 << 20
+DUR_ZIPF = 1.1
+DUR_KERNELS = ("blocked_insert", "blocked_query", "blocked_counting_update", "payload_crc32c")
+# fills cut to keep the phase near 150 s (widths never): the host CRC32C
+# of the op log (16 MiB/s on the card's host) sets the phase's time
+DUR_CUTS = ["A: each of the 8 tenants filled with 2^19 keys, not 2^20 (the log's host CRC32C)",
+            "D: each of the 128 tenants filled with 2^15 keys, not 2^16 (the same)"]
+
+
+def dur_config(log2m: int, counting: bool = False) -> dict:
+    """A CreateFilter config of the main path's shape (k=7, block_bits=512,
+    "chunk", 16-byte keys) at m = 2^log2m, a counting one if asked."""
+    cfg = {"m": 1 << log2m, "k": K, "block_bits": BLOCK_BITS, "key_len": KEY_LEN,
+           "block_hash": "chunk"}
+    return {**cfg, "counting": True} if counting else cfg
+
+
+class Clocks:
+    """Host seconds and calls of wrapped functions, by name (a wrapper on
+    the replica's applier thread counts under ``replica_<name>``); every
+    wrapper comes off again in :meth:`undo`."""
+
+    def __init__(self):
+        self.s: dict = {}
+        self.n: dict = {}
+        self._undo: list = []
+
+    def add(self, name: str, dt: float) -> None:
+        self.s[name] = self.s.get(name, 0.0) + dt
+        self.n[name] = self.n.get(name, 0) + 1
+
+    def wrap(self, obj, attr: str, name: str, sync: bool = False, size=None) -> None:
+        """Time ``obj.attr`` under ``name``; ``sync`` waits for the card
+        inside the timed call; ``size(result)`` adds bytes under
+        ``<name>_bytes``."""
+        import threading
+
+        orig = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            side = "replica_" if threading.current_thread().name == "tpubloom-replica" else ""
+            t0 = time.perf_counter()
+            try:
+                res = orig(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                if size is not None:
+                    self.s[side + name + "_bytes"] = self.s.get(side + name + "_bytes", 0) + size(res)
+                return res
+            finally:
+                self.add(side + name, time.perf_counter() - t0)
+
+        self._undo.append((obj, attr, orig, attr in vars(obj)))
+        setattr(obj, attr, timed)
+
+    def undo(self) -> None:
+        for obj, attr, orig, own in reversed(self._undo):
+            if own:
+                setattr(obj, attr, orig)
+            else:
+                delattr(obj, attr)
+        self._undo.clear()
+
+    def take(self) -> dict:
+        """The seconds and calls so far, then zero."""
+        out = {k: ({"s": v, "calls": self.n[k]} if k in self.n else v) for k, v in sorted(self.s.items())}
+        self.s, self.n = {}, {}
+        return out
+
+
+class SidedLaunches(dict):
+    """A kernel wrapper's launch counter (it stands in for ``sweep.LAUNCHES``
+    and ``checksum.LAUNCHES`` in the durable phase) that also counts each
+    launch under the side that made it: the replica's when the replica's
+    applier thread launched it, or when a window names the replica; the
+    primary's otherwise."""
+
+    window = None
+
+    def __init__(self, base: dict):
+        super().__init__(base)
+        self.sides: dict = {"primary": {}, "replica": {}}
+
+    def __setitem__(self, key, value):
+        d = value - self.get(key, 0)
+        super().__setitem__(key, value)
+        if d > 0:
+            import threading
+
+            side = SidedLaunches.window or (
+                "replica" if threading.current_thread().name == "tpubloom-replica" else "primary")
+            self.sides[side][key] = self.sides[side].get(key, 0) + d
+
+
+def crc_clock(clocks: Clocks) -> None:
+    """Time each op-log record's CRC32C (on the host) apart from the rest
+    of its framing: under ``crc_encode`` in an append, ``crc_decode`` in a
+    read of the log (the primary's stream to a replica, a replay), with
+    the MiB it covered."""
+    import threading
+
+    from tpubloom_torch.repl import record as rec
+
+    mode = threading.local()
+    crc = rec.crc32c
+
+    def timed_crc(data, *a):
+        m = getattr(mode, "m", "other")
+        t0 = time.perf_counter()
+        try:
+            return crc(data, *a)
+        finally:
+            clocks.add(f"crc_{m}", time.perf_counter() - t0)
+            clocks.s[f"crc_{m}_mib"] = clocks.s.get(f"crc_{m}_mib", 0.0) + len(data) / 2**20
+
+    def framed(fn, m):
+        def call(*a, **kw):
+            mode.m = m
+            try:
+                return fn(*a, **kw)
+            finally:
+                mode.m = "other"
+        return call
+
+    for attr, m in (("encode_record", "encode"), ("decode_record", "decode")):
+        clocks._undo.append((rec, attr, getattr(rec, attr), True))
+        setattr(rec, attr, framed(getattr(rec, attr), m))
+    clocks._undo.append((rec, "crc32c", crc, True))
+    rec.crc32c = timed_crc
+
+
+def crash_stop(svc, srv) -> None:
+    """Stop a service as a crash leaves its disk: the gRPC server stopped,
+    parked requests flushed, checkpointers closed without a final
+    checkpoint (a restart then replays the log), the op log closed. Its
+    filters stay in memory for the comparison."""
+    srv.stop(grace=None)
+    svc.begin_drain()
+    if svc._coalescer is not None:
+        svc._coalescer.close()
+    release(svc, keep=True)
+    if svc.oplog is not None:
+        svc.oplog.close()
+
+
+def release(svc, keep: bool = False) -> None:
+    """Close every checkpointer of a stopped service without a checkpoint,
+    and drop its filters unless ``keep``."""
+    for mf in list(svc._filters.values()):
+        if mf.checkpointer is not None:
+            mf.checkpointer.close(final_checkpoint=False)
+    if not keep:
+        svc._filters.clear()
+
+
+def on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def filter_errs(a, b, names) -> dict:
+    """``max_abs_err`` of each named filter's words, service ``a`` against
+    service ``b`` (both on the card)."""
+    errs = {}
+    for name in names:
+        wa, wb = a._filters[name].filter.words, b._filters[name].filter.words
+        check(on_card(wa) and on_card(wb), f"{name} on the card in both")
+        errs[name] = max_abs_err(wa, wb)
+    return errs
+
+
+def host_crc() -> dict:
+    """The host CRC32C that frames op-log records: which path runs, and
+    its rate on 16 MiB."""
+    from tpubloom_torch.utils import crc32c as crc_mod
+
+    data = np.random.default_rng(1).integers(0, 256, 16 << 20, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    crc_mod.crc32c(data)
+    return {"path": "crc32c wheel" if crc_mod._crc32c_accel is not None else "numpy slicing-by-8",
+            "mib_per_s": 16 / (time.perf_counter() - t0)}
+
+
+def log_share(clk: dict) -> dict:
+    """The appends' seconds and the CRC's share of them, from a
+    :class:`Clocks` reading."""
+    append = clk.get("append", {}).get("s", 0.0)
+    enc = clk.get("crc_encode", {}).get("s", 0.0)
+    return {"append_s": append, "appends": clk.get("append", {}).get("calls", 0),
+            "append_crc_s": enc, "append_crc_mib": clk.get("crc_encode_mib", 0.0),
+            "crc_share_of_append": enc / append if append else None,
+            "read_crc_s": clk.get("crc_decode", {}).get("s", 0.0),
+            "read_crc_mib": clk.get("crc_decode_mib", 0.0)}
+
+
+def zipf_tenants(rng, n: int, tenants: int) -> np.ndarray:
+    """``n`` tenant indices by Zipf(``DUR_ZIPF``) over ``tenants`` (index 0
+    the hottest)."""
+    p = 1.0 / np.arange(1, tenants + 1) ** DUR_ZIPF
+    return rng.choice(tenants, size=n, p=p / p.sum())
+
+
+def percentiles_ms(xs: list) -> dict:
+    if not xs:
+        return {"n": 0, "p50_ms": None, "p99_ms": None}
+    a = np.asarray(xs) * 1e3
+    return {"n": len(xs), "p50_ms": float(np.percentile(a, 50)), "p99_ms": float(np.percentile(a, 99))}
+
+
+def phase_durable_path(rng, dev: dict) -> dict:
+    """The port's durable planes on the card, all in this process
+    (``durable_path``; ``--durable`` alone): A, a full resync of 8 tenants
+    of m=2^30 and a counting tenant of 2^28 counters to a replica; B, the
+    main path's filter (m=2^32) filled with 2^23 keys under
+    ``min_replicas=1`` while the stream is killed once; C, a restart that
+    replays the log; D, 128 tenants of m=2^27 paged through a 512 MiB
+    budget under Zipf(1.1) traffic, then restarted. Every filter is held
+    against the primary, the stopped primary or a direct filter fed the
+    same keys (tolerance 0)."""
+    import threading
+
+    from tpubloom_torch import faults
+    from tpubloom_torch.filter import _FilterBase
+    from tpubloom_torch.repl import OpLog, ReplicaApplier
+    from tpubloom_torch.server import ingest, service
+    from tpubloom_torch.server.client import BloomClient
+
+    t_phase = time.perf_counter()
+    if DURABLE_DIR.exists():
+        shutil.rmtree(DURABLE_DIR)
+    DURABLE_DIR.mkdir()
+    saved = (sweep.LAUNCHES, checksum.LAUNCHES)
+    sided = (SidedLaunches(sweep.LAUNCHES), SidedLaunches(checksum.LAUNCHES))
+    sweep.LAUNCHES, checksum.LAUNCHES = sided
+    out: dict = {"host_crc": host_crc(), "cuts": DUR_CUTS, "tolerance": 0,
+                 "server_path_insert_keys_per_s":
+                     RECORD.get("server_path", {}).get("insert", {}).get("keys_per_s")}
+    clocks = Clocks()
+    pool = ClientPool()
+    stopped: list = []  # (service, server) pairs to stop at the end
+
+    def sink_at(d):
+        return lambda config: checkpoint.FileSink(str(DURABLE_DIR / d))
+
+    def sides() -> dict:
+        return {s: {**sided[0].sides[s], **sided[1].sides[s]} for s in ("primary", "replica")}
+
+    def serve(svc):
+        srv, port = service.build_server(svc, "127.0.0.1:0")
+        srv.start()
+        svc.listen_address = f"127.0.0.1:{port}"
+        stopped.append((svc, srv))
+        return srv, svc.listen_address
+
+    try:
+        # -- A: a full resync at tenant scale ------------------------------------
+        t_a = time.perf_counter()
+        plog = OpLog(str(DURABLE_DIR / "log"))
+        psvc = service.BloomService(sink_factory=sink_at("ckpt"), oplog=plog,
+                                    coalesce=ingest.CoalesceConfig(max_keys=SERVER_COALESCE_KEYS))
+        psrv, paddr = serve(psvc)
+        clocks.wrap(plog, "append", "append")
+        crc_clock(clocks)
+        tenants = [f"t{i}" for i in range(DUR_TENANTS)]
+        with BloomClient(paddr) as c:
+            for name in tenants:
+                c.create_filter(name, config=dur_config(DUR_TENANT_LOG2M))
+            c.create_filter("cnt", config=dur_config(DUR_CNT_LOG2M, counting=True))
+        keys = {name: rows(rng, DUR_TENANT_KEYS) for name in tenants}
+        keys["cnt"] = rows(rng, DUR_CNT_KEYS)
+        reqs = [("InsertBatch", name, r[i:i + SERVER_REQUEST], {})
+                for name, r in keys.items() for i in range(0, len(r), SERVER_REQUEST)]
+        fill = pool.run(paddr, reqs)
+        n_fill = sum(len(r) for r in keys.values())
+        out["A_fill"] = {"keys": n_fill, "requests": len(reqs), "seconds": fill["seconds"],
+                         "keys_per_s": n_fill / fill["seconds"], "clients_ready_s": fill["ready_s"],
+                         "records": plog.last_seq, **log_share(clocks.take())}
+        # the replica: read-only, its applier on this card, no coalescer
+        for obj, attr, name, sync, size in (
+                (checkpoint, "snapshot_blob", "snapshot", False, lambda r: len(r[2])),
+                (checkpoint, "_serialize", "serialize", False, None),
+                (checksum, "payload_crc32c", "payload_crc32c", False, None),
+                (checkpoint, "_frame", "frame", False, None),
+                (checksum, "bytes_crc32c", "bytes_crc32c", False, None),
+                (checkpoint, "payload_to_words", "payload_to_words", False, None),
+                (_FilterBase, "_set_words", "set_words", True, None)):
+            clocks.wrap(obj, attr, name, sync=sync, size=size)
+        rsvc = service.BloomService(read_only=True)
+        rsrv, raddr = serve(rsvc)
+        clocks.wrap(rsvc, "install_snapshot", "install", sync=True)
+        t0 = time.perf_counter()
+        applier = ReplicaApplier(rsvc, paddr, reconnect_base=0.05, listen_address=raddr).start()
+        check(applier.wait_for_seq(plog.last_seq, 600), f"the replica caught up: {applier.status()}")
+        resync_s = time.perf_counter() - t0
+        check(applier.full_syncs == 1, "one full resync")
+        clk = clocks.take()
+        snap_s = clk.get("snapshot", {}).get("s", 0.0)
+        install_s = clk.get("replica_install", {}).get("s", 0.0)
+        tail_crc = clk.get("crc_decode", {}).get("s", 0.0)
+        crc_p = clk.get("payload_crc32c", {}).get("s", 0.0)
+        frame_s = clk.get("frame", {}).get("s", 0.0)
+        out["A_resync"] = {
+            "seconds": resync_s, "blobs": clk.get("snapshot", {}).get("calls", 0),
+            "bytes": clk.get("snapshot_bytes", 0),
+            "primary_snapshot_s": snap_s,
+            "primary_copy_and_payload_crc32c_s": crc_p,
+            "primary_d2h_s": clk.get("serialize", {}).get("s", 0.0) - crc_p - frame_s,
+            "primary_frame_s": frame_s,
+            "replica_install_s": install_s,
+            "replica_bytes_crc32c_s": clk.get("replica_bytes_crc32c", {}).get("s", 0.0),
+            "replica_payload_to_words_s": clk.get("replica_payload_to_words", {}).get("s", 0.0),
+            "replica_set_words_s": clk.get("replica_set_words", {}).get("s", 0.0),
+            "primary_tail_read_crc_s": tail_crc,
+            "primary_tail_read_mib": clk.get("crc_decode_mib", 0.0),
+            "transfer_and_overlap_s": resync_s - snap_s - install_s - tail_crc,
+            "gbytes_per_s": clk.get("snapshot_bytes", 0) / resync_s / 1e9,
+            "host_clock": clk,
+        }
+        errs = filter_errs(psvc, rsvc, [*tenants, "cnt"])
+        check(max(errs.values()) == 0, f"replica words equal the primary's after the resync: {errs}")
+        out["A_resync"]["max_abs_err"] = errs
+        out["A_seconds"] = time.perf_counter() - t_a
+        emit("durable_path_A", **{k: out[k] for k in ("host_crc", "A_fill", "A_resync", "A_seconds")})
+
+        # -- B: the log's tail at full width, under a sync quorum -------------------
+        t_b = time.perf_counter()
+        with BloomClient(paddr) as c:
+            c.create_filter("main", config=dur_config(LOG2M))
+        main_keys = rows(rng, DUR_MAIN_KEYS)
+        quorum = {"min_replicas": 1, "min_replicas_timeout_ms": DUR_QUORUM_TIMEOUT_MS}
+        reqs = [("InsertBatch", "main", main_keys[i:i + SERVER_REQUEST], quorum)
+                for i in range(0, DUR_MAIN_KEYS, SERVER_REQUEST)]
+        seq0, partial0 = plog.last_seq, applier.partial_syncs
+        lag, stop = [], threading.Event()
+
+        def watch():
+            while not stop.is_set():
+                lag.append(plog.last_seq - (applier.cursor or 0))
+                time.sleep(0.01)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        # the stream dies at the first record it sends after this: the
+        # traffic's first flush (heartbeats do not fire the point)
+        faults.arm("repl.stream_send", "once")
+        tail = pool.run(paddr, reqs)
+        stop.set()
+        watcher.join()
+        faults.reset()
+        cnt_more = rows(rng, SERVER_REQUEST)
+        keys["cnt"] = np.concatenate([keys["cnt"], cnt_more])
+        with BloomClient(paddr) as c:
+            r = c._rpc("InsertBatch", {"name": "cnt", "keys_fixed": {
+                "data": cnt_more.tobytes(), "width": KEY_LEN, "n": len(cnt_more)}, **quorum})
+            check(r.get("acked_replicas") == 1, "the cnt batch acked by the replica")
+        check(applier.wait_for_seq(plog.last_seq, 600), f"the replica caught up: {applier.status()}")
+        torch.cuda.synchronize()
+        clk = clocks.take()
+        partials = applier.partial_syncs - partial0
+        check(partials >= 1, "at least one partial resync after the stream was killed")
+        check(applier.full_syncs == 1, "no second full resync")
+        out["B_tail"] = {
+            "keys": DUR_MAIN_KEYS, "requests": len(reqs), "seconds": tail["seconds"],
+            "keys_per_s": DUR_MAIN_KEYS / tail["seconds"], "records": plog.last_seq - seq0,
+            "replica_lag_records": {"max": int(max(lag)) if lag else 0,
+                                    "mean": float(np.mean(lag)) if lag else 0.0},
+            "partial_resyncs": partials, "quorum": quorum,
+            "quorum_redrives": tail["quorum_redrives"], **log_share(clk), "host_clock": clk,
+        }
+        # held and fresh keys of main, queried at the replica, then at the primary
+        held = main_keys[rng.choice(DUR_MAIN_KEYS, SERVER_PROBES, replace=False)]
+        fresh = rows(rng, SERVER_PROBES)
+        probes = [("QueryBatch", "main", r[i:i + SERVER_REQUEST], {})
+                  for r in (held, fresh) for i in range(0, SERVER_PROBES, SERVER_REQUEST)]
+        verdicts = {}
+        for side, addr in (("replica", raddr), ("primary", paddr)):
+            SidedLaunches.window = side
+            try:
+                q = pool.run(addr, probes)
+            finally:
+                SidedLaunches.window = None
+            verdicts[side] = np.concatenate(q["out"])
+            out["B_tail"][f"{side}_query_keys_per_s"] = 2 * SERVER_PROBES / q["seconds"]
+        errs = filter_errs(psvc, rsvc, [*tenants, "cnt", "main"])
+        check(max(errs.values()) == 0, f"replica words equal the primary's: {errs}")
+        direct = BlockedBloomFilter(FilterConfig(key_name="main", **dur_config(LOG2M)))
+        direct.insert_packed(main_keys)
+        errs["main_vs_direct"] = max_abs_err(psvc._filters["main"].filter.words, direct.words)
+        check(errs["main_vs_direct"] == 0, "main equals a filter fed the same keys directly")
+        want = np.concatenate([np.ones(SERVER_PROBES, bool), direct.include_packed(fresh)])
+        check(np.array_equal(verdicts["replica"], want) and np.array_equal(verdicts["primary"], want),
+              "the replica's and the primary's verdicts equal the direct filter's")
+        del direct
+        out["B_tail"]["max_abs_err"] = errs
+        out["B_seconds"] = time.perf_counter() - t_b
+        out["launches_A_B"] = sides()
+        emit("durable_path_B", **{k: out[k] for k in ("B_tail", "B_seconds", "launches_A_B")})
+        for side in ("primary", "replica"):
+            for name in DUR_KERNELS:
+                check(out["launches_A_B"][side].get(name, 0) > 0, f"{name} launched on the {side}'s side")
+
+        # -- C: a restart from the log -------------------------------------------------
+        t_c = time.perf_counter()
+        applier.stop()
+        rsrv.stop(grace=None)
+        release(rsvc)
+        crash_stop(psvc, psrv)
+        clocks.take()
+        t0 = time.perf_counter()
+        clog = OpLog(str(DURABLE_DIR / "log"))  # its recovery scan reads every record
+        open_s = time.perf_counter() - t0
+        open_clk = clocks.take()
+        csvc = service.BloomService(sink_factory=sink_at("ckpt"), oplog=clog)
+        stopped.append((csvc, None))
+        before = {**sided[0], **sided[1]}
+        t0 = time.perf_counter()
+        stats = csvc.replay_oplog()
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        clk = clocks.take()
+        check(stats["failed"] == 0, f"replay failed records: {stats}")
+        errs = filter_errs(psvc, csvc, [*tenants, "cnt", "main"])
+        check(max(errs.values()) == 0, f"replayed words equal the stopped primary's: {errs}")
+        n_rec = stats["applied"] + stats["skipped"]
+        out["C_replay"] = {"log_open_s": open_s,
+                           "log_open_read_crc_s": open_clk.get("crc_decode", {}).get("s", 0.0),
+                           "recover_s": open_s + replay_s,
+                           "seconds": replay_s, "records": n_rec, "records_per_s": n_rec / replay_s,
+                           "stats": stats, "log_mib": clk.get("crc_decode_mib", 0.0),
+                           "read_crc_s": clk.get("crc_decode", {}).get("s", 0.0),
+                           "launches": {k: v - before.get(k, 0) for k, v in {**sided[0], **sided[1]}.items()
+                                        if v - before.get(k, 0)},
+                           "max_abs_err": errs}
+        release(csvc)
+        release(psvc)
+        clog.close()
+        del applier, rsvc, psvc, csvc
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["C_seconds"] = time.perf_counter() - t_c
+        emit("durable_path_C", **{k: out[k] for k in ("C_replay", "C_seconds")})
+
+        # -- D: residency ------------------------------------------------------------------
+        t_d = time.perf_counter()
+        out["D_residency"] = phase_residency(rng, pool, clocks, serve, sink_at)
+        out["D_seconds"] = time.perf_counter() - t_d
+    finally:
+        clocks.undo()
+        faults.reset()
+        SidedLaunches.window = None
+        sweep.LAUNCHES, checksum.LAUNCHES = saved
+        for d, s in zip(saved, sided):
+            d.update(s)
+        pool.close()
+        for svc, srv in stopped:
+            if srv is not None:
+                srv.stop(grace=None)
+            if svc.replica_applier is not None:
+                svc.replica_applier.stop()
+            release(svc)
+            if svc._coalescer is not None:
+                svc._coalescer.close()
+            if svc.oplog is not None:
+                svc.oplog.close()
+        shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit("durable_path", **out, nvidia_smi=dev["nvidia_smi"], seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def phase_residency(rng, pool, clocks, serve, sink_at) -> dict:
+    """D of :func:`phase_durable_path`: ``DUR_RES_TENANTS`` tenants of
+    m=2^27 with a 512 MiB budget and a 512 MiB warm pool, an op log and a
+    sink; traffic by Zipf(1.1) over the tenants; every tenant and verdict
+    against a direct filter fed its keys; ``memory_allocated`` sampled
+    after every eviction; then a restart over the same directories."""
+    from tpubloom_torch.repl import OpLog
+    from tpubloom_torch.server import ingest, service
+    from tpubloom_torch.server.client import BloomClient
+    from tpubloom_torch.storage import StorageConfig
+
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tenant_bytes = (1 << DUR_RES_LOG2M) // 8
+    staging = 2 * SERVER_COALESCE_KEYS * (KEY_LEN + 4 + 1)
+    bound = DUR_RES_BUDGET + 2 * tenant_bytes + staging
+    storage = dict(max_resident_bytes=DUR_RES_BUDGET, warm_pool_bytes=DUR_RES_WARM)
+    dlog = OpLog(str(DURABLE_DIR / "dlog"))
+    dsvc = service.BloomService(sink_factory=sink_at("dckpt"), oplog=dlog,
+                                storage=StorageConfig(**storage),
+                                coalesce=ingest.CoalesceConfig(max_keys=SERVER_COALESCE_KEYS))
+    dsrv, daddr = serve(dsvc)
+    store = dsvc.storage
+    samples, detail, evict_s, hyd = [], [], [], {"warm": [], "cold": []}
+    evict, hydrate = store._evict, store._hydrate
+
+    def sampled_evict(name):
+        t0 = time.perf_counter()
+        evict(name)
+        evict_s.append(time.perf_counter() - t0)
+        evicting = sum(1 for e in list(store._entries.values()) if e.state == "evicting")
+        samples.append(torch.cuda.memory_allocated() - base)
+        detail.append((samples[-1], store._resident_bytes, store._hydrating, evicting))
+
+    def timed_hydrate(name):
+        e = store._entries.get(name)
+        tier = "warm" if e is not None and e.blob is not None else "cold"
+        t0 = time.perf_counter()
+        try:
+            return hydrate(name)
+        finally:
+            hyd[tier].append(time.perf_counter() - t0)
+
+    store._evict, store._hydrate = sampled_evict, timed_hydrate
+    names = [f"r{i:03d}" for i in range(DUR_RES_TENANTS)]
+    cfg = dur_config(DUR_RES_LOG2M)
+    t0 = time.perf_counter()
+    with BloomClient(daddr) as c:
+        for name in names:
+            c.create_filter(name, config=cfg)
+    create_s = time.perf_counter() - t0
+    held = {name: rows(rng, DUR_RES_FILL) for name in names}
+    keys = {name: [held[name]] for name in names}
+    fill = pool.run(daddr, [("InsertBatch", n, held[n], {}) for n in names])
+    who = zipf_tenants(rng, DUR_RES_INSERTS // DUR_RES_REQUEST, DUR_RES_TENANTS)
+    inserts = []
+    for t in who:
+        r = rows(rng, DUR_RES_REQUEST)
+        keys[names[t]].append(r)
+        inserts.append(("InsertBatch", names[t], r, {}))
+    qwho = zipf_tenants(rng, DUR_RES_QUERIES // DUR_RES_REQUEST, DUR_RES_TENANTS)
+    half = DUR_RES_REQUEST // 2
+    queries = [("QueryBatch", names[t],
+                np.concatenate([held[names[t]][rng.choice(DUR_RES_FILL, half, replace=False)],
+                                rows(rng, half)]), {}) for t in qwho]
+    n0 = (len(samples), len(hyd["warm"]), len(hyd["cold"]))
+    ins = pool.run(daddr, inserts)
+    qry = pool.run(daddr, queries)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    clk = clocks.take()
+    summary = store.summary()
+    # every tenant and every verdict against a direct filter fed its keys
+    direct, errs = {}, {}
+    for name in names:
+        f = BlockedBloomFilter(FilterConfig(key_name=name, **cfg))
+        f.insert_packed(np.concatenate(keys[name]))
+        direct[name] = f
+    for (_, name, r, _), got in zip(queries, qry["out"]):
+        check(got[:half].all(), f"{name}: held keys hit")
+        check(np.array_equal(got, direct[name].include_packed(r)), f"{name}: verdicts equal the direct filter's")
+
+    def tenant_errs(svc) -> dict:
+        out = {}
+        for name in names:
+            blob, _ = svc.storage.peek_blob(name)
+            f = checkpoint.restore_blob(blob)
+            out[name] = max_abs_err(f.words, direct[name].words)
+            del f
+        return out
+
+    errs["served"] = max(tenant_errs(dsvc).values())
+    check(errs["served"] == 0, "every tenant equals its direct filter")
+    worst = detail[int(np.argmax(samples))]
+    check(max(samples) <= bound, f"memory_allocated after an eviction {max(samples)} over {bound}: "
+          f"(allocated, resident bytes, hydrating, evicting) {worst}")
+    # a restart over the same directories
+    dsrv.stop(grace=None)
+    dsvc.shutdown()
+    dlog.close()
+    t0 = time.perf_counter()
+    d2log = OpLog(str(DURABLE_DIR / "dlog"))
+    open_s = time.perf_counter() - t0
+    d2svc = service.BloomService(sink_factory=sink_at("dckpt"), oplog=d2log,
+                                 storage=StorageConfig(**storage))
+    serve(d2svc)
+    t0 = time.perf_counter()
+    stats = d2svc.replay_oplog()
+    restart_s = time.perf_counter() - t0
+    check(sorted(d2svc.storage.names()) == names, "every tenant came back")
+    errs["restarted"] = max(tenant_errs(d2svc).values())
+    check(errs["restarted"] == 0, "every restarted tenant equals its direct filter")
+    del direct
+    return {
+        "tenants": DUR_RES_TENANTS, "tenant_bytes": tenant_bytes, "budget_bytes": DUR_RES_BUDGET,
+        "warm_pool_bytes": DUR_RES_WARM, "create_s": create_s,
+        "fill": {"keys": DUR_RES_TENANTS * DUR_RES_FILL, "seconds": fill["seconds"], "sheds": fill["sheds"]},
+        "insert": {"keys": DUR_RES_INSERTS, "requests": len(inserts), "seconds": ins["seconds"],
+                   "keys_per_s": DUR_RES_INSERTS / ins["seconds"], "sheds": ins["sheds"]},
+        "query": {"keys": DUR_RES_QUERIES, "requests": len(queries), "seconds": qry["seconds"],
+                  "keys_per_s": DUR_RES_QUERIES / qry["seconds"], "sheds": qry["sheds"]},
+        "evictions": len(samples), "evictions_in_traffic": len(samples) - n0[0],
+        "hydrations": {tier: percentiles_ms(v) for tier, v in hyd.items()},
+        "hydrations_in_traffic": {"warm": len(hyd["warm"]) - n0[1], "cold": len(hyd["cold"]) - n0[2]},
+        "memory_allocated_after_eviction": {
+            "max": max(samples), "bound": bound, "baseline": base, "staging_bound": staging,
+            "at_max": dict(zip(("allocated", "resident_bytes", "hydrating", "evicting"), worst))},
+        "max_memory_allocated": peak, "summary": summary,
+        "restart": {"log_open_s": open_s, "seconds": restart_s, "stats": stats},
+        "evict_ms": percentiles_ms(evict_s), "max_abs_err": errs,
+        **log_share(clk),
+    }
 
 
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
@@ -4373,6 +5069,8 @@ def main(argv: list[str]) -> int:
                          "chiprun_out/chip_smoke_sketch.json")
     ap.add_argument("--server", action="store_true",
                     help="device, build and the gRPC server phase (server_path) only")
+    ap.add_argument("--durable", action="store_true",
+                    help="device, build and the durable planes' phase (durable_path) only")
     ap.add_argument("--queries", action="store_true",
                     help="device, build, the sketch path and the two query kernels' times only; "
                          "with --ab DIR, those in DIR, here, here and DIR")
@@ -4391,10 +5089,15 @@ def main(argv: list[str]) -> int:
     if args.host:
         print(json.dumps({"host_only": host_only()}), flush=True)
         return 0
-    if args.server:
-        phase_server_path(np.random.default_rng(SEED), dev)
+    if args.server or args.durable:
+        rng = np.random.default_rng(SEED)
+        if args.server:
+            phase_server_path(rng, dev)
+        if args.durable:
+            phase_durable_path(rng, dev)
         OUT_DIR.mkdir(exist_ok=True)
-        (OUT_DIR / "chip_smoke_server.json").write_text(json.dumps(RECORD, indent=1))
+        name = "chip_smoke_server.json" if args.server else "chip_smoke_durable.json"
+        (OUT_DIR / name).write_text(json.dumps(RECORD, indent=1))
         print(dev["nvidia_smi"], flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                                   "count": dev["count"]}}), flush=True)
@@ -4453,6 +5156,7 @@ def main(argv: list[str]) -> int:
     del cf, cms
     torch.cuda.empty_cache()
     phase_server_path(rng, dev)
+    phase_durable_path(rng, dev)
     kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                            s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                            stream["with_sink"]["launches"], k_errs, k_times,

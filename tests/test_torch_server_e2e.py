@@ -1,9 +1,10 @@
 """The port's server as its users start it: ``python -m
 tpubloom_torch.server`` in a subprocess on the CPU, driven by the port's
 coalesced ``BloomClient`` from several threads; the flags and constructor
-arguments of planes not ported yet, refused by name; and the import
-boundary: no module of ``jax`` or ``tpubloom`` is loaded by the port's
-server, its client, or any of the modules they bring in."""
+arguments of the durable planes (op log, replication, residency) building
+their objects, and those of planes not ported yet refused by name; and
+the import boundary: no module of ``jax`` or ``tpubloom`` is loaded by the
+port's server, its client, or any of the modules they bring in."""
 
 import os
 import re
@@ -39,6 +40,8 @@ NEW_MODULES = [
     "tpubloom_torch.repl.log", "tpubloom_torch.repl.monitor",
     "tpubloom_torch.repl.primary", "tpubloom_torch.repl.record",
     "tpubloom_torch.repl.replica", "tpubloom_torch.utils.crcjson",
+    "tpubloom_torch.storage", "tpubloom_torch.storage.residency",
+    "tpubloom_torch.ha", "tpubloom_torch.ha.topology",
 ]
 
 
@@ -68,9 +71,11 @@ def _foreign(names) -> list:
 
 
 def test_new_modules_serve_without_jax(tmp_path):
-    """Every module of the serving plane imports, and a port server
-    serves a request through the client, with no ``jax`` or ``tpubloom``
-    module in ``sys.modules``."""
+    """Every module of the serving plane imports, and a port server with
+    an op log and tenant residency serves requests through the client (one
+    of them to a tenant it paged out, which hydrates) and replicates them
+    to a port replica, with no ``jax`` or ``tpubloom`` module in
+    ``sys.modules``."""
     code = f"""
 import importlib, sys
 for m in {NEW_MODULES!r}:
@@ -78,16 +83,31 @@ for m in {NEW_MODULES!r}:
 from tpubloom_torch.server.client import BloomClient
 from tpubloom_torch.server.service import BloomService, build_server
 from tpubloom_torch import checkpoint as ckpt
-svc = BloomService(sink_factory=lambda c: ckpt.FileSink({str(tmp_path)!r}), device="cpu")
+from tpubloom_torch.repl import OpLog, ReplicaApplier
+from tpubloom_torch.storage import StorageConfig
+log = OpLog({str(tmp_path / "log")!r})
+svc = BloomService(sink_factory=lambda c: ckpt.FileSink({str(tmp_path)!r}), device="cpu",
+                   oplog=log, storage=StorageConfig(max_resident_filters=1))
 srv, port = build_server(svc, "127.0.0.1:0")
 srv.start()
+rsvc = BloomService(read_only=True, device="cpu")
+applier = ReplicaApplier(rsvc, f"127.0.0.1:{{port}}", reconnect_base=0.05).start()
 with BloomClient(f"127.0.0.1:{{port}}") as c:
     c.create_filter("f", config={{"m": 1 << 16, "k": 5, "block_bits": 512}})
+    c.create_filter("g", config={{"m": 1 << 16, "k": 5, "block_bits": 512}})
+    assert list(svc._filters) == ["g"]
     c.insert_batch("f", [b"a" * 16, b"b" * 16])
+    assert c.include_batch("g", [b"a" * 16]).tolist() == [False]
+    assert list(svc._filters) == ["g"]
     assert c.include_batch("f", [b"a" * 16, b"z" * 16]).tolist() == [True, False]
+    assert svc.storage.summary()["resident"] == 1
     c.checkpoint("f")
+assert applier.wait_for_seq(log.last_seq, 60), applier.status()
+assert rsvc._filters["f"].filter.words.equal(svc._filters["f"].filter.words)
+applier.stop()
 srv.stop(grace=None)
 svc.shutdown()
+log.close()
 print("FOREIGN", sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "tpubloom")))
 """
     out = subprocess.run(
@@ -217,12 +237,7 @@ def test_server_without_card_exits_with_resolve_device_error(tmp_path):
 
 
 @pytest.mark.parametrize("argv,slice_word", [
-    (["--replica-of", "127.0.0.1:1"], "replication"),
-    (["--repl-log-dir", "oplog"], "replication"),
-    (["--min-replicas-to-write", "1", "--repl-log-dir", "oplog"], "replication"),
     (["--cluster"], "cluster mode"),
-    (["--max-resident-filters", "4"], "tenant residency"),
-    (["--max-resident-bytes", "1024"], "tenant residency"),
     (["promote", "127.0.0.1:1"], "HA promotion"),
 ])
 def test_later_slice_flags_exit_2(argv, slice_word, capsys):
@@ -235,10 +250,74 @@ def test_later_slice_flags_exit_2(argv, slice_word, capsys):
     assert "not ported to tpubloom_torch yet" in err and slice_word in err
 
 
-@pytest.mark.parametrize("arg", ["oplog", "cluster", "storage"])
+@pytest.mark.parametrize("arg", ["cluster"])
 def test_later_slice_arguments_raise(arg):
     with pytest.raises(NotImplementedError, match="not ported to tpubloom_torch yet"):
         service.BloomService(device="cpu", **{arg: object()})
+
+
+#: the flags and constructor arguments of the durable planes, each with the
+#: object it must build: the op log, the replica's applier, the residency
+#: store (``--min-replicas-to-write`` builds the log its quorum needs)
+DURABLE = [
+    ("flag", ["--replica-of", "127.0.0.1:1"], "ReplicaApplier"),
+    ("flag", ["--repl-log-dir", "oplog"], "OpLog"),
+    ("flag", ["--min-replicas-to-write", "1", "--repl-log-dir", "oplog"], "OpLog"),
+    ("flag", ["--max-resident-filters", "4"], "TenantStore"),
+    ("flag", ["--max-resident-bytes", "1024"], "TenantStore"),
+    ("arg", "oplog", "OpLog"),
+    ("arg", "storage", "TenantStore"),
+]
+
+
+@pytest.mark.parametrize("how,what,builds", DURABLE)
+def test_durable_planes_attach(how, what, builds, tmp_path, monkeypatch):
+    """Each durable plane's flag (through ``main()``, stopped before it
+    serves) or constructor argument builds its object on ``--device cpu``."""
+    from tpubloom_torch.repl import OpLog, ReplicaApplier
+    from tpubloom_torch.storage import StorageConfig, TenantStore
+
+    if how == "arg":
+        value = OpLog(str(tmp_path / "log")) if what == "oplog" else \
+            StorageConfig(max_resident_filters=2)
+        svc = service.BloomService(device="cpu", **{what: value})
+        try:
+            got = svc.oplog if what == "oplog" else svc.storage
+            assert isinstance(got, OpLog if what == "oplog" else TenantStore)
+            assert svc._epoch_store is not None or what == "storage"
+        finally:
+            svc.shutdown()
+            if what == "oplog":
+                value.close()
+        return
+    built = {}
+
+    class Stop(Exception):
+        pass
+
+    def build_server(svc, address):
+        built["service"] = svc
+        raise Stop
+
+    monkeypatch.setattr(service, "build_server", build_server)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(Stop):
+        service.main(["0", str(tmp_path / "ckpt"), "--device", "cpu", *what])
+    svc = built["service"]
+    try:
+        obj = {"OpLog": svc.oplog, "TenantStore": svc.storage,
+               "ReplicaApplier": svc.replica_applier}[builds]
+        assert type(obj).__name__ == builds and obj is not None
+        if builds == "ReplicaApplier":
+            assert svc.read_only and isinstance(obj, ReplicaApplier)
+            obj.stop()
+        if "--min-replicas-to-write" in what:
+            assert svc.min_replicas_to_write == 1
+        assert svc.device.type == "cpu"
+    finally:
+        svc.shutdown()
+        if svc.oplog is not None:
+            svc.oplog.close()
 
 
 def test_inspect_quarantine_runs(tmp_path, capsys):

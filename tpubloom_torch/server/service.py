@@ -15,14 +15,15 @@ no card that is an error, never a quiet run on the CPU) and builds and
 restores every filter there. ``Health`` reports ``backend`` ("cuda" or
 "cpu") and the card's name under ``devices``.
 
-Planes of ``tpubloom.server`` that are later slices of the port: the op
-log and replication (``oplog``), cluster mode (``cluster``), tenant
-residency (``storage``) and HA promotion. ``BloomService`` refuses those
-arguments with ``NotImplementedError``, :func:`main` refuses their flags
-with exit code 2, and ``Promote`` / ``ReplicaOf`` answer only their
-no-op on a primary. The ``cluster`` and ``repl`` modules it imports are
-copies for those imports; Monitor, ReplAck and Wait serve as in
-``tpubloom`` (with no op log, ReplStream answers its UNSUPPORTED frame).
+The op log and replication (``oplog``, ``read_only`` with a
+:class:`tpubloom_torch.repl.ReplicaApplier`, the sync quorum) and tenant
+residency (``storage``) serve as in ``tpubloom``. Planes that are later
+slices of the port: cluster mode (``cluster``) and HA promotion.
+``BloomService`` refuses ``cluster`` with ``NotImplementedError``,
+:func:`main` refuses ``--cluster`` and the ``promote`` subcommand with
+exit code 2, and ``Promote`` / ``ReplicaOf`` answer only their no-op on
+a primary. The ``cluster`` modules it imports are copies for those
+imports.
 
 Runtime properties:
 
@@ -85,7 +86,8 @@ Replication (:mod:`tpubloom_torch.repl`):
   signal once the in-flight cap is pegged) and decays back to the
   configured base when the burst passes.
 
-High availability (:mod:`tpubloom.ha`):
+High availability (``tpubloom.ha``; the port has
+:mod:`tpubloom_torch.ha.topology` only):
 
 * **promotion / demotion** — the ``Promote`` RPC (``REPLICAOF NO ONE``
   parity; also ``python -m tpubloom_torch.server promote host:port``) flips a
@@ -150,6 +152,7 @@ import logging
 import math
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from concurrent import futures
 from contextlib import contextmanager
@@ -212,12 +215,17 @@ class _Managed:
         self.supports_presence = (
             "return_presence" in inspect.signature(filt.insert_batch).parameters
         )
+        # the checkpointer reads applied_seq through a weak reference: a
+        # closure over self would make a cycle (self -> checkpointer ->
+        # meta_fn -> self) that holds an evicted or dropped filter's
+        # device memory until Python's cyclic collector runs
+        ref = weakref.ref(self)
         self.checkpointer = (
             ckpt.AsyncCheckpointer(
                 filt,
                 sink,
                 every_n_inserts=checkpoint_every,
-                meta_fn=lambda: {"repl_seq": self.applied_seq},
+                meta_fn=lambda: {"repl_seq": ref().applied_seq},
             )
             if sink is not None
             else None
@@ -277,9 +285,7 @@ WAIT_TIMEOUT_CAP_S = 60.0
 #: The planes of ``tpubloom.server`` this package has not ported yet, by
 #: the constructor argument or flag that turns each on, with its slice.
 LATER_SLICES = {
-    "oplog": "the op log and replication (ROADMAP queue 1, item 5)",
     "cluster": "cluster mode (ROADMAP queue 1, item 7)",
-    "storage": "tenant residency (ROADMAP queue 1, item 4)",
     "promote": "HA promotion (ROADMAP queue 1, item 6)",
 }
 
@@ -337,14 +343,16 @@ class BloomService:
 
         ``device`` is where every filter is built and restored: None is
         the CUDA card (and an error without one), ``"cpu"`` runs the plain
-        PyTorch versions. ``oplog``, ``cluster`` and ``storage`` raise
-        ``NotImplementedError``: those planes are later slices."""
-        for what, arg in (("oplog", oplog), ("cluster", cluster),
-                          ("storage", storage)):
-            if arg is not None:
-                raise NotImplementedError(_later_slice(what))
-        #: the device every filter of this service lives on
+        PyTorch versions. ``cluster`` raises ``NotImplementedError``:
+        cluster mode is a later slice."""
+        if cluster is not None:
+            raise NotImplementedError(_later_slice("cluster"))
+        #: the device every filter of this service lives on, with its
+        #: index pinned here: the replica's applier and the coalescer's
+        #: dispatcher build and launch from threads of their own
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         #: distributed tracing: a float arms the process
         #: trace ring at that deterministic per-rid sample rate (0.0 =
         #: only forced / slowlog-worthy requests); None (the default)
@@ -410,9 +418,12 @@ class BloomService:
         # -- high availability --
         #: topology epoch (Raft-term discipline): bumped+persisted at
         #: every promotion; stale Promote/ReplicaOf/epoch-stamped writes
-        #: are rejected with STALE_EPOCH. Its store lives beside the op
-        #: log, which this package does not port yet.
-        self._epoch_store = None
+        #: are rejected with STALE_EPOCH
+        from tpubloom_torch.ha.topology import EpochStore
+
+        self._epoch_store = (
+            EpochStore(oplog.directory) if oplog is not None else None
+        )
         self.epoch = (
             int(epoch)
             if epoch is not None
@@ -471,7 +482,7 @@ class BloomService:
 
             self._coalescer = IngestCoalescer(self, coalesce).start()
         #: tiered residency manager: with a
-        #: :class:`tpubloom.storage.StorageConfig` attached, the flat
+        #: :class:`tpubloom_torch.storage.StorageConfig` attached, the flat
         #: registry becomes a registry/storage pair — ``_filters`` holds
         #: only the RESIDENT tier, cold-ranked filters are evicted under
         #: the HBM budget into host-RAM blobs / checkpoints, and
@@ -849,7 +860,7 @@ class BloomService:
             if epoch is not None and int(epoch) <= self.epoch:
                 if not self.read_only and int(epoch) == self.epoch:
                     return {"ok": True, "already_primary": True,
-                            "epoch": self.epoch, "log_id": None}
+                            "epoch": self.epoch, "log_id": self._log_id()}
                 raise protocol.BloomServiceError(
                     "STALE_EPOCH",
                     f"promotion epoch {epoch} is not newer than the current "
@@ -863,7 +874,10 @@ class BloomService:
             if epoch is not None:
                 self.adopt_epoch(int(epoch))
             return {"ok": True, "already_primary": True,
-                    "epoch": self.epoch, "log_id": None}
+                    "epoch": self.epoch, "log_id": self._log_id()}
+
+    def _log_id(self):
+        return self.oplog.log_id if self.oplog is not None else None
 
     # -- cluster mode: slot map, migration -------------------------
 
@@ -2062,6 +2076,10 @@ class BloomService:
                 self.metrics.count("insert_dedup_hits")
                 return cached
         if self._coalesce_eligible(req):
+            # a parked request holds no filter: its flush resolves one,
+            # and an eviction meanwhile must free the victim's device
+            # memory, not wait for this handler to return
+            del mf
             resp = self._coalescer.submit(
                 "InsertBatch", req, replay_unsafe=replay_unsafe
             )
@@ -2134,7 +2152,7 @@ class BloomService:
         return np.packbits(~np.asarray(flags, dtype=bool)).tobytes()
 
     def QueryBatch(self, req: dict) -> dict:
-        mf = self._get(req["name"])
+        self._get(req["name"])
         if self._coalesce_eligible(req):
             resp = self._coalescer.submit("QueryBatch", req)
             if resp is not None:
@@ -2205,7 +2223,9 @@ class BloomService:
             # delete-only flushes ride the scheduler — one
             # launch + one merged log record + one barrier per flush;
             # deletes are always replay-unsafe (decrements), so every
-            # demuxed response is dedup-cached under its rid
+            # demuxed response is dedup-cached under its rid. The parked
+            # request holds no filter (see InsertBatch)
+            del mf
             resp = self._coalescer.submit(
                 "DeleteBatch", req, replay_unsafe=True
             )
@@ -2232,7 +2252,7 @@ class BloomService:
         return resp
 
     def Clear(self, req: dict) -> dict:  # lint: allow(replay-safety): replay converges — clearing twice IS cleared (idempotent zeroing); the retried response's fresh repl_seq is STRONGER for barrier re-waits, not weaker
-        mf = self._get(req["name"])
+        self._get(req["name"])
         if self._coalesce_eligible(req, "Clear"):
             resp = self._coalescer.submit("Clear", req)
             if resp is not None:
@@ -3011,14 +3031,23 @@ def main(argv: Optional[list] = None) -> None:
     """``python -m tpubloom_torch.server [port] [checkpoint_dir]
     [--device cuda|cpu] [--metrics-port N] [--slowlog-capacity N]
     [--max-in-flight N] [--drain-grace S] [--coalesce-max-keys N]
-    [--coalesce-max-wait-us U] [--trace-sample R]``
+    [--coalesce-max-wait-us U] [--trace-sample R] [--repl-log-dir DIR]
+    [--repl-fsync POLICY] [--replica-of HOST:PORT]
+    [--min-replicas-to-write N] [--min-replicas-max-lag-ms M]
+    [--max-resident-filters N] [--max-resident-bytes B]
+    [--storage-warm-bytes B] [--hydration-max-concurrent N]
+    [--tenant-hydrations-per-min N]``
 
-    The flags of ``python -m tpubloom.server``. Those of the planes this
-    package has not ported yet (``--repl-log-dir``, ``--replica-of``,
-    ``--min-replicas-to-write``, ``--cluster``, ``--max-resident-filters``,
-    ``--max-resident-bytes``) and the ``promote`` subcommand exit with
-    code 2 and name the slice that ports them. With no card and no
-    ``--device cpu`` the server exits with ``resolve_device``'s error.
+    The flags of ``python -m tpubloom.server``. ``--repl-log-dir`` attaches
+    the op log (replayed at start); ``--replica-of`` runs a read-only
+    replica that bootstraps from its local state
+    (``bootstrap_from_local``) and then follows the primary;
+    ``--min-replicas-to-write`` gates writes behind the sync quorum;
+    ``--max-resident-*`` page tenants under a device-memory budget.
+    ``--cluster`` and the ``promote`` subcommand exit with code 2 and name
+    the slice that ports them (cluster mode, HA promotion). With no card
+    and no ``--device cpu`` the server exits with ``resolve_device``'s
+    error.
 
     Subcommand: ``inspect-quarantine <dir>``.
     """
@@ -3244,15 +3273,8 @@ def main(argv: Optional[list] = None) -> None:
         "dir is available",
     )
     args = parser.parse_args(argv)
-    for what, on in (
-        ("oplog", args.repl_log_dir or args.replica_of
-         or args.min_replicas_to_write),
-        ("cluster", args.cluster),
-        ("storage", args.max_resident_filters > 0
-         or args.max_resident_bytes > 0),
-    ):
-        if on:
-            _refuse(what)
+    if args.cluster:
+        _refuse("cluster")
     if args.min_replicas_to_write and not args.repl_log_dir:
         parser.error("--min-replicas-to-write requires --repl-log-dir")
     ckpt_dir = args.checkpoint_dir
