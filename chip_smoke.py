@@ -257,7 +257,38 @@ line each, with the seconds it took (``phase_seconds``):
    primary's, the replayed words the stopped primary's, every tenant and
    verdict a direct filter's (tolerance 0); ``blocked_insert``,
    ``blocked_query``, ``blocked_counting_update`` and ``payload_crc32c``
-   launched on both the primary's side and the replica's.
+   launched on both the primary's side and the replica's. D's peak
+   ``memory_allocated`` over the traffic and over the restart are read
+   too, each with the work in flight when it rose;
+30. HA path: high availability (``tpubloom_torch.ha``, the sentinel) on
+   the card, in this process, with the client processes of phase 28's
+   design (``BloomClient(sentinels=...)``, a failed request re-driven
+   with its own rid). A primary with an op log, a FileSink and the
+   coalescer at 2^19 keys a flush; two chained replicas (each with its
+   own op log and announced address); three sentinels at the CLI's
+   defaults (poll 0.25 s, down after 1.5 s, quorum 2). With both
+   replicas attached, a counting tenant ``cnt`` of 2^28 counters and the
+   main path's filter "chunk" (m=2^32) are created; 2^23 keys go to
+   "chunk" as 128 ``InsertBatch`` requests of 2^16 with a ``cnt`` batch
+   of 2^12 after every fourth, and the primary is crashed as phase 29's C
+   stops it after 64 acknowledged ones (the sentinels' Health probes of
+   its address are recorded from then on). On the host clock: the crash
+   to SDOWN, to ODOWN, to ``Promote`` answered and to the first write the
+   new primary acknowledged; the ``Promote`` RPC's own ms; the winner
+   and both cursors; the survivor's resync kind and records; the new
+   primary's keys/s; the re-drives; launches of ``blocked_insert``,
+   ``blocked_query`` and ``blocked_counting_update`` by node. Held with
+   tolerance 0: every ``cnt`` batch re-driven with its rid (and each
+   "chunk" request the old primary acknowledged that the new one lacks),
+   then every key present and one delete a batch leaves every counter 0;
+   the new primary's "chunk" equals a filter fed every key and the survivor's
+   words the new primary's (and their verdicts a direct filter's); the
+   crashed primary restarted from its log is fenced by the sentinels
+   (a replica at the new epoch, writes READONLY), with its resync's kind:
+   a partial one ends with words equal to the new primary's, a full one
+   is refused by the 256 MiB message cap at "chunk"'s blob, the node stays
+   fenced, and ``cnt``, which the resync carried, equals the new
+   primary's.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -268,7 +299,8 @@ present. The full record is written to ``chiprun_out/chip_smoke.json``.
 only and writes ``chiprun_out/chip_smoke_sketch.json``; ``--server`` runs
 the device, build and phase 28 only and writes
 ``chiprun_out/chip_smoke_server.json``; ``--durable`` the device, build
-and phase 29 only, to ``chiprun_out/chip_smoke_durable.json``. Two other modes
+and phase 29 only, to ``chiprun_out/chip_smoke_durable.json``; ``--ha`` the
+device, build and phase 30 only, to ``chiprun_out/chip_smoke_ha.json``. Two other modes
 compare kernel builds on one card:
 
     python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18, 19
@@ -3879,50 +3911,20 @@ def device_split(prof) -> dict:
     return out
 
 
-def pool_client(p: int, jobs, barrier, results) -> None:
-    """Client process ``p`` of the server and durable paths
-    (``SERVER_THREADS // SERVER_CLIENT_PROCS`` ``BloomClient`` threads, each
-    request one ``keys_fixed`` frame of the rows, as a client holding
-    ``uint8[n, 16]`` keys sends it). It stays up across parts: it takes
-    ``(address, requests)`` parts from the queue ``jobs``
-    until None, each request ``(method, name, rows, extra fields)``; it
-    meets the server's process at ``barrier`` twice before a part and once
-    after. A request shed with ``RESOURCE_EXHAUSTED`` goes again after its
-    ``retry_after_ms``. Each part puts ``(p, verdicts, sheds, error)`` on
-    ``results`` (verdicts None for an insert)."""
+def client_parts(p: int, jobs, barrier, results, connect, call) -> None:
+    """The loop of client process ``p``: it stays up across parts, taking
+    ``(address, requests)`` parts from the queue ``jobs`` until None. Each
+    part runs on ``SERVER_THREADS // SERVER_CLIENT_PROCS`` threads, each
+    with its own ``connect(address)`` client (Health-probed first), thread
+    ``t`` taking requests ``t, t + threads, ...`` through ``call(client,
+    request, tally, rid)``, whose result is the request's output and which
+    adds its sheds and re-drives to ``tally``. The process meets the
+    server's process at ``barrier`` twice before a part and once after,
+    and puts ``(p, outputs, (sheds, re-drives), error)`` on ``results``."""
     import threading
-
-    from tpubloom_torch.server.client import BloomClient
-    from tpubloom_torch.server.protocol import BloomServiceError
 
     n_threads = SERVER_THREADS // SERVER_CLIENT_PROCS
     part_no = 0
-
-    def call(cl, job, sheds, redrives, t, rid):
-        method, name, r, extra = job
-        req = {"name": name, "keys_fixed": {"data": r.tobytes(), "width": r.shape[1], "n": len(r)},
-               "rid": rid, **extra}
-        while True:
-            try:
-                resp = cl._call_once(method, req, timeout=600)
-                break
-            except BloomServiceError as e:
-                if e.code == "NOT_ENOUGH_REPLICAS" and e.details.get("applied"):
-                    # applied and logged, but the replica was not connected
-                    # (its stream reconnecting): the same rid again waits on
-                    # the quorum once more
-                    redrives[t] += 1
-                    time.sleep(0.02)
-                    continue
-                if e.code != "RESOURCE_EXHAUSTED":
-                    raise
-                sheds[t] += 1
-                time.sleep(float(e.details.get("retry_after_ms") or 50) / 1e3)
-        if method == "QueryBatch":
-            return BloomClient._unpack_bool(resp, "hits")
-        check(resp["n"] == len(r), f"{method} count")
-        return None
-
     while True:
         part = jobs.get()
         if part is None:
@@ -3931,16 +3933,16 @@ def pool_client(p: int, jobs, barrier, results) -> None:
         part_no += 1
         clients = []
         try:
-            clients = [BloomClient(addr) for _ in range(n_threads)]
+            clients = [connect(addr) for _ in range(n_threads)]
             for cl in clients:
                 cl.health()
             out, errors = [None] * len(reqs), []
-            sheds, redrives = [0] * n_threads, [0] * n_threads
+            tallies = [[0, 0] for _ in range(n_threads)]
 
             def worker(t):
                 try:
                     for i in range(t, len(reqs), n_threads):
-                        out[i] = call(clients[t], reqs[i], sheds, redrives, t, f"pool-{p}-{part_no}-{i}")
+                        out[i] = call(clients[t], reqs[i], tallies[t], f"{p}-{part_no}-{i}")
                 except Exception as e:  # noqa: BLE001 — reported below
                     errors.append(e)
 
@@ -3954,7 +3956,7 @@ def pool_client(p: int, jobs, barrier, results) -> None:
             if errors:
                 raise errors[0]
             barrier.wait()
-            results.put((p, out, (sum(sheds), sum(redrives)), None))
+            results.put((p, out, tuple(map(sum, zip(*tallies))), None))
         except BaseException as e:  # noqa: BLE001 — reported to the server's process
             barrier.abort()
             results.put((p, None, (0, 0), repr(e)))
@@ -3964,13 +3966,54 @@ def pool_client(p: int, jobs, barrier, results) -> None:
                 cl.close()
 
 
-class ClientPool:
-    """``SERVER_CLIENT_PROCS`` spawned :func:`pool_client` processes,
-    started once for every part of a phase; a part's requests go on queues
-    once every process runs (as spawn arguments they would be written to
-    one process before the next starts)."""
+def pool_client(p: int, jobs, barrier, results) -> None:
+    """Client process ``p`` of the server and durable paths
+    (:func:`client_parts`; each request one ``keys_fixed`` frame of the
+    rows, as a client holding ``uint8[n, 16]`` keys sends it, ``(method,
+    name, rows, extra fields)``). A request shed with
+    ``RESOURCE_EXHAUSTED`` goes again after its ``retry_after_ms``; one
+    applied but short of its quorum (the replica's stream reconnecting)
+    goes again with its rid. Its output is the verdicts (None for an
+    insert)."""
+    from tpubloom_torch.server.client import BloomClient
+    from tpubloom_torch.server.protocol import BloomServiceError
 
-    def __init__(self):
+    def call(cl, job, tally, rid):
+        method, name, r, extra = job
+        req = {"name": name, "keys_fixed": {"data": r.tobytes(), "width": r.shape[1], "n": len(r)},
+               "rid": f"pool-{rid}", **extra}
+        while True:
+            try:
+                resp = cl._call_once(method, req, timeout=600)
+                break
+            except BloomServiceError as e:
+                if e.code == "NOT_ENOUGH_REPLICAS" and e.details.get("applied"):
+                    # applied and logged, but the replica was not connected
+                    # (its stream reconnecting): the same rid again waits on
+                    # the quorum once more
+                    tally[1] += 1
+                    time.sleep(0.02)
+                    continue
+                if e.code != "RESOURCE_EXHAUSTED":
+                    raise
+                tally[0] += 1
+                time.sleep(float(e.details.get("retry_after_ms") or 50) / 1e3)
+        if method == "QueryBatch":
+            return BloomClient._unpack_bool(resp, "hits")
+        check(resp["n"] == len(r), f"{method} count")
+        return None
+
+    client_parts(p, jobs, barrier, results, BloomClient, call)
+
+
+class ClientPool:
+    """``SERVER_CLIENT_PROCS`` spawned :func:`pool_client` processes (or
+    ``target``'s, with ``args`` after the queues), started once for every
+    part of a phase; a part's requests go on queues once every process
+    runs (as spawn arguments they would be written to one process before
+    the next starts)."""
+
+    def __init__(self, target=None, args=()):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
@@ -3978,8 +4021,8 @@ class ClientPool:
         self.barrier = ctx.Barrier(self.n + 1, timeout=900)
         self.results = ctx.Queue()
         self.jobs = [ctx.Queue() for _ in range(self.n)]
-        self.procs = [ctx.Process(target=pool_client, daemon=True,
-                                  args=(p, self.jobs[p], self.barrier, self.results))
+        self.procs = [ctx.Process(target=target or pool_client, daemon=True,
+                                  args=(p, self.jobs[p], self.barrier, self.results, *args))
                       for p in range(self.n)]
         for pr in self.procs:
             pr.start()
@@ -4299,28 +4342,35 @@ class Clocks:
         return out
 
 
+def replica_or_primary() -> str:
+    """The durable phase's side of a launch: the replica's when the
+    replica's applier thread made it, or when a window names the replica;
+    the primary's otherwise."""
+    import threading
+
+    return SidedLaunches.window or (
+        "replica" if threading.current_thread().name == "tpubloom-replica" else "primary")
+
+
 class SidedLaunches(dict):
     """A kernel wrapper's launch counter (it stands in for ``sweep.LAUNCHES``
-    and ``checksum.LAUNCHES`` in the durable phase) that also counts each
-    launch under the side that made it: the replica's when the replica's
-    applier thread launched it, or when a window names the replica; the
-    primary's otherwise."""
+    and ``checksum.LAUNCHES`` in the durable and HA phases) that also
+    counts each launch under the side ``side()`` names as it is made
+    (:func:`replica_or_primary` unless given)."""
 
     window = None
 
-    def __init__(self, base: dict):
+    def __init__(self, base: dict, side=None):
         super().__init__(base)
-        self.sides: dict = {"primary": {}, "replica": {}}
+        self.side = side or replica_or_primary
+        self.sides: dict = {}
 
     def __setitem__(self, key, value):
         d = value - self.get(key, 0)
         super().__setitem__(key, value)
         if d > 0:
-            import threading
-
-            side = SidedLaunches.window or (
-                "replica" if threading.current_thread().name == "tpubloom-replica" else "primary")
-            self.sides[side][key] = self.sides[side].get(key, 0) + d
+            side = self.sides.setdefault(self.side(), {})
+            side[key] = side.get(key, 0) + d
 
 
 def crc_clock(clocks: Clocks) -> None:
@@ -4473,7 +4523,8 @@ def phase_durable_path(rng, dev: dict) -> dict:
         return lambda config: checkpoint.FileSink(str(DURABLE_DIR / d))
 
     def sides() -> dict:
-        return {s: {**sided[0].sides[s], **sided[1].sides[s]} for s in ("primary", "replica")}
+        return {s: {**sided[0].sides.get(s, {}), **sided[1].sides.get(s, {})}
+                for s in ("primary", "replica")}
 
     def serve(svc):
         srv, port = service.build_server(svc, "127.0.0.1:0")
@@ -4700,12 +4751,57 @@ def phase_durable_path(rng, dev: dict) -> dict:
     return out
 
 
+class PeakWatch:
+    """What the card held when its peak ``memory_allocated`` rose: each
+    watched call reads ``max_memory_allocated`` as it ends, and a new high
+    is filed with the calls in flight at that moment (the ending one
+    included), the store's resident bytes, the bytes its hydrations have
+    reserved, and how many hydrate. Resetting the peak and reading it over
+    a span is how the span's peak is found; this says whose work it was."""
+
+    def __init__(self, base: int, store):
+        import threading
+
+        self.base, self.store = base, store
+        self.lock = threading.Lock()
+        self.inflight: dict = {}
+        self.high: dict = {"bytes": 0}
+
+    def wrap(self, obj, attr: str, name: str, undo: list) -> None:
+        fn = getattr(obj, attr)
+
+        def call(*a, **kw):
+            with self.lock:
+                self.inflight[name] = self.inflight.get(name, 0) + 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                peak = torch.cuda.max_memory_allocated() - self.base
+                with self.lock:
+                    if peak > self.high["bytes"]:
+                        st = self.store
+                        self.high = {
+                            "bytes": peak, "ended": name,
+                            "in_flight": {k: v for k, v in self.inflight.items() if v},
+                            "resident_bytes": st._resident_bytes,
+                            "reserved_bytes": sum(e.reserved for e in list(st._entries.values())),
+                            "hydrating": st._hydrating}
+                    self.inflight[name] -= 1
+
+        undo.append((obj, attr, fn, attr in vars(obj)))
+        setattr(obj, attr, call)
+
+
 def phase_residency(rng, pool, clocks, serve, sink_at) -> dict:
     """D of :func:`phase_durable_path`: ``DUR_RES_TENANTS`` tenants of
     m=2^27 with a 512 MiB budget and a 512 MiB warm pool, an op log and a
     sink; traffic by Zipf(1.1) over the tenants; every tenant and verdict
     against a direct filter fed its keys; ``memory_allocated`` sampled
-    after every eviction; then a restart over the same directories."""
+    after every eviction, and the peak over the traffic and over the
+    restart, each with the work in flight when it rose
+    (:class:`PeakWatch`: evictions, hydrations, their snapshots and
+    restores, the coalescer's flushes); then a restart over the same
+    directories."""
     from tpubloom_torch.repl import OpLog
     from tpubloom_torch.server import ingest, service
     from tpubloom_torch.server.client import BloomClient
@@ -4748,6 +4844,12 @@ def phase_residency(rng, pool, clocks, serve, sink_at) -> dict:
             hyd[tier].append(time.perf_counter() - t0)
 
     store._evict, store._hydrate = sampled_evict, timed_hydrate
+    watch, undo = PeakWatch(base, store), clocks._undo
+    for obj, attr, name in ((store, "_evict", "evict"), (store, "_hydrate", "hydrate"),
+                            (checkpoint, "snapshot_blob", "snapshot"),
+                            (dsvc, "_managed_from_blob", "restore"),
+                            (dsvc._coalescer, "_flush_inner", "flush")):
+        watch.wrap(obj, attr, name, undo)
     names = [f"r{i:03d}" for i in range(DUR_RES_TENANTS)]
     cfg = dur_config(DUR_RES_LOG2M)
     t0 = time.perf_counter()
@@ -4774,6 +4876,8 @@ def phase_residency(rng, pool, clocks, serve, sink_at) -> dict:
     qry = pool.run(daddr, queries)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
+    with watch.lock:
+        rose = dict(watch.high)  # the traffic's; the restart below resets the peak
     clk = clocks.take()
     summary = store.summary()
     # every tenant and every verdict against a direct filter fed its keys
@@ -4810,9 +4914,15 @@ def phase_residency(rng, pool, clocks, serve, sink_at) -> dict:
     d2svc = service.BloomService(sink_factory=sink_at("dckpt"), oplog=d2log,
                                  storage=StorageConfig(**storage))
     serve(d2svc)
+    gc.collect()
+    torch.cuda.synchronize()
+    restart_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats = d2svc.replay_oplog()
     restart_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    restart_peak = torch.cuda.max_memory_allocated() - restart_base
     check(sorted(d2svc.storage.names()) == names, "every tenant came back")
     errs["restarted"] = max(tenant_errs(d2svc).values())
     check(errs["restarted"] == 0, "every restarted tenant equals its direct filter")
@@ -4831,11 +4941,488 @@ def phase_residency(rng, pool, clocks, serve, sink_at) -> dict:
         "memory_allocated_after_eviction": {
             "max": max(samples), "bound": bound, "baseline": base, "staging_bound": staging,
             "at_max": dict(zip(("allocated", "resident_bytes", "hydrating", "evicting"), worst))},
-        "max_memory_allocated": peak, "summary": summary,
-        "restart": {"log_open_s": open_s, "seconds": restart_s, "stats": stats},
+        "max_memory_allocated": peak, "peak_over_bound": peak - bound,
+        "peak_rose_during": rose, "summary": summary,
+        "restart": {"log_open_s": open_s, "seconds": restart_s, "stats": stats,
+                    "max_memory_allocated": restart_peak},
         "evict_ms": percentiles_ms(evict_s), "max_abs_err": errs,
         **log_share(clk),
     }
+
+
+HA_DIR = Path(__file__).resolve().parent / ".ha_state"  # git-ignored; removed at the end
+HA_KEYS = SERVER_KEYS  # 128 InsertBatch requests of 2^16 into the main path's filter "chunk"
+HA_CNT_LOG2M, HA_CNT_BATCH, HA_CNT_EVERY = 28, 1 << 12, 4  # a cnt batch after every 4th chunk request
+HA_CRASH_AFTER = 64  # acknowledged chunk requests before the primary crashes: half of them
+HA_SENTINEL = {"poll_s": 0.25, "down_after_s": 1.5}  # the sentinel CLI's defaults; quorum 2 of 3
+HA_REDRIVE_S = 300.0  # how long a client re-drives one request before it gives up
+HA_KERNELS = ("blocked_insert", "blocked_query", "blocked_counting_update")
+# cuts of the key count that keep the phase near 90 s (the filter's m never)
+HA_CUTS: list = []
+NODE = None  # the thread-local node label HA launches are counted under (set in phase_ha_path)
+
+
+def ha_client(p: int, jobs, barrier, results, sentinels, acked) -> None:
+    """Client process ``p`` of the HA path (:func:`client_parts`), with
+    ``BloomClient(sentinels=...)`` clients, or clients of one address when
+    a part names one. A request that fails (the primary gone, a replica's
+    READONLY, a stale view) is re-driven with its own rid after
+    ``refresh_topology``, for up to ``HA_REDRIVE_S``; each acknowledged
+    "chunk" insert adds one to the shared ``acked``. A request is
+    ``(method, name, rows, rid or None)``; its output is ``(host clock at
+    the ack, the address that acked it, re-drives, the first error codes,
+    verdicts or None)``."""
+    import grpc
+
+    from tpubloom_torch.server.client import BloomClient
+    from tpubloom_torch.server.protocol import BloomServiceError
+
+    def connect(addr):
+        return BloomClient(addr) if addr else BloomClient(sentinels=sentinels, max_retries=0)
+
+    def call(cl, job, tally, rid):
+        method, name, r, own_rid = job
+        req = {"name": name, "keys_fixed": {"data": r.tobytes(), "width": r.shape[1], "n": len(r)},
+               "rid": own_rid or f"ha-{rid}"}
+        redrives, codes, deadline = 0, [], time.monotonic() + HA_REDRIVE_S
+        while True:
+            addr = cl.address
+            try:
+                resp = cl._call_once(method, req, timeout=600)
+                break
+            except BloomServiceError as e:
+                if e.code == "RESOURCE_EXHAUSTED":
+                    tally[0] += 1
+                    time.sleep(float(e.details.get("retry_after_ms") or 50) / 1e3)
+                    continue
+                code = e.code
+            except grpc.RpcError as e:
+                code = str(e.code())
+            check(time.monotonic() < deadline, f"{method} {req['rid']} acknowledged: {codes[-3:]}")
+            redrives += 1
+            codes.append(code)
+            time.sleep(0.05)
+            try:
+                cl.refresh_topology()
+            except Exception:  # noqa: BLE001 — no sentinel answered: try again
+                pass
+        t_ack = time.monotonic()
+        tally[1] += redrives
+        if method == "InsertBatch" and name == "chunk":
+            with acked.get_lock():
+                acked.value += 1
+        hits = BloomClient._unpack_bool(resp, "hits") if method == "QueryBatch" else None
+        check(resp["n"] == len(r), f"{method} count")
+        return t_ack, addr, redrives, codes[:4], hits
+
+    client_parts(p, jobs, barrier, results, connect, call)
+
+
+def tag_node(svc, label: str, undo: list) -> None:
+    """Count the launches of ``svc``'s coalescer flushes, record applies
+    and snapshot installs under ``label`` (the thread-local ``NODE``'s
+    name while they run; two replicas' appliers share one thread name)."""
+    def tagged(fn):
+        def call(*a, **kw):
+            prev = getattr(NODE, "name", None)
+            NODE.name = label
+            try:
+                return fn(*a, **kw)
+            finally:
+                NODE.name = prev
+        return call
+
+    targets = [(svc, "apply_record"), (svc, "install_snapshot")]
+    if svc._coalescer is not None:
+        targets.append((svc._coalescer, "_flush_inner"))
+    for obj, attr in targets:
+        undo.append((obj, attr, getattr(obj, attr), attr in vars(obj)))
+        setattr(obj, attr, tagged(getattr(obj, attr)))
+
+
+def phase_ha_path(rng, dev: dict) -> dict:
+    """High availability on the card (``ha_path``; ``--ha`` alone), in
+    this process with the client processes of the server path's design:
+    a primary with an op log, a FileSink and the coalescer, two chained
+    replicas and three sentinels at the CLI's defaults; the main path's
+    filter "chunk" (m=2^32) and a counting tenant ``cnt`` (2^28 counters)
+    created with the replicas attached; 2^23 keys as 128 ``InsertBatch``
+    requests of 2^16 with ``cnt`` batches between them, the primary
+    crashed after 64 acknowledged ones. Times from the crash to SDOWN,
+    ODOWN, ``Promote`` answered and the first write the new primary
+    acknowledged; the ``Promote`` RPC's own ms; the pick and the cursors;
+    the survivor's resync; the new primary's keys/s; the re-drives; the
+    launches by node. Held with tolerance 0: exactly once (every ``cnt``
+    batch re-driven with its rid, then one delete a batch leaves every
+    counter 0), the words ("chunk" equals a filter fed every key, the
+    survivor's the new primary's) and fencing (the crashed primary,
+    restarted from its log, demoted at the new epoch, its writes
+    READONLY; its resync's kind, and the 256 MiB message cap's refusal of
+    "chunk" if it is a full one)."""
+    global NODE
+    import gc
+    import logging
+    import multiprocessing
+    import threading
+
+    from tpubloom_torch.ha import promotion
+    from tpubloom_torch.ha.sentinel import Sentinel
+    from tpubloom_torch.repl import OpLog, ReplicaApplier
+    from tpubloom_torch.server import ingest, protocol, service
+    from tpubloom_torch.server.client import BloomClient, fetch_topology
+
+    t_phase = time.perf_counter()
+    if HA_DIR.exists():
+        shutil.rmtree(HA_DIR)
+    HA_DIR.mkdir()
+    NODE = threading.local()
+    saved = sweep.LAUNCHES
+    sided = sweep.LAUNCHES = SidedLaunches(sweep.LAUNCHES, lambda: getattr(NODE, "name", None) or "other")
+    wraps = Clocks()  # for its undo of every wrapper below
+    undo = wraps._undo
+    nodes: dict = {}  # label -> (service, server or None)
+    sents: list = []
+    pool = None
+    marks: dict = {"promote_rpc": [], "replicaof_rpc": [], "promote_handler_s": [], "cursors": {}}
+    stop = threading.Event()
+    coalesce = ingest.CoalesceConfig(max_keys=SERVER_COALESCE_KEYS)
+    out: dict = {"cuts": HA_CUTS, "tolerance": 0, "sentinels": {**HA_SENTINEL, "quorum": 2, "n": 3},
+                 "keys": HA_KEYS, "crash_after_acked": HA_CRASH_AFTER}
+    refusals: list = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            refusals.append((record.thread, record.getMessage()))
+
+    capture = Capture(level=logging.WARNING)
+    repl_log = logging.getLogger("tpubloom.repl")
+    repl_log.addHandler(capture)
+
+    def serve(label, svc, address="127.0.0.1:0"):
+        srv, port = service.build_server(svc, address)
+        srv.start()
+        svc.listen_address = f"127.0.0.1:{port}"
+        nodes[label] = (svc, srv)
+        tag_node(svc, label, undo)
+        return svc.listen_address
+
+    def sink(d):
+        return lambda config: checkpoint.FileSink(str(HA_DIR / d))
+
+    try:
+        # -- set-up: the primary, two chained replicas, three sentinels ----------------
+        plog = OpLog(str(HA_DIR / "plog"))
+        psvc = service.BloomService(sink_factory=sink("pckpt"), oplog=plog, coalesce=coalesce)
+        paddr = serve("P", psvc)
+        for label in ("R1", "R2"):
+            rsvc = service.BloomService(oplog=OpLog(str(HA_DIR / f"{label}log")), read_only=True,
+                                        coalesce=coalesce)
+            raddr = serve(label, rsvc)
+            ReplicaApplier(rsvc, paddr, listen_address=raddr).start()
+        label_of = {svc.listen_address: label for label, (svc, _) in nodes.items()}
+        sents = [Sentinel(paddr, peers=[], **HA_SENTINEL) for _ in range(3)]
+        for s in sents:
+            s.peers.extend(x.address for x in sents if x is not s)
+            s.quorum = 2
+
+            def do_failover(epoch, old, rid=None, _f=s._do_failover, _s=s):
+                marks.setdefault("odown", time.monotonic())
+                marks.setdefault("leader", _s.sentinel_id)
+                return _f(epoch, old, rid=rid)
+
+            def node_rpc(addr, method, req, timeout=None, _f=s._node):
+                t0 = time.monotonic()
+                ok = False
+                try:
+                    resp = _f(addr, method, req, timeout=timeout)
+                    ok = bool(resp.get("ok", True))
+                    return resp
+                finally:
+                    if method == "Health" and addr == paddr and "crash" in marks:
+                        marks.setdefault("old_address_health", []).append((t0, time.monotonic(), ok))
+                    if method in ("Promote", "ReplicaOf"):
+                        marks[f"{method.lower()}_rpc"].append(
+                            {"node": label_of.get(addr, addr), "t0": t0, "t1": time.monotonic(),
+                             "ok": ok, "req": req})
+
+            def cursor(addr, _f=s._replica_cursor):
+                c = _f(addr)
+                marks["cursors"][label_of.get(addr, addr)] = c
+                return c
+
+            s._do_failover, s._node, s._replica_cursor = do_failover, node_rpc, cursor
+        for s in sents:
+            s.start()
+        sent_addrs = [s.address for s in sents]
+        deadline = time.monotonic() + 60
+        while not all(len(s.topology.replicas) == 2 for s in sents):
+            check(time.monotonic() < deadline, "the sentinels discovered both replicas")
+            time.sleep(0.05)
+        orig_promote = promotion.promote_to_primary
+
+        def timed_promote(svc, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig_promote(svc, **kw)
+            finally:
+                marks["promote_handler_s"].append(time.perf_counter() - t0)
+
+        undo.append((promotion, "promote_to_primary", orig_promote, True))
+        promotion.promote_to_primary = timed_promote
+        with BloomClient(paddr) as c:  # cnt first: a full resync sends its blob before chunk's
+            c.create_filter("cnt", config=dur_config(HA_CNT_LOG2M, counting=True))
+            c.create_filter("chunk", config=dur_config(LOG2M))
+        for label in ("R1", "R2"):
+            app = nodes[label][0].replica_applier
+            check(app.wait_for_seq(plog.last_seq, 120), f"{label} has both creates: {app.status()}")
+
+        # -- the traffic, and the crash after HA_CRASH_AFTER acknowledged requests ------
+        chunk_keys = rows(rng, HA_KEYS)
+        reqs, cnt_batches = [], []
+        for j, i in enumerate(range(0, HA_KEYS, SERVER_REQUEST)):
+            reqs.append(("InsertBatch", "chunk", chunk_keys[i:i + SERVER_REQUEST], f"ha-chunk-{j}"))
+            if j % HA_CNT_EVERY == HA_CNT_EVERY - 1:
+                cnt_batches.append((rows(rng, HA_CNT_BATCH), f"ha-cnt-{len(cnt_batches)}"))
+                reqs.append(("InsertBatch", "cnt", *cnt_batches[-1]))
+        ctx = multiprocessing.get_context("spawn")
+        acked = ctx.Value("i", 0)
+        pool = ClientPool(ha_client, (sent_addrs, acked))
+
+        def crash_at():
+            while acked.value < HA_CRASH_AFTER and not stop.is_set():
+                time.sleep(0.001)
+            if stop.is_set():
+                return
+            marks["crash"] = time.monotonic()
+            marks["acked_at_crash"] = acked.value
+            crash_stop(psvc, nodes["P"][1])
+            marks["crash_stop_s"] = time.monotonic() - marks["crash"]
+
+        def watch_sentinels():
+            while not stop.is_set() and "sdown" not in marks:
+                if "crash" in marks and any(s._sdown for s in sents):
+                    marks["sdown"] = time.monotonic()
+                time.sleep(0.002)
+
+        watchers = [threading.Thread(target=crash_at, daemon=True),
+                    threading.Thread(target=watch_sentinels, daemon=True)]
+        for th in watchers:
+            th.start()
+        run = pool.run(None, reqs)
+        stop.set()
+        for th in watchers:
+            th.join(timeout=30)
+        check("crash" in marks, "the primary crashed under load")
+        check(marks.get("odown", marks["crash"]) >= marks["crash"], "no failover before the crash")
+        topo = fetch_topology(sent_addrs)
+        check(topo is not None and topo["primary"] in (nodes["R1"][0].listen_address,
+                                                       nodes["R2"][0].listen_address),
+              f"a replica is the primary: {topo}")
+        win = label_of[topo["primary"]]
+        lose = "R2" if win == "R1" else "R1"
+        wsvc, ssvc = nodes[win][0], nodes[lose][0]
+        waddr = wsvc.listen_address
+        check(not wsvc.read_only and wsvc.epoch == topo["epoch"], "the winner serves writes at the epoch")
+        t_crash = marks["crash"]
+        promoted = [r for r in marks["promote_rpc"] if r["ok"]]
+        check(len(promoted) == 1 and promoted[0]["node"] == win, f"one Promote answered: {promoted}")
+        results = run["out"]
+        at_winner = [(o[0], req) for o, req in zip(results, reqs) if o[1] == waddr]
+        at_old = [(o[0], req) for o, req in zip(results, reqs) if o[1] == paddr]
+        check(at_winner, "the new primary acknowledged writes")
+        first_new = min(t for t, _ in at_winner)
+        last_new = max(t for t, _ in at_winner)
+        new_keys = sum(len(req[2]) for _, req in at_winner)
+        redriven = [(req[1], o[3]) for o, req in zip(results, reqs) if o[2]]
+        out["traffic"] = {
+            "requests": len(reqs), "chunk_requests": HA_KEYS // SERVER_REQUEST,
+            "cnt_batches": len(cnt_batches), "seconds": run["seconds"],
+            "clients_ready_s": run["ready_s"], "acked_by_old_primary": len(at_old),
+            "acked_by_new_primary": len(at_winner), "acked_at_crash": marks["acked_at_crash"],
+            "requests_redriven": len(redriven), "redrives": run["quorum_redrives"],
+            "redrive_codes": sorted({c for _, cs in redriven for c in cs}),
+            "new_primary_keys": new_keys,
+            "new_primary_keys_per_s": new_keys / max(last_new - promoted[0]["t1"], 1e-9),
+        }
+        out["failover"] = {
+            "crash_stop_s": marks["crash_stop_s"],
+            "crash_to_sdown_s": marks["sdown"] - t_crash,
+            "crash_to_odown_s": marks["odown"] - t_crash,
+            "crash_to_promote_answered_s": promoted[0]["t1"] - t_crash,
+            "crash_to_first_new_ack_s": first_new - t_crash,
+            "promote_rpc_ms": (promoted[0]["t1"] - promoted[0]["t0"]) * 1e3,
+            "promote_handler_ms": [x * 1e3 for x in marks["promote_handler_s"]],
+            "epoch": topo["epoch"], "winner": win, "cursors": marks["cursors"],
+            "old_primary_log_head": plog.last_seq,
+            "winner_adopted_seq": wsvc.oplog.alias_upto,
+            "records_only_the_old_primary_logged": plog.last_seq - (wsvc.oplog.alias_upto or 0),
+            "failovers": sum(s.failovers for s in sents),
+        }
+        check(out["failover"]["failovers"] == 1, "one failover")
+        emit("ha_path_failover", **{k: out[k] for k in ("traffic", "failover")})
+        release(psvc)  # the crashed primary is abandoned
+        nodes["P"] = (psvc, None)
+        gc.collect()
+
+        # -- exactly once, and the words --------------------------------------------
+        deadline = time.monotonic() + 60
+        while ssvc.replica_applier is None or ssvc.replica_applier.primary_address != waddr:
+            check(time.monotonic() < deadline, "the survivor was re-pointed at the new primary")
+            time.sleep(0.01)
+        surv = ssvc.replica_applier
+        check(surv.wait_for_seq(wsvc.oplog.last_seq, 300), f"the survivor caught up: {surv.status()}")
+        repoint = [r for r in marks["replicaof_rpc"] if r["node"] == lose and r["ok"]]
+        out["survivor"] = {"node": lose, "kind": surv.last_sync_kind, "partial_syncs": surv.partial_syncs,
+                           "full_syncs": surv.full_syncs, "records_applied": surv.records_applied,
+                           "records_skipped": surv.records_skipped,
+                           "repointed_after_crash_s": repoint[0]["t1"] - t_crash if repoint else None}
+        check(surv.full_syncs == 0 and surv.partial_syncs >= 1,
+              f"the survivor resumed by a partial resync: {surv.status()}")
+        # every cnt batch re-driven with its own rid at the new primary, and each
+        # chunk request the old primary acknowledged that the new one lacks (not
+        # every key held: absent keys cannot all be false positives)
+        wchunk = wsvc._filters["chunk"].filter
+        lacked = [req for _, req in at_old
+                  if req[1] == "chunk" and not np.asarray(wchunk.include_packed(req[2])).all()]
+        again = pool.run(None, [r for r in reqs if r[1] == "cnt"] + lacked)
+        out["redrive_after"] = {"requests": len(again["out"]), "seconds": again["seconds"],
+                                "chunk_requests_the_new_primary_lacked": len(lacked),
+                                "all_at_new_primary": all(o[1] == waddr for o in again["out"])}
+        check(out["redrive_after"]["all_at_new_primary"], "the re-drives reached the new primary")
+        wcnt = wsvc._filters["cnt"].filter
+        all_cnt = np.concatenate([b for b, _ in cnt_batches])
+        present = wcnt.include_packed(all_cnt)
+        errs = {"cnt_missing": int((~np.asarray(present)).sum())}
+        with BloomClient(waddr) as c:
+            for b, rid in cnt_batches:
+                c._call_once("DeleteBatch", {"name": "cnt", "rid": rid + "-delete", "keys_fixed": {
+                    "data": b.tobytes(), "width": KEY_LEN, "n": len(b)}})
+        torch.cuda.synchronize()
+        errs["cnt_nonzero_after_deletes"] = int(torch.count_nonzero(wcnt.words.view(torch.int32)))
+        check(errs["cnt_missing"] == 0, "every acknowledged cnt key is present (zero lost)")
+        check(errs["cnt_nonzero_after_deletes"] == 0,
+              "one delete a batch empties cnt (zero doubled)")
+        direct = BlockedBloomFilter(FilterConfig(key_name="chunk", **dur_config(LOG2M)))
+        direct.insert_packed(chunk_keys)
+        errs["chunk_vs_direct"] = max_abs_err(wsvc._filters["chunk"].filter.words, direct.words)
+        check(errs["chunk_vs_direct"] == 0, "the new primary's chunk equals a filter fed every key")
+        check(surv.wait_for_seq(wsvc.oplog.last_seq, 300), f"the survivor caught up: {surv.status()}")
+        errs["survivor"] = filter_errs(wsvc, ssvc, ["chunk", "cnt"])
+        check(max(errs["survivor"].values()) == 0, f"the survivor's words equal the new primary's: {errs}")
+        # held and fresh keys of chunk queried at the new primary and at the survivor
+        held = chunk_keys[rng.choice(HA_KEYS, SERVER_PROBES, replace=False)]
+        fresh = rows(rng, SERVER_PROBES)
+        probes = [("QueryBatch", "chunk", r[i:i + SERVER_REQUEST], None)
+                  for r in (held, fresh) for i in range(0, SERVER_PROBES, SERVER_REQUEST)]
+        want = np.concatenate([np.ones(SERVER_PROBES, bool), direct.include_packed(fresh)])
+        for side, addr in (("new_primary", waddr), ("survivor", ssvc.listen_address)):
+            q = pool.run(addr, probes)
+            got = np.concatenate([o[4] for o in q["out"]])
+            check(np.array_equal(got, want), f"the {side}'s verdicts equal the direct filter's")
+            out[f"{side}_query_keys_per_s"] = 2 * SERVER_PROBES / q["seconds"]
+        del direct
+        out["max_abs_err"] = errs
+        emit("ha_path_exactly_once", **{k: out[k] for k in ("survivor", "redrive_after", "max_abs_err")})
+
+        # -- fencing: the crashed primary restarted from its log -----------------------------
+        t0 = time.monotonic()
+        p2log = OpLog(str(HA_DIR / "plog"))
+        p2svc = service.BloomService(sink_factory=sink("pckpt"), oplog=p2log, coalesce=coalesce)
+        tag_node(p2svc, "P_restarted", undo)
+        stats = p2svc.replay_oplog()
+        torch.cuda.synchronize()
+        check(stats["failed"] == 0, f"the restart replayed its log: {stats}")
+        replay_s = time.monotonic() - t0
+        srv, _ = service.build_server(p2svc, paddr)
+        srv.start()
+        p2svc.listen_address = paddr
+        nodes["P_restarted"] = (p2svc, srv)
+        t_up = time.monotonic()
+        deadline = t_up + 60
+        while not p2svc.read_only:
+            check(time.monotonic() < deadline, "the sentinels fenced the restarted primary")
+            time.sleep(0.01)
+        t_fenced = time.monotonic()
+        with BloomClient(paddr, max_retries=0) as c:
+            h = c.health()
+            check(h["role"] == "replica" and h["epoch"] == topo["epoch"],
+                  f"the restarted primary is a replica at epoch {topo['epoch']}: {h['role']}, {h['epoch']}")
+            try:
+                c._call_once("InsertBatch", {"name": "cnt", "keys_fixed": {
+                    "data": bytes(KEY_LEN), "width": KEY_LEN, "n": 1}})
+                code = "OK"
+            except protocol.BloomServiceError as e:
+                code = e.code
+            check(code == "READONLY", f"the fenced node's writes answer READONLY: {code}")
+        app = p2svc.replica_applier
+
+        def refused():
+            return [m for t, m in list(refusals) if t == app._thread.ident]
+
+        deadline = time.monotonic() + 120
+        while app.last_sync_kind is None or (app.last_sync_kind == "full" and app.link != "connected"
+                                             and not refused()):
+            check(time.monotonic() < deadline, f"the fenced node's resync ended: {app.status()}")
+            time.sleep(0.02)
+        probes_up = [(a, b, ok) for a, b, ok in marks.get("old_address_health", []) if a >= t_up]
+        first_ok = next((a for a, _, ok in probes_up if ok), None)
+        fence = {"replay_s": replay_s, "replay": stats, "serving_to_fenced_s": t_fenced - t_up,
+                 "serving_to_first_health_s": None if first_ok is None else first_ok - t_up,
+                 "health_failed_while_serving": sum(1 for a, _, ok in probes_up
+                                                     if not ok and (first_ok is None or a < first_ok)),
+                 "health_failed_ms_max": max([(b - a) * 1e3 for a, b, ok in probes_up if not ok],
+                                             default=None),
+                 "down_s": t_up - t_crash,
+                 "epoch": h["epoch"], "writes": code, "resync": app.last_sync_kind,
+                 "fence_rpc": [{"node": r["node"], "ms": (r["t1"] - r["t0"]) * 1e3}
+                               for r in marks["replicaof_rpc"] if r["node"] == "P"]}
+        if app.last_sync_kind == "partial":
+            check(app.wait_for_seq(wsvc.oplog.last_seq, 300), f"the fenced node caught up: {app.status()}")
+            fence["max_abs_err"] = filter_errs(wsvc, p2svc, ["chunk", "cnt"])
+            check(max(fence["max_abs_err"].values()) == 0, "the fenced node's words equal the new primary's")
+        else:
+            fence["refusal"] = (refused() or [None])[0]
+            fence["refused_by_the_cap"] = bool(fence["refusal"]) and "RESOURCE_EXHAUSTED" in fence["refusal"]
+            check(fence["refused_by_the_cap"], f"the cap refused chunk's blob: {fence['refusal']}")
+            check(p2svc.read_only and app.link != "connected", "the node stays fenced")
+            fence["max_abs_err"] = filter_errs(wsvc, p2svc, ["cnt"])
+            check(fence["max_abs_err"]["cnt"] == 0, "cnt, which the resync carried, equals the new primary's")
+        app.stop()
+        out["fencing"] = fence
+        out["launches"] = {role: {k: sided.sides.get(label, {}).get(k, 0) for k in HA_KERNELS}
+                           for role, label in (("old_primary", "P"), ("new_primary", win),
+                                               ("survivor", lose), ("restarted", "P_restarted"))}
+        for role in ("old_primary", "new_primary", "survivor"):
+            for name in ("blocked_insert", "blocked_counting_update"):
+                check(out["launches"][role][name] > 0, f"{name} launched on the {role}'s side")
+        for role in ("new_primary", "survivor"):
+            check(out["launches"][role]["blocked_query"] > 0, f"blocked_query launched on the {role}'s side")
+    finally:
+        stop.set()
+        repl_log.removeHandler(capture)
+        wraps.undo()
+        sweep.LAUNCHES = saved
+        saved.update(sided)
+        for s in sents:
+            s.stop()
+        if pool is not None:
+            pool.close()
+        for svc, srv in nodes.values():
+            if srv is not None:
+                srv.stop(grace=None)
+            if svc.replica_applier is not None:
+                svc.replica_applier.stop()
+            release(svc)
+            if svc._coalescer is not None:
+                svc._coalescer.close()
+            if svc.oplog is not None:
+                svc.oplog.close()
+        nodes.clear()
+        shutil.rmtree(HA_DIR, ignore_errors=True)
+        gc.collect()
+    torch.cuda.empty_cache()
+    emit("ha_path", **out, nvidia_smi=dev["nvidia_smi"], seconds=time.perf_counter() - t_phase)
+    return out
 
 
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
@@ -5071,6 +5658,8 @@ def main(argv: list[str]) -> int:
                     help="device, build and the gRPC server phase (server_path) only")
     ap.add_argument("--durable", action="store_true",
                     help="device, build and the durable planes' phase (durable_path) only")
+    ap.add_argument("--ha", action="store_true",
+                    help="device, build and the high-availability phase (ha_path) only")
     ap.add_argument("--queries", action="store_true",
                     help="device, build, the sketch path and the two query kernels' times only; "
                          "with --ab DIR, those in DIR, here, here and DIR")
@@ -5089,14 +5678,17 @@ def main(argv: list[str]) -> int:
     if args.host:
         print(json.dumps({"host_only": host_only()}), flush=True)
         return 0
-    if args.server or args.durable:
+    if args.server or args.durable or args.ha:
         rng = np.random.default_rng(SEED)
         if args.server:
             phase_server_path(rng, dev)
         if args.durable:
             phase_durable_path(rng, dev)
+        if args.ha:
+            phase_ha_path(rng, dev)
         OUT_DIR.mkdir(exist_ok=True)
-        name = "chip_smoke_server.json" if args.server else "chip_smoke_durable.json"
+        name = ("chip_smoke_server.json" if args.server else
+                "chip_smoke_durable.json" if args.durable else "chip_smoke_ha.json")
         (OUT_DIR / name).write_text(json.dumps(RECORD, indent=1))
         print(dev["nvidia_smi"], flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
@@ -5157,6 +5749,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     phase_server_path(rng, dev)
     phase_durable_path(rng, dev)
+    phase_ha_path(rng, dev)
     kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                            s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                            stream["with_sink"]["launches"], k_errs, k_times,

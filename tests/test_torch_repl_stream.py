@@ -54,9 +54,10 @@ def port_globals():
 
 class Node:
     """One in-process server of either package: a primary with an op log
-    and a checkpoint sink, or a read-only replica with its applier."""
+    and a checkpoint sink, or a read-only replica (``chained``: with an op
+    log of its own) with its applier."""
 
-    def __init__(self, pkg, tmp_path, name, *, upstream=None, **kw):
+    def __init__(self, pkg, tmp_path, name, *, upstream=None, chained=False, **kw):
         self.pkg = pkg
         svc_mod = service if pkg == "torch" else jservice
         self.log = None
@@ -64,10 +65,10 @@ class Node:
         args = dict(sink_factory=lambda c: (ck if pkg == "torch" else jck).FileSink(sink_dir))
         if pkg == "torch":
             args["device"] = "cpu"
-        if upstream is None:
+        if upstream is None or chained:
             self.log = (OpLog if pkg == "torch" else JOpLog)(str(tmp_path / f"{name}-log"))
             args["oplog"] = self.log
-        else:
+        if upstream is not None:
             args["read_only"] = True
         self.service = svc_mod.BloomService(**args, **kw)
         self.server, self.port = svc_mod.build_server(self.service, "127.0.0.1:0")
@@ -83,13 +84,23 @@ class Node:
     def client(self, **kw) -> BloomClient:
         return BloomClient(self.addr, **kw)
 
+    def sync(self, primary: "Node") -> None:
+        """Wait until this node's live applier has applied ``primary``'s
+        log head."""
+        app = self.service.replica_applier
+        assert app.wait_for_seq(primary.service.oplog.last_seq, 30), app.status()
+
     def close(self):
-        if self.applier is not None:
-            self.applier.stop()
+        """Stop the appliers (the first and any a role change started),
+        the server and the service, and close every op log it held (a
+        promotion may have opened one)."""
+        for app in {id(a): a for a in (self.applier, self.service.replica_applier)
+                    if a is not None}.values():
+            app.stop()
         self.server.stop(grace=None)
         self.service.shutdown()
-        if self.log is not None:
-            self.log.close()
+        for lg in {id(x): x for x in (self.log, self.service.oplog) if x is not None}.values():
+            lg.close()
 
 
 def _wait(pred, timeout=30.0, msg="condition"):

@@ -42,6 +42,7 @@ NEW_MODULES = [
     "tpubloom_torch.repl.replica", "tpubloom_torch.utils.crcjson",
     "tpubloom_torch.storage", "tpubloom_torch.storage.residency",
     "tpubloom_torch.ha", "tpubloom_torch.ha.topology",
+    "tpubloom_torch.ha.promotion", "tpubloom_torch.ha.sentinel", "tpubloom_torch.sentinel",
 ]
 
 
@@ -238,13 +239,12 @@ def test_server_without_card_exits_with_resolve_device_error(tmp_path):
 
 @pytest.mark.parametrize("argv,slice_word", [
     (["--cluster"], "cluster mode"),
-    (["promote", "127.0.0.1:1"], "HA promotion"),
 ])
 def test_later_slice_flags_exit_2(argv, slice_word, capsys):
     """The flags of planes not ported yet stop the server before it
     starts, with argparse's usage code and the slice's name."""
     with pytest.raises(SystemExit) as exc:
-        service.main(["0", "--device", "cpu", *argv] if argv[0] != "promote" else argv)
+        service.main(["0", "--device", "cpu", *argv])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported to tpubloom_torch yet" in err and slice_word in err

@@ -243,9 +243,23 @@ def test_golden_sketch_replay_port(raw_service_server):
         assert _call(ch, *GOLDEN["CFExists"])["ok"]
         assert _call(ch, *GOLDEN["CMSQuery"])["ok"]
         assert _call(ch, *GOLDEN["TopKList"])["ok"]
-        # promoting a replica is a later slice: a structured refusal
-        r = _call(ch, *GOLDEN["Promote"])
-        assert r["ok"] is False and r["error"]["code"] == "UNSUPPORTED"
+        # promoting a replica with no op log answers as a tpubloom replica
+        # in the same state does: NO_LOG_DIR, field for field
+        from tpubloom.server.service import BloomService as RefService
+        from tpubloom.server.service import build_server as ref_build
+
+        ref = RefService(sink_factory=lambda config: None, read_only=True)
+        rsrv, rport = ref_build(ref, "127.0.0.1:0")
+        rsrv.start()
+        rch = grpc.insecure_channel(f"127.0.0.1:{rport}")
+        try:
+            r = _call(ch, *GOLDEN["Promote"])
+            assert r["ok"] is False and r["error"]["code"] == "NO_LOG_DIR"
+            assert r == _call(rch, *GOLDEN["Promote"])
+        finally:
+            rch.close()
+            rsrv.stop(grace=None)
+        assert service.read_only
     finally:
         service.read_only = False
 

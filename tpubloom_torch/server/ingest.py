@@ -244,7 +244,7 @@ class IngestCoalescer:
     def drain_parked(self, timeout: float = 30.0) -> None:
         """Block until every currently-parked request has completed —
         the demotion barrier's coalescer leg (see
-        :func:`tpubloom.ha.promotion.become_replica`: parked writes
+        :func:`tpubloom_torch.ha.promotion.become_replica`: parked writes
         passed the READONLY fence but hold NO filter lock, so the
         take-every-lock-once barrier alone would not wait for them).
         Polls rather than waiting on the condition: the caller holds
@@ -919,13 +919,21 @@ class IngestCoalescer:
 
     def flush_inflight(self) -> None:
         """Fence + settle any parked double-buffered flush (dispatcher
-        thread only — the run loop calls this when the queues go idle)."""
-        payload, err = self._inflight.take()
-        if payload is None:
-            return
-        self._settle(payload, err)
+        thread only — the run loop calls this when the queues go idle).
+        The settle counts as a flush, so :meth:`drain_parked` never sees
+        the buffer empty while its waiters are still being completed."""
         with self._cond:
-            self._cond.notify_all()
+            if not self._inflight.pending:
+                return
+            self._flushing += 1
+        try:
+            payload, err = self._inflight.take()
+            if payload is not None:
+                self._settle(payload, err)
+        finally:
+            with self._cond:
+                self._flushing -= 1
+                self._cond.notify_all()
 
     def _finalize_insert(
         self, entries, seq, presence, ftrace=None, full=None, deleted=None

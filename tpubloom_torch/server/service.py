@@ -17,13 +17,13 @@ restores every filter there. ``Health`` reports ``backend`` ("cuda" or
 
 The op log and replication (``oplog``, ``read_only`` with a
 :class:`tpubloom_torch.repl.ReplicaApplier`, the sync quorum) and tenant
-residency (``storage``) serve as in ``tpubloom``. Planes that are later
-slices of the port: cluster mode (``cluster``) and HA promotion.
-``BloomService`` refuses ``cluster`` with ``NotImplementedError``,
-:func:`main` refuses ``--cluster`` and the ``promote`` subcommand with
-exit code 2, and ``Promote`` / ``ReplicaOf`` answer only their no-op on
-a primary. The ``cluster`` modules it imports are copies for those
-imports.
+residency (``storage``) serve as in ``tpubloom``, and so does high
+availability: ``Promote`` / ``ReplicaOf`` promote, demote and fence
+through :mod:`tpubloom_torch.ha.promotion`, and the ``promote``
+subcommand sends ``Promote``. Cluster mode (``cluster``) is a later slice
+of the port: ``BloomService`` refuses ``cluster`` with
+``NotImplementedError`` and :func:`main` refuses ``--cluster`` with exit
+code 2. The ``cluster`` modules it imports are copies for those imports.
 
 Runtime properties:
 
@@ -86,8 +86,7 @@ Replication (:mod:`tpubloom_torch.repl`):
   signal once the in-flight cap is pegged) and decays back to the
   configured base when the burst passes.
 
-High availability (``tpubloom.ha``; the port has
-:mod:`tpubloom_torch.ha.topology` only):
+High availability (:mod:`tpubloom_torch.ha`):
 
 * **promotion / demotion** — the ``Promote`` RPC (``REPLICAOF NO ONE``
   parity; also ``python -m tpubloom_torch.server promote host:port``) flips a
@@ -286,7 +285,6 @@ WAIT_TIMEOUT_CAP_S = 60.0
 #: the constructor argument or flag that turns each on, with its slice.
 LATER_SLICES = {
     "cluster": "cluster mode (ROADMAP queue 1, item 7)",
-    "promote": "HA promotion (ROADMAP queue 1, item 6)",
 }
 
 
@@ -832,52 +830,37 @@ class BloomService:
                 self._maybe_truncate_log()
 
     def Promote(self, req: dict) -> dict:
-        """Replica→primary promotion RPC (``REPLICAOF NO ONE`` parity).
-        Idempotent on a primary, where it answers as
-        ``tpubloom.ha.promotion.promote_to_primary`` does (``epoch``
-        optional: a pin at the current epoch replays, a newer one is
-        adopted, an older one is ``STALE_EPOCH``); promoting a replica is
-        a later slice of the port (``UNSUPPORTED``)."""
-        return self._promote_noop(req.get("epoch"))
+        """Replica→primary promotion RPC (``REPLICAOF NO ONE`` parity):
+        adopt the op log, bump+persist the topology epoch, start taking
+        writes and serving ``ReplStream``. Idempotent on a primary;
+        ``epoch`` (optional) pins the sentinel-agreed epoch and stale
+        values are rejected with ``STALE_EPOCH``."""
+        from tpubloom_torch.ha import promotion
+
+        return promotion.promote_to_primary(
+            self,
+            repl_log_dir=req.get("repl_log_dir"),
+            epoch=req.get("epoch"),
+        )
 
     def ReplicaOf(self, req: dict) -> dict:
-        """Redis ``REPLICAOF`` parity: ``primary`` absent/``"NO ONE"``
-        promotes (see :meth:`Promote`); demoting to a replica of
-        ``"host:port"`` is a later slice of the port (``UNSUPPORTED``)."""
+        """Redis ``REPLICAOF`` parity: ``{"primary": "host:port"}``
+        re-points (or demotes) this server to replicate from the given
+        primary; ``primary`` absent/``"NO ONE"`` promotes instead.
+        Epoch-stamped like Promote."""
+        from tpubloom_torch.ha import promotion
+
         primary = req.get("primary")
         if primary is None or (
             isinstance(primary, str)
             and primary.strip().upper() in ("", "NO ONE")
         ):
-            return self._promote_noop(req.get("epoch"))
-        raise protocol.BloomServiceError("UNSUPPORTED", _later_slice("promote"))
-
-    def _promote_noop(self, epoch) -> dict:
-        """The primary branch of ``tpubloom.ha.promotion.
-        promote_to_primary``, answer for answer."""
-        faults.fire("ha.promote")
-        with self._promote_lock:
-            if epoch is not None and int(epoch) <= self.epoch:
-                if not self.read_only and int(epoch) == self.epoch:
-                    return {"ok": True, "already_primary": True,
-                            "epoch": self.epoch, "log_id": self._log_id()}
-                raise protocol.BloomServiceError(
-                    "STALE_EPOCH",
-                    f"promotion epoch {epoch} is not newer than the current "
-                    f"epoch {self.epoch}",
-                    details={"epoch": self.epoch},
-                )
-            if self.read_only:
-                raise protocol.BloomServiceError(
-                    "UNSUPPORTED", _later_slice("promote")
-                )
-            if epoch is not None:
-                self.adopt_epoch(int(epoch))
-            return {"ok": True, "already_primary": True,
-                    "epoch": self.epoch, "log_id": self._log_id()}
-
-    def _log_id(self):
-        return self.oplog.log_id if self.oplog is not None else None
+            return promotion.promote_to_primary(
+                self,
+                repl_log_dir=req.get("repl_log_dir"),
+                epoch=req.get("epoch"),
+            )
+        return promotion.become_replica(self, primary, epoch=req.get("epoch"))
 
     # -- cluster mode: slot map, migration -------------------------
 
@@ -3018,6 +3001,43 @@ def _inspect_quarantine_main(argv: list) -> int:
     return 0
 
 
+def _promote_main(argv: list) -> int:
+    """``python -m tpubloom_torch.server promote <address> [--epoch N]
+    [--repl-log-dir DIR]`` — manual replica→primary promotion (Redis
+    ``REPLICAOF NO ONE`` parity): sends the ``Promote`` RPC to the
+    given replica. ``--repl-log-dir`` names the log dir the REMOTE
+    process should open when it was started without one (chained
+    replicas already have theirs)."""
+    import argparse
+    import json as _json
+
+    from tpubloom_torch.server.client import BloomClient
+
+    parser = argparse.ArgumentParser(
+        prog="tpubloom_torch.server promote",
+        description="promote a running replica to primary",
+    )
+    parser.add_argument("address", help="host:port of the replica")
+    parser.add_argument(
+        "--epoch", type=int, default=None,
+        help="pin the topology epoch (default: the replica bumps its own)",
+    )
+    parser.add_argument(
+        "--repl-log-dir", default=None,
+        help="op-log dir the replica should adopt when it has none",
+    )
+    args = parser.parse_args(argv)
+    req: dict = {}
+    if args.epoch is not None:
+        req["epoch"] = args.epoch
+    if args.repl_log_dir:
+        req["repl_log_dir"] = args.repl_log_dir
+    with BloomClient(args.address) as client:
+        resp = client._rpc("Promote", req)
+    print(_json.dumps(resp))
+    return 0
+
+
 def _refuse(what: str) -> None:
     """Exit with code 2 (argparse's usage error) naming the later slice
     that ports ``what``, before anything starts."""
@@ -3044,12 +3064,14 @@ def main(argv: Optional[list] = None) -> None:
     (``bootstrap_from_local``) and then follows the primary;
     ``--min-replicas-to-write`` gates writes behind the sync quorum;
     ``--max-resident-*`` page tenants under a device-memory budget.
-    ``--cluster`` and the ``promote`` subcommand exit with code 2 and name
-    the slice that ports them (cluster mode, HA promotion). With no card
+    ``--replica-of`` + ``--repl-log-dir`` together run a CHAINED replica:
+    applied records re-append to the local log, ``ReplStream`` serves
+    downstream replicas, and promotion is cheap. ``--cluster`` exits with
+    code 2 and names the slice that ports it (cluster mode). With no card
     and no ``--device cpu`` the server exits with ``resolve_device``'s
     error.
 
-    Subcommand: ``inspect-quarantine <dir>``.
+    Subcommands: ``inspect-quarantine <dir>``, ``promote <address>``.
     """
     import argparse
     import signal
@@ -3059,7 +3081,7 @@ def main(argv: Optional[list] = None) -> None:
     if argv and argv[0] == "inspect-quarantine":
         raise SystemExit(_inspect_quarantine_main(argv[1:]))
     if argv and argv[0] == "promote":
-        _refuse("promote")
+        raise SystemExit(_promote_main(argv[1:]))
 
     parser = argparse.ArgumentParser(
         prog="tpubloom_torch.server",
