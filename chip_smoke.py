@@ -289,6 +289,41 @@ line each, with the seconds it took (``phase_seconds``):
    is refused by the 256 MiB message cap at "chunk"'s blob, the node stays
    fenced, and ``cnt``, which the resync carried, equals the new
    primary's.
+31. cluster path: cluster mode (``tpubloom_torch.cluster``) on the card,
+   in this process, with the client processes of phase 28's design, each
+   thread a ``ClusterClient``. Three nodes N0-N2, each a
+   ``BloomService(cluster=ClusterState(...))`` with an op log, a FileSink,
+   the coalescer at 2^19 keys a flush and its ``/metrics``, seeded by
+   ``python -m tpubloom_torch.cluster init``, and an empty N3. The main
+   path's filter "chunk" (m=2^32); ``{t0}blk`` (m=2^30) and ``{t0}cnt``
+   (2^28 counters) on one slot of a node that does not own "chunk"; four
+   blocked tenants t1-t4 at m=2^30, so that every node holds a filter.
+   Under 2^23 keys into "chunk" as 128 ``InsertBatch`` of 2^16, 24
+   batches of 2^16 into ``{t0}blk`` and each of t1-t4, and a ``{t0}cnt``
+   batch of 2^12 after every fourth chunk request, the CLI migrates
+   ``{t0}``'s slot with ``cluster.migrate_send`` armed at ``nth:3`` (it
+   fails after ``{t0}blk`` landed), again (``{t0}blk`` resumes by the
+   op-log tail, ``{t0}cnt`` goes by snapshot), then t1's slot;
+   ``rebalance --plan-only`` pushes the freshest map after each; then t2's
+   slot on the quiet cluster, and ``rebalance --plan-only`` and ``info``
+   over N0-N3. On the host clock: keys/s before, in and after each
+   migration window beside phase 28's rate, each node's dispatcher busy
+   share, each migration's seconds and the clean ones' split (snapshot:
+   the copy, ``payload_crc32c``, D2H, framing; transfer; install: the CRC
+   copy, H2D, the seeded checkpoint; finalize), tail records, forwards and
+   ``IMPORT_NOT_READY`` answers, the writes' p50 / p99 latency outside and
+   inside the windows, the clients' MOVED / ASK hops and re-drives,
+   ``memory_allocated`` around each migration, launches by node, and the
+   ``cluster_*`` counters of one merged scrape (``python -m
+   tpubloom_torch.obs.aggregate --once`` over N0-N3 and a dead address,
+   which must read up 0). Held with tolerance 0: every filter at its
+   owner equals a filter fed every acknowledged key (and its verdicts a
+   direct filter's), every ``{t0}cnt`` key present and one delete a batch
+   empties it, each source answers MOVED and holds no copy, every node's
+   view agrees, and no client request failed. Last, ``MigrateSlot`` of
+   "chunk"'s slot, refused by the 256 MiB message cap: its answer, the
+   slot's marks on both nodes, and what a query and an insert of "chunk"
+   then answer.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -300,7 +335,8 @@ only and writes ``chiprun_out/chip_smoke_sketch.json``; ``--server`` runs
 the device, build and phase 28 only and writes
 ``chiprun_out/chip_smoke_server.json``; ``--durable`` the device, build
 and phase 29 only, to ``chiprun_out/chip_smoke_durable.json``; ``--ha`` the
-device, build and phase 30 only, to ``chiprun_out/chip_smoke_ha.json``. Two other modes
+device, build and phase 30 only, to ``chiprun_out/chip_smoke_ha.json``; ``--cluster``
+the device, build and phase 31 only, to ``chiprun_out/chip_smoke_cluster.json``. Two other modes
 compare kernel builds on one card:
 
     python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18, 19
@@ -509,7 +545,7 @@ M32 = 0xFFFFFFFF
 L2_FLUSH_BYTES = 128 << 20  # read between fresh launches: 2.5 x the H100's 50 MB L2
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 AB_HOST_TURNS = 3  # --ab: --host in the other tree and here, this many times in turns
-RECORD: dict = {}
+RECORD: dict = {"profiler_misses": 0}
 _LAST_EMIT = [time.perf_counter()]
 
 
@@ -567,7 +603,7 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def kernel_ms(fn, n: int = 20, tries: int = 3) -> dict:
+def kernel_ms(fn, n: int = 20, tries: int = 5) -> dict:
     """Mean ms a call of the card's own time in each kernel ``fn(i)``
     launches (by name, its argument list dropped), by ``torch.profiler``
     over ``n`` calls after one warm call: without the host's gaps, which
@@ -575,12 +611,14 @@ def kernel_ms(fn, n: int = 20, tries: int = 3) -> dict:
     mean a launch times its launches a call (its events over ``n``,
     rounded), so that an event the window gains or loses at its edges does
     not count as a launch's worth of time. A window in which the profiler
-    saw no device event is run again, up to ``tries`` times; then the
-    result is empty."""
+    saw no device event is run again, after a pause, up to ``tries``
+    times; then the result is empty."""
     fn(0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.2)
         with torch.profiler.profile(activities=acts) as prof:
             for i in range(n):
                 fn(i)
@@ -595,10 +633,16 @@ def kernel_ms(fn, n: int = 20, tries: int = 3) -> dict:
     return {}
 
 
-def device_ms(fn, n: int = 20) -> float:
+def device_ms(fn, n: int = 20):
     """Mean ms a call of the card's own time in the kernels ``fn(i)``
-    launches (kernel_ms, summed)."""
-    return sum(kernel_ms(fn, n).values())
+    launches (kernel_ms, summed), or None where the profiler saw no device
+    event in any of its windows: that reading is unmeasured, and counted
+    in ``RECORD["profiler_misses"]``. No other clock stands in for it."""
+    ms = sum(kernel_ms(fn, n).values())
+    if ms > 0:
+        return ms
+    RECORD["profiler_misses"] += 1
+    return None
 
 
 def fresh_ms(state: torch.Tensor, launch, n: int, warm: int = 2) -> float:
@@ -2231,7 +2275,8 @@ def host_only() -> dict:
     def measure(stage):
         for name, state, cfg, route in cases:
             rs = [sparse_host(state, cfg, keys, lengths, route) for _ in range(N_HOST_ROUNDS)]
-            dev_us = device_ms(lambda i: sweep.flat_counting_query(state, keys, lengths, cfg, route=route)) * 1e3
+            dev_ms = device_ms(lambda i: sweep.flat_counting_query(state, keys, lengths, cfg, route=route))
+            dev_us = None if dev_ms is None else dev_ms * 1e3
             out[f"{name}{stage}"] = [{**r, "query_device_us": dev_us} for r in rs]
 
     measure("")
@@ -2297,7 +2342,8 @@ def flat_counting_times(name: str, state, cfg, batches, lengths, crowd, route=No
         si_ms, sd_ms = event_pairs_ms([upd(sparse, s_len, kernel=kernel),
                                        upd(sparse, s_len, False, kernel=kernel)], 40)
         s_dev = device_ms(lambda i: (upd(sparse, s_len, kernel=kernel)(i),
-                                     upd(sparse, s_len, False, kernel=kernel)(i))) / 2
+                                     upd(sparse, s_len, False, kernel=kernel)(i)))
+        s_dev = None if s_dev is None else s_dev / 2
         sq_dev = device_ms(qry(sparse, s_len, kernel=kernel))
         ci_ms, cd_ms = event_pairs_ms([upd([c_keys], c_len, kernel=kernel),
                                        upd([c_keys], c_len, False, kernel=kernel)], 20)
@@ -3487,14 +3533,22 @@ def cms_times(cms, ids: np.ndarray, rng) -> dict:
 
 def device_turns(ops: dict, rounds: int = CMS_TURNS, n: int = 20) -> dict:
     """As :func:`turns`, by the card's own time in each op's kernels
-    (:func:`device_ms`): without the host's gaps between short launches."""
+    (:func:`device_ms`): without the host's gaps between short launches. A
+    round in which the profiler saw none of an op's kernels is unmeasured
+    (``misses``) and is run again, up to ``rounds`` more times in all;
+    then the run fails."""
     runs = {name: [] for name in ops}
+    misses = {name: 0 for name in ops}
     for _ in range(rounds):
         for name, fn in ops.items():
             ms = device_ms(fn, n)
-            check(ms > 0, f"the profiler saw {name}'s kernels")
+            while ms is None and misses[name] < rounds:
+                misses[name] += 1
+                ms = device_ms(fn, n)
+            check(ms is not None, f"the profiler saw {name}'s kernels")
             runs[name].append(ms)
-    return {name: {"ms": sorted(r)[len(r) // 2], "rounds": r} for name, r in runs.items()}
+    return {name: {"ms": sorted(r)[len(r) // 2], "rounds": r, "misses": misses[name]}
+            for name, r in runs.items()}
 
 
 def launch_floor() -> dict:
@@ -5018,26 +5072,33 @@ def ha_client(p: int, jobs, barrier, results, sentinels, acked) -> None:
     client_parts(p, jobs, barrier, results, connect, call)
 
 
-def tag_node(svc, label: str, undo: list) -> None:
-    """Count the launches of ``svc``'s coalescer flushes, record applies
-    and snapshot installs under ``label`` (the thread-local ``NODE``'s
-    name while they run; two replicas' appliers share one thread name)."""
-    def tagged(fn):
+def tag_node(svc, label: str, undo: list, attrs=("apply_record", "install_snapshot"),
+             busy=None) -> None:
+    """Count the launches of ``svc``'s ``attrs`` (by default its record
+    applies and snapshot installs) and coalescer flushes under ``label``
+    (the thread-local ``NODE``'s name while they run: nodes in one
+    process share thread names), adding each flush's wall seconds to
+    ``busy[label]`` when ``busy`` is given. RPC handlers among ``attrs``
+    are bound by ``build_server``, so tag before it."""
+    def tagged(fn, timed):
         def call(*a, **kw):
             prev = getattr(NODE, "name", None)
             NODE.name = label
+            t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
                 NODE.name = prev
+                if timed:
+                    busy[label] = busy.get(label, 0.0) + time.perf_counter() - t0
         return call
 
-    targets = [(svc, "apply_record"), (svc, "install_snapshot")]
+    targets = [(svc, attr, False) for attr in attrs]
     if svc._coalescer is not None:
-        targets.append((svc._coalescer, "_flush_inner"))
-    for obj, attr in targets:
+        targets.append((svc._coalescer, "_flush_inner", busy is not None))
+    for obj, attr, timed in targets:
         undo.append((obj, attr, getattr(obj, attr), attr in vars(obj)))
-        setattr(obj, attr, tagged(getattr(obj, attr)))
+        setattr(obj, attr, tagged(getattr(obj, attr), timed))
 
 
 def phase_ha_path(rng, dev: dict) -> dict:
@@ -5425,6 +5486,663 @@ def phase_ha_path(rng, dev: dict) -> dict:
     return out
 
 
+# -- cluster mode: hash slots, MOVED/ASK routing, live slot migration under load ---------
+
+CLUSTER_DIR = Path(__file__).resolve().parent / ".cluster_state"  # git-ignored; removed at the end
+CL_KEYS = SERVER_KEYS  # 128 InsertBatch requests of 2^16 into the main path's filter "chunk"
+CL_TENANT_LOG2M = 30  # {t0}blk and t1-t4: blocked, 128 MiB each, under the 256 MiB message cap
+CL_TENANT_BATCHES = 24  # InsertBatch requests of 2^16 into each of {t0}blk and t1-t4
+CL_CNT_LOG2M, CL_CNT_BATCH, CL_CNT_EVERY = 28, 1 << 12, 4  # {t0}cnt: a batch after every 4th chunk request
+CL_MIGRATE_AFTER = 24  # acknowledged writes before the first migration starts
+CL_TENANT_PROBES = 1 << 16  # held and fresh keys queried in each migrated tenant at its new owner
+CL_KERNELS = ("blocked_insert", "blocked_query", "blocked_counting_update", "payload_crc32c")
+# cuts of the key counts that keep the phase near 90 s (a filter's m never)
+CL_CUTS: list = []
+
+
+def cluster_client(p: int, jobs, barrier, results, startup, acked) -> None:
+    """Client process ``p`` of the cluster path (:func:`client_parts`), a
+    ``ClusterClient`` a thread over the ``startup`` nodes (or one node, when
+    a part names it). A request ``(method, name, rows, rid or None)`` goes
+    through ``_keyed`` as one ``keys_fixed`` frame under its rid, which
+    heals MOVED and ASK and re-drives a write whose migration forward
+    failed; each acknowledged write adds one to ``acked``. Its output is
+    ``(host clock sent, host clock answered, error or None, verdicts or
+    None, this process's MOVED hops, ASK hops and re-drives so far)``."""
+    import threading
+
+    from tpubloom_torch.cluster.client import ClusterClient
+    from tpubloom_torch.obs import counters
+    from tpubloom_torch.server.client import BloomClient
+
+    redrives, lock = [0], threading.Lock()
+    redrive = ClusterClient._redrive
+
+    def counted(self, *a, **kw):
+        with lock:
+            redrives[0] += 1
+        return redrive(self, *a, **kw)
+
+    ClusterClient._redrive = counted
+
+    def connect(addr):
+        return ClusterClient(startup_nodes=[addr] if addr else startup, max_retries=3,
+                             backoff_base=0.05, backoff_max=0.5)
+
+    def call(cl, job, tally, rid):
+        method, name, r, own_rid = job
+        req = {"name": name, "keys_fixed": {"data": r.tobytes(), "width": r.shape[1], "n": len(r)}}
+        t0, err, hits = time.monotonic(), None, None
+        try:
+            resp = cl._keyed(method, req, rid=own_rid or f"cl-{rid}")
+            if method == "QueryBatch":
+                hits = BloomClient._unpack_bool(resp, "hits")
+            elif resp.get("n") != len(r):
+                err = f"{method} count {resp.get('n')} of {len(r)}"
+        except Exception as e:  # noqa: BLE001 — reported to the server's process
+            err = f"{type(e).__name__}: {e}"[:400]
+        t1 = time.monotonic()
+        if err is None and method != "QueryBatch":
+            with acked.get_lock():
+                acked.value += 1
+        return (t0, t1, err, hits, counters.get("client_moved_redirects"),
+                counters.get("client_ask_redirects"), redrives[0])
+
+    client_parts(p, jobs, barrier, results, connect, call)
+
+
+def cluster_cli(module: str, *args: str, timeout: float = 600) -> dict:
+    """``python -m <module> <args>`` from this checkout: its exit code,
+    stdout, the end of its stderr and its seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=here, capture_output=True,
+                          text=True, timeout=timeout, env={**os.environ, "PYTHONPATH": str(here)})
+    return {"rc": proc.returncode, "out": proc.stdout, "err": proc.stderr[-1500:],
+            "seconds": time.perf_counter() - t0}
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def windowed(reqs: list, outs: list, windows: dict) -> dict:
+    """Keys a second of the acknowledged writes by their ack time before,
+    in, between and after the migration windows (``{name: (start, end)}``,
+    host clock), and the writes' p50 / p99 latency outside and inside
+    them."""
+    acks = sorted((o[1], len(req[2])) for o, req in zip(outs, reqs)
+                  if req[0] == "InsertBatch" and o[2] is None)
+    t_start = min(o[0] for o in outs)
+    t_end = max(t for t, _ in acks)
+    edges = [("before", t_start)]
+    for name, (a, b) in sorted(windows.items(), key=lambda kv: kv[1][0]):
+        edges += [(name, a), (f"after_{name}", b)]
+    edges.append(("end", t_end))
+    rates = {}
+    for (name, a), (_, b) in zip(edges, edges[1:]):
+        keys = sum(n for t, n in acks if a <= t < b or (b == t_end and t == b))
+        rates[name] = {"seconds": max(b - a, 0.0), "keys": keys,
+                       "keys_per_s": keys / (b - a) if b > a else None}
+    inside, outside = [], []
+    for o, req in zip(outs, reqs):
+        if req[0] != "InsertBatch" or o[2] is not None:
+            continue
+        hit = any(o[0] < b and o[1] > a for a, b in windows.values())
+        (inside if hit else outside).append(o[1] - o[0])
+    return {"rates": rates, "latency_outside_windows": percentiles_ms(outside),
+            "latency_inside_windows": percentiles_ms(inside), "traffic_s": t_end - t_start}
+
+
+def phase_cluster_path(rng, dev: dict) -> dict:
+    """Cluster mode on the card (``cluster_path``; ``--cluster`` alone), in
+    this process with the client processes of the server path's design,
+    each thread a ``ClusterClient``: three nodes N0-N2 (each a
+    ``BloomService(cluster=ClusterState(...))`` with an op log, a FileSink,
+    the coalescer at 2^19 keys a flush and its ``/metrics``) seeded by
+    ``python -m tpubloom_torch.cluster init``, and an empty N3. The main
+    path's filter "chunk" (m=2^32), two tenants on one hash tag's slot of a
+    node that does not own it, ``{t0}blk`` (m=2^30) and ``{t0}cnt`` (2^28
+    counters), and four blocked tenants t1-t4 (m=2^30) spread so that every
+    node holds one. Under the traffic (2^23 keys into "chunk" as 128
+    ``InsertBatch`` of 2^16, 2^16-key batches into ``{t0}blk`` and t1-t4, a
+    ``{t0}cnt`` batch of 2^12 after every fourth chunk request), the CLI
+    migrates ``{t0}``'s slot with ``cluster.migrate_send`` armed at
+    ``nth:3`` (it fails after ``{t0}blk`` landed), then again (``{t0}blk``
+    resumes by the op-log tail, ``{t0}cnt`` goes by snapshot), then t1's
+    slot cleanly; ``rebalance --plan-only`` pushes the freshest map after
+    each and plans over N0-N3. Measured on the host clock: keys/s before
+    and during each migration, each node's dispatcher busy share, the clean
+    migration's split (snapshot: copy, ``payload_crc32c``, D2H, framing;
+    transfer; install: the CRC copy, H2D, the seeded checkpoint;
+    finalize), the resumed one's tail records and snapshots, forwards and
+    the writes' latency outside and inside the dual-write windows, MOVED /
+    ASK hops and re-drives (``IMPORT_NOT_READY`` among them),
+    ``memory_allocated`` around each migration, launches by node, and the
+    ``cluster_*`` counters of one merged scrape (``python -m
+    tpubloom_torch.obs.aggregate --once``, a dead address among the
+    nodes). Held with tolerance 0: the words of "chunk", ``{t0}blk`` and
+    t1-t4 at their owners equal filters fed every acknowledged key;
+    every ``{t0}cnt`` key present and one delete a batch empties it;
+    sources answer MOVED and hold no copy, every node's view agrees, no
+    request failed. Last, ``MigrateSlot`` of "chunk"'s slot: its refusal
+    by the 256 MiB message cap and the slot's state after it."""
+    global NODE
+    import gc
+    import multiprocessing
+    import threading
+
+    from tpubloom_torch import faults
+    from tpubloom_torch.cluster import migrate as cluster_migrate
+    from tpubloom_torch.cluster import slots as cluster_slots
+    from tpubloom_torch.cluster.client import ClusterClient
+    from tpubloom_torch.cluster.node import ClusterState
+    from tpubloom_torch.filter import _FilterBase
+    from tpubloom_torch.obs.exposition import parse_families
+    from tpubloom_torch.obs.httpd import start_metrics_server
+    from tpubloom_torch.repl import OpLog
+    from tpubloom_torch.server import ingest, protocol, service
+    from tpubloom_torch.server.client import BloomClient
+
+    t_phase = time.perf_counter()
+    if CLUSTER_DIR.exists():
+        shutil.rmtree(CLUSTER_DIR)
+    CLUSTER_DIR.mkdir()
+    NODE = threading.local()
+    MIG = threading.local()  # which migration part a thread is in ("snapshot", "install")
+    saved = (sweep.LAUNCHES, checksum.LAUNCHES)
+    # a launch outside every node's handlers is the phase's own direct filters'
+    side = lambda: getattr(NODE, "name", None) or "direct_filters"  # noqa: E731
+    sided = (SidedLaunches(sweep.LAUNCHES, side), SidedLaunches(checksum.LAUNCHES, side))
+    sweep.LAUNCHES, checksum.LAUNCHES = sided
+    wraps = Clocks()  # for its undo of every wrapper below
+    undo = wraps._undo
+    nodes: dict = {}  # label -> (service, server, metrics server)
+    busy: dict = {}
+    split: dict = {}
+    marks: dict = {"migrate_slot": [], "forwards": [], "memory": {}}
+    pool = None
+    stop = threading.Event()
+    coalesce = ingest.CoalesceConfig(max_keys=SERVER_COALESCE_KEYS)
+    out: dict = {"cuts": CL_CUTS, "tolerance": 0, "keys": CL_KEYS, "tenant_batches": CL_TENANT_BATCHES,
+                 "coalesce_max_keys": SERVER_COALESCE_KEYS, "cap_bytes": 256 << 20}
+
+    def start_node(label):
+        addr = f"127.0.0.1:{free_port()}"
+        d = CLUSTER_DIR / label
+        svc = service.BloomService(
+            sink_factory=lambda config, d=d: checkpoint.FileSink(str(d / "ckpt")),
+            oplog=OpLog(str(d / "log")), coalesce=coalesce, listen_address=addr,
+            cluster=ClusterState(addr, state_dir=str(d / "log")))
+        tag_node(svc, label, undo, busy=busy, attrs=("InsertBatch", "QueryBatch", "DeleteBatch",
+                                                      "CreateFilter", "MigrateSlot", "MigrateInstall"))
+        for attr in ("install_migrated",):
+            install = getattr(svc, attr)
+
+            def tagged_install(*a, _f=install, **kw):
+                MIG.tag = "install"
+                try:
+                    return _f(*a, **kw)
+                finally:
+                    MIG.tag = None
+
+            undo.append((svc, attr, install, False))
+            setattr(svc, attr, tagged_install)
+        call = svc.cluster.call
+
+        def timed_call(addr_, method, req, timeout=30.0, _f=call):
+            t0 = time.perf_counter()
+            try:
+                return _f(addr_, method, req, timeout=timeout)
+            finally:
+                tag = getattr(MIG, "tag", None)
+                if tag:
+                    key = f"{tag}_call_{'probe' if req.get('probe') else method}_s"
+                    split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+
+        svc.cluster.call = timed_call
+        srv, _ = service.build_server(svc, addr)
+        srv.start()
+        ms = start_metrics_server(svc, port=0, host="127.0.0.1")
+        nodes[label] = (svc, srv, ms)
+        return addr
+
+    def part(obj, attr, name, sync=False):
+        """Time ``obj.attr`` under ``<part>_<name>`` while a migration part
+        runs on the calling thread."""
+        orig = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            tag = getattr(MIG, "tag", None)
+            t0 = time.perf_counter()
+            try:
+                res = orig(*a, **kw)
+                if sync and tag:
+                    torch.cuda.synchronize()
+                return res
+            finally:
+                if tag:
+                    key = f"{tag}_{name}_s"
+                    split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+
+        undo.append((obj, attr, orig, attr in vars(obj)))
+        setattr(obj, attr, timed)
+
+    try:
+        # -- set-up: four nodes, the slots assigned over three by the CLI ----------------
+        labels = ("N0", "N1", "N2", "N3")
+        addrs = [start_node(label) for label in labels]
+        label_of = dict(zip(addrs, labels))
+        svc_of = {a: nodes[label_of[a]][0] for a in addrs}
+        three = ",".join(addrs[:3])
+        init = cluster_cli("tpubloom_torch.cluster", "init", "--nodes", three)
+        check(init["rc"] == 0, f"cluster init: {init['err']}")
+        owners = cluster_slots.expand_ranges(json.loads(init["out"])["assigned"])
+        x = owners[cluster_slots.key_slot("chunk")]
+        tag = next(t for t in ["t0"] + [f"t0-{i}" for i in range(64)]
+                   if owners[cluster_slots.key_slot(t)] != x)
+        y = owners[cluster_slots.key_slot(tag)]
+        z = next(a for a in addrs[:3] if a not in (x, y))
+        blk, cnt = f"{{{tag}}}blk", f"{{{tag}}}cnt"
+
+        def tenant(i, at):
+            return next(f"t{i}-{j}" for j in range(4096)
+                        if owners[cluster_slots.key_slot(f"t{i}-{j}")] == at
+                        and cluster_slots.key_slot(f"t{i}-{j}") not in (
+                            cluster_slots.key_slot(tag), cluster_slots.key_slot("chunk")))
+
+        tenants = [tenant(1, z), tenant(2, x), tenant(3, y), tenant(4, z)]
+        t1 = tenants[0]
+        cc = ClusterClient(startup_nodes=addrs[:3])
+        cc.create_filter("chunk", config=dur_config(LOG2M))
+        for name in [blk, *tenants]:
+            cc.create_filter(name, config=dur_config(CL_TENANT_LOG2M))
+        cc.create_filter(cnt, config=dur_config(CL_CNT_LOG2M, counting=True))
+        cc.close()
+        where = {name: label_of[owners[cluster_slots.key_slot(name)]]
+                 for name in ["chunk", blk, cnt, *tenants]}
+        check(len(set(where.values())) == 3, f"every node of N0-N2 holds a filter: {where}")
+        out["setup"] = {"nodes": dict(zip(labels, addrs)), "init": json.loads(init["out"]),
+                        "init_s": init["seconds"], "tag": tag, "tenants": tenants, "where": where,
+                        "memory_allocated": torch.cuda.memory_allocated()}
+        for obj, attr, name, sync in (
+                (checkpoint, "_device_snapshot", "device_copy", True),
+                (checksum, "payload_crc32c", "payload_crc32c", False),
+                (checkpoint, "_serialize", "serialize", False),
+                (checkpoint, "_frame", "frame", False),
+                (checkpoint, "snapshot_blob", "snapshot_blob", False),
+                (checksum, "bytes_crc32c", "bytes_crc32c", False),
+                (checkpoint, "payload_to_words", "payload_to_words", False),
+                (_FilterBase, "_set_words", "set_words", True),
+                (checkpoint.AsyncCheckpointer, "trigger", "seeded_checkpoint_trigger", True)):
+            part(obj, attr, name, sync)
+        migrate_filter = cluster_migrate._migrate_filter
+
+        def tagged_migrate_filter(service_, name, target, stats):
+            MIG.tag = "snapshot"
+            t0 = time.monotonic()
+            try:
+                return migrate_filter(service_, name, target, stats)
+            finally:
+                MIG.tag = None
+                marks["migrate_slot"][-1]["filters"].append((name, t0, time.monotonic()))
+
+        migrate_slot = cluster_migrate.migrate_slot
+
+        def timed_migrate_slot(service_, slot, target):
+            entry = {"slot": slot, "source": label_of[service_.listen_address],
+                     "target": label_of.get(target, target), "t0": time.monotonic(), "filters": []}
+            marks["migrate_slot"].append(entry)
+            try:
+                resp = migrate_slot(service_, slot, target)
+                entry["resp"] = resp
+                return resp
+            except BaseException as e:
+                entry["error"] = repr(e)[:300]
+                raise
+            finally:
+                entry["t1"] = time.monotonic()
+
+        forward_op = cluster_migrate.forward_op
+
+        def counted_forward(service_, method, req, resp):
+            armed = service_.cluster is not None and isinstance(req.get("name"), str) and \
+                service_.cluster.forward_target(req["name"]) is not None
+            try:
+                res = forward_op(service_, method, req, resp)
+                if armed:
+                    marks["forwards"].append((time.monotonic(), req["name"], "ok"))
+                return res
+            except protocol.BloomServiceError as e:
+                kind = "import_not_ready" if "IMPORT_NOT_READY" in e.message else "failed"
+                marks["forwards"].append((time.monotonic(), req["name"], kind))
+                raise
+
+        for attr, fn in (("_migrate_filter", tagged_migrate_filter),
+                         ("migrate_slot", timed_migrate_slot), ("forward_op", counted_forward)):
+            undo.append((cluster_migrate, attr, getattr(cluster_migrate, attr), True))
+            setattr(cluster_migrate, attr, fn)
+
+        # -- the traffic, and the migrations it runs under ----------------------------------
+        chunk_keys = rows(rng, CL_KEYS)
+        tkeys = {name: rows(rng, CL_TENANT_BATCHES * SERVER_REQUEST) for name in [blk, *tenants]}
+        cnt_batches: list = []
+        treqs = [("InsertBatch", name, r[i * SERVER_REQUEST:(i + 1) * SERVER_REQUEST], None)
+                 for i in range(CL_TENANT_BATCHES) for name, r in tkeys.items()]
+        reqs, n_chunk = [], CL_KEYS // SERVER_REQUEST
+        for j in range(n_chunk):
+            reqs.append(("InsertBatch", "chunk", chunk_keys[j * SERVER_REQUEST:(j + 1) * SERVER_REQUEST],
+                         None))
+            if j % CL_CNT_EVERY == CL_CNT_EVERY - 1:
+                cnt_batches.append((rows(rng, CL_CNT_BATCH), f"cl-cnt-{len(cnt_batches)}"))
+                reqs.append(("InsertBatch", cnt, *cnt_batches[-1]))
+            while len(reqs) - (j + 1) - len(cnt_batches) < len(treqs) * (j + 1) // n_chunk:
+                reqs.append(treqs[len(reqs) - (j + 1) - len(cnt_batches)])
+        ctx = multiprocessing.get_context("spawn")
+        acked = ctx.Value("i", 0)
+        pool = ClientPool(cluster_client, (addrs[:3], acked))
+        runs: dict = {}
+
+        def migrate(label, slot, to, arm=None):
+            marks["memory"][f"{label}_before"] = torch.cuda.memory_allocated()
+            if arm:
+                faults.arm("cluster.migrate_send", arm, times=1)
+            try:
+                runs[label] = r = cluster_cli("tpubloom_torch.cluster", "migrate", "--nodes", three,
+                                              "--slot", str(slot), "--to", to)
+            finally:
+                if arm:
+                    faults.disarm("cluster.migrate_send")
+            torch.cuda.synchronize()
+            marks["memory"][f"{label}_after"] = torch.cuda.memory_allocated()
+            time.sleep(1.0)  # a flush in flight at the handoff may hold the source's copy
+            marks["memory"][f"{label}_after_1s"] = torch.cuda.memory_allocated()
+            return r
+
+        def sync_map(label):
+            runs[label] = cluster_cli("tpubloom_torch.cluster", "rebalance", "--nodes", three,
+                                      "--plan-only")
+
+        def migrations():
+            try:
+                while acked.value < CL_MIGRATE_AFTER and not stop.is_set():
+                    time.sleep(0.002)
+                slot0 = cluster_slots.key_slot(blk)
+                migrate("m1_interrupted", slot0, x, arm="nth:3")
+                migrate("m1_resumed", slot0, x)
+                sync_map("sync_after_m1")
+                before = dict(split)
+                migrate("m2_clean", cluster_slots.key_slot(t1), y)
+                marks["m2_split"] = {k: v - before.get(k, 0.0) for k, v in split.items()
+                                     if v != before.get(k, 0.0)}
+                sync_map("sync_after_m2")
+                marks["acked_at_m2_end"] = acked.value
+            except BaseException as e:  # noqa: BLE001 — checked below
+                marks["migrations_error"] = repr(e)
+
+        drv = threading.Thread(target=migrations, daemon=True)
+        drv.start()
+        busy.clear()
+        run = pool.run(None, reqs)
+        drv.join(timeout=600)
+        stop.set()
+        check("migrations_error" not in marks, f"the migrations ran: {marks.get('migrations_error')}")
+        errors = [(req[1], o[2]) for o, req in zip(run["out"], reqs) if o[2] is not None]
+        check(not errors, f"no client request failed across a handoff: {errors[:3]}")
+        m1a, m1r, m2 = runs["m1_interrupted"], runs["m1_resumed"], runs["m2_clean"]
+        check(m1a["rc"] != 0 and "cluster.migrate_send" in m1a["err"] + m1a["out"],
+              f"the armed migration failed at its third send: {m1a['rc']} {m1a['err'][-300:]}")
+        check(m1r["rc"] == 0 and m2["rc"] == 0, f"the migrations ended: {m1r['err']} {m2['err']}")
+        r1, r2 = json.loads(m1r["out"]), json.loads(m2["out"])
+        check(r1["ok"] and r1["filters_moved"] == 2 and r1["snapshots"] == 1,
+              f"{blk} resumed by the tail (no blob re-sent), {cnt} by snapshot: {r1}")
+        check(r2["ok"] and r2["filters_moved"] == 1 and r2["snapshots"] == 1, f"t1 moved: {r2}")
+        mig = marks["migrate_slot"]  # the attempt, the resume and the clean one, as the source ran them
+        check(len(mig) == 3, f"three MigrateSlot calls reached the sources: {len(mig)}")
+        windows = {"m1": (mig[0]["t0"], mig[1]["t1"]), "m2": (mig[2]["t0"], mig[2]["t1"])}
+        traffic = windowed(reqs, run["out"], windows)
+        by_proc = {}
+        for i, o in enumerate(run["out"]):
+            p = i % SERVER_CLIENT_PROCS
+            by_proc[p] = [max(a, b) for a, b in zip(by_proc.get(p, (0, 0, 0)), o[4:7])]
+        hops = dict(zip(("moved", "ask", "redrives"), map(sum, zip(*by_proc.values()))))
+        fwd = marks["forwards"]
+        per_window = {}
+        for w, (a, b) in windows.items():
+            inw = [f for f in fwd if a <= f[0] <= b]
+            per_window[w] = {k: sum(1 for f in inw if f[2] == k) for k in ("ok", "import_not_ready", "failed")}
+        per_window["outside"] = {k: sum(1 for f in fwd if f[2] == k and not any(
+            a <= f[0] <= b for a, b in windows.values())) for k in ("ok", "import_not_ready", "failed")}
+        server_rate = RECORD.get("server_path", {}).get("insert", {}).get("keys_per_s")
+        out["traffic"] = {
+            "requests": len(reqs), "writes": sum(1 for r in reqs if r[0] == "InsertBatch"),
+            "keys": sum(len(r[2]) for r in reqs), "seconds": run["seconds"],
+            "clients_ready_s": run["ready_s"], **traffic,
+            "keys_per_s": sum(len(r[2]) for r in reqs) / run["seconds"],
+            "server_path_keys_per_s_same_run": server_rate,
+            "one_process_note": "the four nodes share this process, its GIL and the card: not a "
+                                "measure of horizontal scaling",
+            "dispatcher_busy_share": {label: busy.get(label, 0.0) / run["seconds"] for label in labels},
+            "client_hops": hops, "forwards": per_window,
+        }
+        migs = {}
+        for entry in marks["migrate_slot"]:
+            label = ("m1_interrupted" if "error" in entry else
+                     "m1_resumed" if entry["slot"] == cluster_slots.key_slot(blk) else "m2_clean")
+            migs[label] = entry
+        clean = migs["m2_clean"]
+        _, f0, f1 = clean["filters"][0]
+        out["migrations"] = {
+            label: {"source": e["source"], "target": e["target"], "seconds": e["t1"] - e["t0"],
+                    "resp": e.get("resp"), "error": e.get("error"),
+                    "cli_s": runs[label]["seconds"],
+                    "memory_before": marks["memory"][f"{label}_before"],
+                    "memory_after": marks["memory"][f"{label}_after"],
+                    "memory_after_1s": marks["memory"][f"{label}_after_1s"]}
+            for label, e in migs.items()}
+        # the clean migration's parts under load (the counters of every part add
+        # over the migrations, so they are read as a difference around it)
+        out["migrations"]["m2_clean"].update(
+            filter_s=f1 - f0, marks_s=f0 - clean["t0"], finalize_s=clean["t1"] - f1,
+            parts_s=dict(sorted(marks["m2_split"].items())))
+        out["sync_map"] = {k: {"rc": runs[k]["rc"], "seconds": runs[k]["seconds"],
+                               "plan": json.loads(runs[k]["out"].splitlines()[0])}
+                           for k in ("sync_after_m1", "sync_after_m2")}
+        emit("cluster_path_traffic", **{k: out[k] for k in ("setup", "traffic", "migrations")})
+
+        # -- the clean migration alone, split, on a quiet cluster: t2 from x to z -------------
+        split.clear()
+        t2 = tenants[1]
+        slot2 = cluster_slots.key_slot(t2)
+        m3 = migrate("m3_split", slot2, z)
+        check(m3["rc"] == 0, f"t2 moved: {m3['err']}")
+        e3 = marks["migrate_slot"][-1]
+        _, g0, g1 = e3["filters"][0]
+        svc_z = svc_of[z]
+        ck_stats = svc_z._filters[t2].checkpointer
+        check(ck_stats.flush(120), "the seeded checkpoint landed")
+        snap_s = split.get("snapshot_snapshot_blob_s", 0.0)
+        install_call = split.get("snapshot_call_MigrateInstall_s", 0.0)
+        install_s = sum(split.get(k, 0.0) for k in (
+            "install_bytes_crc32c_s", "install_payload_to_words_s", "install_set_words_s",
+            "install_seeded_checkpoint_trigger_s"))
+        out["clean_split"] = {
+            "tenant": t2, "source": label_of[x], "target": label_of[z], "bytes": 1 << (CL_TENANT_LOG2M - 3),
+            "seconds": e3["t1"] - e3["t0"], "cli_s": m3["seconds"],
+            "snapshot_s": snap_s, "snapshot_device_copy_s": split.get("snapshot_device_copy_s", 0.0),
+            "snapshot_payload_crc32c_s": split.get("snapshot_payload_crc32c_s", 0.0),
+            "snapshot_d2h_s": split.get("snapshot_serialize_s", 0.0)
+            - split.get("snapshot_payload_crc32c_s", 0.0) - split.get("snapshot_frame_s", 0.0),
+            "snapshot_frame_s": split.get("snapshot_frame_s", 0.0),
+            "probe_s": split.get("snapshot_call_probe_s", 0.0),
+            "install_call_s": install_call,
+            "install_s": install_s,
+            "install_bytes_crc32c_s": split.get("install_bytes_crc32c_s", 0.0),
+            "install_h2d_s": split.get("install_payload_to_words_s", 0.0) + split.get("install_set_words_s", 0.0),
+            "install_seeded_checkpoint_trigger_s": split.get("install_seeded_checkpoint_trigger_s", 0.0),
+            "seeded_checkpoint_worker_s": ck_stats.obs_stats()["last_duration_seconds"],
+            "transfer_s": install_call - install_s,
+            "finalize_s": e3["t1"] - g1, "marks_s": g0 - e3["t0"],
+            "memory_before": marks["memory"]["m3_split_before"],
+            "memory_after": marks["memory"]["m3_split_after"], "parts_s": dict(sorted(split.items()))}
+        sync_map("sync_after_m3")
+
+        # -- views, queries, the words, exactly once, ownership ---------------------------------
+        plan = cluster_cli("tpubloom_torch.cluster", "rebalance", "--nodes", ",".join(addrs), "--plan-only")
+        info = cluster_cli("tpubloom_torch.cluster", "info", "--nodes", ",".join(addrs))
+        check(plan["rc"] == 0 and info["rc"] == 0, f"rebalance --plan-only and info: {plan['err']} {info['err']}")
+        views = json.loads(info["out"])
+        out["views"] = {"plan": json.loads(plan["out"].splitlines()[0]), "plan_s": plan["seconds"],
+                        "info": {label_of[a]: {"epoch": v["epoch"], "ranges": v["ranges"],
+                                               "migrating": v["migrating"], "importing": v["importing"]}
+                                 for a, v in views.items()}}
+        check(len({(v["epoch"], json.dumps(v["ranges"])) for v in views.values()}) == 1,
+              "every node's info view agrees on the epoch and the owners")
+        final = cluster_slots.expand_ranges(views[addrs[0]]["ranges"])
+        owner_of = {name: final[cluster_slots.key_slot(name)] for name in ["chunk", blk, cnt, *tenants]}
+        check(owner_of[blk] == owner_of[cnt] == x and owner_of[t1] == y and owner_of[t2] == z,
+              f"the migrated slots' owners: {owner_of}")
+        errs: dict = {}
+        held = chunk_keys[rng.choice(CL_KEYS, SERVER_PROBES, replace=False)]
+        fresh = rows(rng, SERVER_PROBES)
+        qreqs = [("QueryBatch", "chunk", r[i:i + SERVER_REQUEST], None)
+                 for r in (held, fresh) for i in range(0, SERVER_PROBES, SERVER_REQUEST)]
+        for name in (blk, t1, t2):
+            for r in (tkeys[name][:CL_TENANT_PROBES], rows(rng, CL_TENANT_PROBES)):
+                qreqs.append(("QueryBatch", name, r, None))
+        q = pool.run(None, qreqs)
+        check(all(o[2] is None for o in q["out"]), "every query answered")
+        out["query"] = {"requests": len(qreqs), "seconds": q["seconds"],
+                        "keys_per_s": sum(len(r[2]) for r in qreqs) / q["seconds"]}
+        verdicts: dict = {}
+        for o, req in zip(q["out"], qreqs):
+            verdicts.setdefault(req[1], []).append((req[2], o[3]))
+        for name, log2m in [("chunk", LOG2M), *[(n, CL_TENANT_LOG2M) for n in (blk, *tenants)]]:
+            direct = BlockedBloomFilter(FilterConfig(key_name=name, **dur_config(log2m)))
+            direct.insert_packed(chunk_keys if name == "chunk" else tkeys[name])
+            words = svc_of[owner_of[name]]._filters[name].filter.words
+            check(on_card(words), f"{name} on the card")
+            errs[name] = max_abs_err(words, direct.words)
+            for r, got in verdicts.get(name, ()):
+                check(np.array_equal(got, np.asarray(direct.include_packed(r))),
+                      f"{name}'s verdicts at its owner equal the direct filter's")
+            del direct
+        check(max(errs.values()) == 0, f"every filter at its owner equals one fed every key: {errs}")
+        wcnt = svc_of[x]._filters[cnt].filter
+        all_cnt = np.concatenate([b for b, _ in cnt_batches])
+        errs["cnt_missing"] = int((~np.asarray(wcnt.include_packed(all_cnt))).sum())
+        with BloomClient(x) as c:
+            for b, rid in cnt_batches:
+                c._call_once("DeleteBatch", {"name": cnt, "rid": rid + "-delete", "keys_fixed": {
+                    "data": b.tobytes(), "width": KEY_LEN, "n": len(b)}})
+        torch.cuda.synchronize()
+        errs["cnt_nonzero_after_deletes"] = int(torch.count_nonzero(wcnt.words.view(torch.int32)))
+        check(errs["cnt_missing"] == 0, "every acknowledged {t0}cnt key is present at its new owner")
+        check(errs["cnt_nonzero_after_deletes"] == 0, "one delete a batch empties {t0}cnt (zero doubled)")
+        moved = {}
+        for name, src, dst in ((blk, y, x), (cnt, y, x), (t1, z, y), (t2, x, z)):
+            check(name not in svc_of[src]._filters, f"{name}'s copy is gone from its source")
+            with BloomClient(src, max_retries=0) as c:
+                try:
+                    c._call_once("QueryBatch", {"name": name, "keys_fixed": {
+                        "data": bytes(KEY_LEN), "width": KEY_LEN, "n": 1}})
+                    code = addr = "OK"
+                except protocol.BloomServiceError as e:
+                    code, addr = e.code, e.details.get("addr")
+            moved[name] = {"source": label_of[src], "answer": code, "redirect_to": label_of.get(addr, addr)}
+            check(code == "MOVED" and addr == dst, f"{name}'s source answers MOVED to {dst}: {code} {addr}")
+        out["ownership"] = moved
+        out["max_abs_err"] = errs
+        out["launches"] = {label: {k: sum(s.sides.get(label, {}).get(k, 0) for s in sided)
+                                   for k in CL_KERNELS} for label in (*labels, "direct_filters")}
+        for label in labels[:3]:
+            check(out["launches"][label]["blocked_insert"] > 0, f"blocked_insert launched on {label}")
+        for label, name in ((label_of[x], "blocked_counting_update"), (label_of[y], "blocked_counting_update"),
+                            (label_of[x], "blocked_query"), (label_of[y], "blocked_query"),
+                            (label_of[y], "payload_crc32c"), (label_of[x], "payload_crc32c")):
+            check(out["launches"][label][name] > 0, f"{name} launched on {label}")
+        emit("cluster_path_checks", **{k: out[k] for k in ("clean_split", "views", "query", "ownership",
+                                                            "max_abs_err", "launches")})
+
+        # -- one merged scrape of N0-N3 and a dead address -------------------------------------
+        dead = f"127.0.0.1:{free_port()}"
+        mnodes = [f"127.0.0.1:{nodes[label][2].port}" for label in labels] + [dead]
+        scrape = cluster_cli("tpubloom_torch.obs.aggregate", "--nodes", ",".join(mnodes), "--once",
+                             "--timeout", "5")
+        check(scrape["rc"] == 0, f"the merged scrape: {scrape['err']}")
+        fams = parse_families(scrape["out"])
+        up = {dict(k)["node"]: v for k, v in fams["tpubloom_aggregate_node_up"].items()}
+        check(up.get(dead) == 0.0 and all(up.get(n) == 1.0 for n in mnodes[:4]),
+              f"node_up is 1 for N0-N3 and 0 for the dead address: {up}")
+        out["scrape"] = {"seconds": scrape["seconds"], "node_up": up, "bytes": len(scrape["out"]),
+                         "shared_registry_note": "the nodes share this process's counters",
+                         "cluster": {f: {dict(k).get("node"): v for k, v in fams[f].items()
+                                         if dict(k).get("node") == mnodes[0]}
+                                     for f in sorted(fams) if f.startswith("tpubloom_cluster_")
+                                     and not f.startswith("tpubloom_cluster_slot_keys_total_")},
+                         "client_counters_note": "MOVED / ASK hops are counted in the client processes"}
+
+        # -- last: the 256 MiB message cap on "chunk"'s slot ------------------------------------
+        slot_c = cluster_slots.key_slot("chunk")
+        t0 = time.perf_counter()
+        try:
+            with BloomClient(x, timeout=600, max_retries=0) as c:
+                cap = {"answer": "OK", "resp": c.migrate_slot(slot_c, y)}
+        except protocol.BloomServiceError as e:
+            cap = {"answer": e.code, "message": e.message[:400],
+                   "resource_exhausted": "RESOURCE_EXHAUSTED" in e.message}
+        cap["seconds"] = time.perf_counter() - t0
+        cap["source_marks"] = {"migrating": svc_of[x].cluster.slots.migrating.get(slot_c),
+                               "owner": label_of.get(svc_of[x].cluster.owner(slot_c))}
+        cap["target_marks"] = {"importing": svc_of[y].cluster.slots.importing.get(slot_c),
+                               "owner": label_of.get(svc_of[y].cluster.owner(slot_c)),
+                               "holds_chunk": "chunk" in svc_of[y]._filters}
+        for method in ("QueryBatch", "InsertBatch"):
+            with BloomClient(x, max_retries=0) as c:
+                try:
+                    resp = c._call_once(method, {"name": "chunk", "keys_fixed": {
+                        "data": chunk_keys[:1].tobytes(), "width": KEY_LEN, "n": 1}})
+                    cap[method] = {"answer": "OK", "n": resp.get("n")}
+                except protocol.BloomServiceError as e:
+                    cap[method] = {"answer": e.code, "message": e.message[:300],
+                                   "details": {k: v for k, v in e.details.items() if k != "target"}}
+        cap["memory_allocated"] = torch.cuda.memory_allocated()
+        out["cap"] = cap
+        check(cap["answer"] == "RESOURCE_EXHAUSTED" or cap.get("resource_exhausted", False),
+              f"the cap refused chunk's blob: {cap}")
+    finally:
+        stop.set()
+        wraps.undo()
+        sweep.LAUNCHES, checksum.LAUNCHES = saved
+        for s, base in zip(sided, saved):
+            base.update(s)
+        if pool is not None:
+            pool.close()
+        for svc, srv, ms in nodes.values():
+            ms.close()
+            srv.stop(grace=None)
+            release(svc)
+            if svc._coalescer is not None:
+                svc._coalescer.close()
+            svc.oplog.close()
+            svc.cluster.close()
+        nodes.clear()
+        faults.reset()
+        shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+        gc.collect()
+    torch.cuda.empty_cache()
+    emit("cluster_path", **out, nvidia_smi=dev["nvidia_smi"], seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                  s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                  k_launches, k_errs, k_times, sk_launches, sk_errs, sk_times) -> list[dict]:
@@ -5635,7 +6353,8 @@ def phase_ab(other: Path, times: bool = True) -> None:
             raise RuntimeError(f"--host in {tree} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
         run = json.loads(proc.stdout.strip().splitlines()[-1])["host_only"]
         hosts.append({"tree": label, **run})
-        emit("ab_host", tree=label, **{name: [{k: round(v, 2) for k, v in r.items()} for r in rs]
+        emit("ab_host", tree=label, **{name: [{k: v if v is None else round(v, 2) for k, v in r.items()}
+                                             for r in rs]
                                        for name, rs in run.items()})
     OUT_DIR.mkdir(exist_ok=True)
     if times:
@@ -5660,6 +6379,8 @@ def main(argv: list[str]) -> int:
                     help="device, build and the durable planes' phase (durable_path) only")
     ap.add_argument("--ha", action="store_true",
                     help="device, build and the high-availability phase (ha_path) only")
+    ap.add_argument("--cluster", action="store_true",
+                    help="device, build and the cluster phase (cluster_path) only")
     ap.add_argument("--queries", action="store_true",
                     help="device, build, the sketch path and the two query kernels' times only; "
                          "with --ab DIR, those in DIR, here, here and DIR")
@@ -5678,7 +6399,7 @@ def main(argv: list[str]) -> int:
     if args.host:
         print(json.dumps({"host_only": host_only()}), flush=True)
         return 0
-    if args.server or args.durable or args.ha:
+    if args.server or args.durable or args.ha or args.cluster:
         rng = np.random.default_rng(SEED)
         if args.server:
             phase_server_path(rng, dev)
@@ -5686,9 +6407,12 @@ def main(argv: list[str]) -> int:
             phase_durable_path(rng, dev)
         if args.ha:
             phase_ha_path(rng, dev)
+        if args.cluster:
+            phase_cluster_path(rng, dev)
         OUT_DIR.mkdir(exist_ok=True)
         name = ("chip_smoke_server.json" if args.server else
-                "chip_smoke_durable.json" if args.durable else "chip_smoke_ha.json")
+                "chip_smoke_durable.json" if args.durable else
+                "chip_smoke_ha.json" if args.ha else "chip_smoke_cluster.json")
         (OUT_DIR / name).write_text(json.dumps(RECORD, indent=1))
         print(dev["nvidia_smi"], flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
@@ -5750,6 +6474,7 @@ def main(argv: list[str]) -> int:
     phase_server_path(rng, dev)
     phase_durable_path(rng, dev)
     phase_ha_path(rng, dev)
+    phase_cluster_path(rng, dev)
     kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                            s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                            stream["with_sink"]["launches"], k_errs, k_times,

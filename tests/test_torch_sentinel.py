@@ -435,3 +435,26 @@ def test_failover_sigkill_of_a_port_primary(tmp_path):
         for n in reps:
             n.close()
         boot.close()
+
+
+def test_vote_granted_while_probing_holds_the_election_back():
+    """A sentinel that grants a peer's vote after its monitor tick decided
+    to run, while it probes the replicas for a finished failover, starts no
+    election of its own: the peer leads this failover, and a second
+    election at the next epoch could win too and promote a second time."""
+    s = Sentinel(W, peers=[], quorum=2)
+    s._sdown = True
+    grants = []
+
+    def probe():
+        grants.append(s.handle_VoteDown({"epoch": 1, "primary": W, "candidate": "peer"}))
+        return False
+
+    s._adopt_completed_failover = probe
+    s._attempt_failover()
+    assert grants[0]["granted"]
+    assert s._last_vote_epoch == 1 and s.last_election_rid is None
+    # once the hold-off has passed, the sentinel runs its own election
+    s._granted_at -= 3600
+    s._attempt_failover()
+    assert s._last_vote_epoch == 2 and s.last_election_rid.startswith("election-2-")

@@ -2,7 +2,7 @@
 tpubloom_torch.server`` in a subprocess on the CPU, driven by the port's
 coalesced ``BloomClient`` from several threads; the flags and constructor
 arguments of the durable planes (op log, replication, residency) building
-their objects, and those of planes not ported yet refused by name; and
+their objects, and so do cluster mode's; and
 the import boundary: no module of ``jax`` or ``tpubloom`` is loaded by the
 port's server, its client, or any of the modules they bring in."""
 
@@ -43,6 +43,7 @@ NEW_MODULES = [
     "tpubloom_torch.storage", "tpubloom_torch.storage.residency",
     "tpubloom_torch.ha", "tpubloom_torch.ha.topology",
     "tpubloom_torch.ha.promotion", "tpubloom_torch.ha.sentinel", "tpubloom_torch.sentinel",
+    "tpubloom_torch.cluster.rebalance", "tpubloom_torch.obs.aggregate",
 ]
 
 
@@ -237,57 +238,49 @@ def test_server_without_card_exits_with_resolve_device_error(tmp_path):
     assert "no CUDA device available" in out.stderr
 
 
-@pytest.mark.parametrize("argv,slice_word", [
-    (["--cluster"], "cluster mode"),
-])
-def test_later_slice_flags_exit_2(argv, slice_word, capsys):
-    """The flags of planes not ported yet stop the server before it
-    starts, with argparse's usage code and the slice's name."""
-    with pytest.raises(SystemExit) as exc:
-        service.main(["0", "--device", "cpu", *argv])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported to tpubloom_torch yet" in err and slice_word in err
-
-
-@pytest.mark.parametrize("arg", ["cluster"])
-def test_later_slice_arguments_raise(arg):
-    with pytest.raises(NotImplementedError, match="not ported to tpubloom_torch yet"):
-        service.BloomService(device="cpu", **{arg: object()})
-
-
-#: the flags and constructor arguments of the durable planes, each with the
-#: object it must build: the op log, the replica's applier, the residency
-#: store (``--min-replicas-to-write`` builds the log its quorum needs)
+#: the flags and constructor arguments of the durable planes and of cluster
+#: mode, each with the object it must build: the op log, the replica's
+#: applier, the residency store, the slot map's ``ClusterState``
+#: (``--min-replicas-to-write`` builds the log its quorum needs)
 DURABLE = [
     ("flag", ["--replica-of", "127.0.0.1:1"], "ReplicaApplier"),
     ("flag", ["--repl-log-dir", "oplog"], "OpLog"),
     ("flag", ["--min-replicas-to-write", "1", "--repl-log-dir", "oplog"], "OpLog"),
     ("flag", ["--max-resident-filters", "4"], "TenantStore"),
     ("flag", ["--max-resident-bytes", "1024"], "TenantStore"),
+    ("flag", ["--cluster", "--repl-log-dir", "oplog"], "ClusterState"),
     ("arg", "oplog", "OpLog"),
     ("arg", "storage", "TenantStore"),
+    ("arg", "cluster", "ClusterState"),
 ]
 
 
 @pytest.mark.parametrize("how,what,builds", DURABLE)
 def test_durable_planes_attach(how, what, builds, tmp_path, monkeypatch):
-    """Each durable plane's flag (through ``main()``, stopped before it
-    serves) or constructor argument builds its object on ``--device cpu``."""
+    """Each durable plane's or cluster mode's flag (through ``main()``,
+    stopped before it serves) or constructor argument builds its object on
+    ``--device cpu``; ``--cluster`` keeps its slot map beside the op log."""
+    from tpubloom_torch.cluster import ClusterState
     from tpubloom_torch.repl import OpLog, ReplicaApplier
     from tpubloom_torch.storage import StorageConfig, TenantStore
 
     if how == "arg":
-        value = OpLog(str(tmp_path / "log")) if what == "oplog" else \
-            StorageConfig(max_resident_filters=2)
+        value = {"oplog": lambda: OpLog(str(tmp_path / "log")),
+                 "storage": lambda: StorageConfig(max_resident_filters=2),
+                 "cluster": lambda: ClusterState("127.0.0.1:1", state_dir=str(tmp_path))}[what]()
         svc = service.BloomService(device="cpu", **{what: value})
         try:
-            got = svc.oplog if what == "oplog" else svc.storage
-            assert isinstance(got, OpLog if what == "oplog" else TenantStore)
-            assert svc._epoch_store is not None or what == "storage"
+            got = {"oplog": svc.oplog, "storage": svc.storage, "cluster": svc.cluster}[what]
+            assert type(got).__name__ == builds
+            assert got is value or what == "storage"
+            assert svc._epoch_store is not None or what != "oplog"
+            if what == "cluster":
+                assert svc.ClusterSlots({})["enabled"]
+                svc.ClusterSetSlot({"assign": [[0, 16383, "127.0.0.1:1"]], "epoch": 1})
+                assert svc.Health({})["cluster"]["slots_owned"] == 16384
         finally:
             svc.shutdown()
-            if what == "oplog":
+            if what in ("oplog", "cluster"):
                 value.close()
         return
     built = {}
@@ -306,8 +299,13 @@ def test_durable_planes_attach(how, what, builds, tmp_path, monkeypatch):
     svc = built["service"]
     try:
         obj = {"OpLog": svc.oplog, "TenantStore": svc.storage,
-               "ReplicaApplier": svc.replica_applier}[builds]
+               "ReplicaApplier": svc.replica_applier, "ClusterState": svc.cluster}[builds]
         assert type(obj).__name__ == builds and obj is not None
+        if builds == "ClusterState":
+            assert obj.self_addr == "127.0.0.1:0" and obj._store is not None
+            assert os.path.dirname(os.path.abspath(obj._store.path)) == str(tmp_path / "oplog")
+            svc.ClusterSetSlot({"assign": [[0, 16383, obj.self_addr]], "epoch": 2})
+            assert ClusterState("x", state_dir=str(tmp_path / "oplog")).epoch() == 2
         if builds == "ReplicaApplier":
             assert svc.read_only and isinstance(obj, ReplicaApplier)
             obj.stop()
@@ -318,6 +316,8 @@ def test_durable_planes_attach(how, what, builds, tmp_path, monkeypatch):
         svc.shutdown()
         if svc.oplog is not None:
             svc.oplog.close()
+        if svc.cluster is not None:
+            svc.cluster.close()
 
 
 def test_inspect_quarantine_runs(tmp_path, capsys):

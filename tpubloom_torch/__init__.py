@@ -44,19 +44,27 @@ reference. This package imports ``torch`` and numpy, never JAX and never
     top.topk_list()                      # [(b"alpha", 5)]
 """
 
-from tpubloom_torch.config import FilterConfig
-from tpubloom_torch.filter import (
-    BlockedBloomFilter, BlockedCountingBloomFilter, BloomFilter, CountingBloomFilter,
-)
-from tpubloom_torch.checkpoint import AsyncCheckpointer
-from tpubloom_torch.parallel.pipeline import StreamInserter, resume_offset
-from tpubloom_torch.parallel.sharded import ShardedBloomFilter
-from tpubloom_torch.scalable import ScalableBloomFilter
-from tpubloom_torch.sketch.cms import CountMinSketch, TopKSketch
-from tpubloom_torch.sketch.cuckoo import CuckooFilter
+#: where each public name lives; a name's module is imported on first use,
+#: so that ``import tpubloom_torch.cluster`` (the admin CLI, the fleet
+#: scraper, the cluster client) loads neither torch nor the kernels
+_HOMES = {
+    "FilterConfig": "config", "BloomFilter": "filter", "CountingBloomFilter": "filter",
+    "BlockedBloomFilter": "filter", "BlockedCountingBloomFilter": "filter",
+    "ShardedBloomFilter": "parallel.sharded", "StreamInserter": "parallel.pipeline",
+    "resume_offset": "parallel.pipeline", "AsyncCheckpointer": "checkpoint",
+    "ScalableBloomFilter": "scalable", "CuckooFilter": "sketch.cuckoo",
+    "CountMinSketch": "sketch.cms", "TopKSketch": "sketch.cms",
+}
 
-__all__ = [
-    "FilterConfig", "BloomFilter", "CountingBloomFilter", "BlockedBloomFilter",
-    "BlockedCountingBloomFilter", "ShardedBloomFilter", "StreamInserter", "resume_offset",
-    "AsyncCheckpointer", "ScalableBloomFilter", "CuckooFilter", "CountMinSketch", "TopKSketch",
-]
+__all__ = list(_HOMES)
+
+
+def __getattr__(name: str):
+    import importlib
+
+    if name not in _HOMES:
+        raise AttributeError(f"module 'tpubloom_torch' has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"tpubloom_torch.{_HOMES[name]}"), name)
+    globals()[name] = value
+    return value
+

@@ -19,8 +19,11 @@ live slot migration. Redis Cluster parity for tpubloom:
   ``init`` (seed assignments), ``info``, ``migrate``, ``rebalance``
   (plan + drive slot moves toward an even spread).
 
-Server wiring: ``python -m tpubloom_torch.server --cluster`` attaches a
-:class:`ClusterState`; see ``tpubloom/server/service.py``.
+Server wiring: ``python -m tpubloom_torch.server --cluster`` (or
+``BloomService(cluster=ClusterState(addr, state_dir=...))``) attaches a
+:class:`ClusterState`; see :mod:`tpubloom_torch.server.service`. Every
+module here speaks gRPC and JSON only, except the migration's snapshot
+and install, which run the checkpoint codec on the service's device.
 """
 
 from tpubloom_torch.cluster.client import ClusterClient

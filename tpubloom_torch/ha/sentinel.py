@@ -485,18 +485,11 @@ class Sentinel:
                 self._poll_primary()
                 self._fence_stale_primaries()
                 now = time.monotonic()
-                # a granted vote means a peer is leading a failover that
-                # may legitimately take up to promote_timeout — hold our
-                # own candidacy back at least that long
-                grant_holdoff = max(
-                    4 * self.failover_cooldown_s,
-                    self.failover_cooldown_s + self.promote_timeout_s,
-                )
                 if (
                     self._sdown
                     and now - self._last_failover_attempt
                     >= self.failover_cooldown_s + self._election_stagger
-                    and now - self._granted_at >= grant_holdoff
+                    and not self._peer_leads(now)
                 ):
                     self._last_failover_attempt = now
                     # re-roll the stagger per attempt so two sentinels
@@ -508,6 +501,16 @@ class Sentinel:
                     self._attempt_failover()
             except Exception:  # noqa: BLE001 — the watcher must survive
                 log.exception("sentinel monitor tick failed")
+
+    def _peer_leads(self, now: float) -> bool:
+        """Whether this sentinel granted a peer's vote recently enough that
+        the peer may still be leading its failover: a failover may take up
+        to promote_timeout, and our own candidacy holds back that long."""
+        grant_holdoff = max(
+            4 * self.failover_cooldown_s,
+            self.failover_cooldown_s + self.promote_timeout_s,
+        )
+        return now - self._granted_at < grant_holdoff
 
     def _poll_primary(self) -> None:
         with self._lock:
@@ -664,6 +667,13 @@ class Sentinel:
         if self._adopt_completed_failover():
             return
         with self._lock:
+            if self._peer_leads(time.monotonic()):
+                # a peer's VoteDown took our vote while we probed the
+                # replicas: that peer leads this failover, and an election
+                # of our own at the next epoch could win too and promote a
+                # second time. Checked under the lock the grant takes, so
+                # a later VoteDown meets our self-vote and is refused.
+                return
             new_epoch = max(self.topology.epoch, self._last_vote_epoch) + 1
             primary = self.topology.primary
             # vote for ourselves (term discipline: once per epoch) —

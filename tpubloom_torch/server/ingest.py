@@ -121,6 +121,27 @@ class CoalesceConfig:
         )
 
 
+def _bare(error: BaseException) -> BaseException:
+    """A copy of ``error`` with its class, arguments and attributes, and
+    without its traceback or the exceptions chained to it. A waiter
+    re-raises the error on its own thread; the flush's frames, which hold
+    the filter, must not ride along, so that a migrated-away or dropped
+    filter goes with its last reference (its device memory is freed then,
+    not at the next cyclic collection). An error whose class cannot be
+    made again from its arguments becomes an INTERNAL
+    ``BloomServiceError`` that carries its repr."""
+    cls = type(error)
+    try:
+        bare = cls.__new__(cls, *error.args)
+        bare.args = error.args
+        bare.__dict__.update(vars(error))
+    except Exception:  # noqa: BLE001 — any class the copy cannot rebuild
+        from tpubloom_torch.server import protocol
+
+        return protocol.BloomServiceError("INTERNAL", f"ingest flush failed: {error!r}")
+    return bare
+
+
 class _Entry:
     __slots__ = (
         "req", "rid", "nkeys", "nbytes", "rows", "keys",
@@ -159,6 +180,8 @@ class _Entry:
 
     def complete(self, resp: Optional[dict] = None,
                  error: Optional[BaseException] = None) -> None:
+        if error is not None:
+            error = _bare(error)
         self.resp, self.error = resp, error
         self.event.set()
         cb = self.callback
@@ -434,6 +457,10 @@ class IngestCoalescer:
                 with self._cond:
                     self._flushing -= 1
                     self._cond.notify_all()
+                # an idle loop must not pin the last flush: its entries,
+                # nor its error, whose traceback's frames hold the filter
+                # (a migrated-away or dropped one's device memory with it)
+                batch = entries = err = None
         self.flush_inflight()
 
     def _wait_locked(self) -> Optional[float]:

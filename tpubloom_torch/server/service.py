@@ -20,10 +20,10 @@ The op log and replication (``oplog``, ``read_only`` with a
 residency (``storage``) serve as in ``tpubloom``, and so does high
 availability: ``Promote`` / ``ReplicaOf`` promote, demote and fence
 through :mod:`tpubloom_torch.ha.promotion`, and the ``promote``
-subcommand sends ``Promote``. Cluster mode (``cluster``) is a later slice
-of the port: ``BloomService`` refuses ``cluster`` with
-``NotImplementedError`` and :func:`main` refuses ``--cluster`` with exit
-code 2. The ``cluster`` modules it imports are copies for those imports.
+subcommand sends ``Promote``. So does cluster mode: ``cluster`` (a
+:class:`tpubloom_torch.cluster.ClusterState`) or ``--cluster`` attaches
+the slot map, and a migrating filter's snapshot is taken and installed on
+this service's device (below).
 
 Runtime properties:
 
@@ -281,20 +281,6 @@ DEFAULT_MIN_REPLICAS_MAX_LAG_MS = 1000
 #: (Redis WAIT 0 semantics); clamp to this ceiling instead.
 WAIT_TIMEOUT_CAP_S = 60.0
 
-#: The planes of ``tpubloom.server`` this package has not ported yet, by
-#: the constructor argument or flag that turns each on, with its slice.
-LATER_SLICES = {
-    "cluster": "cluster mode (ROADMAP queue 1, item 7)",
-}
-
-
-def _later_slice(what: str) -> str:
-    return (
-        f"{what} is not ported to tpubloom_torch yet: it belongs to "
-        f"{LATER_SLICES[what]}"
-    )
-
-
 class BloomService:
     """Method handlers; state = {name: _Managed}."""
 
@@ -341,10 +327,9 @@ class BloomService:
 
         ``device`` is where every filter is built and restored: None is
         the CUDA card (and an error without one), ``"cpu"`` runs the plain
-        PyTorch versions. ``cluster`` raises ``NotImplementedError``:
-        cluster mode is a later slice."""
-        if cluster is not None:
-            raise NotImplementedError(_later_slice("cluster"))
+        PyTorch versions. ``cluster`` attaches a
+        :class:`tpubloom_torch.cluster.ClusterState` (slot ownership on
+        every keyed RPC, live slot migration)."""
         #: the device every filter of this service lives on, with its
         #: index pinned here: the replica's applier and the coalescer's
         #: dispatcher build and launch from threads of their own
@@ -2653,11 +2638,13 @@ def _wrap(service: BloomService, method_name: str):
                     # re-delivered migration forwards (exactly-once)
                     gate_dup = False
                     src_seq = None
-                    if (
+                    keyed = (
                         service.cluster is not None
                         and isinstance(req_name, str)
                         and method_name in cluster_node.KEYED_METHODS
-                    ):
+                    )
+
+                    def slot_check():
                         service.cluster.check(
                             req_name,
                             asking=bool(req.get("asking")),
@@ -2668,6 +2655,9 @@ def _wrap(service: BloomService, method_name: str):
                                 else None
                             ),
                         )
+
+                    if keyed:
+                        slot_check()
                         if rctx.batch:
                             # per-slot key-traffic counters
                             # (ROADMAP item 6): rebalance
@@ -2734,13 +2724,20 @@ def _wrap(service: BloomService, method_name: str):
                     else:
                         try:
                             resp = handler(req)
-                        except BaseException:
+                        except BaseException as e:
                             if src_seq is not None:
                                 # the apply itself failed: the record is
                                 # NOT contained — a re-delivery must pass
                                 service.cluster.gate_unclaim(
                                     req_name, src_seq
                                 )
+                            if keyed and getattr(e, "code", None) == "NOT_FOUND":
+                                # the slot's handoff finalized and retired
+                                # the local copy after the check above (a
+                                # request parked in the coalescer meets
+                                # that window most): nothing applied here,
+                                # so answer the redirect the map gives now
+                                slot_check()
                             raise
                     # a coalesced response already paid its flush's
                     # shared barrier and was proven outside
@@ -3038,15 +3035,6 @@ def _promote_main(argv: list) -> int:
     return 0
 
 
-def _refuse(what: str) -> None:
-    """Exit with code 2 (argparse's usage error) naming the later slice
-    that ports ``what``, before anything starts."""
-    import sys as _sys
-
-    print(f"tpubloom_torch.server: {_later_slice(what)}", file=_sys.stderr)
-    raise SystemExit(2)
-
-
 def main(argv: Optional[list] = None) -> None:
     """``python -m tpubloom_torch.server [port] [checkpoint_dir]
     [--device cuda|cpu] [--metrics-port N] [--slowlog-capacity N]
@@ -3066,10 +3054,11 @@ def main(argv: Optional[list] = None) -> None:
     ``--max-resident-*`` page tenants under a device-memory budget.
     ``--replica-of`` + ``--repl-log-dir`` together run a CHAINED replica:
     applied records re-append to the local log, ``ReplStream`` serves
-    downstream replicas, and promotion is cheap. ``--cluster`` exits with
-    code 2 and names the slice that ports it (cluster mode). With no card
-    and no ``--device cpu`` the server exits with ``resolve_device``'s
-    error.
+    downstream replicas, and promotion is cheap. ``--cluster`` attaches a
+    :class:`tpubloom_torch.cluster.ClusterState` whose slot map persists
+    beside the op log (or the checkpoint dir; neither: memory only); seed
+    it with ``python -m tpubloom_torch.cluster init``. With no card and no
+    ``--device cpu`` the server exits with ``resolve_device``'s error.
 
     Subcommands: ``inspect-quarantine <dir>``, ``promote <address>``.
     """
@@ -3179,7 +3168,7 @@ def main(argv: Optional[list] = None) -> None:
         "redirects), the ClusterSlots/ClusterSetSlot/MigrateSlot verbs "
         "are served, and the map persists beside the op log (or the "
         "checkpoint dir). Seed assignments with `python -m "
-        "tpubloom.cluster init`",
+        "tpubloom_torch.cluster init`",
     )
     parser.add_argument(
         "--coalesce-max-keys",
@@ -3295,8 +3284,6 @@ def main(argv: Optional[list] = None) -> None:
         "dir is available",
     )
     args = parser.parse_args(argv)
-    if args.cluster:
-        _refuse("cluster")
     if args.min_replicas_to_write and not args.repl_log_dir:
         parser.error("--min-replicas-to-write requires --repl-log-dir")
     ckpt_dir = args.checkpoint_dir
