@@ -324,6 +324,21 @@ line each, with the seconds it took (``phase_seconds``):
    "chunk"'s slot, refused by the 256 MiB message cap: its answer, the
    slot's marks on both nodes, and what a query and an insert of "chunk"
    then answer.
+32. distributed path: the sharded filter over processes
+   (``tpubloom_torch.parallel.distributed``). A one-process
+   ``ShardedBloomFilter`` at config 5 (64 shards, 8 GiB, one slot)
+   inserts a seeded batch of 2^23 keys and queries them with 2^23 fresh
+   ones; then two ranks, each a process joined by ``initialize_multihost``
+   over gloo on localhost, each holding its 32 shards (4 GiB) on the one
+   card, make the same calls with the verdicts all-reduced (``MAX`` over
+   ``uint8``) through gloo on CUDA tensors; then one NCCL rank (world size
+   1, ``env://``) holding all 64; with two cards or more, two NCCL ranks,
+   one a card (else ``multi_card`` says unverified). Held with tolerance
+   0: each rank's shard CRC32Cs (``payload_crc32c``) and popcounts, and
+   its all-reduced verdicts, against the one-process filter's; each rank
+   launched ``sharded_blocked_insert`` and ``sharded_blocked_query``. On
+   the host clock: each rank's and the reference's insert and query
+   keys/s, and the all-reduce alone at the query's length.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -336,7 +351,9 @@ the device, build and phase 28 only and writes
 ``chiprun_out/chip_smoke_server.json``; ``--durable`` the device, build
 and phase 29 only, to ``chiprun_out/chip_smoke_durable.json``; ``--ha`` the
 device, build and phase 30 only, to ``chiprun_out/chip_smoke_ha.json``; ``--cluster``
-the device, build and phase 31 only, to ``chiprun_out/chip_smoke_cluster.json``. Two other modes
+the device, build and phase 31 only, to ``chiprun_out/chip_smoke_cluster.json``;
+``--distributed`` the device, build and phase 32 only, to
+``chiprun_out/chip_smoke_distributed.json``. Two other modes
 compare kernel builds on one card:
 
     python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18, 19
@@ -6143,6 +6160,257 @@ def phase_cluster_path(rng, dev: dict) -> dict:
     return out
 
 
+# -- phase 32: the distributed path -------------------------------------------------
+
+# config 5 (LOG2M_SHARDED, SHARDS) split over two ranks on the one card,
+# 4 GiB each, gloo between them; the batch the sharded path inserts (2^23)
+# and as many fresh keys queried beside the held ones
+DIST_KEYS = B_SHARDED
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 180.0  # a rank's join, and each collective after it, raises past this
+DIST_WAIT_S = 420.0  # how long the phase waits for a set of ranks to answer
+DIST_REDUCE_TURNS = 5  # the all-reduce alone, timed this many times
+
+
+def dist_keys(seed: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The held and the fresh rows, the same in every process."""
+    rng = np.random.default_rng(seed)
+    return rows(rng, n), rows(rng, n)
+
+
+def dist_sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def shard_digest(f: ShardedBloomFilter) -> tuple[list, list]:
+    """``(CRC32C, popcount)`` of each shard the filter holds, in shard
+    order, made where the words lie (``payload_crc32c`` of the shard's raw
+    words; ``shard_popcounts``)."""
+    from tpubloom_torch.parallel.sharded import shard_popcounts
+
+    crcs, pops = [], []
+    for w in f.slot_words:
+        crcs += [checksum.payload_crc32c(w[s], 4 * w[s].numel(), False)[1]
+                 for s in range(w.shape[0])]
+        pops += shard_popcounts(w).cpu().tolist()
+    return crcs, pops
+
+
+def dist_drive(f: ShardedBloomFilter, held: np.ndarray, fresh: np.ndarray, barrier) -> dict:
+    """The path's two calls, each on the host clock between synchronized
+    points (and, across ranks, ``barrier()``s), with the launch counts set
+    to 0 before the insert and read after the query."""
+    dev = f.device
+    dist_sync(dev)
+    barrier()
+    sweep.reset_launch_counts()
+    t0 = time.perf_counter()
+    check(f.insert_packed(held) == len(held), "insert_packed count")
+    dist_sync(dev)
+    insert_s = time.perf_counter() - t0
+    barrier()
+    t0 = time.perf_counter()
+    verdicts = f.include_packed(np.concatenate([held, fresh]))
+    query_s = time.perf_counter() - t0
+    launches = sweep.launch_counts()
+    return {"verdicts": verdicts, "launches": launches, "insert_s": insert_s, "query_s": query_s,
+            "insert_keys_per_s": len(held) / insert_s,
+            "query_keys_per_s": len(verdicts) / query_s}
+
+
+def dist_rank(spec: dict, results) -> None:
+    """One rank of the distributed path, in a process of its own: it joins
+    through ``initialize_multihost`` (``tcp://`` with ``spec["coord"]``, or
+    ``env://`` as torchrun starts a rank), holds its share of config 5's
+    shards, inserts the seeded batch, queries held and fresh keys (the
+    verdicts all-reduced over the group), times the all-reduce alone at the
+    query's length, and puts what it saw on ``results``. A failure puts its
+    traceback there and exits non-zero."""
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    from tpubloom_torch.parallel import distributed
+
+    try:
+        os.environ.update(spec.get("env", {}))
+        if spec["coord"] is None:
+            topo = distributed.initialize_multihost(
+                auto_detect=True, backend=spec["backend"], timeout_s=DIST_TIMEOUT_S)
+        else:
+            topo = distributed.initialize_multihost(
+                spec["coord"], spec["world"], spec["rank"], backend=spec["backend"],
+                timeout_s=DIST_TIMEOUT_S)
+        check(topo["process_index"] == spec["rank"] and topo["process_count"] == spec["world"],
+              f"rank {spec['rank']} topology {topo}")
+        held, fresh = dist_keys(spec["seed"], spec["keys"])
+        f = ShardedBloomFilter(sharded_config(spec["log2m"]), devices=spec["devices"])
+        run = dist_drive(f, held, fresh, dist.barrier)
+        verdicts = run.pop("verdicts")
+        votes = torch.zeros(len(verdicts), dtype=torch.bool, device=f.device)
+        reduce_ms = []
+        for _ in range(DIST_REDUCE_TURNS):
+            dist.barrier()
+            dist_sync(f.device)
+            t0 = time.perf_counter()
+            f._combine_ranks(votes)
+            dist_sync(f.device)
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        crcs, pops = shard_digest(f)
+        results.put({
+            "rank": spec["rank"], "backend": dist.get_backend(), "topology": topo,
+            "device": str(f.device), "shard_base": f.shard_base, "shards_local": f.shards_local,
+            **run, "allreduce_ms": reduce_ms, "allreduce_bytes": len(verdicts),
+            "crc": crcs, "popcount": pops, "verdicts": np.packbits(verdicts).tobytes(),
+            "n_verdicts": len(verdicts),
+            "memory_allocated": (torch.cuda.memory_allocated(f.device)
+                                 if f.device.type == "cuda" else 0),
+        })
+        distributed.shutdown()
+    except BaseException:
+        results.put({"rank": spec["rank"], "error": traceback.format_exc()})
+        raise
+
+
+def run_ranks(specs: list, wait_s: float = DIST_WAIT_S) -> list:
+    """Start a process a spec (spawn), collect each rank's answer, and wait
+    for every process to exit 0; a rank's failure, or no answer in
+    ``wait_s``, raises and kills the others."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=dist_rank, args=(s, results)) for s in specs]
+    for p in procs:
+        p.start()
+    out: dict = {}
+    deadline = time.monotonic() + wait_s
+    try:
+        while len(out) < len(specs):
+            left = deadline - time.monotonic()
+            check(left > 0, f"{len(specs) - len(out)} rank(s) answered within {wait_s} s")
+            try:
+                r = results.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                check(not dead, f"a rank process exited {dead} without answering")
+                continue
+            check("error" not in r, f"rank {r['rank']} failed:\n{r.get('error', '')[-3000:]}")
+            out[r["rank"]] = r
+        for p in procs:
+            p.join(timeout=120)
+            check(p.exitcode == 0, f"a rank process exited {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [out[i] for i in sorted(out)]
+
+
+def rank_summary(r: dict) -> dict:
+    return {k: r[k] for k in ("rank", "backend", "device", "topology", "shard_base", "shards_local",
+                              "launches", "insert_s", "query_s", "insert_keys_per_s",
+                              "query_keys_per_s", "allreduce_ms", "allreduce_bytes",
+                              "memory_allocated")}
+
+
+def hold_ranks(ranks: list, ref: dict, what: str) -> dict:
+    """Each rank's shard CRCs and popcounts against the one-process
+    filter's for the same shards, its verdicts against the one-process
+    verdicts (tolerance 0), and its launches of the sharded pair."""
+    worst = {"crc_mismatches": 0, "popcount": 0, "verdicts": 0}
+    for r in ranks:
+        lo, hi = r["shard_base"], r["shard_base"] + r["shards_local"]
+        worst["crc_mismatches"] += sum(a != b for a, b in zip(r["crc"], ref["crc"][lo:hi]))
+        worst["popcount"] = max(worst["popcount"], max(
+            abs(a - b) for a, b in zip(r["popcount"], ref["popcount"][lo:hi])))
+        got = np.unpackbits(np.frombuffer(r["verdicts"], np.uint8))[: r["n_verdicts"]]
+        worst["verdicts"] = max(worst["verdicts"],
+                                int(np.abs(got.astype(np.int64) - ref["verdicts"]).max()))
+        check(len(r["crc"]) == hi - lo == len(r["popcount"]), f"{what}: a digest a shard")
+        for name in ("sharded_blocked_insert", "sharded_blocked_query"):
+            check(r["launches"][name] > 0, f"{what}: rank {r['rank']} launched {name}")
+    check(sum(r["shards_local"] for r in ranks) == len(ref["crc"]), f"{what}: every shard held")
+    check(worst == {"crc_mismatches": 0, "popcount": 0, "verdicts": 0},
+          f"{what}: words and verdicts equal the one-process filter's ({worst})")
+    return {**worst, "max_abs_err": max(worst["popcount"], worst["verdicts"])}
+
+
+def phase_distributed_path(dev: dict, log2m: int = LOG2M_SHARDED, n_keys: int = DIST_KEYS,
+                           device: str = "cuda") -> dict:
+    """The sharded filter over processes (``distributed_path``;
+    ``--distributed`` alone). First the one-process reference: a
+    ``ShardedBloomFilter`` of config 5 in this process (one slot, 64
+    shards, 8 GiB) inserts a seeded batch of 2^23 keys and queries them
+    with 2^23 fresh ones; each shard's CRC32C and popcount are read on the
+    card. Then two ranks in processes of their own, joined by
+    ``initialize_multihost(..., backend="gloo")`` over localhost, each
+    holding its 32 shards (4 GiB) on the one card: the same calls, the
+    verdicts all-reduced through gloo on CUDA tensors. Then one NCCL rank
+    (world size 1, joined through ``env://``) holding all 64, so that the
+    NCCL op and dtype run on the card; with two cards or more, two NCCL
+    ranks, one a card. Held with tolerance 0: every rank's shard CRCs,
+    popcounts and all-reduced verdicts against the reference's; each rank
+    launched the sharded insert and query (counts set to 0 before its
+    insert, read after its query). On the host clock: each rank's and the
+    reference's insert and query keys/s, and the all-reduce alone at the
+    query's length."""
+    t_phase = time.perf_counter()
+    held, fresh = dist_keys(SEED + 32, n_keys)
+    cfg = sharded_config(log2m)
+    devices = None if device == "cuda" else [device]
+    f = ShardedBloomFilter(cfg, devices=devices)
+    check(len(f.slot_words) == 1 and f.shards_local == SHARDS, "the reference holds every shard")
+    run = dist_drive(f, held, fresh, lambda: None)
+    check(run["verdicts"][:n_keys].all(), "every held key present")
+    crcs, pops = shard_digest(f)
+    ref = {"crc": crcs, "popcount": pops, "verdicts": run.pop("verdicts").astype(np.int64)}
+    reference = {**run, "fresh_hits": int(ref["verdicts"][n_keys:].sum())}
+    del f
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    base = {"keys": n_keys, "seed": SEED + 32, "log2m": log2m}
+    port = free_port()
+    gloo = run_ranks([{**base, "rank": r, "world": DIST_RANKS, "backend": "gloo",
+                       "coord": f"127.0.0.1:{port}", "devices": devices}
+                      for r in range(DIST_RANKS)])
+    for r in gloo:
+        check(r["shards_local"] == SHARDS // DIST_RANKS and r["shard_base"] == r["rank"] * 32,
+              f"rank {r['rank']} holds shards {r['rank'] * 32}-{r['rank'] * 32 + 31}")
+    gloo_err = hold_ranks(gloo, ref, "two gloo ranks")
+    out = {"card": dev["nvidia_smi"], "config": {"m": cfg.m, "k": cfg.k, "shards": cfg.shards,
+                                                 "block_bits": cfg.block_bits, "keys": n_keys},
+           "reference": reference, "gloo_two_ranks": [rank_summary(r) for r in gloo],
+           "gloo_two_ranks_errors": gloo_err}
+    if device == "cuda":
+        env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+               "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+        nccl = run_ranks([{**base, "rank": 0, "world": 1, "backend": "nccl", "coord": None,
+                           "devices": None, "env": env}])
+        check(nccl[0]["backend"] == "nccl", "the one rank joined over nccl")
+        out["nccl_one_rank"] = rank_summary(nccl[0])
+        out["nccl_one_rank_errors"] = hold_ranks(nccl, ref, "one nccl rank")
+        if dev["count"] >= 2:
+            port = free_port()
+            multi = run_ranks([{**base, "rank": r, "world": 2, "backend": "nccl",
+                                "coord": f"127.0.0.1:{port}", "devices": None}
+                               for r in range(2)])
+            check({r["device"] for r in multi} == {"cuda:0", "cuda:1"}, "one rank a card")
+            out["nccl_two_cards"] = [rank_summary(r) for r in multi]
+            out["nccl_two_cards_errors"] = hold_ranks(multi, ref, "two nccl ranks, two cards")
+            out["multi_card"] = "verified"
+        else:
+            out["multi_card"] = f"unverified ({dev['count']} card)"
+    out["max_abs_err"] = max(v["max_abs_err"] for k, v in out.items() if k.endswith("_errors"))
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("distributed_path", **out)
+    return out
+
+
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                  s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                  k_launches, k_errs, k_times, sk_launches, sk_errs, sk_times) -> list[dict]:
@@ -6381,6 +6649,8 @@ def main(argv: list[str]) -> int:
                     help="device, build and the high-availability phase (ha_path) only")
     ap.add_argument("--cluster", action="store_true",
                     help="device, build and the cluster phase (cluster_path) only")
+    ap.add_argument("--distributed", action="store_true",
+                    help="device, build and the multi-process phase (distributed_path) only")
     ap.add_argument("--queries", action="store_true",
                     help="device, build, the sketch path and the two query kernels' times only; "
                          "with --ab DIR, those in DIR, here, here and DIR")
@@ -6399,7 +6669,7 @@ def main(argv: list[str]) -> int:
     if args.host:
         print(json.dumps({"host_only": host_only()}), flush=True)
         return 0
-    if args.server or args.durable or args.ha or args.cluster:
+    if args.server or args.durable or args.ha or args.cluster or args.distributed:
         rng = np.random.default_rng(SEED)
         if args.server:
             phase_server_path(rng, dev)
@@ -6409,10 +6679,13 @@ def main(argv: list[str]) -> int:
             phase_ha_path(rng, dev)
         if args.cluster:
             phase_cluster_path(rng, dev)
+        if args.distributed:
+            phase_distributed_path(dev)
         OUT_DIR.mkdir(exist_ok=True)
         name = ("chip_smoke_server.json" if args.server else
                 "chip_smoke_durable.json" if args.durable else
-                "chip_smoke_ha.json" if args.ha else "chip_smoke_cluster.json")
+                "chip_smoke_ha.json" if args.ha else
+                "chip_smoke_cluster.json" if args.cluster else "chip_smoke_distributed.json")
         (OUT_DIR / name).write_text(json.dumps(RECORD, indent=1))
         print(dev["nvidia_smi"], flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
@@ -6475,6 +6748,7 @@ def main(argv: list[str]) -> int:
     phase_durable_path(rng, dev)
     phase_ha_path(rng, dev)
     phase_cluster_path(rng, dev)
+    phase_distributed_path(dev)
     kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                            s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                            stream["with_sink"]["launches"], k_errs, k_times,

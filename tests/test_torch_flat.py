@@ -460,6 +460,9 @@ def test_migrate_cli_runs_without_jax(tmp_path):
         "import tpubloom_torch.ops.cuckoo, tpubloom_torch.ops.cms, tpubloom_torch.sketch\n"
         "import tpubloom_torch.sketch.registry, tpubloom_torch.sketch.cuckoo\n"
         "import tpubloom_torch.sketch.cms, tpubloom_torch.interop\n"
+        "import tpubloom_torch.parallel.distributed, tpubloom_torch.version\n"
+        "import tpubloom_torch.analysis.lint, tpubloom_torch.analysis.lock_order\n"
+        "import tpubloom_torch.analysis.__main__\n"
         "for k in tpubloom_torch.sketch.registry.sketch_kinds():\n"
         "    tpubloom_torch.sketch.registry.spec(k).resolve()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpubloom')]\n"

@@ -44,6 +44,9 @@ NEW_MODULES = [
     "tpubloom_torch.ha", "tpubloom_torch.ha.topology",
     "tpubloom_torch.ha.promotion", "tpubloom_torch.ha.sentinel", "tpubloom_torch.sentinel",
     "tpubloom_torch.cluster.rebalance", "tpubloom_torch.obs.aggregate",
+    "tpubloom_torch.parallel.distributed", "tpubloom_torch.version",
+    "tpubloom_torch.analysis", "tpubloom_torch.analysis.lint",
+    "tpubloom_torch.analysis.lock_order", "tpubloom_torch.analysis.__main__",
 ]
 
 

@@ -44,6 +44,8 @@ reference. This package imports ``torch`` and numpy, never JAX and never
     top.topk_list()                      # [(b"alpha", 5)]
 """
 
+from tpubloom_torch.version import __version__
+
 #: where each public name lives; a name's module is imported on first use,
 #: so that ``import tpubloom_torch.cluster`` (the admin CLI, the fleet
 #: scraper, the cluster client) loads neither torch nor the kernels
@@ -56,7 +58,7 @@ _HOMES = {
     "CountMinSketch": "sketch.cms", "TopKSketch": "sketch.cms",
 }
 
-__all__ = list(_HOMES)
+__all__ = ["__version__", *_HOMES]
 
 
 def __getattr__(name: str):

@@ -127,7 +127,11 @@ def _payload_format(filter_obj) -> Tuple[str, bool]:
     filter stores the Redis bitmap (what the reference's SETBIT loop would
     have produced: each byte's bits reversed), the others their raw LE
     words (a sketch under its kind's tag, a scalable filter its layers'
-    words one after the other)."""
+    words one after the other). A sharded filter of a joined process
+    group holds only its rank's shards, so its blob would not be the
+    filter's: that raises."""
+    if getattr(filter_obj, "distributed", False):
+        filter_obj._require_whole("a checkpoint blob")
     if hasattr(filter_obj, "layers"):
         return "scalable_stack", False
     config = filter_obj.config

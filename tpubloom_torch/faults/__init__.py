@@ -13,10 +13,12 @@ failed-then-retried batch applies exactly once; ``ckpt.write``,
 ``ckpt.fsync`` and ``ckpt.restore_read`` in its checkpoint sink;
 ``shard.insert`` / ``shard.query`` / ``shard.delete`` in its sharded
 filter, once per shard a batch routes to, with ``shard=<index>``; and the
-server's ``rpc.*``, ``ingest.*`` and ``stream.*`` points. The replication,
-cluster, storage and HA points are known here so that a configuration
-naming them parses; the port's copies of those planes are not wired to a
-server yet.
+server's ``rpc.*``, ``ingest.*`` and ``stream.*`` points; its op log,
+replication, cluster, storage and HA planes fire ``repl.*``,
+``cluster.*``, ``storage.*`` and ``ha.*`` where ``tpubloom``'s do; and
+``initialize_multihost`` fires ``dist.initialize`` before any join. Every
+point is armed by literal in the port's own tests (``python -m
+tpubloom_torch.analysis`` checks it).
 
 Trigger policies (``policy`` argument / env syntax):
 

@@ -31,14 +31,25 @@ Layout (the same as ``tpubloom``'s, byte for byte):
   the first slot's device and ORed there, are the answer — the
   counterpart of ``tpubloom``'s ``psum`` over the mesh.
 
+Across processes: once a ``torch.distributed`` group is joined
+(:func:`tpubloom_torch.parallel.distributed.initialize_multihost`), rank r
+holds only shards ``r·S/W … (r+1)·S/W − 1`` (:func:`rank_shards`), dealt
+to its own slots, as a mesh axis laid over processes places them. Every
+rank must then call each operation with the same batch: updates stay
+local (each rank's slots apply the keys they own), and a query's local
+verdicts combine across ranks with one ``all_reduce`` — ``MAX`` over
+``uint8``, which is an OR on 0/1 and, unlike ``BOR``, exists on both
+``nccl`` and ``gloo``. What reads the state on the host sees this rank's
+shards only (``words_logical``, ``shard_fill_ratios``, ``stats``, as a
+global array is only partly addressable in ``tpubloom``); what would
+stand for the whole filter (``to_bytes``, the Redis bitmap, checkpoint
+blobs) raises there.
+
 Fault points: ``shard.insert``, ``shard.query`` and ``shard.delete``
 (:mod:`tpubloom_torch.faults`) fire once per shard a batch routes to, with
 ``shard=<index>``, on every entry point (list, packed and staged), as in
 ``tpubloom``; an armed ``shard=N`` predicate fails only the batches that
 touch shard N.
-
-The multi-host join (``parallel/distributed.py``) and an NCCL all-reduce
-across cards are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpubloom_torch import faults
 from tpubloom_torch.config import FilterConfig
@@ -68,22 +80,47 @@ def _device(d) -> torch.device:
     return d
 
 
+def _joined() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank_shards(n_shards: int) -> tuple[int, int]:
+    """``(first shard, shard count)`` this process holds: all of them, or,
+    once a ``torch.distributed`` group is joined, rank r's contiguous
+    share ``r·S/W … (r+1)·S/W − 1`` of the S shards over W ranks."""
+    if not _joined():
+        return 0, n_shards
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n_shards % world:
+        raise ValueError(f"{n_shards} shards do not divide over {world} ranks")
+    per = n_shards // world
+    return rank * per, per
+
+
 def make_slots(
     n_shards: int, devices: Optional[Sequence] = None
 ) -> list[torch.device]:
     """The slots' devices — ``tpubloom.parallel.sharded.make_mesh``'s
-    counterpart. ``devices`` defaults to every visible CUDA card; with no
-    card and no ``devices`` this raises. A device may appear more than
-    once (several slots on one device). ``n_shards`` and the device count
-    must divide one another; ``devices[:min(n_shards, len(devices))]``
-    are used, each holding ``n_shards // len(slots)`` shards."""
+    counterpart, over this process's shards (:func:`rank_shards`).
+    ``devices`` defaults to every visible CUDA card, or in a joined
+    process group to the rank's own card (``torch.cuda.current_device()``,
+    which :func:`~tpubloom_torch.parallel.distributed.initialize_multihost`
+    sets for ``nccl``: NCCL takes one rank a card); with no card and no
+    ``devices`` this raises. A device may appear more than once (several
+    slots on one device). The process's shard count and the device count
+    must divide one another; ``devices[:min(shards, len(devices))]`` are
+    used, each holding ``shards // len(slots)`` shards."""
+    n_shards = rank_shards(n_shards)[1]
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device available; pass devices=['cpu'] * n to run "
                 "the plain PyTorch versions on the CPU"
             )
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if _joined():
+            devices = [torch.device("cuda", torch.cuda.current_device())]
+        else:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [_device(d) for d in devices]
     n_dev = len(devices)
     if not n_dev:
@@ -159,18 +196,25 @@ class ShardedBloomFilter(_FilterBase):
     bitmap is bit p of shard s).
 
     ``devices`` as for :func:`make_slots`; the first slot's device is
-    ``self.device``, where query verdicts are assembled."""
+    ``self.device``, where query verdicts are assembled. In a joined
+    process group the filter holds shards ``shard_base …
+    shard_base + shards_local − 1`` (see the module docstring)."""
 
     def __init__(self, config: FilterConfig, devices: Optional[Sequence] = None):
         if config.shards < 2:
             raise ValueError("ShardedBloomFilter needs config.shards >= 2")
         if config.counting and config.m >= (1 << 31):
             raise ValueError("counting filters support m < 2^31")
+        self.distributed = _joined()
+        self.shard_base, self.shards_local = rank_shards(config.shards)
         self.slots = make_slots(config.shards, devices)
         super().__init__(config, self.slots[0])
-        spd = config.shards // len(self.slots)
+        spd = self.shards_local // len(self.slots)
         self.shards_per_dev = spd
-        self.routes = [ShardRoute(config.shards, i * spd, spd) for i in range(len(self.slots))]
+        self.routes = [
+            ShardRoute(config.shards, self.shard_base + i * spd, spd)
+            for i in range(len(self.slots))
+        ]
         shape = (spd, *sharded_shape(config)[1:])
         self.slot_words = [
             torch.zeros(shape, dtype=torch.int32, device=d).view(torch.uint32)
@@ -284,12 +328,25 @@ class ShardedBloomFilter(_FilterBase):
 
     def _query(self, keys, lengths) -> torch.Tensor:
         """Each slot answers for the keys it owns (False elsewhere); the
-        answers meet on the first slot's device and are ORed."""
+        answers meet on the first slot's device and are ORed, then
+        across ranks in a joined process group."""
         hits = None
         for v in self._launch(self._query_kernel, keys, lengths):
             v = v.to(self.device)
             hits = v if hits is None else hits | v
+        if self.distributed:
+            hits = self._combine_ranks(hits)
         return hits
+
+    @staticmethod
+    def _combine_ranks(hits: torch.Tensor) -> torch.Tensor:
+        """OR of every rank's verdicts: one ``all_reduce`` of ``uint8``
+        with ``MAX`` (``BOR`` is not on ``nccl``). Every rank must call it
+        with the same padded length, or the collective waits until the
+        group's timeout and raises."""
+        votes = hits.to(torch.uint8)
+        dist.all_reduce(votes, op=dist.ReduceOp.MAX)
+        return votes.bool()
 
     def _completion(self):
         fences = [sweep.record_fence(d) for d in self._devices]
@@ -330,13 +387,24 @@ class ShardedBloomFilter(_FilterBase):
 
     def shard_fill_ratios(self) -> Optional[list]:
         """Per-shard fraction of set bits (None for counting configs):
-        reduced on each slot's device, O(shards) bytes to the host."""
+        reduced on each slot's device, O(shards) bytes to the host. In a
+        joined process group, this rank's shards only."""
         if self.config.counting:
             return None
         counts = [c for w in self.slot_words for c in shard_popcounts(w).cpu().tolist()]
         return [c / self.config.m_per_shard for c in counts]
 
+    def fill_ratio(self) -> float:
+        """Fraction of set bits; in a joined process group, of this rank's
+        shards."""
+        if self.config.counting:
+            raise ValueError("fill_ratio is for plain/blocked filters")
+        return self.bits_set() / (self.config.m_per_shard * self.shards_local)
+
     def stats(self) -> dict:
+        """Counts and fill; in a joined process group the fill is of this
+        rank's shards, and ``rank``, ``world_size``, ``shard_base`` and
+        ``shards_local`` say which."""
         base = {
             "m": self.config.m,
             "k": self.config.k,
@@ -345,6 +413,11 @@ class ShardedBloomFilter(_FilterBase):
             "n_inserted": self.n_inserted,
             "n_queried": self.n_queried,
         }
+        if self.distributed:
+            base.update(
+                rank=dist.get_rank(), world_size=dist.get_world_size(),
+                shard_base=self.shard_base, shards_local=self.shards_local,
+            )
         if self.config.counting:
             return base
         # shards are equal sized: the global fill is the mean of theirs
@@ -367,13 +440,33 @@ class ShardedBloomFilter(_FilterBase):
     @property
     def words_logical(self) -> np.ndarray:
         """Host copy as ``[shards, n_blocks_per_shard, words_per_block]``
-        (blocked), else in the device shape ``[shards, words a shard]``."""
+        (blocked), else in the device shape ``[shards, words a shard]``.
+        In a joined process group, ``[shards_local, ...]``: this rank's
+        shards, from ``shard_base`` on."""
         c = self.config
         if c.block_bits:
-            return self._host_words().reshape(c.shards, c.n_blocks_per_shard, c.words_per_block)
-        return self._host_words().reshape(sharded_shape(c))
+            return self._host_words().reshape(
+                self.shards_local, c.n_blocks_per_shard, c.words_per_block
+            )
+        return self._host_words().reshape(self.shards_local, *sharded_shape(c)[1:])
+
+    def _require_whole(self, what: str) -> None:
+        """Raise where ``what`` would stand for the whole filter while this
+        process holds only its rank's shards."""
+        if self.distributed:
+            raise ValueError(
+                f"{what} needs the whole filter; rank {dist.get_rank()} of "
+                f"{dist.get_world_size()} holds shards {self.shard_base}-"
+                f"{self.shard_base + self.shards_local - 1} of "
+                f"{self.config.shards} (words_logical reads them)"
+            )
+
+    def to_bytes(self) -> bytes:
+        self._require_whole("to_bytes")
+        return super().to_bytes()
 
     def to_redis_bitmap(self) -> bytes:
+        self._require_whole("to_redis_bitmap")
         if self.config.block_bits or self.config.counting:
             raise ValueError(
                 "blocked/counting layouts are not Redis-bitmap exportable "
@@ -386,11 +479,13 @@ class ShardedBloomFilter(_FilterBase):
         if config.block_bits or config.counting:
             raise ValueError("blocked/counting layouts restore via from_bytes")
         f = cls(config, devices)
+        f._require_whole("from_redis_bitmap")
         f._set_words(redis_bitmap_to_words(data, config.m))
         return f
 
     @classmethod
     def from_bytes(cls, config: FilterConfig, data: bytes, devices=None):
         f = cls(config, devices)
+        f._require_whole("from_bytes")
         f._set_words(np.frombuffer(data, dtype="<u4").astype(np.uint32))
         return f
