@@ -29,13 +29,21 @@ line each, with the seconds it took (``phase_seconds``):
 3. kernel vs plain: test-and-insert, insert and query at full width,
    through each CUDA kernel and through its plain PyTorch version on the
    same inputs; state and verdicts must be equal (tolerance 0); then
-   again with ``block_hash="ap"`` at a smaller m;
+   again with ``block_hash="ap"`` at a smaller m; the test-and-insert also
+   through the fused kernel (``blocked_test_insert.cu``) and through the
+   two launches, each against the plain version, with the fused launch's
+   keys a row tile against the plain partition's, on those batches and on
+   two more above the crossover: one key over a quarter of a 2^23 batch
+   at m=2^32, and 2^18 distinct keys on 128 rows (m=2^16, "ap");
 4. main path: test-and-insert of Python ``bytes`` keys, within-batch
    duplicates, tail padding, ``insert_packed``/``include_packed`` at
    B=2^23, a replay that must report every key present, the FPR of fresh
    keys against ``params.blocked_fpr`` (the tolerance of
-   tests/test_fpr_model.py), and the staged API with ``InFlight`` over
-   4 batches — with every kernel's launch count read after it;
+   tests/test_fpr_model.py), a test-and-insert of 2^23 fresh ``bytes``
+   keys (its pre-batch hits held to the same FPR model; it takes the
+   fused kernel where the crossover says so), and the staged API with
+   ``InFlight`` over 4 batches — with every kernel's launch count read
+   after it, and each operation's launches alone (``launches_per_op``);
 5. times: CUDA events over warmed launches at B=2^23 for each kernel,
    its plain version and the nearest single PyTorch call, beside the
    least time the card could take for the same work (``bound_ms``: bytes
@@ -50,7 +58,12 @@ line each, with the seconds it took (``phase_seconds``):
    bits of keys the filter does not hold yet, at the same fill;
    ``replay_ms`` re-inserts batches the filter already holds (no bit
    changes). Beside them, the distinct words and 32-byte sectors the
-   launch's keys touch (summed a key) and their rates;
+   launch's keys touch (summed a key) and their rates. The fused
+   test-and-insert fresh and the two launches fresh, in turns, its
+   replay, its plain version and its six kernels' own times; then
+   ``test_insert_crossover``: both over B = 2^14 .. 2^23 fresh keys on the
+   same state, in turns, and the keys a row from which the fused kernel
+   is the faster (what ``sweep.BLOCKED_TEST_INSERT_CROSSOVER`` holds);
 6. end to end: host-clock time of whole ``insert_packed`` /
    ``include_packed`` calls at B=2^23 and of a test-and-insert of 2^16
    Python ``bytes`` keys, split by the port's phase spans;
@@ -227,9 +240,10 @@ line each, with the seconds it took (``phase_seconds``):
    2^20 fresh keys queried the same way, each part's keys/s on the host
    clock beside the card's own time in it (``torch.profiler``), the
    flushes and keys a flush, and the dispatcher's time in the flushes; a
-   presence batch, a ``Checkpoint`` restored by a second service, and the
-   CF / CMS verbs; every result held against a filter or sketch fed the
-   same keys directly (words with tolerance 0);
+   presence batch (and the kernels its flush launched), a ``Checkpoint``
+   restored by a second service, and the CF / CMS verbs; every result
+   held against a filter or sketch fed the same keys directly (words with
+   tolerance 0);
 29. durable path: the op log, replication and tenant residency
    (``tpubloom_torch.repl``, ``tpubloom_torch.storage``) on the card, in
    this process, with the client processes of phase 28's design. A: a
@@ -439,6 +453,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # for the keys its slot owns.
 OPS_HASH, OPS_ROUTE = 162 + 64 + 28, 54
 OPS_QUERY, OPS_INSERT = OPS_HASH + 28, OPS_HASH + 21
+OPS_TEST_INSERT = OPS_HASH + 28 + 21  # a test-and-insert: the tests and the sets
+# The fused test-and-insert and the two launches are compared over these
+# batches on the main path's filter (keys a row: B / 2^23).
+LOG2B_TEST_INSERT = range(14, 24)
 OPS_COUNT_UPDATE, OPS_COUNT_QUERY = OPS_HASH + 49, OPS_HASH + 28
 # BASELINE config 4, as benchmarks/counting_rate.py:31-42 sets it; the
 # `ap` comparison is cut (see its phase); the checkpoint round trip runs at
@@ -781,9 +799,73 @@ def demangle(names: list[str]) -> list[str]:
     return [g.removeprefix("void ").split("(")[0] for g in got]
 
 
+def fused_test_insert(state: torch.Tensor, keys, lengths, cfg: FilterConfig):
+    """The fused test-and-insert kernel on ``state`` (whatever the
+    crossover), and the largest difference between the keys its partition
+    put in each row tile and the plain partition's."""
+    batch = keys.shape[0]
+    scratch = torch.empty(sweep.blocked_test_insert_scratch_bytes(cfg, batch), dtype=torch.uint8,
+                          device=state.device)
+    present = sweep._blocked_test_insert_on(True, state, keys, lengths, cfg, scratch=scratch)
+    got = sweep.blocked_test_insert_tile_counts(scratch, cfg, batch)
+    want = blocked.test_insert_tile_counts_plain(keys, lengths, cfg, sweep.flat_tile_geometry()[0])
+    return present, max_abs_err(got, want)
+
+
+def test_insert_vs_plain(f: BlockedBloomFilter, keys, lengths) -> dict:
+    """One test-and-insert batch from ``f``'s state through the fused
+    kernel, the two launches (blocked_query, blocked_insert) and the plain
+    version: each state and each verdict against the plain one's."""
+    cfg = f.config
+    s_fused, s_two, s_plain = (clone_u32(f.words) for _ in range(3))
+    p_fused, tiles_err = fused_test_insert(s_fused, keys, lengths, cfg)
+    p_two = sweep._blocked_test_insert_on(False, s_two, keys, lengths, cfg)
+    p_plain = blocked.blocked_test_insert_plain(s_plain, keys, lengths, cfg)
+    torch.cuda.synchronize()
+    out = {"fused_state_err": max_abs_err(s_fused, s_plain),
+           "fused_presence_err": max_abs_err(p_fused, p_plain), "tile_counts_err": tiles_err,
+           "two_launch_state_err": max_abs_err(s_two, s_plain),
+           "two_launch_presence_err": max_abs_err(p_two, p_plain),
+           "present": int(p_plain.sum())}
+    check(torch.equal(s_fused.view(torch.int32), s_plain.view(torch.int32)), "fused test-insert state")
+    check(torch.equal(p_fused, p_plain), "fused test-insert verdicts")
+    check(tiles_err == 0, "fused test-insert partition")
+    check(torch.equal(s_two.view(torch.int32), s_plain.view(torch.int32)), "two-launch test-insert state")
+    check(torch.equal(p_two, p_plain), "two-launch test-insert verdicts")
+    return out
+
+
+def hot_vs_plain(cfg: FilterConfig, batch: int, rng: np.random.Generator, hot: int) -> dict:
+    """A batch above the crossover with a hot row: ``hot`` copies of one
+    key spread over it (the rest fresh, an eighth held, tail padding),
+    from a filter filled with one batch, through the fused kernel, the two
+    launches and the plain version."""
+    dev = torch.device("cuda")
+    f = BlockedBloomFilter(cfg, dev)
+    full = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
+    held = torch.from_numpy(rows(rng, batch)).to(dev)
+    sweep.blocked_insert(f.words, held, full, cfg)
+    keys = torch.from_numpy(rows(rng, batch)).to(dev)
+    keys[: batch // 8] = held[: batch // 8]
+    at = torch.from_numpy(rng.choice(batch, hot, replace=False)).to(dev)
+    keys[at] = keys[batch // 2].clone()
+    lengths = full.clone()
+    lengths[-batch // 1024:] = -1
+    keys[-batch // 1024:] = 0
+    out = {"log2m": cfg.m.bit_length() - 1, "block_hash": cfg.block_hash, "batch": batch,
+           "hot_copies": hot, "keys_per_row": batch / cfg.n_blocks,
+           "busiest_row_keys": int(torch.unique(touched_rows(f, keys, lengths.clamp(min=0))[1][lengths >= 0],
+                                                return_counts=True)[1].max()),
+           **test_insert_vs_plain(f, keys, lengths)}
+    del f
+    return out
+
+
 def kernel_vs_plain(cfg: FilterConfig, batch: int, rng: np.random.Generator) -> dict:
     """Populate with kernel batches, then run the same test-and-insert,
-    insert and query through the kernels and the plain versions."""
+    insert and query through the kernels and the plain versions; the
+    test-and-insert through the wrapper, the fused kernel and the two
+    launches."""
     dev = torch.device("cuda")
     f = BlockedBloomFilter(cfg, dev)
     full = torch.full((batch,), KEY_LEN, dtype=torch.int32, device=dev)
@@ -822,6 +904,11 @@ def kernel_vs_plain(cfg: FilterConfig, batch: int, rng: np.random.Generator) -> 
     check(torch.equal(p_kernel, p_plain), "presence verdicts")
     check(torch.equal(q_kernel, q_plain), "query verdicts")
     check(out["present_old"] == batch // 4 and out["present_padding"] == 0, "presence contract")
+    del s_kernel, s_plain, s_insert
+    # the same batch from the same state through each test-and-insert path
+    out["wrapper_took"] = ("blocked_test_insert" if sweep._takes_fused(cfg, batch)
+                           else "blocked_query + blocked_insert")
+    out["test_insert"] = test_insert_vs_plain(f, keys, lengths)
     return out
 
 
@@ -831,11 +918,24 @@ def phase_kernel_vs_plain(rng) -> dict:
         FilterConfig(m=1 << 28, k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS, block_hash="ap"),
         1 << 20, rng,
     )
+    # a hot row at the main path's shape (one key over a quarter of the
+    # batch), and a crowded one: B = 2^18 distinct keys on 128 rows (m =
+    # 2^16), ~2,048 a row
+    hot = hot_vs_plain(FilterConfig(m=1 << LOG2M, k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS),
+                       B, rng, B // 4)
+    crowd = hot_vs_plain(FilterConfig(m=1 << 16, k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS,
+                                      block_hash="ap"), 1 << 18, rng, 0)
+    runs = (main["test_insert"], ap["test_insert"], hot, crowd)
     errs = {"blocked_insert": max(main["test_insert_state_err"], main["insert_state_err"],
-                                  ap["test_insert_state_err"], ap["insert_state_err"]),
+                                  ap["test_insert_state_err"], ap["insert_state_err"],
+                                  *(r["two_launch_state_err"] for r in runs)),
             "blocked_query": max(main["presence_err"], main["query_err"],
-                                 ap["presence_err"], ap["query_err"])}
-    emit("kernel_vs_plain", chunk=main, ap=ap, max_abs_err=errs, tolerance=0)
+                                 ap["presence_err"], ap["query_err"],
+                                 *(r["two_launch_presence_err"] for r in runs)),
+            "blocked_test_insert": max(max(r["fused_state_err"], r["fused_presence_err"],
+                                           r["tile_counts_err"]) for r in runs)}
+    emit("kernel_vs_plain", chunk=main, ap=ap, hot_row=hot, crowded_row=crowd, max_abs_err=errs,
+         tolerance=0)
     torch.cuda.empty_cache()
     return errs
 
@@ -861,6 +961,7 @@ def fpr_check(f: BlockedBloomFilter, rng, n_probe: int) -> dict:
 
 def phase_main_path(rng) -> tuple[dict, BlockedBloomFilter]:
     cfg = FilterConfig(m=1 << LOG2M, k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS)
+    fresh_full, again_full = rows(rng, B), rows(rng, B)
     torch.cuda.reset_peak_memory_stats()
     sweep.reset_launch_counts()
     t0 = time.perf_counter()
@@ -885,6 +986,12 @@ def phase_main_path(rng) -> tuple[dict, BlockedBloomFilter]:
     check(f.insert_packed(big) == B, "insert_packed count")
     check(f.include_packed(big).all(), "packed replay all present")
     fpr_full = fpr_check(f, rng, B)
+    # a test-and-insert at full width, B fresh Python bytes keys: their
+    # pre-batch verdicts are false positives of the filter before the batch
+    n_before = f.n_inserted
+    present_full = f.insert_batch(key_list(fresh_full), return_presence=True)
+    fpr_presence = fpr_bound(int(present_full.sum()), B, n_before, cfg)
+    check(f.include_packed(fresh_full).all(), "full-width test-and-insert keys present")
     inflight = sweep.InFlight()
     staged_rows = [rows(rng, B) for _ in range(4)]
     acked = []
@@ -903,7 +1010,10 @@ def phase_main_path(rng) -> tuple[dict, BlockedBloomFilter]:
     launches = sweep.launch_counts()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    for name in ("blocked_insert", "blocked_query"):
+    # the full-width test-and-insert takes the fused kernel where the
+    # crossover says it is the faster
+    for name in ("blocked_insert", "blocked_query",
+                 *(("blocked_test_insert",) if sweep._takes_fused(cfg, B) else ())):
         check(launches[name] > 0, f"{name} launched on the main path")
     # an FPR the model can be held to needs a fuller filter: m=2^26 at 2^23 keys
     small = BlockedBloomFilter(FilterConfig(m=1 << 26, k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS))
@@ -911,8 +1021,10 @@ def phase_main_path(rng) -> tuple[dict, BlockedBloomFilter]:
     fpr_small = fpr_check(small, rng, B)
     del small
     per_op = {}
+    again_keys = key_list(again_full)
     for op, fn in (
         ("test_and_insert", lambda: f.insert_batch(keys, return_presence=True)),
+        ("test_and_insert_2^23", lambda: f.insert_batch(again_keys, return_presence=True)),
         ("insert", lambda: f.insert_packed(big)),
         ("query", lambda: f.include_packed(big)),
     ):
@@ -921,7 +1033,7 @@ def phase_main_path(rng) -> tuple[dict, BlockedBloomFilter]:
         per_op[op] = sweep.launch_counts()
     stats = f.stats()
     emit("main_path", launches=launches, launches_per_op=per_op, seconds=seconds,
-         peak_bytes=peak, fpr=fpr_full, fpr_fuller=fpr_small,
+         peak_bytes=peak, fpr=fpr_full, fpr_fuller=fpr_small, fpr_test_and_insert=fpr_presence,
          n_inserted=f.n_inserted, fill_ratio=stats["fill_ratio"])
     return launches, f
 
@@ -948,6 +1060,19 @@ def phase_times(f: BlockedBloomFilter, rng) -> dict:
     i_ms = fresh_ms(state, lambda i: sweep.blocked_insert(state, fresh[i % 4], lengths, cfg), 40)
     qp_ms = cuda_ms(lambda i: blocked.blocked_query_plain(state, old[i % 4], lengths, cfg), 5, warm=1)
     ip_ms = cuda_ms(lambda i: blocked.blocked_insert_plain(state, old[i % 4], lengths, cfg), 5, warm=1)
+    # test-and-insert: the fused kernel and the two launches, fresh, in turns
+    # (`--ab` runs this in trees that predate the fused kernel: two launches only)
+    ti = {"fused": [], "two_launch": []}
+    for kernel in ("fused", "two_launch", "two_launch", "fused") if FUSED else ():
+        ti[kernel].append(fresh_ms(state, lambda i: sweep._blocked_test_insert_on(
+            kernel == "fused", state, fresh[i % 4], lengths, cfg), 20))
+    if FUSED:
+        ti_replay_ms = cuda_ms(lambda i: sweep._blocked_test_insert_on(True, state, old[i % 4], lengths,
+                                                                       cfg), 20, warm=2)
+        tip_ms = cuda_ms(lambda i: blocked.blocked_test_insert_plain(state, old[i % 4], lengths, cfg), 5,
+                         warm=1)
+        ti_kernels = kernel_ms(lambda i: sweep._blocked_test_insert_on(True, state, old[i % 4], lengths,
+                                                                       cfg), 10)
     rows_touched, blk, _ = touched_rows(f, old[0], lengths)
     _, fresh_blk, fresh_pos = touched_rows(f, fresh[0], lengths)
     t = touched(fresh_blk, fresh_pos >> 5, cfg.words_per_block, lengths >= 0)
@@ -959,6 +1084,10 @@ def phase_times(f: BlockedBloomFilter, rng) -> dict:
     i_bytes = in_bytes + 2 * rows_touched * row_bytes
     qb, qby = bound(q_bytes, OPS_QUERY * B)
     ib, iby = bound(i_bytes, OPS_INSERT * B)
+    fresh_rows = int(torch.unique(fresh_blk).numel())
+    ti_bytes = in_bytes + B + 2 * fresh_rows * row_bytes
+    tib, tiby = bound(ti_bytes, OPS_TEST_INSERT * B)
+    ti_ms, two_ms = (sum(v) / len(v) for v in (ti["fused"], ti["two_launch"])) if FUSED else (0, 0)
     q_floor = floor_ms(in_bytes + B + B * row_bytes)
     out = {
         "batch": B, "rows_touched": rows_touched, "touched": t,
@@ -969,9 +1098,52 @@ def phase_times(f: BlockedBloomFilter, rng) -> dict:
         "blocked_insert": {"ms": i_ms, "replay_ms": replay_ms, "keys_per_s": B / i_ms * 1e3,
                            "plain_ms": ip_ms, "library_ms": None, "bound_ms": ib, "bound_by": iby,
                            "bytes": i_bytes, "share_of_bound": ib / i_ms, **rates(t, i_ms)},
+        **({} if not FUSED else {"blocked_test_insert": {"ms": ti_ms, "replay_ms": ti_replay_ms, "keys_per_s": B / ti_ms * 1e3,
+                                "two_launch_ms": two_ms, "turns_ms": ti, "plain_ms": tip_ms,
+                                "library_ms": None, "library": "none: no test-and-insert call",
+                                "bound_ms": tib, "bound_by": tiby, "bytes": ti_bytes,
+                                "rows_touched": fresh_rows, "share_of_bound": tib / ti_ms,
+                                "two_launch_share_of_bound": tib / two_ms,
+                                "kernels_ms": ti_kernels}}),
         "test_and_insert_ms": q_ms + i_ms,
     }
     emit("times", **out)
+    return out
+
+
+def phase_test_insert_crossover(f: BlockedBloomFilter, rng) -> dict:
+    """The fused test-and-insert and the two launches (blocked_query, then
+    blocked_insert) on the main path's filter over B = 2^14 .. 2^23 fresh
+    keys, each launch fresh (the state restored and the L2 flushed before
+    it), in turns (fused, two, two, fused). The crossover is the fewest
+    keys a row from which the fused kernel is the faster at every larger
+    batch: what sweep.BLOCKED_TEST_INSERT_CROSSOVER holds."""
+    cfg, state = f.config, f.words
+    top = 1 << max(LOG2B_TEST_INSERT)
+    fresh = [torch.from_numpy(rows(rng, top)).to(state.device) for _ in range(2)]
+    full = torch.full((top,), KEY_LEN, dtype=torch.int32, device=state.device)
+    runs = []
+    for lb in LOG2B_TEST_INSERT:
+        n = 1 << lb
+        row = {"batch": n, "keys_per_row": n / cfg.n_blocks, "fused_turns_ms": [],
+               "two_launch_turns_ms": []}
+        for kernel in ("fused", "two_launch", "two_launch", "fused"):
+            row[f"{kernel}_turns_ms"].append(fresh_ms(state, lambda i: sweep._blocked_test_insert_on(
+                kernel == "fused", state, fresh[i % 2][:n], full[:n], cfg), 10))
+        for kernel in ("fused", "two_launch"):
+            row[f"{kernel}_ms"] = sum(row[f"{kernel}_turns_ms"]) / 2
+        row["picked"] = "fused" if sweep._takes_fused(cfg, n) else "two_launch"
+        row["picked_is_faster"] = row[f"{row['picked']}_ms"] <= min(row["fused_ms"], row["two_launch_ms"])
+        runs.append(row)
+    at = None
+    for r in reversed(runs):
+        if r["fused_ms"] >= r["two_launch_ms"]:
+            break
+        at = r["keys_per_row"]
+    del fresh
+    out = {"runs": runs, "crossover_keys_per_row": at,
+           "crossover_in_use": sweep.BLOCKED_TEST_INSERT_CROSSOVER}
+    emit("test_insert_crossover", **out)
     return out
 
 
@@ -1557,6 +1729,7 @@ FLAT_KERNELS = ("flat_insert", "flat_query", "flat_counting_update", "flat_count
 # them (``--ab`` against a parent) times the flat counting pair, or the flat
 # insert, as it is.
 TILED = hasattr(sweep, "_flat_counting_update_on")
+FUSED = hasattr(sweep, "_blocked_test_insert_on")  # the fused test-and-insert
 BIT_TILED = hasattr(sweep, "_flat_insert_on")
 FLAT_TILED = (("flat_counting_update_tiled", "flat_counting_query_tiled",
                "sharded_flat_counting_update_tiled", "sharded_flat_counting_query_tiled") if TILED else ()
@@ -3845,6 +4018,8 @@ def phase_sketch_times(cf, cms, held: np.ndarray, ids: np.ndarray, rng) -> dict:
 GROUP_DESIGN = ("blocked_insert", "blocked_counting_update", "blocked_query",
                 "sharded_blocked_insert", "sharded_blocked_counting_update",
                 "sharded_blocked_query")
+DESIGN = {"blocked_test_insert": "partitioned by 64 KiB row tile (flat_partition.cuh, a key an "
+                                  "entry), a CTA a tile: its rows tested, then set, in shared memory"}
 EXTRA_TIMES = ("replay_ms", "present_ms", "delete_ms", "sparse_ms", "mix_ms", "crowd_ms", "config2_ms")
 # The flat kernels' sources and designs.
 FLAT_SOURCE = {"flat_insert_tiled": "flat_bits.cu", "sharded_flat_insert_tiled": "flat_bits.cu"}
@@ -4233,7 +4408,11 @@ def phase_server_path(rng, dev: dict) -> dict:
         pre = served.words.clone()  # the state the direct filter must reach
         flush_wall = clock.report()
         with BloomClient(addr) as c:
+            before = sweep.launch_counts()
             presence = c.insert_batch("main", key_list(pres), return_presence=True)
+            torch.cuda.synchronize()
+            presence_kernels = {k: v - before[k] for k, v in sweep.launch_counts().items()
+                                if v != before[k]}
             t0 = time.perf_counter()
             c.checkpoint("main")
             checkpoint_s = time.perf_counter() - t0
@@ -4326,6 +4505,9 @@ def phase_server_path(rng, dev: dict) -> dict:
         "max_abs_err": {"insert": insert_err, "presence": presence_err, "restored": restored_err,
                         "cuckoo": cf_err, "cms": cms_err},
         "tolerance": 0, "fpr": fpr, "presence_held_present": True,
+        # the launches of the InsertBatch(return_presence) flush (2^16 keys
+        # on 2^23 rows): the fused kernel from the crossover, else the two
+        "presence_flush_kernels": presence_kernels,
         "checkpoint_s": checkpoint_s, "restore_s": restore_s,
         "health": {"backend": health["backend"], "devices": health["devices"]},
         "nvidia_smi": dev["nvidia_smi"],
@@ -6418,6 +6600,9 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
     for name, src, replaces, lau, err, t in (
         ("blocked_insert", "blocked_bloom.cu", "tpubloom/ops/sweep.py:1463", launches, errs, times),
         ("blocked_query", "blocked_bloom.cu", "tpubloom/ops/sweep.py:2437", launches, errs, times),
+        # PRES of K1 (:554) and K3 (`_fat_kernel`, :1463, pallas_call :1723)
+        ("blocked_test_insert", "blocked_test_insert.cu", "tpubloom/ops/sweep.py:241", launches, errs,
+         times),
         # K4 (fat storage) and K2 (sweep.py:582, logical view): one kernel
         ("blocked_counting_update", "blocked_counting.cu", "tpubloom/ops/sweep.py:1976",
          c_launches, c_errs, c_times),
@@ -6442,12 +6627,14 @@ def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
             "replaces": replaces, "launches": lau[name], "max_abs_err": err[name],
             "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
             "bound_by": t[name]["bound_by"], "library_ms": t[name]["library_ms"],
-            "design": "lane group a key" if name in GROUP_DESIGN else "thread a key",
+            "design": DESIGN.get(name, "lane group a key" if name in GROUP_DESIGN else "thread a key"),
             **{k: t[name][k] for k in EXTRA_TIMES if k in t[name]},
         })
-    kernels[2]["also_replaces"] = "tpubloom/ops/sweep.py:582"
-    kernels[4]["also_replaces"] = "tpubloom/ops/sweep.py:1463 (K3 at tpubloom/parallel/sharded.py:274)"
-    kernels[6]["also_replaces"] = "tpubloom/ops/sweep.py:1976 (K4 at tpubloom/parallel/sharded.py:500)"
+    kernels[2]["also_replaces"] = "tpubloom/ops/sweep.py:1463 (`_fat_kernel` with PRES, pallas_call :1723)"
+    kernels[2]["two_launch_ms"] = times["blocked_test_insert"]["two_launch_ms"]
+    kernels[3]["also_replaces"] = "tpubloom/ops/sweep.py:582"
+    kernels[5]["also_replaces"] = "tpubloom/ops/sweep.py:1463 (K3 at tpubloom/parallel/sharded.py:274)"
+    kernels[7]["also_replaces"] = "tpubloom/ops/sweep.py:1976 (K4 at tpubloom/parallel/sharded.py:500)"
     for name in (*FLAT_KERNELS, *FLAT_TILED):
         t = f_times[name]
         tiled = name.endswith("_tiled")
@@ -6600,10 +6787,12 @@ def phase_ab(other: Path, times: bool = True) -> None:
         runs.append({"tree": label, "path": str(tree), **run})
         summary = {name: {k: v for k, v in run[phase][name].items()
                           if k in ("ms", "present_ms", "replay_ms", "delete_ms", "sparse_ms", "config2_ms",
+                                   "two_launch_ms",
                                    "group_ms", "present_group_ms",
                                    "sparse_delete_ms", "sparse_device_ms", "crowd_ms", "half_full_ms",
                                    "mix_ms", "sparse_host", "share_of_bound")}
                    for phase, name in (("times", "blocked_insert"), ("times", "blocked_query"),
+                                       ("times", "blocked_test_insert"),
                                        ("counting_times", "blocked_counting_update"),
                                        ("counting_times", "blocked_counting_query"),
                                        ("sharded_times", "sharded_blocked_insert"),
@@ -6707,6 +6896,7 @@ def main(argv: list[str]) -> int:
     errs = phase_kernel_vs_plain(rng)
     launches, f = phase_main_path(rng)
     times = phase_times(f, rng)
+    phase_test_insert_crossover(f, rng)
     phase_end_to_end(f, rng, times)
     del f
     torch.cuda.empty_cache()

@@ -634,6 +634,10 @@ def test_topology_events_push_repoints_cluster_client(tmp_path):
         cc = ClusterClient(shards=[{"sentinels": [sent.address]}], topology_push=True)
         shard = cc._shard_clients[0]
         assert shard.address == a.addr and cc.epoch == 1
+        # the subscription starts on the push thread: announce once its
+        # stream is live, so that the announcement travels on that stream
+        # and not on a later subscription after the loop's backoff
+        assert shard.push_live.wait(15), "the shard's TopologyEvents stream went live"
         before = counters.get("client_topology_pushes")
         assert sent.handle_AnnounceTopology({"epoch": 2, "primary": b.addr,
                                              "replicas": [a.addr]})["adopted"]

@@ -239,8 +239,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     f.insert_batch([b"a", b"b"], return_presence=True)
     f.include_batch([b"a"])
     assert sweep.launch_counts() == dict.fromkeys(
-        ("blocked_query", "blocked_insert", "blocked_counting_update", "blocked_counting_query",
-         "sharded_blocked_query", "sharded_blocked_insert", "sharded_blocked_counting_update",
+        ("blocked_query", "blocked_insert", "blocked_test_insert", "blocked_counting_update",
+         "blocked_counting_query", "sharded_blocked_query", "sharded_blocked_insert", "sharded_blocked_counting_update",
          "sharded_blocked_counting_query",
          "flat_insert", "flat_query", "flat_counting_update", "flat_counting_query",
          "sharded_flat_insert", "sharded_flat_query", "sharded_flat_counting_update",

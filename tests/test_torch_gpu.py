@@ -87,7 +87,73 @@ def test_kernels_match_plain(cuda, block_bits, block_hash):
     q_p = blocked.blocked_query_plain(s_k, keys, lengths, cfg)
     assert torch.equal(q_k.cpu(), q_p.cpu())
     assert bool(q_k[lengths >= 0].all()) and not bool(q_k[lengths < 0].any())
-    assert sweep.launch_counts() == {**_NO_LAUNCH, "blocked_query": 2, "blocked_insert": 3}
+    # the test-and-insert's 4096 keys on 8,192 rows: the fused kernel from the crossover
+    fused = sweep._takes_fused(cfg, 4096)
+    assert sweep.launch_counts() == {**_NO_LAUNCH, "blocked_query": 2 - fused,
+                                     "blocked_insert": 3 - fused, "blocked_test_insert": int(fused)}
+
+
+@pytest.mark.parametrize(
+    "block_bits,block_hash,k,log2m,batch,hot",
+    [(512, "chunk", 7, 22, 8192, 2048), (512, "ap", 7, 22, 8192, 0),
+     (128, "chunk", 7, 20, 6000, 1500), (256, "ap", 7, 20, 5000, 0),
+     (1024, "chunk", 6, 22, 4096, 1024), (2048, "ap", 7, 22, 4096, 0),
+     (4096, "chunk", 5, 23, 4096, 1024), (512, "chunk", 7, 16, 1 << 16, 0)],
+)
+def test_test_insert_kernels_match_plain(cuda, block_bits, block_hash, k, log2m, batch, hot):
+    """The fused test-and-insert kernel and the two launches (blocked_query,
+    blocked_insert), each held against the plain version from the same
+    state: held keys, fresh keys, ragged lengths, within-batch duplicates,
+    tail padding, and a hot row (``hot`` copies of one key; at m=2^16 the
+    last case crowds 512 distinct keys a row into 128 rows, one ragged
+    tile). The fused launch's keys a tile equal the plain partition's.
+    (A chunk hash takes the fused kernel where its k positions fit the
+    entry's 64 bits of pool: k log2(block_bits) <= 64.)"""
+    cfg = FilterConfig(m=1 << log2m, k=k, key_len=L, block_bits=block_bits, block_hash=block_hash)
+    rng = np.random.default_rng(log2m * block_bits + hot)
+    f = BlockedBloomFilter(cfg, cuda)
+    prev, prev_len = _batch(rng, batch, cuda)
+    sweep.blocked_insert(f.words, prev, prev_len, cfg)
+    keys, lengths = _batch(rng, batch, cuda)
+    keys[: batch // 8], lengths[: batch // 8] = prev[: batch // 8], prev_len[: batch // 8]
+    if hot:
+        at = torch.from_numpy(rng.choice(np.arange(batch // 8, batch - 37), hot, replace=False)).to(cuda)
+        keys[at], lengths[at] = keys[batch // 8].clone(), lengths[batch // 8].clone()
+    s_f, s_two, s_p = (f.words.view(torch.int32).clone().view(torch.uint32) for _ in range(3))
+    sweep.reset_launch_counts()
+    scratch = torch.empty(sweep.blocked_test_insert_scratch_bytes(cfg, batch), dtype=torch.uint8,
+                          device=cuda)
+    p_f = sweep._blocked_test_insert_on(True, s_f, keys, lengths, cfg, scratch=scratch)
+    p_two = sweep._blocked_test_insert_on(False, s_two, keys, lengths, cfg)
+    p_p = blocked.blocked_test_insert_plain(s_p, keys, lengths, cfg)
+    torch.cuda.synchronize()
+    assert _equal_words(s_f, s_p) and _equal_words(s_two, s_p)
+    assert torch.equal(p_f.cpu(), p_p.cpu()) and torch.equal(p_two.cpu(), p_p.cpu())
+    assert bool(p_p[: batch // 8][lengths[: batch // 8] >= 0].all()) and not bool(p_p[-37:].any())
+    tiles = sweep.blocked_test_insert_tile_counts(scratch, cfg, batch)
+    want = blocked.test_insert_tile_counts_plain(keys, lengths, cfg, sweep.flat_tile_geometry()[0])
+    assert torch.equal(tiles.cpu(), want.cpu())
+    assert sweep.launch_counts() == {**_NO_LAUNCH, "blocked_test_insert": 1, "blocked_query": 1,
+                                     "blocked_insert": 1}
+
+
+@pytest.mark.parametrize("block_bits,k", [(512, 8), (1024, 7), (4096, 6)])
+def test_test_insert_past_the_fused_pool_takes_two_launches(cuda, block_bits, k):
+    """A chunk hash whose k positions need more than the fused entry's 64
+    bits of pool: the plan refuses it, and a batch above the crossover
+    takes the two launches, with the plain version's state and verdicts."""
+    cfg = FilterConfig(m=1 << 20, k=k, key_len=L, block_bits=block_bits)
+    assert sweep.blocked_test_insert_scratch_bytes(cfg, 8192) < 0
+    assert sweep.blocked_test_insert_fused(cfg, 8192)
+    rng = np.random.default_rng(block_bits + k)
+    f = BlockedBloomFilter(cfg, cuda)
+    keys, lengths = _batch(rng, 8192, cuda)
+    s_p = f.words.view(torch.int32).clone().view(torch.uint32)
+    sweep.reset_launch_counts()
+    p_k = sweep.blocked_test_insert(f.words, keys, lengths, cfg)
+    p_p = blocked.blocked_test_insert_plain(s_p, keys, lengths, cfg)
+    assert _equal_words(f.words, s_p) and torch.equal(p_k.cpu(), p_p.cpu())
+    assert sweep.launch_counts() == {**_NO_LAUNCH, "blocked_query": 1, "blocked_insert": 1}
 
 
 def test_filter_on_card_matches_cpu(cuda):

@@ -392,19 +392,6 @@ blocked_insert_wide_kernel(uint32_t* __restrict__ state,
   }
 }
 
-inline BlockSpec make_spec(int64_t n_blocks, int block_bits, int k,
-                           uint32_t seed, int chunk) {
-  BlockSpec s;
-  s.n_blocks = (uint64_t)n_blocks;
-  s.block_bits = block_bits;
-  s.log2_bits = 0;
-  while ((1 << s.log2_bits) < block_bits) ++s.log2_bits;
-  s.k = k;
-  s.seed = seed;
-  s.chunk = chunk;
-  return s;
-}
-
 inline unsigned grid_for(int64_t B) {
   return (unsigned)((B + kThreads - 1) / kThreads);
 }

@@ -59,6 +59,19 @@ struct RouteSpec {
   int64_t shards_per_dev;
 };
 
+inline BlockSpec make_spec(int64_t n_blocks, int block_bits, int k,
+                           uint32_t seed, int chunk) {
+  BlockSpec s;
+  s.n_blocks = (uint64_t)n_blocks;
+  s.block_bits = block_bits;
+  s.log2_bits = 0;
+  while ((1 << s.log2_bits) < block_bits) ++s.log2_bits;
+  s.k = k;
+  s.seed = seed;
+  s.chunk = chunk;
+  return s;
+}
+
 inline RouteSpec make_route(int64_t n_shards, int64_t shard_lo,
                             int64_t shards_per_dev) {
   RouteSpec r;

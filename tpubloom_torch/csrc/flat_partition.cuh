@@ -1,23 +1,29 @@
 // The partition of a launch's positions by tile, shared by the
 // partitioned kernels: the flat counting update and query
-// (flat_counting.cu), the flat bit insert (flat_bits.cu) and the count-min
-// update (cms.cu). Each position of the batch is placed in the segment of
-// its tile (a fixed run of state words), so that a sweep can then apply
-// each tile's segment on chip instead of giving each position its own
-// random L2 request.
+// (flat_counting.cu), the flat bit insert (flat_bits.cu), the count-min
+// update (cms.cu) and the blocked test-and-insert (blocked_test_insert.cu).
+// Each position of the batch is placed in the segment of its tile (a fixed
+// run of state words), so that a sweep can then apply each tile's segment
+// on chip instead of giving each position its own random L2 request.
 //
 // The passes are templates on the position's width, kPosLog2: the log2 of
 // the positions a 32-bit word holds, kCounterLog2 (8 4-bit counters),
-// kBitLog2 (32 bits) or kU32Log2 (one u32 counter). A tile is 2^kTileLog2
-// words whatever the width (64 KiB: 2^17 counters, 2^19 bits or 2^14 u32
-// counters), so an entry's index in its tile fits a u32 either way. Two
-// more flags serve the count-min grid (a [depth, width] grid of u32
-// counters stored row-major): kRowMajor, where a key's position j is
+// kBitLog2 (32 bits) or kU32Log2 (one u32 counter), or negative for a
+// position wider than a word: a blocked filter's row of W words is
+// -log2(W). A tile is 2^kTileLog2 words whatever the width (64 KiB: 2^17
+// counters, 2^19 bits, 2^14 u32 counters or 2^14 / W rows), so an entry's
+// index in its tile fits a u32 either way. Two more flags serve the
+// count-min grid (a [depth, width] grid of u32 counters stored
+// row-major): kRowMajor, where a key's position j is
 // j * m + flat_position(j) (row j of the grid, m = width) instead of
 // base + flat_position(j); and kKeyed, where an entry carries its key's
 // index beside its index in the tile (8 bytes), as a query's does, so that
 // a weighted update's sweep can read the key's increment. A query is
-// always keyed; an update is keyed only with weights.
+// always keyed; an update is keyed only with weights. The blocked
+// test-and-insert's entries are 16 bytes: the index and the key, then 64
+// bits of payload from its source (the key's in-block hash pool), so that
+// its sweep gathers nothing by key. The place and sort passes take an
+// entry's width in words, kWords: 1, 2 (keyed) or 4.
 //
 // Five launches on the caller's stream, then the caller's sweep:
 //   1. tile_count_kernel: `chunks` CTAs, each a contiguous chunk of keys;
@@ -35,7 +41,9 @@
 //      of n entries takes ceil(n / piece) sweep CTAs, a bucket of tiles
 //      ceil(n / sort_piece) sort CTAs.
 //   4. bucket_place_kernel, then tile_sort_kernel: each chunk hashes its
-//      keys again and writes its positions into the segments of their
+//      keys again (a flat launch's FlatPositions; the blocked
+//      test-and-insert reads each key's row from its count pass instead,
+//      RowPositions) and writes its positions into the segments of their
 //      buckets (64 tiles), ordered by bucket in shared memory first so that
 //      each bucket's run goes out whole; then each bucket's entries move
 //      into its tiles' segments as indices in the tile (a query: with the
@@ -135,15 +143,16 @@ inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 // The plan of a launch of B keys, k positions each, on n_words words of
 // 2^pos_log2 positions; false where the partition cannot hold it: more
 // tiles than the passes' histogram, 2^32 positions or more (a u32 entry),
-// or B k at 2^31 entries (the segments' u32 offsets). An entry is 4 bytes
-// (a position, then its index in the tile) or, keyed (a query, a weighted
-// update), 8 (and its key's index).
-inline bool make_tile_plan(int64_t B, int k, int64_t n_words, int pos_log2, bool keyed,
-                           TilePlan* g) {
+// or B k at 2^31 entries (the segments' u32 offsets). An entry is
+// entry_bytes: 4 (a position, then its index in the tile), 8 (and its key's
+// index) or 16 (and a payload).
+inline bool make_tile_plan_of(int64_t B, int k, int64_t n_words, int pos_log2,
+                              int64_t entry_bytes, TilePlan* g) {
   const int64_t entries = B * k;
   const int64_t n_tiles = ceil_div(n_words, (int64_t)1 << kTileLog2);
+  const int64_t positions = pos_log2 >= 0 ? n_words << pos_log2 : n_words >> -pos_log2;
   if (B <= 0 || k <= 0 || n_words <= 0 || entries >= ((int64_t)1 << 31) ||
-      n_tiles > kMaxTiles || (n_words << pos_log2) >= ((int64_t)1 << 32))
+      n_tiles > kMaxTiles || positions >= ((int64_t)1 << 32))
     return false;
   g->n_words = n_words;
   g->n_tiles = (int)n_tiles;
@@ -153,7 +162,6 @@ inline bool make_tile_plan(int64_t B, int k, int64_t n_words, int pos_log2, bool
   g->chunks = (int)ceil_div(B, g->chunk_keys);
   g->sweep_grid = (int)(n_tiles + ceil_div(entries, kPiece));
   g->sort_grid = (int)(g->n_buckets + ceil_div(entries, kSortPiece));
-  const int64_t entry_bytes = keyed ? 8 : 4;
   g->counts_at = 0;
   g->starts_at = 4 * (int64_t)g->chunks * n_tiles;
   g->cursor_at = g->starts_at + 8 * (n_tiles + 1);
@@ -164,6 +172,12 @@ inline bool make_tile_plan(int64_t B, int k, int64_t n_words, int pos_log2, bool
   g->entries_at = g->bucketed_at + ceil_div(entry_bytes * entries, 16) * 16;
   g->scratch_bytes = g->entries_at + entry_bytes * entries;
   return true;
+}
+
+// The plan with 4-byte entries, or keyed (a query, a weighted update) 8.
+inline bool make_tile_plan(int64_t B, int k, int64_t n_words, int pos_log2, bool keyed,
+                           TilePlan* g) {
+  return make_tile_plan_of(B, k, n_words, pos_log2, keyed ? 8 : 4, g);
 }
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
@@ -392,16 +406,103 @@ tile_scan_kernel(uint32_t* __restrict__ tile_start, uint32_t* __restrict__ piece
 // chunks put in its tiles (the column-scanned count matrix).
 // ---------------------------------------------------------------------------
 
+// The positions the place pass writes, a source each: per_key() positions
+// a key; load(i, key) false for a key that places none, else what at(j,
+// key) needs; places(j) false for a position j that is not placed.
+//
+// A flat launch's: the same keys and positions as its count pass (a query:
+// the keys whose probe found a non-zero value, from position 1).
+template <bool kRouted, bool kQuery, bool kRowMajor>
+struct FlatPositions {
+  const uint8_t* __restrict__ keys;
+  const int32_t* __restrict__ lengths;
+  const uint8_t* __restrict__ out;
+  int L;
+  FlatSpec s;
+  RouteSpec route;
+  struct Key {
+    FlatWalk w;
+    uint64_t base;
+  };
+  __device__ __forceinline__ int per_key() const { return s.k; }
+  __device__ __forceinline__ bool load(int64_t i, Key& key) const {
+    return (!kQuery || out[i] != 0) && flat_key<kRouted>(keys, lengths, i, L, s, route, key.w,
+                                                         key.base);
+  }
+  __device__ __forceinline__ bool places(int j) const { return !kQuery || j > 0; }
+  __device__ __forceinline__ uint32_t at(int j, const Key& key) const {
+    return (uint32_t)walk_at<kRowMajor>(j, key.w, s, key.base);
+  }
+};
+
+// The blocked test-and-insert's: one position a key, its row, and a
+// 64-bit payload, which its count pass hashed and wrote to pool[i] as
+// (payload, row, 0); the row is kNoEntry for padding. payload(key) is read
+// by the pass of 16-byte entries only.
+struct RowPositions {
+  const uint4* __restrict__ pool;
+  struct Key {
+    uint4 v;
+  };
+  __device__ __forceinline__ int per_key() const { return 1; }
+  __device__ __forceinline__ bool load(int64_t i, Key& key) const {
+    key.v = __ldcs(pool + i);
+    return key.v.z != kNoEntry;
+  }
+  __device__ __forceinline__ bool places(int) const { return true; }
+  __device__ __forceinline__ uint32_t at(int, const Key& key) const { return key.v.z; }
+  __device__ __forceinline__ uint2 payload(const Key& key) const {
+    return make_uint2(key.v.x, key.v.y);
+  }
+};
+
+// An entry of kWords words: a position (or, sorted, its index in the
+// tile), then (kWords > 1) its key's index, then (kWords == 4) a 64-bit
+// payload; make() builds the place pass's, at() the sort's.
+template <int kWords>
+struct EntryOf;
+template <>
+struct EntryOf<1> {
+  using T = uint32_t;
+  __device__ __forceinline__ static T make(uint32_t p, uint32_t, uint2) { return p; }
+  __device__ __forceinline__ static uint32_t pos(T v) { return v; }
+  __device__ __forceinline__ static T none() { return kNoEntry; }
+  __device__ __forceinline__ static T at(T, uint32_t i) { return i; }
+};
+template <>
+struct EntryOf<2> {
+  using T = uint2;
+  __device__ __forceinline__ static T make(uint32_t p, uint32_t key, uint2) {
+    return make_uint2(p, key);
+  }
+  __device__ __forceinline__ static uint32_t pos(T v) { return v.x; }
+  __device__ __forceinline__ static T none() { return make_uint2(kNoEntry, 0u); }
+  __device__ __forceinline__ static T at(T v, uint32_t i) { return make_uint2(i, v.y); }
+};
+template <>
+struct EntryOf<4> {
+  using T = uint4;
+  __device__ __forceinline__ static T make(uint32_t p, uint32_t key, uint2 pay) {
+    return make_uint4(p, key, pay.x, pay.y);
+  }
+  __device__ __forceinline__ static uint32_t pos(T v) { return v.x; }
+  __device__ __forceinline__ static T none() { return make_uint4(kNoEntry, 0u, 0u, 0u); }
+  __device__ __forceinline__ static T at(T v, uint32_t i) { return make_uint4(i, v.y, v.z, v.w); }
+};
+
 // Shared memory of bucket_place_kernel: the sub-batch's positions, their
 // order by bucket (entry indices), a count a (warp, bucket), each bucket's
-// first slot in the order and in the segment, the scan.
-constexpr int kPlaceSmemWords = 2 * kPlaceEntries + kPassWarps * kMaxBuckets + 2 * kMaxBuckets + 32;
+// first slot in the order and in the segment, the scan; with 16-byte
+// entries, the keys' payloads too.
+template <int kWords>
+constexpr int place_smem_bytes() {
+  return (int)sizeof(uint32_t) * (2 * kPlaceEntries + kPassWarps * kMaxBuckets +
+                                  2 * kMaxBuckets + 32 + (kWords == 4 ? 2 * kPlaceEntries : 0));
+}
 
-template <int kPosLog2, bool kRouted, bool kQuery, bool kRowMajor = false, bool kKeyed = kQuery>
+template <int kPosLog2, int kWords, class Src>
 __global__ void __launch_bounds__(kPassThreads)
-bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict__ lengths,
-                    const uint8_t* __restrict__ out, int64_t B, int L, FlatSpec s,
-                    RouteSpec route, TilePlan g, const uint32_t* __restrict__ counts,
+bucket_place_kernel(Src src, int64_t B, TilePlan g, const uint32_t* __restrict__ counts,
                     const uint32_t* __restrict__ tile_start, void* __restrict__ bucketed) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* pos = smem;                      // entry e = (key k0 + e / k, position e % k)
@@ -410,6 +511,7 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
   uint32_t* first = bins + kPassWarps * kMaxBuckets;
   uint32_t* base = first + kMaxBuckets;
   uint32_t* scan = base + kMaxBuckets;
+  uint2* pay = reinterpret_cast<uint2*>(scan + 32);  // kWords == 4: a payload a key
   const int nb = g.n_buckets, shift = kTileLog2 + kPosLog2 + kBucketLog2;
   uint32_t* my_bins = bins + (threadIdx.x >> 5) * kMaxBuckets;
   for (int b = threadIdx.x; b < nb; b += blockDim.x) base[b] = 0u;
@@ -420,7 +522,8 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
   __syncthreads();
   for (int b = threadIdx.x; b < nb; b += blockDim.x) base[b] += tile_start[b << kBucketLog2];
   // keys a sub-batch: as many as fit, in whole rounds of the CTA's threads
-  const int fit = kPlaceEntries / s.k;
+  const int per_key = src.per_key();
+  const int fit = kPlaceEntries / per_key;
   const int per = fit >= kPassThreads ? fit / kPassThreads * kPassThreads : fit;
   const int64_t lo = (int64_t)blockIdx.x * g.chunk_keys, hi = min64(B, lo + g.chunk_keys);
   for (int64_t k0 = lo; k0 < hi; k0 += per) {
@@ -428,19 +531,16 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
     for (int x = threadIdx.x; x < kPassWarps * kMaxBuckets; x += blockDim.x) bins[x] = 0u;
     __syncthreads();
     for (int q = threadIdx.x; q < nk; q += blockDim.x) {
-      FlatWalk w;
-      uint64_t off;
-      const int64_t i = k0 + q;
-      // a query: only the keys its probe left at 1, from position 1
-      const bool ok = (!kQuery || out[i] != 0) &&
-                      flat_key<kRouted>(keys, lengths, i, L, s, route, w, off);
-      for (int j = 0; j < s.k; ++j) {
+      typename Src::Key key;
+      const bool ok = src.load(k0 + q, key);
+      if constexpr (kWords == 4) pay[q] = ok ? src.payload(key) : make_uint2(0u, 0u);
+      for (int j = 0; j < per_key; ++j) {
         uint32_t p = kNoEntry;
-        if (ok && (!kQuery || j > 0)) {
-          p = (uint32_t)walk_at<kRowMajor>(j, w, s, off);
+        if (ok && src.places(j)) {
+          p = src.at(j, key);
           atomicAdd(&my_bins[p >> shift], 1u);
         }
-        pos[q * s.k + j] = p;
+        pos[q * per_key + j] = p;
       }
     }
     __syncthreads();
@@ -462,20 +562,19 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
     }
     __syncthreads();
     for (int q = threadIdx.x; q < nk; q += blockDim.x) {  // each thread its own keys
-      for (int j = 0; j < s.k; ++j) {
-        const uint32_t p = pos[q * s.k + j];
+      for (int j = 0; j < per_key; ++j) {
+        const uint32_t p = pos[q * per_key + j];
         if (p == kNoEntry) continue;
-        order[atomicAdd(&my_bins[p >> shift], 1u)] = (uint32_t)(q * s.k + j);
+        order[atomicAdd(&my_bins[p >> shift], 1u)] = (uint32_t)(q * per_key + j);
       }
     }
     __syncthreads();
     for (int x = threadIdx.x; x < (int)total; x += blockDim.x) {
       const uint32_t e = order[x], p = pos[e], b = p >> shift;
       const uint32_t dst = base[b] + ((uint32_t)x - first[b]);
-      if constexpr (kKeyed)
-        static_cast<uint2*>(bucketed)[dst] = make_uint2(p, (uint32_t)(k0 + e / s.k));
-      else
-        static_cast<uint32_t*>(bucketed)[dst] = p;
+      const uint2 v = kWords == 4 ? pay[e / per_key] : make_uint2(0u, 0u);
+      static_cast<typename EntryOf<kWords>::T*>(bucketed)[dst] =
+          EntryOf<kWords>::make(p, (uint32_t)(k0 + e / per_key), v);
     }
     __syncthreads();
     // the next sub-batch goes after this one's runs
@@ -489,71 +588,55 @@ bucket_place_kernel(const uint8_t* __restrict__ keys, const int32_t* __restrict_
 // ---------------------------------------------------------------------------
 // 4b. Sort, level 2: sort CTA q takes a piece of one bucket's segment and
 // moves each entry into its tile's segment as the index in its tile
-// (keyed: with its key): a histogram of its entries over the bucket's
-// tiles, one global atomic a (CTA, tile) on tile_cursor to reserve its
-// runs, then shared cursors. CTAs run bucket by bucket, so what they write
-// at a time is a few buckets' segments, which stay in L2 until their
-// sectors are whole.
+// (keyed: with its key; 16-byte: and its payload): a histogram of its
+// entries over the bucket's tiles, one global atomic a (CTA, tile) on
+// tile_cursor to reserve its runs, then shared cursors. CTAs run bucket
+// by bucket, so what they write at a time is a few buckets' segments,
+// which stay in L2 until their sectors are whole.
 // ---------------------------------------------------------------------------
 
-// Shared memory of tile_sort_kernel: the piece's positions (keyed: and
-// key indices) as read and as ordered by tile, and the scan.
-template <bool kKeyed>
+// Shared memory of tile_sort_kernel: the piece's entries as ordered by
+// tile, and the scan. Each thread holds the kSweepUnroll entries it read in
+// registers until it places them.
+template <int kWords>
 constexpr int sort_smem_bytes() {
-  return (int)sizeof(uint32_t) * ((kKeyed ? 4 : 2) * (int)kSortPiece + 32);
+  return (int)sizeof(uint32_t) * (kWords * (int)kSortPiece + 32);
 }
+static_assert(kSortPiece <= (uint32_t)(kSweepUnroll * kPassThreads),
+              "a sort thread holds its entries in registers");
 
-template <int kPosLog2, bool kKeyed>
+template <int kPosLog2, int kWords>
 __global__ void __launch_bounds__(kPassThreads)
 tile_sort_kernel(const void* __restrict__ bucketed, void* __restrict__ entries,
                  const uint32_t* __restrict__ tile_start, uint32_t* __restrict__ tile_cursor,
                  const uint32_t* __restrict__ sort_start,
                  const uint32_t* __restrict__ sort_bucket, TilePlan g) {
+  using E = EntryOf<kWords>;
+  using T = typename E::T;
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ uint32_t cursor[kMaxBucketTiles];
   __shared__ uint32_t first[kMaxBucketTiles];
   __shared__ uint32_t dst[kMaxBucketTiles];
   const uint32_t q = blockIdx.x;
   if (q >= sort_start[g.n_buckets]) return;
-  uint32_t* in_p = smem;
-  uint32_t* st_p = in_p + kSortPiece;
-  uint32_t* in_k = st_p + kSortPiece;                     // keyed only
-  uint32_t* st_k = in_k + (kKeyed ? kSortPiece : 0u);     // keyed only
-  uint32_t* scan = st_k + (kKeyed ? kSortPiece : 0u);
+  T* staged = reinterpret_cast<T*>(smem);
+  uint32_t* scan = smem + kWords * kSortPiece;
   const int b = (int)sort_bucket[q];
   const int t0 = b << kBucketLog2, nt = min(g.n_tiles - t0, 1 << kBucketLog2);
   const uint32_t e0 = tile_start[t0] + (q - sort_start[b]) * kSortPiece;
   const int n = (int)(min(tile_start[t0 + nt], e0 + kSortPiece) - e0);
-  const uint32_t* p32 = static_cast<const uint32_t*>(bucketed) + e0;
-  const uint2* p64 = static_cast<const uint2*>(bucketed) + e0;
+  const T* in = static_cast<const T*>(bucketed) + e0;
   for (int t = threadIdx.x; t < nt; t += blockDim.x) cursor[t] = 0u;
   __syncthreads();
-  for (int e0_ = threadIdx.x; e0_ < n; e0_ += kSweepUnroll * kPassThreads) {
-    uint32_t pv[kSweepUnroll], kv[kSweepUnroll];
+  T v[kSweepUnroll];
 #pragma unroll
-    for (int u = 0; u < kSweepUnroll; ++u) {
-      const int e = e0_ + u * kPassThreads;
-      pv[u] = kNoEntry;
-      kv[u] = 0u;
-      if (e < n) {
-        if constexpr (kKeyed) {
-          const uint2 x = __ldcs(p64 + e);
-          pv[u] = x.x;
-          kv[u] = x.y;
-        } else {
-          pv[u] = __ldcs(p32 + e);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kSweepUnroll; ++u) {
-      if (pv[u] == kNoEntry) continue;
-      const int e = e0_ + u * kPassThreads;
-      in_p[e] = pv[u];
-      if constexpr (kKeyed) in_k[e] = kv[u];
-      atomicAdd(&cursor[tile_of<kPosLog2>(pv[u]) - t0], 1u);
-    }
+  for (int u = 0; u < kSweepUnroll; ++u) {
+    const int e = threadIdx.x + u * kPassThreads;
+    v[u] = e < n ? __ldcs(in + e) : E::none();
   }
+#pragma unroll
+  for (int u = 0; u < kSweepUnroll; ++u)
+    if (E::pos(v[u]) != kNoEntry) atomicAdd(&cursor[tile_of<kPosLog2>(E::pos(v[u])) - t0], 1u);
   __syncthreads();
   uint32_t total;
   const uint32_t c = (int)threadIdx.x < nt ? cursor[threadIdx.x] : 0u;
@@ -563,21 +646,18 @@ tile_sort_kernel(const void* __restrict__ bucketed, void* __restrict__ entries,
     dst[threadIdx.x] = c ? atomicAdd(&tile_cursor[t0 + threadIdx.x], c) : 0u;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const uint32_t p = in_p[e];
-    const uint32_t slot = atomicAdd(&cursor[tile_of<kPosLog2>(p) - t0], 1u);
-    st_p[slot] = p;
-    if constexpr (kKeyed) st_k[slot] = in_k[e];
+#pragma unroll
+  for (int u = 0; u < kSweepUnroll; ++u) {
+    if (E::pos(v[u]) == kNoEntry) continue;
+    staged[atomicAdd(&cursor[tile_of<kPosLog2>(E::pos(v[u])) - t0], 1u)] = v[u];
   }
   __syncthreads();
   for (int e = threadIdx.x; e < n; e += blockDim.x) {  // each tile's run whole
-    const uint32_t p = st_p[e];
+    const T x = staged[e];
+    const uint32_t p = E::pos(x);
     const int t = tile_of<kPosLog2>(p) - t0;
-    const uint32_t slot = dst[t] + ((uint32_t)e - first[t]);
-    if constexpr (kKeyed)
-      static_cast<uint2*>(entries)[slot] = make_uint2(index_in_tile<kPosLog2>(p), st_k[e]);
-    else
-      static_cast<uint32_t*>(entries)[slot] = index_in_tile<kPosLog2>(p);
+    static_cast<T*>(entries)[dst[t] + ((uint32_t)e - first[t])] =
+        E::at(x, index_in_tile<kPosLog2>(p));
   }
 }
 
@@ -655,6 +735,35 @@ int launch_plan(int64_t B, int64_t m, int k, bool query, const RouteSpec& r,
   return (int)cudaSuccess;
 }
 
+// Passes 2-4 (the scans, the place pass from `src`, the sort), after a count
+// pass has filled the count matrix.
+template <int kPosLog2, int kWords, class Src>
+int launch_place(const Src& src, int64_t B, const TilePlan& g, const Scratch& x,
+                 cudaStream_t cs) {
+  tile_scan_columns_kernel<<<(g.n_tiles + 31) / 32, kScanThreads, 0, cs>>>(
+      x.counts, x.tile_start, g);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int start_bytes = (g.n_tiles + 1) * (int)sizeof(uint32_t);
+  cudaFuncSetAttribute(tile_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       start_bytes);
+  tile_scan_kernel<<<1, kScanThreads, start_bytes, cs>>>(
+      x.tile_start, x.piece_start, x.tile_cursor, x.piece_tile, x.sort_start, x.sort_bucket, g);
+  if ((err = (int)cudaGetLastError())) return err;
+  const int place_bytes = place_smem_bytes<kWords>();
+  cudaFuncSetAttribute(bucket_place_kernel<kPosLog2, kWords, Src>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, place_bytes);
+  bucket_place_kernel<kPosLog2, kWords, Src><<<g.chunks, kPassThreads, place_bytes, cs>>>(
+      src, B, g, x.counts, x.tile_start, x.bucketed);
+  if ((err = (int)cudaGetLastError())) return err;
+  const int sort_bytes = sort_smem_bytes<kWords>();
+  cudaFuncSetAttribute(tile_sort_kernel<kPosLog2, kWords>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, sort_bytes);
+  tile_sort_kernel<kPosLog2, kWords><<<g.sort_grid, kPassThreads, sort_bytes, cs>>>(
+      x.bucketed, x.entries, x.tile_start, x.tile_cursor, x.sort_start, x.sort_bucket, g);
+  return (int)cudaGetLastError();
+}
+
 template <int kPosLog2, bool kRouted, bool kQuery, bool kRowMajor = false, bool kKeyed = kQuery>
 int launch_partition(const void* state, const void* keys, const void* lengths, void* out,
                      int64_t B, int L, const FlatSpec& s, const RouteSpec& r, const TilePlan& g,
@@ -669,30 +778,10 @@ int launch_partition(const void* state, const void* keys, const void* lengths, v
   uint8_t* verdict = static_cast<uint8_t*>(out);
   tile_count_kernel<kPosLog2, kRouted, kQuery, kRowMajor><<<g.chunks, kPassThreads, hist_bytes, cs>>>(
       k8, len, static_cast<const uint32_t*>(state), verdict, B, L, s, r, g, x.counts);
-  int err = (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
   if (err) return err;
-  tile_scan_columns_kernel<<<(g.n_tiles + 31) / 32, kScanThreads, 0, cs>>>(
-      x.counts, x.tile_start, g);
-  if ((err = (int)cudaGetLastError())) return err;
-  const int start_bytes = (g.n_tiles + 1) * (int)sizeof(uint32_t);
-  cudaFuncSetAttribute(tile_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       start_bytes);
-  tile_scan_kernel<<<1, kScanThreads, start_bytes, cs>>>(
-      x.tile_start, x.piece_start, x.tile_cursor, x.piece_tile, x.sort_start, x.sort_bucket, g);
-  if ((err = (int)cudaGetLastError())) return err;
-  const int place_bytes = kPlaceSmemWords * (int)sizeof(uint32_t);
-  cudaFuncSetAttribute(bucket_place_kernel<kPosLog2, kRouted, kQuery, kRowMajor, kKeyed>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, place_bytes);
-  bucket_place_kernel<kPosLog2, kRouted, kQuery, kRowMajor, kKeyed>
-      <<<g.chunks, kPassThreads, place_bytes, cs>>>(
-      k8, len, verdict, B, L, s, r, g, x.counts, x.tile_start, x.bucketed);
-  if ((err = (int)cudaGetLastError())) return err;
-  const int sort_bytes = sort_smem_bytes<kKeyed>();
-  cudaFuncSetAttribute(tile_sort_kernel<kPosLog2, kKeyed>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, sort_bytes);
-  tile_sort_kernel<kPosLog2, kKeyed><<<g.sort_grid, kPassThreads, sort_bytes, cs>>>(
-      x.bucketed, x.entries, x.tile_start, x.tile_cursor, x.sort_start, x.sort_bucket, g);
-  return (int)cudaGetLastError();
+  const FlatPositions<kRouted, kQuery, kRowMajor> src{k8, len, verdict, L, s, r};
+  return launch_place<kPosLog2, kKeyed ? 2 : 1>(src, B, g, x, cs);
 }
 
 }  // namespace tpubloom

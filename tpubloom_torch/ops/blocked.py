@@ -191,3 +191,18 @@ def blocked_test_insert_plain(
     present = blocked_query_plain(state, keys, lengths, config)
     blocked_insert_plain(state, keys, lengths, config)
     return present
+
+
+def test_insert_tile_counts_plain(
+    keys: torch.Tensor, lengths: torch.Tensor, config, tile_log2: int
+) -> torch.Tensor:
+    """The keys each row tile takes in the partition of the fused
+    test-and-insert kernel (``csrc/blocked_test_insert.cu``): a tile is
+    ``2^tile_log2`` words of state, ``2^tile_log2 / words_per_block``
+    whole rows, and each valid key is one entry in the tile of its row
+    (padding takes none). int64 ``[n_tiles]``; one CTA sweeps each tile
+    whole, so a row's keys are never split."""
+    valid, blk, _ = _positions(keys, lengths, config)
+    rows_per_tile = (1 << tile_log2) // config.words_per_block
+    n_tiles = -(-config.n_blocks // rows_per_tile)
+    return torch.bincount(blk[valid] // rows_per_tile, minlength=n_tiles)

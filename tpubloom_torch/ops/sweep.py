@@ -4,9 +4,14 @@ buffer.
 Mapping from the TPU kernels of ``tpubloom/ops/sweep.py``:
 
 * K3, ``_fat_kernel`` / ``fat_sweep_insert`` (driven by
-  ``apply_fat_updates``) -> :func:`blocked_insert`; its presence variant
-  (``PRES``, test-and-insert) -> :func:`blocked_query` then
-  :func:`blocked_insert` on the same stream (:func:`blocked_test_insert`).
+  ``apply_fat_updates``) -> :func:`blocked_insert`.
+* The presence variant (``PRES``, test-and-insert) of K1 and K3, reached
+  through ``make_sweep_insert_fn(with_presence=True)`` from
+  ``make_blocked_test_insert_fn`` -> :func:`blocked_test_insert`: the
+  batch partitioned by row tile and each tile tested and updated on chip
+  (``csrc/blocked_test_insert.cu``), or below
+  :data:`BLOCKED_TEST_INSERT_CROSSOVER` :func:`blocked_query` then
+  :func:`blocked_insert` on the same stream.
 * K5, ``_fat_query_kernel`` / ``fat_sweep_query`` (driven by
   ``apply_fat_query``) -> :func:`blocked_query`.
 * K4, ``_fat_count_kernel`` / ``fat_sweep_counter`` (driven by
@@ -116,7 +121,7 @@ from tpubloom_torch.ops import _build, bitops, blocked, cms, counting, cuckoo
 #: takes the partitioned one; a count-min estimate once more under
 #: ``cms_estimate_rows`` when it takes the row-phased kernel.
 LAUNCHES: dict[str, int] = {
-    "blocked_query": 0, "blocked_insert": 0,
+    "blocked_query": 0, "blocked_insert": 0, "blocked_test_insert": 0,
     "blocked_counting_update": 0, "blocked_counting_query": 0,
     "sharded_blocked_query": 0, "sharded_blocked_insert": 0,
     "sharded_blocked_counting_update": 0, "sharded_blocked_counting_query": 0,
@@ -155,6 +160,15 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, *_ROUTE, _P],
         ctypes.c_int,
     ),
+}
+_TEST_INSERT_SIGNATURES = {
+    "tpb_blocked_test_insert": (
+        [_P, _P, _P, _P, _I64, ctypes.c_int, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+         ctypes.c_int, _P, _I64, _P],
+        ctypes.c_int,
+    ),
+    "tpb_blocked_test_insert_scratch_bytes": ([_I64, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int], _I64),
+    "tpb_blocked_test_insert_tile_starts_at": ([_I64, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int], _I64),
 }
 _COUNTING_SIGNATURES = {
     "tpb_blocked_counting_update": (
@@ -249,6 +263,10 @@ def launch_counts() -> dict[str, int]:
 
 def _library() -> ctypes.CDLL:
     return _build.load_library("blocked_bloom", _SIGNATURES)
+
+
+def _test_insert_library() -> ctypes.CDLL:
+    return _build.load_library("blocked_test_insert", _TEST_INSERT_SIGNATURES)
 
 
 def _counting_library() -> ctypes.CDLL:
@@ -414,14 +432,100 @@ def blocked_insert(state, keys, lengths, config, *, route=None) -> None:
                    _spec_args(config, route), route)
 
 
+#: A test-and-insert on the card takes the fused kernel
+#: (``csrc/blocked_test_insert.cu``: the batch partitioned by row tile, each
+#: tile tested and updated on chip) from this many keys a row of the
+#: filter, where its plan holds the shape, and blocked_query then
+#: blocked_insert below it: the partition's six launches and a CTA a tile
+#: cost ~0.12 ms at any batch. From chip_smoke.py's test_insert_crossover
+#: phase (fresh launches on the main path's m=2^32 state, B = 2^14 .. 2^23,
+#: in turns; NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): the fused
+#: kernel is the faster from 2^22 keys (0.5 a row: 0.477 against 0.544 ms;
+#: 2^23: 0.821 against 1.084) and the slower at 2^21 (0.302 against 0.274)
+#: and below, so the server's flushes of 2^16 - 2^19 keys keep the two.
+BLOCKED_TEST_INSERT_CROSSOVER = 1 / 2
+
+
+def blocked_test_insert_fused(config, batch: int) -> bool:
+    """Whether a test-and-insert of ``batch`` keys on ``config``'s
+    unrouted state reaches :data:`BLOCKED_TEST_INSERT_CROSSOVER` keys a
+    row. Pure Python and cheap: small batches ask it on every call."""
+    return batch > 0 and batch >= BLOCKED_TEST_INSERT_CROSSOVER * config.n_blocks
+
+
+def _test_insert_shape(config) -> tuple:
+    """(n_blocks, block_bits, k, chunk): what the fused kernel's plan reads."""
+    return (config.n_blocks, config.block_bits, config.k, 1 if config.block_hash == "chunk" else 0)
+
+
+def blocked_test_insert_scratch_bytes(config, batch: int) -> int:
+    """The fused launch's scratch as ``csrc/blocked_test_insert.cu`` plans
+    it, or -1 where its partition cannot hold the shape (2^32 rows or
+    more, more than 2^14 tiles of 64 KiB, B >= 2^31, or a chunk hash
+    whose k positions need more than 64 bits of its pool). Builds the
+    kernel."""
+    return _test_insert_library().tpb_blocked_test_insert_scratch_bytes(
+        batch, *_test_insert_shape(config))
+
+
+def blocked_test_insert_tile_counts(scratch: torch.Tensor, config, batch: int) -> torch.Tensor:
+    """The keys each row tile took in the last fused launch of ``batch``
+    keys that ran in ``scratch`` (int64 ``[n_tiles]``, from the plan's tile
+    starts; on the card), to hold the kernel's partition against
+    :func:`tpubloom_torch.ops.blocked.test_insert_tile_counts_plain`."""
+    at = _test_insert_library().tpb_blocked_test_insert_tile_starts_at(
+        batch, *_test_insert_shape(config))
+    n_tiles = _ceil_div(config.n_blocks * config.words_per_block, 1 << flat_tile_geometry()[0])
+    return scratch[at : at + 4 * (n_tiles + 1)].view(torch.int32).to(torch.int64).diff()
+
+
+def _takes_fused(config, batch: int) -> bool:
+    """The wrapper's choice on the card: the crossover, then whether the
+    fused kernel's plan holds the shape."""
+    return (blocked_test_insert_fused(config, batch)
+            and blocked_test_insert_scratch_bytes(config, batch) >= 0)
+
+
+def _blocked_test_insert_on(fused: bool, state, keys, lengths, config, *,
+                            scratch: torch.Tensor | None = None) -> torch.Tensor:
+    """The test-and-insert of a checked CUDA state on the kernels named:
+    the fused one (``fused``, in ``scratch``, allocated when None; counted
+    under ``blocked_test_insert``) or blocked_query then blocked_insert.
+    :func:`blocked_test_insert` picks by shape; chip_smoke.py and the card
+    tests hold each through here."""
+    if not fused:
+        present = _launch_query(_library(), "blocked_query", state, keys, lengths,
+                                _spec_args(config), None)
+        _launch_update(_library(), "blocked_insert", state, keys, lengths, _spec_args(config), None)
+        return present
+    B, L = keys.shape
+    out = torch.empty((B,), dtype=torch.uint8, device=state.device)
+    if B:
+        if scratch is None:
+            nbytes = blocked_test_insert_scratch_bytes(config, B)
+            if nbytes < 0:
+                raise ValueError(f"blocked_test_insert: the partition cannot hold {B} keys "
+                                 f"on {config.n_blocks} rows")
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=state.device)
+        _launch(_test_insert_library(), "blocked_test_insert", state, state.data_ptr(),
+                keys.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, L, *_spec_args(config),
+                scratch.data_ptr(), scratch.numel())
+    return out.view(torch.bool)
+
+
 def blocked_test_insert(state, keys, lengths, config) -> torch.Tensor:
     """Test-and-insert: each key's membership BEFORE the batch
     (within-batch duplicates all report the pre-batch state; padding
-    reports False), then the insert. Two launches in stream order: the
-    query finishes reading before the insert writes."""
-    present = blocked_query(state, keys, lengths, config)
-    blocked_insert(state, keys, lengths, config)
-    return present
+    reports False), and the insert. On the card a batch of
+    :data:`BLOCKED_TEST_INSERT_CROSSOVER` keys a row or more takes the
+    fused kernel, a smaller one blocked_query then blocked_insert in
+    stream order (the query finishes reading before the insert writes);
+    both give the same state and verdicts."""
+    _check(state, keys, lengths, config)
+    if state.device.type == "cpu":
+        return blocked.blocked_test_insert_plain(state, keys, lengths, config)
+    return _blocked_test_insert_on(_takes_fused(config, keys.shape[0]), state, keys, lengths,
+                                   config)
 
 
 def blocked_counting_update(

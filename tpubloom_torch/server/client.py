@@ -660,6 +660,13 @@ class BloomClient:
         self._push_stop: Optional[threading.Event] = None
         self._push_thread: Optional[threading.Thread] = None
         self._push_call = None
+        #: set while a TopologyEvents stream is live: from its first
+        #: ``topology`` frame (the sentinel's current view, sent at once)
+        #: until the stream ends. A view announced while it is set reaches
+        #: this client on that stream; one announced before arrives as a
+        #: first frame, which a failed subscription puts off by the push
+        #: loop's backoff (0.2 s doubling to 5 s).
+        self.push_live = threading.Event()
 
     @staticmethod
     def _make_calls(channel) -> dict:
@@ -901,11 +908,13 @@ class BloomClient:
                         backoff = 0.2  # a live stream resets the backoff
                         if self._adopt_topology(frame, close_old=False):
                             obs_counters.incr("client_topology_pushes")
+                        self.push_live.set()
                 except grpc.RpcError:
                     pass
                 except Exception:  # noqa: BLE001 — the push is best-effort
                     pass
                 finally:
+                    self.push_live.clear()
                     self._push_call = None
                     channel.close()
             stop.wait(backoff * (0.5 + random.random()))
