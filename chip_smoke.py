@@ -25,7 +25,8 @@ line each, with the seconds it took (``phase_seconds``):
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
-2. build: ``nvcc`` seconds per kernel source;
+2. build: ``nvcc`` seconds per kernel source, and ``g++`` seconds for the
+   host library (``native/bloomhash.cpp``);
 3. kernel vs plain: test-and-insert, insert and query at full width,
    through each CUDA kernel and through its plain PyTorch version on the
    same inputs; state and verdicts must be equal (tolerance 0); then
@@ -353,6 +354,28 @@ line each, with the seconds it took (``phase_seconds``):
    launched ``sharded_blocked_insert`` and ``sharded_blocked_query``. On
    the host clock: each rank's and the reference's insert and query
    keys/s, and the all-reduce alone at the query's length.
+33. CPU driver path: the CPU driver (``tpubloom_torch.cpu_ref`` on the
+   host C++ library, ``native/bloomhash.cpp``, built by ``g++`` in phase 2)
+   held against the card's kernels with tolerance 0. The main path's
+   filter (m=2^32, k=7, block_bits=512, 16-byte keys, ``block_hash``
+   "auto") takes two batches of 2^23 keys through ``insert_batch(...,
+   return_presence=True)`` (the second half keys of the first; the fused
+   ``blocked_test_insert``), and ``CPUBlockedBloomFilter(use_native=True)``
+   the same batches, its ``include_batch`` before each insert giving the
+   pre-batch verdicts: the 512 MiB ``to_bytes()``, the presence verdicts
+   and 2^20 fresh keys' verdicts (``blocked_query``) equal, the FPR drift
+   vs the CPU driver 0 exactly, beside ``params.blocked_fpr``. BASELINE
+   config 1 (m=10,000,000, k=7, 10^6 16-byte keys): the flat
+   ``BloomFilter`` and ``CPUBloomFilter`` with the C++ and the numpy
+   path, words and verdicts equal, each one's insert and query keys/s on
+   the host clock. A flat ``CountingBloomFilter`` at 2^24 counters
+   against ``CPUBloomFilter(counting)``: 2^20 inserts (16 keys 20 times
+   each, past saturation), 2^18 deletes (those 18 times, and absent keys),
+   counters and verdicts equal after each. ``ScalableBloomFilter``
+   against ``CPUScalableBloomFilter`` at ``BF.RESERVE key 0.01 4194304
+   EXPANSION 2`` with 2^23 keys: two layers, each layer's words and the
+   verdicts equal. ``pack_keys``'s C++ and numpy scatters in turns, 5
+   rounds each at 2^16 and 2^23 keys, host ms.
 
 Then the ``nvidia-smi`` line, the ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the run
@@ -367,7 +390,8 @@ and phase 29 only, to ``chiprun_out/chip_smoke_durable.json``; ``--ha`` the
 device, build and phase 30 only, to ``chiprun_out/chip_smoke_ha.json``; ``--cluster``
 the device, build and phase 31 only, to ``chiprun_out/chip_smoke_cluster.json``;
 ``--distributed`` the device, build and phase 32 only, to
-``chiprun_out/chip_smoke_distributed.json``. Two other modes
+``chiprun_out/chip_smoke_distributed.json``; ``--cpu-ref`` the device,
+build and phase 33 only, to ``chiprun_out/chip_smoke_cpu_ref.json``. Two other modes
 compare kernel builds on one card:
 
     python3 chip_smoke.py --times         # device, build, phases 5, 9, 14, 18, 19
@@ -432,6 +456,12 @@ try:  # the scalable filter and the sketch kinds; the same for trees that predat
     from tpubloom_torch.ops import cuckoo as ops_cuckoo
 except ImportError:
     CountMinSketch = CuckooFilter = ScalableBloomFilter = TopKSketch = None
+try:  # the CPU driver and the host library; the same for trees that predate them
+    from tpubloom_torch import CPUBlockedBloomFilter, CPUBloomFilter, CPUScalableBloomFilter
+    from tpubloom_torch import native
+    from tpubloom_torch.utils.packing import scatter_joined
+except ImportError:
+    CPUBlockedBloomFilter = CPUBloomFilter = CPUScalableBloomFilter = native = None
 
 SEED = 20260
 LOG2M, K, BLOCK_BITS, KEY_LEN = 32, 7, 512, 16
@@ -6593,6 +6623,248 @@ def phase_distributed_path(dev: dict, log2m: int = LOG2M_SHARDED, n_keys: int = 
     return out
 
 
+# The CPU driver (tpubloom_torch.cpu_ref on the host C++ library) against
+# the card's kernels (cpu_ref_path; --cpu-ref alone). The main path's filter
+# at full width: two batches of B through test-and-insert, the second half
+# keys of the first; 2^20 fresh keys queried. BASELINE config 1
+# (benchmarks/run.py:39-48: m=10,000,000, k=7, 10^6 16-byte keys) on the
+# flat filter. The flat counting filter at 2^24 counters (the cut the flat
+# path's round trips use): 2^20 inserts, 16 of them keys repeated 20 times
+# (past saturation), then 2^18 deletes, those keys 18 times among them. The
+# scalable stack at BF.RESERVE key 0.01 4194304 EXPANSION 2 with 2^23 keys
+# (two layers). pack_keys's two scatters at 2^16 and 2^23 keys, PACK_ROUNDS
+# rounds each, in turns.
+N_CONFIG1, N_CPU_FRESH = 1_000_000, 1 << 20
+LOG2M_CPU_COUNTING, N_CPU_COUNTING, N_CPU_DELETES = 24, 1 << 20, 1 << 18
+CPU_HOT_KEYS, CPU_HOT_INSERTS, CPU_HOT_DELETES = 16, 20, 18
+N_CPU_SCALABLE = 1 << 23
+PACK_SIZES, PACK_ROUNDS = (1 << 16, 1 << 23), 5
+
+
+def pack_turns(keys: list, sizes, rounds: int) -> dict:
+    """``pack_keys``'s fast path on the first ``n`` keys for each ``n`` in
+    ``sizes``: the lengths and the join it runs whatever the scatter (host
+    ms, once), then each scatter, the C++ one (``native.pack_joined``) and
+    the numpy one (``scatter_joined``), ``rounds`` rounds, the two in turns
+    (the first of a round alternating), host ms; the two outputs held
+    equal. A whole pack is the join's ms plus a scatter's."""
+    out = {}
+    for n in sizes:
+        batch = keys[:n]
+        t0 = time.perf_counter()
+        lens = np.fromiter((len(k) for k in batch), dtype=np.int32, count=n)
+        joined = b"".join(batch)
+        join_ms = (time.perf_counter() - t0) * 1e3
+        runs, made = {"cpp": [], "numpy": []}, {}
+        order = (("cpp", native.pack_joined), ("numpy", scatter_joined))
+        for r in range(rounds):
+            for name, scatter in order if r % 2 == 0 else order[::-1]:
+                t0 = time.perf_counter()
+                made[name] = scatter(joined, lens, KEY_LEN)
+                runs[name].append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(made["cpp"], made["numpy"]), f"the two scatters agree at {n} keys")
+        out[str(n)] = {"join_and_lengths_ms": join_ms,
+                       **{name: {"scatter_ms": ms, "scatter_median_ms": float(np.median(ms)),
+                                 "pack_median_ms": join_ms + float(np.median(ms))}
+                          for name, ms in runs.items()}}
+    return out
+
+
+def phase_cpu_ref_path(dev: dict, device: str = "cuda", shrink: int = 0) -> dict:
+    """The CPU driver held against the card's kernels (``cpu_ref_path``;
+    ``--cpu-ref`` alone), with tolerance 0: the main path's 512 MiB state,
+    its presence verdicts and 2^20 fresh keys' verdicts (``blocked_query``)
+    between a card ``BlockedBloomFilter`` (the 2^23-key test-and-insert on
+    ``blocked_test_insert``) and ``CPUBlockedBloomFilter(use_native=True)``,
+    whose ``include_batch`` before each insert gives the pre-batch verdicts;
+    the FPR drift between them on the fresh keys (0 exactly) beside
+    ``params.blocked_fpr``; BASELINE config 1's words and verdicts between
+    the flat ``BloomFilter`` and ``CPUBloomFilter`` (C++ and numpy), with
+    each one's insert and query keys/s on the host clock; the flat counting
+    filter's counters and verdicts against ``CPUBloomFilter(counting)``;
+    the scalable stack's layers, words and verdicts against
+    ``CPUScalableBloomFilter``; ``pack_keys``'s two scatters in turns.
+    ``device`` and ``shrink`` (every count and m divided by ``2**shrink``)
+    serve a rehearsal on the CPU."""
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    where = None if on_card else device  # the card is the filters' default
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(SEED + 33)
+    b = B >> shrink
+    out = {"card": dev["nvidia_smi"]}
+
+    def launched(names, what):
+        counts = {name: n for name, n in sweep.launch_counts().items() if n}
+        if on_card:
+            for name in names:
+                check(counts.get(name, 0) > 0, f"{name} launched on the {what}")
+        return counts
+
+    # the main path at full width
+    t0 = time.perf_counter()
+    cfg = FilterConfig(m=1 << (LOG2M - shrink), k=K, key_len=KEY_LEN, block_bits=BLOCK_BITS)
+    first = rows(rng, b)
+    second = np.concatenate([first[rng.permutation(b)[: b // 2]], rows(rng, b - b // 2)])
+    second = second[rng.permutation(b)]
+    batches = [key_list(first), key_list(second)]
+    fresh = key_list(rows(rng, N_CPU_FRESH >> shrink))
+    keys_s = time.perf_counter() - t0
+    sweep.reset_launch_counts()
+    f = BlockedBloomFilter(cfg, where)
+    t0 = time.perf_counter()
+    presence = [f.insert_batch(keys, return_presence=True) for keys in batches]
+    sync()
+    card_s = time.perf_counter() - t0
+    card_fresh = f.include_batch(fresh)
+    launches = launched(["blocked_query", *(["blocked_test_insert"]
+                                            if on_card and sweep._takes_fused(cfg, b) else [])],
+                        "main path's filter")
+    c = CPUBlockedBloomFilter(cfg, use_native=True)
+    t0 = time.perf_counter()
+    cpu_presence = []
+    for keys in batches:
+        cpu_presence.append(c.include_batch(keys))
+        c.insert_batch(keys)
+    cpu_s = time.perf_counter() - t0
+    cpu_fresh = c.include_batch(fresh)
+    for i, (got, want) in enumerate(zip(presence, cpu_presence)):
+        check(np.array_equal(got, want), f"batch {i}'s presence verdicts equal the CPU driver's")
+    check(not presence[0].any(), "an empty filter holds no key")
+    check(f.to_bytes() == c.to_bytes(), "the main path's state equals the CPU driver's")
+    check(np.array_equal(card_fresh, cpu_fresh), "the fresh keys' verdicts equal the CPU driver's")
+    distinct = b + (b - b // 2)
+    drift = float(card_fresh.mean()) - float(cpu_fresh.mean())
+    check(drift == 0.0, f"FPR drift vs the CPU driver {drift}")
+    out["main_path"] = {
+        "config": {"m": cfg.m, "k": cfg.k, "block_bits": cfg.block_bits,
+                   "block_hash": cfg.block_hash, "key_len": cfg.key_len},
+        "batches": [len(k) for k in batches], "held_in_second": b // 2,
+        "state_bytes": cfg.m // 8, "max_abs_err": 0,
+        "present_second": int(presence[1].sum()), "fresh_probes": len(fresh),
+        "fpr_card": float(card_fresh.mean()), "fpr_cpu_ref": float(cpu_fresh.mean()),
+        "fpr_drift_vs_cpu_ref": drift, "distinct_keys": distinct,
+        "blocked_fpr_model": blocked_fpr(distinct, m=cfg.m, k=cfg.k, block_bits=cfg.block_bits,
+                                         block_hash=cfg.block_hash),
+        "card_test_and_insert_s": card_s, "cpu_ref_include_and_insert_s": cpu_s,
+        "key_making_s": keys_s, "launches": launches,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    packers = pack_turns(batches[0], [n >> shrink for n in PACK_SIZES], PACK_ROUNDS)
+    del f, c, presence, cpu_presence, first, second
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # BASELINE config 1: the flat filter against the CPU driver, C++ and numpy
+    t0 = time.perf_counter()
+    cfg1 = FilterConfig(m=M_FLAT_MOD, k=K_FLAT_MOD, key_len=KEY_LEN)
+    n1 = N_CONFIG1 >> shrink
+    held, probe = key_list(rows(rng, n1)), key_list(rows(rng, n1))
+    BloomFilter(cfg1, where).include_batch(held[:64])  # the kernels loaded before the clock
+    sweep.reset_launch_counts()
+    g = BloomFilter(cfg1, where)
+    rec = {}
+    t = time.perf_counter()
+    g.insert_batch(held)
+    sync()
+    rec["card"] = {"insert_keys_per_s": n1 / (time.perf_counter() - t)}
+    t = time.perf_counter()
+    verdicts = {"card": (g.include_batch(held), g.include_batch(probe))}
+    rec["card"]["query_keys_per_s"] = 2 * n1 / (time.perf_counter() - t)
+    launches1 = launched(["flat_insert", "flat_query"], "config 1 filter")
+    words = {"card": g.to_bytes()}
+    for name, use_native in (("cpu_ref_cpp", True), ("cpu_ref_numpy", False)):
+        h = CPUBloomFilter(cfg1, use_native=use_native)
+        t = time.perf_counter()
+        h.insert_batch(held)
+        rec[name] = {"insert_keys_per_s": n1 / (time.perf_counter() - t)}
+        t = time.perf_counter()
+        verdicts[name] = (h.include_batch(held), h.include_batch(probe))
+        rec[name]["query_keys_per_s"] = 2 * n1 / (time.perf_counter() - t)
+        words[name] = h.to_bytes()
+        check(words[name] == words["card"], f"config 1's words: {name} equals the card's")
+        for got, want in zip(verdicts[name], verdicts["card"]):
+            check(np.array_equal(got, want), f"config 1's verdicts: {name} equals the card's")
+    check(verdicts["card"][0].all(), "config 1: every held key present")
+    out["config1"] = {"m": cfg1.m, "k": cfg1.k, "keys": n1, "max_abs_err": 0,
+                      "fresh_hits": int(verdicts["card"][1].sum()),
+                      "theoretical_fpr": theoretical_fpr(cfg1.m, cfg1.k, n1),
+                      "keys_per_s": rec, "launches": launches1,
+                      "seconds": time.perf_counter() - t0}
+    del g, held, probe, verdicts, words
+
+    # the flat counting filter: saturation at 15, the floor at 0
+    t0 = time.perf_counter()
+    cfgc = FilterConfig(m=1 << (LOG2M_CPU_COUNTING - shrink), k=K, key_len=KEY_LEN, counting=True)
+    hot = key_list(rows(rng, CPU_HOT_KEYS))
+    n_ins, n_del = N_CPU_COUNTING >> shrink, N_CPU_DELETES >> shrink
+    held = key_list(rows(rng, n_ins - CPU_HOT_KEYS * CPU_HOT_INSERTS))
+    absent = key_list(rows(rng, 4096 >> shrink))
+    inserts = held + hot * CPU_HOT_INSERTS
+    deletes = held[: n_del - len(absent) - CPU_HOT_KEYS * CPU_HOT_DELETES] + absent \
+        + hot * CPU_HOT_DELETES
+    sweep.reset_launch_counts()
+    cc = CountingBloomFilter(cfgc, where)
+    cr = CPUBloomFilter(cfgc)
+    steps = {}
+    for op, keys in (("insert_batch", inserts), ("delete_batch", deletes)):
+        getattr(cc, op)(keys)
+        getattr(cr, op)(keys)
+        check(cc.to_bytes() == cr.to_bytes(), f"counters after {op} equal the CPU driver's")
+        nib = (cr.words[:, None] >> (4 * np.arange(8, dtype=np.uint32))) & 15
+        steps[op] = {"keys": len(keys), "max_counter": int(nib.max()),
+                     "saturated_counters": int((nib == 15).sum())}
+        for what, probe in (("held", held), ("hot", hot), ("absent", absent)):
+            check(np.array_equal(cc.include_batch(probe), cr.include_batch(probe)),
+                  f"{what} keys' verdicts after {op} equal the CPU driver's")
+    check(steps["insert_batch"]["max_counter"] == 15, "saturation showed")
+    launchesc = launched(["flat_counting_update", "flat_counting_query"], "counting filter")
+    out["counting"] = {"m": cfgc.m, "k": cfgc.k, "hot_keys": CPU_HOT_KEYS,
+                       "hot_inserts": CPU_HOT_INSERTS, "hot_deletes": CPU_HOT_DELETES,
+                       "absent_deleted": len(absent), "steps": steps, "max_abs_err": 0,
+                       "launches": launchesc, "seconds": time.perf_counter() - t0}
+    del cc, cr, held, hot, absent, inserts, deletes
+
+    # the scalable stack at BF.RESERVE key 0.01 4194304 EXPANSION 2
+    t0 = time.perf_counter()
+    cfgs = FilterConfig(m=BLOCK_BITS, k=1, key_len=KEY_LEN, block_bits=BLOCK_BITS,
+                        block_hash="chunk", key_name="scalable")
+    cap = SCALABLE_CAPACITY >> shrink
+    held = batches[0][: N_CPU_SCALABLE >> shrink]  # the main path's keys and fresh keys again
+    sweep.reset_launch_counts()
+    sc = ScalableBloomFilter(cap, SCALABLE_ERROR, config=cfgs, growth=SCALABLE_GROWTH, device=where)
+    sr = CPUScalableBloomFilter(cap, SCALABLE_ERROR, config=cfgs, growth=SCALABLE_GROWTH,
+                                use_native=True)
+    sc.insert_batch(held)
+    sr.insert_batch(held)
+    check(sc.snapshot_meta() == sr.snapshot_meta(), "the stacks' layers equal")
+    check(sc.n_layers == 2, f"2^23 keys push two layers ({sc.n_layers})")
+    for i, (a, z) in enumerate(zip(sc.layers, sr.layers, strict=True)):
+        check(a.to_bytes() == z.to_bytes(), f"layer {i}'s words equal the CPU driver's")
+    sample = held[::8]
+    verdicts = {}
+    for what, probe in (("held", sample), ("fresh", fresh)):
+        verdicts[what] = sc.include_batch(probe)
+        check(np.array_equal(verdicts[what], sr.include_batch(probe)),
+              f"{what} keys' verdicts equal the CPU driver's")
+    check(verdicts["held"].all(), "every held key present")
+    launchess = launched(["blocked_insert", "blocked_query"], "scalable stack")
+    meta = sc.snapshot_meta()
+    out["scalable"] = {"capacity": cap, "error_rate": SCALABLE_ERROR, "growth": SCALABLE_GROWTH,
+                       "keys": len(held), "layers": [{"m": c["m"], "k": c["k"], "keys": k} for c, k in
+                                                     zip(meta["layer_configs"], meta["layer_counts"])],
+                       "held_probes": len(sample), "fresh_hits": int(verdicts["fresh"].sum()),
+                       "compound_fpr_bound": sc.compound_fpr_bound(), "max_abs_err": 0,
+                       "launches": launchess, "seconds": time.perf_counter() - t0}
+    del sc, sr, held, fresh, sample, batches
+    if on_card:
+        torch.cuda.empty_cache()
+    out["packers"] = packers
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("cpu_ref_path", **out)
+    return out
+
+
 def kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                  s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                  k_launches, k_errs, k_times, sk_launches, sk_errs, sk_times) -> list[dict]:
@@ -6840,6 +7112,8 @@ def main(argv: list[str]) -> int:
                     help="device, build and the cluster phase (cluster_path) only")
     ap.add_argument("--distributed", action="store_true",
                     help="device, build and the multi-process phase (distributed_path) only")
+    ap.add_argument("--cpu-ref", action="store_true",
+                    help="device, build and the CPU driver's phase (cpu_ref_path) only")
     ap.add_argument("--queries", action="store_true",
                     help="device, build, the sketch path and the two query kernels' times only; "
                          "with --ab DIR, those in DIR, here, here and DIR")
@@ -6858,7 +7132,7 @@ def main(argv: list[str]) -> int:
     if args.host:
         print(json.dumps({"host_only": host_only()}), flush=True)
         return 0
-    if args.server or args.durable or args.ha or args.cluster or args.distributed:
+    if args.server or args.durable or args.ha or args.cluster or args.distributed or args.cpu_ref:
         rng = np.random.default_rng(SEED)
         if args.server:
             phase_server_path(rng, dev)
@@ -6870,11 +7144,14 @@ def main(argv: list[str]) -> int:
             phase_cluster_path(rng, dev)
         if args.distributed:
             phase_distributed_path(dev)
+        if args.cpu_ref:
+            phase_cpu_ref_path(dev)
         OUT_DIR.mkdir(exist_ok=True)
         name = ("chip_smoke_server.json" if args.server else
                 "chip_smoke_durable.json" if args.durable else
                 "chip_smoke_ha.json" if args.ha else
-                "chip_smoke_cluster.json" if args.cluster else "chip_smoke_distributed.json")
+                "chip_smoke_cluster.json" if args.cluster else
+                "chip_smoke_distributed.json" if args.distributed else "chip_smoke_cpu_ref.json")
         (OUT_DIR / name).write_text(json.dumps(RECORD, indent=1))
         print(dev["nvidia_smi"], flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
@@ -6939,6 +7216,8 @@ def main(argv: list[str]) -> int:
     phase_ha_path(rng, dev)
     phase_cluster_path(rng, dev)
     phase_distributed_path(dev)
+    check(native is not None, "tpubloom_torch has the CPU driver")
+    phase_cpu_ref_path(dev)
     kernels = kernels_line(launches, errs, times, c_launches, c_errs, c_times,
                            s_launches, s_errs, s_times, f_launches, f_errs, f_times,
                            stream["with_sink"]["launches"], k_errs, k_times,

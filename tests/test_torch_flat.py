@@ -463,6 +463,7 @@ def test_migrate_cli_runs_without_jax(tmp_path):
         "import tpubloom_torch.parallel.distributed, tpubloom_torch.version\n"
         "import tpubloom_torch.analysis.lint, tpubloom_torch.analysis.lock_order\n"
         "import tpubloom_torch.analysis.__main__\n"
+        "import tpubloom_torch.cpu_ref, tpubloom_torch.native\n"
         "for k in tpubloom_torch.sketch.registry.sketch_kinds():\n"
         "    tpubloom_torch.sketch.registry.spec(k).resolve()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpubloom')]\n"

@@ -42,13 +42,19 @@ reference. This package imports ``torch`` and numpy, never JAX and never
     top = TopKSketch(FilterConfig(m=2_718_304, k=7, kind="topk", topk=100))
     top.insert_batch([b"alpha"] * 5)
     top.topk_list()                      # [(b"alpha", 5)]
+
+    from tpubloom_torch import CPUBlockedBloomFilter, optimal_m_k
+    m, k = optimal_m_k(1_000_000, 0.01)
+    ref = CPUBlockedBloomFilter(FilterConfig(m=1 << 24, k=k, block_bits=512))
+    ref.insert_batch([b"alpha"])         # the CPU driver: numpy and C++ on the host
 """
 
 from tpubloom_torch.version import __version__
 
 #: where each public name lives; a name's module is imported on first use,
 #: so that ``import tpubloom_torch.cluster`` (the admin CLI, the fleet
-#: scraper, the cluster client) loads neither torch nor the kernels
+#: scraper, the cluster client) and the CPU driver (``cpu_ref``) load
+#: neither torch nor the kernels
 _HOMES = {
     "FilterConfig": "config", "BloomFilter": "filter", "CountingBloomFilter": "filter",
     "BlockedBloomFilter": "filter", "BlockedCountingBloomFilter": "filter",
@@ -56,6 +62,9 @@ _HOMES = {
     "resume_offset": "parallel.pipeline", "AsyncCheckpointer": "checkpoint",
     "ScalableBloomFilter": "scalable", "CuckooFilter": "sketch.cuckoo",
     "CountMinSketch": "sketch.cms", "TopKSketch": "sketch.cms",
+    "optimal_m_k": "params", "theoretical_fpr": "params",
+    "CPUBloomFilter": "cpu_ref", "CPUBlockedBloomFilter": "cpu_ref",
+    "CPUScalableBloomFilter": "scalable",
 }
 
 __all__ = ["__version__", *_HOMES]

@@ -16,28 +16,28 @@ Hutchison (2007):
 * membership is the OR over the layers, so the compound false-positive
   rate is bounded by ``sum_i p·r^i < error_rate / (1 - tightening)``.
 
-Each layer is a port :class:`~tpubloom_torch.filter.BlockedBloomFilter`
-(when the base config sets ``block_bits``) or
-:class:`~tpubloom_torch.filter.BloomFilter`, on the card unless the caller
-passes ``device``; each runs its own kernels
+The policy is written once (``_ScalableCore``) and shared by two
+stacks. In :class:`ScalableBloomFilter` each layer is a port
+:class:`~tpubloom_torch.filter.BlockedBloomFilter` (when the base config
+sets ``block_bits``) or :class:`~tpubloom_torch.filter.BloomFilter`, on
+the card unless the caller passes ``device``; each runs its own kernels
 (:mod:`tpubloom_torch.ops.sweep`). The layers stay separate tensors: they
 have different sizes and appear at data-dependent times, and their count
-grows only logarithmically in the keys. Each layer's seed is derived from
-the base seed, so the layers' memberships are independent.
-
-``tpubloom``'s ``CPUScalableBloomFilter`` (the same policy over its numpy
-oracle) has no counterpart here: ``ScalableBloomFilter(..., device="cpu")``
-runs the same policy over the plain PyTorch versions.
+grows only logarithmically in the keys. In :class:`CPUScalableBloomFilter`
+each layer is a CPU driver (:mod:`tpubloom_torch.cpu_ref`), as in
+``tpubloom``'s class of that name. Each layer's seed is derived from the
+base seed, so the layers' memberships are independent.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from tpubloom_torch.config import FilterConfig
+from tpubloom_torch.cpu_ref import CPUBlockedBloomFilter, CPUBloomFilter
 from tpubloom_torch.filter import BlockedBloomFilter, BloomFilter, resolve_device
 from tpubloom_torch.params import optimal_m_k, round_up_pow2
 
@@ -70,29 +70,28 @@ def layer_config(
     return base.replace(m=m, k=k, seed=seed_i, shards=1), cap_i
 
 
-class ScalableBloomFilter:
-    """A stack of bloom-filter layers on one device that grows when full.
+class _ScalableCore:
+    """The growth policy over a stack of layers made by ``make_layer``
+    (a config -> a filter): shared by the card's and the CPU's stacks.
 
     ``config`` is the base (template) config: its key width, key policy,
     layout (``block_bits``: blocked layers; 0: flat layers), seed and
-    ``key_name``; each layer derives its own ``m``, ``k`` and seed. The
-    default base is the flat ``FilterConfig(m=64, k=1)``, as in
-    ``tpubloom``. Counting configs are refused: a layered delete is
-    ill-defined (which layer holds the key?).
+    ``key_name``; each layer derives its own ``m``, ``k`` and seed.
+    Counting configs are refused: a layered delete is ill-defined (which
+    layer holds the key?).
     """
 
     def __init__(
         self,
+        make_layer: Callable[[FilterConfig], object],
+        config: FilterConfig,
         capacity: int,
         error_rate: float,
         *,
-        config: FilterConfig | None = None,
         growth: int = 2,
         tightening: float = 0.5,
-        device=None,
     ):
-        base = config if config is not None else FilterConfig(m=64, k=1)
-        if base.counting:
+        if config.counting:
             raise ValueError(
                 "scalable filters do not support counting configs — use "
                 "CountingBloomFilter / BlockedCountingBloomFilter"
@@ -105,9 +104,8 @@ class ScalableBloomFilter:
             raise ValueError(f"growth must be >= 2, got {growth}")
         if not (0.0 < tightening < 1.0):
             raise ValueError(f"tightening must be in (0, 1), got {tightening}")
-        self.device = resolve_device(device)
-        self._layer_cls = BlockedBloomFilter if base.block_bits else BloomFilter
-        self.base_config = base
+        self._make_layer = make_layer
+        self.base_config = config
         self.capacity = capacity
         self.error_rate = error_rate
         self.growth = growth
@@ -125,7 +123,7 @@ class ScalableBloomFilter:
             self.base_config, self.capacity, self.error_rate, len(self.layers),
             growth=self.growth, tightening=self.tightening,
         )
-        self.layers.append(self._layer_cls(cfg, self.device))
+        self.layers.append(self._make_layer(cfg))
         self._layer_caps.append(cap)
         self._layer_counts.append(0)
 
@@ -151,16 +149,11 @@ class ScalableBloomFilter:
             start += len(chunk)
 
     def include_batch(self, keys: Sequence[bytes | str]) -> np.ndarray:
-        """Membership, the OR over the layers: the keys are packed and
-        staged once, each layer's verdicts are ORed on the device, and one
-        copy comes back (the layers share key width and key policy)."""
-        first = self.layers[0]
-        keys_u8, lengths, B = first._pack_padded(list(keys))
-        d_keys, d_lengths = first._stage_batch(keys_u8, lengths)
-        hits = torch.zeros((d_keys.shape[0],), dtype=torch.bool, device=self.device)
+        """Membership, the OR over the layers."""
+        out = np.zeros(len(keys), dtype=bool)
         for layer in self.layers:
-            hits |= layer.include_arrays(d_keys, d_lengths)
-        return hits.cpu().numpy()[:B]
+            out |= np.asarray(layer.include_batch(keys))
+        return out
 
     def insert(self, key: bytes | str) -> None:
         self.insert_batch([key])
@@ -178,10 +171,6 @@ class ScalableBloomFilter:
         self._push_layer()
 
     # -- persistence (tpubloom_torch.checkpoint frames the stack) -------------
-
-    def _state_tensors(self) -> list[torch.Tensor]:
-        """Every layer's words, in the order of the checkpoint payload."""
-        return [t for layer in self.layers for t in layer._state_tensors()]
 
     def snapshot_meta(self) -> dict:
         """Everything but the payload needed to rebuild the stack: the
@@ -243,12 +232,84 @@ class ScalableBloomFilter:
             "total_bits": sum(layer.config.m for layer in self.layers),
             "compound_fpr_bound": self.compound_fpr_bound(),
         }
-        # observed compound FPR (a false positive when ANY layer has one)
-        # against the design bound: the scalable filter's drift gauge
-        miss = 1.0
-        for layer in self.layers:
-            miss *= 1.0 - layer.estimated_fpr()
-        st["estimated_fpr"] = 1.0 - miss
-        st["fpr_drift"] = st["estimated_fpr"] - st["compound_fpr_bound"]
-        st["predicted_fpr"] = st["compound_fpr_bound"]
+        if all(hasattr(layer, "estimated_fpr") for layer in self.layers):
+            # observed compound FPR (a false positive when ANY layer has
+            # one) against the design bound: the scalable filter's drift
+            # gauge (a CPU driver's blocked layer has no estimate)
+            miss = 1.0
+            for layer in self.layers:
+                miss *= 1.0 - layer.estimated_fpr()
+            st["estimated_fpr"] = 1.0 - miss
+            st["fpr_drift"] = st["estimated_fpr"] - st["compound_fpr_bound"]
+            st["predicted_fpr"] = st["compound_fpr_bound"]
         return st
+
+
+class ScalableBloomFilter(_ScalableCore):
+    """A stack of bloom-filter layers on one device that grows when full.
+
+    The default base config is the flat ``FilterConfig(m=64, k=1)``, as
+    in ``tpubloom``; ``device`` as for the port's filters (the card
+    unless named).
+    """
+
+    def __init__(
+        self,
+        capacity: int,
+        error_rate: float,
+        *,
+        config: FilterConfig | None = None,
+        growth: int = 2,
+        tightening: float = 0.5,
+        device=None,
+    ):
+        base = config if config is not None else FilterConfig(m=64, k=1)
+        self.device = dev = resolve_device(device)
+        layer_cls = BlockedBloomFilter if base.block_bits else BloomFilter
+        # the layer maker holds the device, not self: no reference cycle, so
+        # a dropped stack frees its tensors at once (tenant eviction)
+        super().__init__(
+            lambda cfg: layer_cls(cfg, dev), base, capacity, error_rate,
+            growth=growth, tightening=tightening,
+        )
+
+    def include_batch(self, keys: Sequence[bytes | str]) -> np.ndarray:
+        """Membership, the OR over the layers: the keys are packed and
+        staged once, each layer's verdicts are ORed on the device, and one
+        copy comes back (the layers share key width and key policy)."""
+        first = self.layers[0]
+        keys_u8, lengths, B = first._pack_padded(list(keys))
+        d_keys, d_lengths = first._stage_batch(keys_u8, lengths)
+        hits = torch.zeros((d_keys.shape[0],), dtype=torch.bool, device=self.device)
+        for layer in self.layers:
+            hits |= layer.include_arrays(d_keys, d_lengths)
+        return hits.cpu().numpy()[:B]
+
+    def _state_tensors(self) -> list[torch.Tensor]:
+        """Every layer's words, in the order of the checkpoint payload."""
+        return [t for layer in self.layers for t in layer._state_tensors()]
+
+
+class CPUScalableBloomFilter(_ScalableCore):
+    """The same policy over CPU-driver layers (:mod:`tpubloom_torch.cpu_ref`):
+    :class:`~tpubloom_torch.cpu_ref.CPUBlockedBloomFilter` when the base
+    config sets ``block_bits``, else
+    :class:`~tpubloom_torch.cpu_ref.CPUBloomFilter`; ``use_native`` as
+    theirs."""
+
+    def __init__(
+        self,
+        capacity: int,
+        error_rate: float,
+        *,
+        config: FilterConfig | None = None,
+        growth: int = 2,
+        tightening: float = 0.5,
+        use_native: bool | None = None,
+    ):
+        base = config if config is not None else FilterConfig(m=64, k=1)
+        layer_cls = CPUBlockedBloomFilter if base.block_bits else CPUBloomFilter
+        super().__init__(
+            lambda cfg: layer_cls(cfg, use_native=use_native), base, capacity, error_rate,
+            growth=growth, tightening=tightening,
+        )

@@ -6,9 +6,11 @@ arrays the hash kernels consume; bytes past a key's length are zero (the
 hash-kernel contract). The Redis-bitmap conversions carry the flat
 layout's words to and from the reference gem's string bitmaps.
 
-Where ``tpubloom`` takes a C++ fast path for all-``bytes`` batches, this
-copy takes a vectorized NumPy one (one join plus one masked scatter); both
-produce the same bytes as the per-key loop.
+An all-``bytes`` batch within ``key_len`` takes a fast path, one join
+plus one scatter, as in ``tpubloom``: the scatter is the host library's
+``native.pack_joined`` (C++), and :func:`scatter_joined` is its plain
+numpy version, which the tests hold it to. Both produce the same bytes as
+the per-key loop.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import hashlib
 from typing import Sequence
 
 import numpy as np
+
+from tpubloom_torch import native
 
 _BIT_REVERSE = np.array(
     [int(f"{i:08b}"[::-1], 2) for i in range(256)], dtype=np.uint8
@@ -42,10 +46,7 @@ def pack_keys(
     if B and all(type(k) is bytes for k in keys):
         lens = np.fromiter((len(k) for k in keys), dtype=np.int32, count=B)
         if int(lens.max()) <= key_len:
-            out = np.zeros((B, key_len), dtype=np.uint8)
-            mask = np.arange(key_len, dtype=np.int32)[None, :] < lens[:, None]
-            out[mask] = np.frombuffer(b"".join(keys), dtype=np.uint8)
-            return out, lens
+            return native.pack_joined(b"".join(keys), lens, key_len), lens
     out = np.zeros((B, key_len), dtype=np.uint8)
     lens = np.zeros((B,), dtype=np.int32)
     for i, key in enumerate(keys):
@@ -64,6 +65,16 @@ def pack_keys(
         out[i, : len(kb)] = np.frombuffer(kb, dtype=np.uint8)
         lens[i] = len(kb)
     return out, lens
+
+
+def scatter_joined(joined: bytes, lens: np.ndarray, key_len: int) -> np.ndarray:
+    """The plain numpy version of ``native.pack_joined``: the keys of a
+    concatenated buffer, one a row of a zero-padded ``uint8[B, key_len]``
+    matrix (one masked scatter)."""
+    out = np.zeros((lens.shape[0], key_len), dtype=np.uint8)
+    mask = np.arange(key_len, dtype=np.int32)[None, :] < lens[:, None]
+    out[mask] = np.frombuffer(joined, dtype=np.uint8)
+    return out
 
 
 def pack_keys_dense(keys: np.ndarray, lengths: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
