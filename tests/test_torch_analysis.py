@@ -282,3 +282,43 @@ def test_armed_ingest_and_oplog_scenario_mints_only_declared_edges(tmp_path):
 def test_version_is_the_reference_version():
     assert tpubloom_torch.__version__ == tpubloom.__version__ == "0.1.0"
     assert "__version__" in tpubloom_torch.__all__
+
+
+# -- the profiler-range registry ------------------------------------------------------
+
+RANGE_CONFIG = dict(tree_checks=False, known_fault_points=frozenset(), counters=frozenset(),
+                    gauges=frozenset(), ranges=frozenset({"filter.clear", "sweep.plan"}),
+                    range_prefixes=("sweep.", "phase."))
+
+
+@pytest.mark.parametrize("call,flagged", [
+    ('obs.Range("tpubloom_torch.filter.clear")', False),
+    ('obs.Range("tpubloom_torch.sweep.flat_query")', False),  # the declared prefix
+    ('span.child("tpubloom_torch.sweep.plan")', False),
+    ('obs.Range(f"tpubloom_torch.phase.{name}")', False),
+    ("obs.Range(name)", False),  # a caller's own name, as annotate passes on
+    ("span.child(None)", False),
+    ('obs.Range("tpubloom_torch.filter.bogus")', True),  # undeclared
+    ('obs.Range("filter.clear")', True),  # not under the package's name
+    ('span.child("tpubloom_torch.kernel.plan")', True),
+    ('obs.Range(f"tpubloom_torch.kernel.{name}")', True),  # undeclared dynamic head
+])
+def test_range_registry_flags_an_undeclared_range(call, flagged, tmp_path):
+    path = tmp_path / "fixture.py"
+    path.write_text(f"def f(obs, span, name):\n    {call}\n")
+    checks = [f.check for f in L.lint_paths([str(path)], L.LintConfig(**RANGE_CONFIG))]
+    assert checks == (["range-registry"] if flagged else [])
+
+
+def test_range_registry_flags_a_declared_range_never_opened(tmp_path):
+    obs_dir = tmp_path / "tpubloom_torch" / "obs"
+    obs_dir.mkdir(parents=True)
+    names = obs_dir / "names.py"
+    names.write_text('RANGES = (\n    "filter.used",\n    "filter.stale",\n)\n'
+                     'RANGE_DYNAMIC_PREFIXES = (("sweep.", "wrappers"), ("gone.", "none"))\n')
+    emit = tmp_path / "emit.py"
+    emit.write_text('def f(obs):\n    obs.Range("tpubloom_torch.filter.used")\n'
+                    '    obs.Range("tpubloom_torch.sweep.flat_query")\n')
+    config = L.LintConfig(repo_root=str(tmp_path), known_fault_points=frozenset())
+    found = [f for f in L.lint_paths([str(names), str(emit)], config) if f.check == "range-registry"]
+    assert sorted(f.message.split("'")[1] for f in found) == ["filter.stale", "gone."]

@@ -118,6 +118,16 @@ Checks
     TraceGet tree and a flight dump must never contain a name the
     catalog cannot explain, and the catalog cannot rot.
 
+``range-registry``
+    The same closure for the profiler ranges: every literal name (or
+    f-string head) at a ``Range(...)`` / ``.child(...)`` site is
+    ``tpubloom_torch.`` followed by a name declared in
+    :data:`tpubloom_torch.obs.names.RANGES` or a head matching
+    :data:`tpubloom_torch.obs.names.RANGE_DYNAMIC_PREFIXES`
+    (``sweep.<wrapper>``, ``phase.<name>``), and (tree mode) every
+    declared range/prefix has an emit site — a profiler trace of the
+    port never holds a range the catalog cannot explain.
+
 Suppressions
 ============
 
@@ -157,6 +167,7 @@ CHECKS = (
     "chaos-coverage",
     "phase-registry",
     "trace-registry",
+    "range-registry",
     "suppression-reason",
     "unknown-suppression",
     "unused-suppression",
@@ -241,6 +252,10 @@ class LintConfig:
     spans: Optional[frozenset] = None
     span_prefixes: Optional[tuple] = None
     events: Optional[frozenset] = None
+    #: declared profiler-range vocabulary (``range-registry``; None =
+    #: parse ``tpubloom_torch/obs/names.py``)
+    ranges: Optional[frozenset] = None
+    range_prefixes: Optional[tuple] = None
     #: run the cross-file tree checks (protocol coverage + reverse
     #: registry checks) against ``repo_root``
     tree_checks: bool = True
@@ -252,6 +267,8 @@ class LintConfig:
 #: the package this lint is aimed at, relative to the repo root: its
 #: registries are read from there and ``python -m`` lints it by default
 PACKAGE = "tpubloom_torch"
+#: what every profiler range of the package is named under
+RANGE_PREFIX = PACKAGE + "."
 
 
 def _repo_root() -> str:
@@ -427,6 +444,10 @@ class _FileVisitor(ast.NodeVisitor):
         self.span_dynamic_uses: list = []
         #: (kind, line) literal flight-recorder events (flight.note)
         self.event_uses: list = []
+        #: (name, line) literal profiler-range names (Range / .child),
+        #: and (literal head, line) of the f-string ones — ``range-registry``
+        self.range_uses: list = []
+        self.range_dynamic_uses: list = []
         #: every string constant in the file (reverse fault check)
         self.str_constants: set = set()
 
@@ -478,6 +499,7 @@ class _FileVisitor(ast.NodeVisitor):
         self._collect_metric_use(node)
         self._collect_phase_use(node)
         self._collect_trace_use(node)
+        self._collect_range_use(node)
         self.generic_visit(node)
 
     # -- checks -------------------------------------------------------------
@@ -613,6 +635,26 @@ class _FileVisitor(ast.NodeVisitor):
                 return
             if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
                 self.event_uses.append((arg.value, node.lineno))
+
+    def _collect_range_use(self, node: ast.Call) -> None:
+        """Literal/f-string names at ``Range(...)`` / ``.child(...)``
+        sites (``range-registry``); a name held in a variable (a
+        caller's own, as ``utils.tracing.annotate`` passes on) is not
+        claimed."""
+        func = node.func
+        name = func.id if isinstance(func, ast.Name) else getattr(func, "attr", None)
+        if name not in ("Range", "child") or not node.args:
+            return
+        if name == "child" and not isinstance(func, ast.Attribute):
+            return
+        arg = node.args[0]
+        if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+            self.range_uses.append((arg.value, node.lineno))
+        elif isinstance(arg, ast.JoinedStr):
+            head = ""
+            if arg.values and isinstance(arg.values[0], ast.Constant):
+                head = str(arg.values[0].value)
+            self.range_dynamic_uses.append((head, node.lineno))
 
 
 # -- donation safety ----------------------------------------------------------
@@ -840,6 +882,36 @@ def _apply_registry_checks(
             )
             f._lines = (line,)  # type: ignore[attr-defined]
             visitor.findings.append(f)
+    if config.ranges is not None:
+        rprefixes = tuple(config.range_prefixes or ())
+        for name, line in visitor.range_uses:
+            short = name[len(RANGE_PREFIX):] if name.startswith(RANGE_PREFIX) else None
+            if short is not None and (short in config.ranges or any(
+                short.startswith(p) for p in rprefixes
+            )):
+                continue
+            f = Finding(
+                "range-registry", visitor.path, line,
+                f"profiler range {name!r} is not {RANGE_PREFIX!r} + a name "
+                f"declared in tpubloom_torch.obs.names.RANGES — the range "
+                f"vocabulary is central so traces and the benchmark's "
+                f"readers line up",
+            )
+            f._lines = (line,)  # type: ignore[attr-defined]
+            visitor.findings.append(f)
+        for head, line in visitor.range_dynamic_uses:
+            short = head[len(RANGE_PREFIX):] if head.startswith(RANGE_PREFIX) else ""
+            if short and any(short.startswith(p) for p in rprefixes):
+                continue
+            f = Finding(
+                "range-registry", visitor.path, line,
+                f"dynamic profiler range with literal head {head!r} matches "
+                f"no declared RANGE_DYNAMIC_PREFIXES entry in "
+                f"tpubloom_torch.obs.names — minted ranges need a declared "
+                f"shape",
+            )
+            f._lines = (line,)  # type: ignore[attr-defined]
+            visitor.findings.append(f)
     if config.events is not None:
         for kind, line in visitor.event_uses:
             if kind in config.events:
@@ -1006,6 +1078,17 @@ def load_trace_names(repo_root: str) -> tuple:
         _parse_prefix_heads(path, "SPAN_DYNAMIC_PREFIXES"),
         frozenset(decls.get("EVENTS", ())),
     )
+
+
+def load_range_names(repo_root: str) -> tuple:
+    """(ranges, range prefixes) from obs/names.py; empty when
+    the catalog is absent (partial fixture trees)."""
+    path = _pkg_path(repo_root, "obs", "names.py")
+    if not os.path.isfile(path):
+        return frozenset(), ()
+    decls = _parse_string_collection(path, ("RANGES",))
+    return (frozenset(decls.get("RANGES", ())),
+            _parse_prefix_heads(path, "RANGE_DYNAMIC_PREFIXES"))
 
 
 def load_metric_names(repo_root: str) -> tuple:
@@ -1403,6 +1486,8 @@ def lint_paths(paths: Iterable[str], config: Optional[LintConfig] = None) -> lis
             config.spans, config.span_prefixes = spans, span_prefixes
         if config.events is None:
             config.events = events
+    if config.ranges is None:
+        config.ranges, config.range_prefixes = load_range_names(repo_root)
 
     fault_literal_seen: set = set()
     metric_literal_seen: set = set()
@@ -1411,6 +1496,8 @@ def lint_paths(paths: Iterable[str], config: Optional[LintConfig] = None) -> lis
     span_literal_seen: set = set()
     span_prefix_seen: set = set()
     event_literal_seen: set = set()
+    range_literal_seen: set = set()
+    range_prefix_seen: set = set()
     fault_registry_path = _pkg_path(repo_root, "faults", "__init__.py")
     names_path = _pkg_path(repo_root, "obs", "names.py")
     #: abspath -> (display path, _Suppressions), settled only after the
@@ -1434,6 +1521,10 @@ def lint_paths(paths: Iterable[str], config: Optional[LintConfig] = None) -> lis
         span_literal_seen |= {n for n, _ in visitor.span_uses}
         span_prefix_seen |= {h for h, _ in visitor.span_dynamic_uses if h}
         event_literal_seen |= {k for k, _ in visitor.event_uses}
+        range_literal_seen |= {n[len(RANGE_PREFIX):] for n, _ in visitor.range_uses
+                               if n.startswith(RANGE_PREFIX)}
+        range_prefix_seen |= {h[len(RANGE_PREFIX):] for h, _ in visitor.range_dynamic_uses
+                              if h.startswith(RANGE_PREFIX) and len(h) > len(RANGE_PREFIX)}
 
     if config.tree_checks:
         tree_findings: list = []
@@ -1514,6 +1605,29 @@ def lint_paths(paths: Iterable[str], config: Optional[LintConfig] = None) -> lis
                     Finding(
                         "trace-registry", names_path, 0,
                         f"declared dynamic span prefix {prefix!r} has no "
+                        f"emit site in the linted tree — stale "
+                        f"vocabulary entry",
+                    )
+                )
+        for name in sorted((config.ranges or frozenset()) - range_literal_seen):
+            tree_findings.append(
+                Finding(
+                    "range-registry", names_path, 0,
+                    f"declared profiler range {name!r} is never opened in "
+                    f"the linted tree — stale vocabulary entry",
+                )
+            )
+        for prefix in config.range_prefixes or ():
+            if not any(
+                h.startswith(prefix) or prefix.startswith(h)
+                for h in range_prefix_seen
+            ) and not any(
+                n.startswith(prefix) for n in range_literal_seen
+            ):
+                tree_findings.append(
+                    Finding(
+                        "range-registry", names_path, 0,
+                        f"declared dynamic range prefix {prefix!r} has no "
                         f"emit site in the linted tree — stale "
                         f"vocabulary entry",
                     )

@@ -29,6 +29,12 @@ step.
 Batches: host batches are padded to the next power of two (minimum 64),
 as in ``tpubloom``; padded entries carry ``length = -1`` at the tail and
 set nothing and report False.
+
+Tracing: while ``torch.profiler`` records, each call of an entry point
+(the device-array, batch, fixed-width and staged methods and ``clear``)
+is the range ``tpubloom_torch.filter.<method>``
+(:mod:`tpubloom_torch.obs.context`), with its phases and the kernel
+wrappers' ranges inside; without the profiler a call reads one flag.
 """
 
 from __future__ import annotations
@@ -152,11 +158,14 @@ class _FilterBase:
     # a batching caller can stage batch N+1 while batch N's kernel runs,
     # then fence N through the returned handle (see ops.sweep.InFlight).
 
-    def stage_batch(self, keys=None, *, rows=None):
+    def stage_batch(self, keys=None, *, rows=None, _span=None):
         """Host prep + H2D only — returns an opaque staged batch for
         :meth:`launch_insert` / :meth:`launch_query`. Exactly one of
         ``keys`` (a key sequence) or ``rows`` (fixed-width ``uint8[B,
         W]``) must be given."""
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.stage_batch") as span:
+                return _FilterBase.stage_batch(self, keys, rows=rows, _span=span)
         if rows is not None:
             keys_u8, lengths, B = self._prep_packed(np.asarray(rows, np.uint8))
         else:
@@ -164,20 +173,26 @@ class _FilterBase:
         d_keys, d_lengths = self._stage_batch(keys_u8, lengths)
         return d_keys, d_lengths, B
 
-    def launch_insert(self, staged):
+    def launch_insert(self, staged, *, _span=None):
         """Launch the insert kernel on a staged batch WITHOUT waiting;
         returns the completion handle (a CUDA event, None on the CPU) the
         caller fences on before acking the batch."""
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.launch_insert") as span:
+                return _FilterBase.launch_insert(self, staged, _span=span)
         d_keys, d_lengths, B = staged
         with obs.phase("kernel"):
             self._insert(d_keys, d_lengths)
         self.n_inserted += B
         return self._completion()
 
-    def launch_query(self, staged):
+    def launch_query(self, staged, *, _span=None):
         """Launch the membership kernel on a staged batch; returns
         ``(device hits, valid count)`` — the caller's copy to the host is
         the fence + D2H."""
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.launch_query") as span:
+                return _FilterBase.launch_query(self, staged, _span=span)
         d_keys, d_lengths, B = staged
         with obs.phase("kernel_query"):
             hits = self._query(d_keys, d_lengths)
@@ -198,17 +213,23 @@ class _FilterBase:
 
     # fixed-width batch API (the `fixed` wire encoding's server path)
 
-    def insert_packed(self, rows: np.ndarray) -> int:
+    def insert_packed(self, rows: np.ndarray, *, _span=None) -> int:
         """Insert fixed-width pre-packed keys (``uint8[B, W]``, W <=
         key_len)."""
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.insert_packed") as span:
+                return _FilterBase.insert_packed(self, rows, _span=span)
         self.launch_insert(self.stage_batch(rows=rows))
         if obs.current() is not None:
             with obs.phase("kernel"):
                 self._kernel_fence()
         return int(rows.shape[0])
 
-    def include_packed(self, rows: np.ndarray) -> np.ndarray:
+    def include_packed(self, rows: np.ndarray, *, _span=None) -> np.ndarray:
         """Membership for fixed-width pre-packed keys."""
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.include_packed") as span:
+                return _FilterBase.include_packed(self, rows, _span=span)
         hits, B = self.launch_query(self.stage_batch(rows=rows))
         if obs.current() is not None:
             with obs.phase("kernel_query"):
@@ -256,8 +277,11 @@ class _FilterBase:
             t.view(torch.int32).copy_(torch.from_numpy(part.view(np.int32)))
             off += t.numel()
 
-    def clear(self) -> None:
+    def clear(self, *, _span=None) -> None:
         """Reference ``#clear`` — zero the array."""
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.clear") as span:
+                return _FilterBase.clear(self, _span=span)
         for t in self._state_tensors():
             t.view(torch.int32).zero_()
         self.n_inserted = 0
@@ -287,10 +311,16 @@ class _FilterBase:
                 self._kernel_fence()
         return B
 
-    def insert_batch(self, keys: Sequence[bytes | str]) -> None:
+    def insert_batch(self, keys: Sequence[bytes | str], *, _span=None) -> None:
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.insert_batch") as span:
+                return _FilterBase.insert_batch(self, keys, _span=span)
         self.n_inserted += self._update_batch(keys, self._insert)
 
-    def include_batch(self, keys: Sequence[bytes | str]) -> np.ndarray:
+    def include_batch(self, keys: Sequence[bytes | str], *, _span=None) -> np.ndarray:
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.include_batch") as span:
+                return _FilterBase.include_batch(self, keys, _span=span)
         keys_u8, lengths, B = self._pack_padded(keys)
         d_keys, d_lengths = self._stage_batch(keys_u8, lengths)
         with obs.phase("kernel_query"):
@@ -304,15 +334,22 @@ class _FilterBase:
 
     # pre-packed device-array API (bench / server / streaming path)
 
-    def insert_arrays(self, keys_u8, lengths, *, n_valid: int | None = None) -> None:
+    def insert_arrays(self, keys_u8, lengths, *, n_valid: int | None = None, _span=None) -> None:
         """``keys_u8``/``lengths`` are tensors on the filter's device.
         ``n_valid`` = true key count when the batch carries padding
         (lengths = -1 rows set no bits but must not inflate
         ``n_inserted``)."""
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.insert_arrays") as span:
+                return _FilterBase.insert_arrays(self, keys_u8, lengths, n_valid=n_valid,
+                                                 _span=span)
         self._insert(keys_u8, lengths)
         self.n_inserted += int(keys_u8.shape[0]) if n_valid is None else n_valid
 
-    def include_arrays(self, keys_u8, lengths) -> torch.Tensor:
+    def include_arrays(self, keys_u8, lengths, *, _span=None) -> torch.Tensor:
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.include_arrays") as span:
+                return _FilterBase.include_arrays(self, keys_u8, lengths, _span=span)
         self.n_queried += int(keys_u8.shape[0])
         return self._query(keys_u8, lengths)
 
@@ -439,14 +476,18 @@ class BlockedBloomFilter(_FilterBase):
         self.words = _zero_storage(blocked_device_shape(config), self.device)
 
     def insert_batch(
-        self, keys: Sequence[bytes | str], *, return_presence: bool = False
+        self, keys: Sequence[bytes | str], *, return_presence: bool = False, _span=None
     ):
         """Insert a batch; with ``return_presence`` also report each key's
         membership BEFORE the batch (test-and-insert — the reference Lua
         add script's semantics). Within-batch duplicates all report the
         pre-batch state."""
+        if _span is None and obs.recording():
+            with obs.Range("tpubloom_torch.filter.insert_batch") as span:
+                return BlockedBloomFilter.insert_batch(self, keys, return_presence=return_presence,
+                                                       _span=span)
         if not return_presence:
-            return super().insert_batch(keys)
+            return super().insert_batch(keys, _span=_span)
         keys_u8, lengths, B = self._pack_padded(keys)
         d_keys, d_lengths = self._stage_batch(keys_u8, lengths)
         with obs.phase("kernel"):

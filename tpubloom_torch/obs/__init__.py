@@ -12,9 +12,13 @@ without attaching a profiler or running bench archaeology.
 Pieces (each importable on its own, stdlib-only except where noted):
 
 * :mod:`tpubloom_torch.obs.context` — thread-local request context + named
-  phase timers (decode / host_prep / h2d / kernel / d2h / encode). The
-  filter layer records phases into whatever request is active; with no
-  active request every span is a no-op, so library users pay ~nothing.
+  phase timers (decode / host_prep / h2d / kernel / d2h / encode), and the
+  port's one span on the profiler's clock (``Range``, named
+  ``tpubloom_torch.<name>``: the filters' entry points, the kernel
+  wrappers and their plan / alloc / enqueue, every phase). The filter
+  layer records phases into whatever request is active; with no active
+  request and no profiler recording a span costs a flag read, so library
+  users pay ~nothing.
 * :mod:`tpubloom_torch.obs.counters` — process-global counters for events that
   happen below the server layer (the sketch kinds' kicks and rejections,
   fault firings, checkpoint corruption), merged into ``/metrics``.

@@ -261,6 +261,51 @@ SPAN_DYNAMIC_PREFIXES = (
      "(tpubloom.obs.trace.commit_children)"),
 )
 
+#: Profiler-range vocabulary (the trace-registry pattern extended to
+#: the ``torch.profiler`` ranges of :class:`tpubloom_torch.obs.context.
+#: Range`): a range is named ``tpubloom_torch.<name>``, and every
+#: literal ``tpubloom_torch.`` name passed to ``Range(...)`` or
+#: ``.child(...)`` has its ``<name>`` declared here; the lint's
+#: ``range-registry`` check closes both directions. Semantics:
+#:
+#: * ``filter.<method>`` — one call of a filter's entry point
+#:   (``tpubloom_torch/filter.py``); the staged and batch methods' phases
+#:   and the kernel wrappers' ranges nest inside
+#: * ``sweep.plan``    — a kernel wrapper's planning on the host: the
+#:   kernel's choice (crossover), the scratch plan asked of the C library,
+#:   the library lookup
+#: * ``sweep.alloc``   — the wrapper's ``torch.empty`` of verdicts and scratch
+#: * ``sweep.enqueue`` — the device guard, the stream and the ``ctypes``
+#:   call into the C entry: every kernel, memset and runtime call of the
+#:   wrapper's call lies inside it
+RANGES = (
+    "filter.insert_arrays",
+    "filter.include_arrays",
+    "filter.clear",
+    "filter.insert_batch",
+    "filter.include_batch",
+    "filter.insert_packed",
+    "filter.include_packed",
+    "filter.stage_batch",
+    "filter.launch_insert",
+    "filter.launch_query",
+    "sweep.plan",
+    "sweep.alloc",
+    "sweep.enqueue",
+)
+
+#: Range names minted per call site or at runtime, prefix-declared like
+#: the span prefixes: the pattern and where it comes from.
+RANGE_DYNAMIC_PREFIXES = (
+    ("sweep.", "one call of a public kernel wrapper of tpubloom_torch.ops."
+     "sweep, sweep.<wrapper> (routed calls under the same name); its own "
+     "time is the tensor checks, its children sweep.plan / sweep.alloc / "
+     "sweep.enqueue"),
+    ("phase.", "the obs.context phase timers on the profiler's clock — "
+     "phase.<name> for every name in PHASES/PHASE_DYNAMIC_PREFIXES, with "
+     "or without a request"),
+)
+
 #: Flight-recorder event vocabulary: the lifecycle events
 #: ``tpubloom.obs.flight.note`` records — rare, structured, dumped to
 #: JSON on SIGTERM / fatal / DEGRADED-flip / on demand. Same

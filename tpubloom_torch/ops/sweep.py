@@ -104,6 +104,17 @@ device ops are XLA. Each has a CUDA kernel here, with its plain version in
 Every wrapper counts its kernel launches in :data:`LAUNCHES`, the routed
 launches under their own names, so a run can show that its main path
 went through the kernels.
+
+While ``torch.profiler`` records, each public wrapper's call is the
+range ``tpubloom_torch.sweep.<wrapper>`` (:mod:`tpubloom_torch.obs.context`),
+whose own time is :func:`_check`; on the card its children are
+``sweep.plan`` (the kernel's choice, the scratch plan, the library
+lookup), ``sweep.alloc`` (``torch.empty`` of the verdicts and scratch)
+and ``sweep.enqueue`` (the call into the C entry, inside which every
+device operation of the call is launched). A wrapper tests
+:func:`~tpubloom_torch.obs.context.recording` once a call; without the
+profiler it takes the path without ranges (its ``_span`` is None, and
+the helpers' ``span`` too).
 """
 
 from __future__ import annotations
@@ -112,6 +123,7 @@ import ctypes
 
 import torch
 
+from tpubloom_torch.obs import context as obs
 from tpubloom_torch.ops import _build, bitops, blocked, cms, counting, cuckoo
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`
@@ -119,7 +131,12 @@ from tpubloom_torch.ops import _build, bitops, blocked, cms, counting, cuckoo
 #: or counting call, and a count-min update, counts once under its name
 #: whichever kernel it takes, and once more under ``<name>_tiled`` when it
 #: takes the partitioned one; a count-min estimate once more under
-#: ``cms_estimate_rows`` when it takes the row-phased kernel.
+#: ``cms_estimate_rows`` when it takes the row-phased kernel. It counts
+#: calls into the C entries, not device operations (a fused call that
+#: launches six kernels counts once): a test seam, which the tests and
+#: chip_smoke.py read to show that a path went through the kernels. No
+#: benchmark metric reads it; ``sweep.launches_per_batch`` counts the
+#: profiler trace's device operations.
 LAUNCHES: dict[str, int] = {
     "blocked_query": 0, "blocked_insert": 0, "blocked_test_insert": 0,
     "blocked_counting_update": 0, "blocked_counting_query": 0,
@@ -378,58 +395,79 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def _launch_update(lib, name, state, keys, lengths, spec, route) -> None:
+def _launch_update(lib, name, state, keys, lengths, spec, route, span=None) -> None:
     """One launch of the in-place kernel ``name`` (or its routed twin):
-    ``fn(state, keys, lengths, B, L, *spec, *routing, stream)``."""
+    ``fn(state, keys, lengths, B, L, *spec, *routing, stream)``. ``span``:
+    the wrapper's range, whose ``sweep.enqueue`` child holds the launch."""
     B, L = keys.shape
     if not B:
         return
     fn, routing, counter = _entry(lib, name, route)
+    if span is not None:
+        span.child("tpubloom_torch.sweep.enqueue")
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = fn(state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
                  B, L, *spec, *routing, stream)
+    if span is not None:
+        span.child(None)
     _raise_on(err, counter)
     LAUNCHES[counter] += 1
 
 
-def _launch_query(lib, name, state, keys, lengths, spec, route) -> torch.Tensor:
+def _launch_query(lib, name, state, keys, lengths, spec, route, span=None) -> torch.Tensor:
     """One launch of the query kernel ``name`` (or its routed twin) into a
     fresh verdict tensor: ``fn(state, keys, lengths, out, B, L, *spec,
-    *routing, stream)``."""
+    *routing, stream)``; ``span`` as for :func:`_launch_update`."""
     B, L = keys.shape
+    fn, routing, counter = _entry(lib, name, route)
+    if span is not None:
+        span.child("tpubloom_torch.sweep.alloc")
     out = torch.empty((B,), dtype=torch.uint8, device=state.device)
     if B:
-        fn, routing, counter = _entry(lib, name, route)
+        if span is not None:
+            span.child("tpubloom_torch.sweep.enqueue")
         with torch.cuda.device(state.device):
             stream = torch.cuda.current_stream(state.device).cuda_stream
             err = fn(state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
                      out.data_ptr(), B, L, *spec, *routing, stream)
+        if span is not None:
+            span.child(None)
         _raise_on(err, counter)
         LAUNCHES[counter] += 1
     return out.view(torch.bool)
 
 
-def blocked_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
+def blocked_query(state, keys, lengths, config, *, route=None, _span=None) -> torch.Tensor:
     """Membership of each key: ``bool[B]``, False where ``lengths < 0``
     (and, with a ``route``, where the slot does not own the key).
     ``state`` is only read."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.blocked_query") as span:
+            return blocked_query(state, keys, lengths, config, route=route, _span=span)
     _check(state, keys, lengths, config, route)
     if state.device.type == "cpu":
         return blocked.blocked_query_plain(state, keys, lengths, config, route)
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     return _launch_query(_library(), "blocked_query", state, keys, lengths,
-                         _spec_args(config, route), route)
+                         _spec_args(config, route), route, _span)
 
 
-def blocked_insert(state, keys, lengths, config, *, route=None) -> None:
+def blocked_insert(state, keys, lengths, config, *, route=None, _span=None) -> None:
     """Set every valid key's k bits in ``state``, in place (with a
     ``route``, every key the slot owns)."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.blocked_insert") as span:
+            return blocked_insert(state, keys, lengths, config, route=route, _span=span)
     _check(state, keys, lengths, config, route)
     if state.device.type == "cpu":
         blocked.blocked_insert_plain(state, keys, lengths, config, route)
         return
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     _launch_update(_library(), "blocked_insert", state, keys, lengths,
-                   _spec_args(config, route), route)
+                   _spec_args(config, route), route, _span)
 
 
 #: A test-and-insert on the card takes the fused kernel
@@ -487,33 +525,38 @@ def _takes_fused(config, batch: int) -> bool:
 
 
 def _blocked_test_insert_on(fused: bool, state, keys, lengths, config, *,
-                            scratch: torch.Tensor | None = None) -> torch.Tensor:
+                            scratch: torch.Tensor | None = None, span=None) -> torch.Tensor:
     """The test-and-insert of a checked CUDA state on the kernels named:
     the fused one (``fused``, in ``scratch``, allocated when None; counted
     under ``blocked_test_insert``) or blocked_query then blocked_insert.
     :func:`blocked_test_insert` picks by shape; chip_smoke.py and the card
-    tests hold each through here."""
+    tests hold each through here. ``span``: the wrapper's range."""
     if not fused:
         present = _launch_query(_library(), "blocked_query", state, keys, lengths,
-                                _spec_args(config), None)
-        _launch_update(_library(), "blocked_insert", state, keys, lengths, _spec_args(config), None)
+                                _spec_args(config), None, span)
+        _launch_update(_library(), "blocked_insert", state, keys, lengths, _spec_args(config), None,
+                       span)
         return present
     B, L = keys.shape
+    if B and scratch is None:
+        nbytes = blocked_test_insert_scratch_bytes(config, B)
+        if nbytes < 0:
+            raise ValueError(f"blocked_test_insert: the partition cannot hold {B} keys "
+                             f"on {config.n_blocks} rows")
+    lib = _test_insert_library()
+    if span is not None:
+        span.child("tpubloom_torch.sweep.alloc")
     out = torch.empty((B,), dtype=torch.uint8, device=state.device)
     if B:
         if scratch is None:
-            nbytes = blocked_test_insert_scratch_bytes(config, B)
-            if nbytes < 0:
-                raise ValueError(f"blocked_test_insert: the partition cannot hold {B} keys "
-                                 f"on {config.n_blocks} rows")
             scratch = torch.empty(nbytes, dtype=torch.uint8, device=state.device)
-        _launch(_test_insert_library(), "blocked_test_insert", state, state.data_ptr(),
+        _launch(lib, "blocked_test_insert", state, state.data_ptr(),
                 keys.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, L, *_spec_args(config),
-                scratch.data_ptr(), scratch.numel())
+                scratch.data_ptr(), scratch.numel(), span=span)
     return out.view(torch.bool)
 
 
-def blocked_test_insert(state, keys, lengths, config) -> torch.Tensor:
+def blocked_test_insert(state, keys, lengths, config, *, _span=None) -> torch.Tensor:
     """Test-and-insert: each key's membership BEFORE the batch
     (within-batch duplicates all report the pre-batch state; padding
     reports False), and the insert. On the card a batch of
@@ -521,41 +564,58 @@ def blocked_test_insert(state, keys, lengths, config) -> torch.Tensor:
     fused kernel, a smaller one blocked_query then blocked_insert in
     stream order (the query finishes reading before the insert writes);
     both give the same state and verdicts."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.blocked_test_insert") as span:
+            return blocked_test_insert(state, keys, lengths, config, _span=span)
     _check(state, keys, lengths, config)
     if state.device.type == "cpu":
         return blocked.blocked_test_insert_plain(state, keys, lengths, config)
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     return _blocked_test_insert_on(_takes_fused(config, keys.shape[0]), state, keys, lengths,
-                                   config)
+                                   config, span=_span)
 
 
 def blocked_counting_update(
-    state, keys, lengths, config, *, increment: bool, route=None
+    state, keys, lengths, config, *, increment: bool, route=None, _span=None
 ) -> None:
     """Add (``increment``) or subtract each valid key's counter
     multiplicities at its k nibbles in ``state``, in place; nibbles
     saturate at 15 and floor at 0. ``state`` is the counting filter's
     storage, fat or logical ``[NB, W]`` view alike (with a ``route``, one
     slot's shards, and only the keys it owns count)."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.blocked_counting_update") as span:
+            return blocked_counting_update(state, keys, lengths, config, increment=increment,
+                                           route=route, _span=span)
     _check(state, keys, lengths, config, route, counters=True)
     if state.device.type == "cpu":
         counting.blocked_counting_update_plain(
             state, keys, lengths, config, increment=increment, route=route
         )
         return
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     _launch_update(_counting_library(), "blocked_counting_update", state, keys, lengths,
-                   (*_spec_args(config, route), 1 if increment else 0), route)
+                   (*_spec_args(config, route), 1 if increment else 0), route, _span)
 
 
-def blocked_counting_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
+def blocked_counting_query(state, keys, lengths, config, *, route=None,
+                           _span=None) -> torch.Tensor:
     """Counting membership of each key: ``bool[B]``, True where all k of
     its counters are non-zero, False where ``lengths < 0`` (and, with a
     ``route``, where the slot does not own the key). ``state`` is only
     read."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.blocked_counting_query") as span:
+            return blocked_counting_query(state, keys, lengths, config, route=route, _span=span)
     _check(state, keys, lengths, config, route, counters=True)
     if state.device.type == "cpu":
         return counting.blocked_counting_query_plain(state, keys, lengths, config, route)
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     return _launch_query(_counting_library(), "blocked_counting_query", state, keys, lengths,
-                         _spec_args(config, route), route)
+                         _spec_args(config, route), route, _span)
 
 
 def _flat_args(config, route):
@@ -563,30 +623,40 @@ def _flat_args(config, route):
     return (config.m if route is None else config.m_per_shard), config.k, config.seed
 
 
-def flat_insert(state, keys, lengths, config, *, route=None) -> None:
+def flat_insert(state, keys, lengths, config, *, route=None, _span=None) -> None:
     """Set every valid key's k flat bits in ``state`` (``uint32[n_words]``),
     in place (with a ``route``, every key the slot owns). On the card a
     batch whose positions cover enough of the state
     (:func:`flat_takes_tiles`) takes the partitioned kernel, a smaller one
     the thread-a-key kernel; both give the same words."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.flat_insert") as span:
+            return flat_insert(state, keys, lengths, config, route=route, _span=span)
     _check(state, keys, lengths, config, route, flat=True)
     if state.device.type == "cpu":
         bitops.flat_insert_plain(state, keys, lengths, config, route)
         return
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     _flat_insert_on(_takes_tiles(config, keys.shape[0], route, False), state, keys, lengths,
-                    config, route=route)
+                    config, route=route, span=_span)
 
 
-def flat_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
+def flat_query(state, keys, lengths, config, *, route=None, _span=None) -> torch.Tensor:
     """Flat membership of each key: ``bool[B]``, False where ``lengths <
     0`` (and, with a ``route``, where the slot does not own the key).
     ``state`` is only read. One kernel whatever the batch: a thread a key,
     which stops at the key's first zero bit."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.flat_query") as span:
+            return flat_query(state, keys, lengths, config, route=route, _span=span)
     _check(state, keys, lengths, config, route, flat=True)
     if state.device.type == "cpu":
         return bitops.flat_query_plain(state, keys, lengths, config, route)
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     return _launch_query(_flat_library(), "flat_query", state, keys, lengths,
-                         _flat_args(config, route), route)
+                         _flat_args(config, route), route, _span)
 
 
 # -- the partitioned flat kernels (csrc/flat_bits.cu, csrc/flat_counting.cu) -------
@@ -669,95 +739,120 @@ def _takes_tiles(config, batch: int, route, query: bool) -> bool:
             and flat_tiled_scratch_bytes(config, batch, route, query=query) >= 0)
 
 
-def _launch_tiled(name, state, keys, lengths, spec, config, route, out=None) -> None:
+def _launch_tiled(name, state, keys, lengths, spec, config, route, out=None, span=None) -> None:
     """One partitioned launch (``<name>_tiled``, routed with a route; of
     flat_counting.cu for a counting config, else flat_bits.cu) with the
     scratch its plan needs: ``fn(state, keys, lengths, [out,] B, L, *spec,
     *routing, scratch, scratch_bytes, stream)``, counted under ``name`` and
-    ``name_tiled``."""
+    ``name_tiled``; ``span`` as for :func:`_launch_update`."""
     B, L = keys.shape
     if not B:
         return
+    if span is not None:
+        span.child("tpubloom_torch.sweep.plan")
     lib = _flat_tiled_library() if config.counting else _flat_bits_library()
     nbytes = flat_tiled_scratch_bytes(config, B, route, query=out is not None)
     if nbytes < 0:
         raise ValueError(f"{name}: the partition cannot hold {B} keys on this state")
     fn, routing, counter = _entry(lib, f"{name}_tiled", route)
+    if span is not None:
+        span.child("tpubloom_torch.sweep.alloc")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=state.device)
     ptrs = (state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
             *(() if out is None else (out.data_ptr(),)))
+    if span is not None:
+        span.child("tpubloom_torch.sweep.enqueue")
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = fn(*ptrs, B, L, *spec, *routing, scratch.data_ptr(), nbytes, stream)
+    if span is not None:
+        span.child(None)
     _raise_on(err, counter)
     LAUNCHES[counter] += 1
     LAUNCHES[counter.removesuffix("_tiled")] += 1
 
 
-def _flat_insert_on(tiled: bool, state, keys, lengths, config, *, route=None) -> None:
+def _flat_insert_on(tiled: bool, state, keys, lengths, config, *, route=None, span=None) -> None:
     """The flat insert of a checked CUDA state on the kernel named: the
     partitioned one (``tiled``) or the thread-a-key one. :func:`flat_insert`
     picks it by shape; chip_smoke.py and the card tests hold each kernel
-    through here."""
+    through here. ``span``: the wrapper's range."""
     spec = _flat_args(config, route)
     if tiled:
-        _launch_tiled("flat_insert", state, keys, lengths, spec, config, route)
+        _launch_tiled("flat_insert", state, keys, lengths, spec, config, route, span=span)
     else:
-        _launch_update(_flat_library(), "flat_insert", state, keys, lengths, spec, route)
+        _launch_update(_flat_library(), "flat_insert", state, keys, lengths, spec, route, span)
 
 
 def _flat_counting_update_on(tiled: bool, state, keys, lengths, config, *, increment: bool,
-                             route=None) -> None:
+                             route=None, span=None) -> None:
     """The flat counting update of a checked CUDA state on the kernel
     named: the partitioned one (``tiled``) or the thread-a-key one.
     :func:`flat_counting_update` picks it by shape; chip_smoke.py and the
-    card tests hold each kernel through here."""
+    card tests hold each kernel through here. ``span``: the wrapper's
+    range."""
     spec = (*_flat_args(config, route), 1 if increment else 0)
     if tiled:
-        _launch_tiled("flat_counting_update", state, keys, lengths, spec, config, route)
+        _launch_tiled("flat_counting_update", state, keys, lengths, spec, config, route, span=span)
     else:
-        _launch_update(_flat_library(), "flat_counting_update", state, keys, lengths, spec, route)
+        _launch_update(_flat_library(), "flat_counting_update", state, keys, lengths, spec, route,
+                       span)
 
 
-def _flat_counting_query_on(tiled: bool, state, keys, lengths, config, *, route=None) -> torch.Tensor:
+def _flat_counting_query_on(tiled: bool, state, keys, lengths, config, *, route=None,
+                            span=None) -> torch.Tensor:
     """The flat counting query of a checked CUDA state on the kernel named,
     as :func:`_flat_counting_update_on`."""
     if not tiled:
         return _launch_query(_flat_library(), "flat_counting_query", state, keys, lengths,
-                             _flat_args(config, route), route)
+                             _flat_args(config, route), route, span)
+    if span is not None:
+        span.child("tpubloom_torch.sweep.alloc")
     out = torch.empty((keys.shape[0],), dtype=torch.uint8, device=state.device)
     _launch_tiled("flat_counting_query", state, keys, lengths, _flat_args(config, route), config,
-                  route, out)
+                  route, out, span)
     return out.view(torch.bool)
 
 
-def flat_counting_update(state, keys, lengths, config, *, increment: bool, route=None) -> None:
+def flat_counting_update(state, keys, lengths, config, *, increment: bool, route=None,
+                         _span=None) -> None:
     """Add (``increment``) or subtract each valid key's multiplicity at
     its k flat counters in ``state`` (``uint32[n_counter_words]``), in
     place; nibbles saturate at 15 and floor at 0. On the card a batch
     whose positions cover enough of the state (:func:`flat_takes_tiles`)
     takes the partitioned kernels, a smaller one the thread-a-key
     kernel; both give the same words."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.flat_counting_update") as span:
+            return flat_counting_update(state, keys, lengths, config, increment=increment,
+                                        route=route, _span=span)
     _check(state, keys, lengths, config, route, counters=True, flat=True)
     if state.device.type == "cpu":
         counting.flat_counting_update_plain(
             state, keys, lengths, config, increment=increment, route=route
         )
         return
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     _flat_counting_update_on(_takes_tiles(config, keys.shape[0], route, False), state, keys,
-                             lengths, config, increment=increment, route=route)
+                             lengths, config, increment=increment, route=route, span=_span)
 
 
-def flat_counting_query(state, keys, lengths, config, *, route=None) -> torch.Tensor:
+def flat_counting_query(state, keys, lengths, config, *, route=None, _span=None) -> torch.Tensor:
     """Flat counting membership: ``bool[B]``, True where all k counters
     are non-zero, False where ``lengths < 0`` (and, with a ``route``,
     where the slot does not own the key). ``state`` is only read. The
     kernel is chosen as for :func:`flat_counting_update`."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.flat_counting_query") as span:
+            return flat_counting_query(state, keys, lengths, config, route=route, _span=span)
     _check(state, keys, lengths, config, route, counters=True, flat=True)
     if state.device.type == "cpu":
         return counting.flat_counting_query_plain(state, keys, lengths, config, route)
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     return _flat_counting_query_on(_takes_tiles(config, keys.shape[0], route, True), state, keys,
-                                   lengths, config, route=route)
+                                   lengths, config, route=route, span=_span)
 
 
 # -- the sketch kinds (csrc/cuckoo.cu, csrc/cms.cu) ------------------------------
@@ -773,12 +868,18 @@ def _check_sketch(state, keys, lengths, config, kind: str) -> None:
                    "config")
 
 
-def _launch(lib, name: str, state, *args, counter: str | None = None) -> None:
+def _launch(lib, name: str, state, *args, counter: str | None = None, span=None) -> None:
     """One call of ``tpb_<name>(*args, stream)`` on ``state``'s device,
-    counted under ``counter`` (``name`` when not given)."""
+    counted under ``counter`` (``name`` when not given); ``span`` as for
+    :func:`_launch_update`."""
+    fn = getattr(lib, f"tpb_{name}")
+    if span is not None:
+        span.child("tpubloom_torch.sweep.enqueue")
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = getattr(lib, f"tpb_{name}")(*args, stream)
+        err = fn(*args, stream)
+    if span is not None:
+        span.child(None)
     _raise_on(err, name)
     LAUNCHES[counter or name] += 1
 
@@ -801,16 +902,17 @@ def _cuckoo_scratch(state, B: int, config):
             torch.empty((config.m // cuckoo.BUCKET_SIZE,), dtype=torch.int32, device=state.device))
 
 
-def _cuckoo_walk(name: str, state, keys, lengths, config, *outs) -> None:
+def _cuckoo_walk(name: str, state, keys, lengths, config, *outs, span=None) -> None:
     """The insert or delete (two launches: the hash, then the round walk)
-    into ``outs``, with its scratch; no stats."""
+    into ``outs``, with its scratch; no stats. ``span``: the wrapper's
+    range, in its ``sweep.alloc`` child."""
     B, L = keys.shape
     if not B:
         return
     fi, owner = _cuckoo_scratch(state, B, config)
     _launch(_cuckoo_library(), name, state, state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
             fi.data_ptr(), owner.data_ptr(), *(o.data_ptr() for o in outs), None, B, L,
-            config.m // cuckoo.BUCKET_SIZE, config.seed)
+            config.m // cuckoo.BUCKET_SIZE, config.seed, span=span)
 
 
 def _cuckoo_walk_on(variant: str, insert: bool, state, keys, lengths, config, window: int = 0):
@@ -852,45 +954,61 @@ def _cuckoo_chase(rows: torch.Tensor, start: int, steps: int) -> torch.Tensor:
     return out
 
 
-def cuckoo_insert(state, keys, lengths, config) -> tuple[torch.Tensor, torch.Tensor]:
+def cuckoo_insert(state, keys, lengths, config, *,
+                  _span=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Insert each valid key's fingerprint into the cuckoo table ``state``
     (``uint32[config.m]``, 4 slots a bucket), in batch order, in place;
     ``(ok bool[B], kicks int32[B])``: False for a key rejected FULL (its
     kick chain unwound, the table as before it) and for padding, and the
     kick steps each key took."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.cuckoo_insert") as span:
+            return cuckoo_insert(state, keys, lengths, config, _span=span)
     _check_sketch(state, keys, lengths, config, "cuckoo")
     if state.device.type == "cpu":
         return cuckoo.cuckoo_insert_plain(state, keys, lengths, config)
     B = keys.shape[0]
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.alloc")
     ok = torch.empty((B,), dtype=torch.uint8, device=state.device)
     kicks = torch.empty((B,), dtype=torch.int32, device=state.device)
-    _cuckoo_walk("cuckoo_insert", state, keys, lengths, config, ok, kicks)
+    _cuckoo_walk("cuckoo_insert", state, keys, lengths, config, ok, kicks, span=_span)
     return ok.view(torch.bool), kicks
 
 
-def cuckoo_delete(state, keys, lengths, config) -> torch.Tensor:
+def cuckoo_delete(state, keys, lengths, config, *, _span=None) -> torch.Tensor:
     """Remove one stored copy of each valid key's fingerprint, in batch
     order, in place; ``bool[B]``, whether a copy was there."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.cuckoo_delete") as span:
+            return cuckoo_delete(state, keys, lengths, config, _span=span)
     _check_sketch(state, keys, lengths, config, "cuckoo")
     if state.device.type == "cpu":
         return cuckoo.cuckoo_delete_plain(state, keys, lengths, config)
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.alloc")
     deleted = torch.empty((keys.shape[0],), dtype=torch.uint8, device=state.device)
-    _cuckoo_walk("cuckoo_delete", state, keys, lengths, config, deleted)
+    _cuckoo_walk("cuckoo_delete", state, keys, lengths, config, deleted, span=_span)
     return deleted.view(torch.bool)
 
 
-def cuckoo_query(state, keys, lengths, config) -> torch.Tensor:
+def cuckoo_query(state, keys, lengths, config, *, _span=None) -> torch.Tensor:
     """Cuckoo membership: ``bool[B]``, True where the key's fingerprint is
     in either of its buckets, False for padding. ``state`` is only read."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.cuckoo_query") as span:
+            return cuckoo_query(state, keys, lengths, config, _span=span)
     _check_sketch(state, keys, lengths, config, "cuckoo")
     if state.device.type == "cpu":
         return cuckoo.cuckoo_query_plain(state, keys, lengths, config)
     B, L = keys.shape
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.alloc")
     out = torch.empty((B,), dtype=torch.uint8, device=state.device)
     if B:
         _launch(_cuckoo_library(), "cuckoo_query", state, state.data_ptr(), keys.data_ptr(),
                 lengths.data_ptr(), out.data_ptr(), B, L, config.m // cuckoo.BUCKET_SIZE,
-                config.seed)
+                config.seed, span=_span)
     return out.view(torch.bool)
 
 
@@ -938,13 +1056,14 @@ def cms_tile_counts(scratch: torch.Tensor, config, batch: int, *, weighted: bool
 
 
 def _cms_update_on(tiled: bool, state, keys, lengths, config, increments=None, *,
-                   scratch: torch.Tensor | None = None) -> None:
+                   scratch: torch.Tensor | None = None, span=None) -> None:
     """The count-min update of a checked CUDA state on the kernel named:
     the partitioned one (``tiled``, in ``scratch``, from
     :func:`cms_tiled_scratch` when None) or the thread-a-key one.
     :func:`cms_update` picks it by shape; chip_smoke.py and the card tests
     hold each kernel through here. A partitioned launch counts under
-    ``cms_update`` and ``cms_update_tiled``."""
+    ``cms_update`` and ``cms_update_tiled``. ``span``: the wrapper's
+    range."""
     B, L = keys.shape
     if not B:
         return
@@ -952,23 +1071,27 @@ def _cms_update_on(tiled: bool, state, keys, lengths, config, increments=None, *
     args = (state.data_ptr(), keys.data_ptr(), lengths.data_ptr(),
             None if incs is None else incs.data_ptr(), B, L, config.m, config.k, config.seed)
     if not tiled:
-        _launch(_cms_library(), "cms_update", state, *args)
+        _launch(_cms_library(), "cms_update", state, *args, span=span)
         return
     if scratch is None:
         scratch = cms_tiled_scratch(config, B, state.device, weighted=incs is not None)
         if scratch is None:
             raise ValueError(f"cms_update_tiled: the partition cannot hold {B} keys on this grid")
-    _launch(_cms_library(), "cms_update_tiled", state, *args, scratch.data_ptr(), scratch.numel())
+    _launch(_cms_library(), "cms_update_tiled", state, *args, scratch.data_ptr(), scratch.numel(),
+            span=span)
     LAUNCHES["cms_update"] += 1
 
 
-def cms_update(state, keys, lengths, config, increments=None) -> None:
+def cms_update(state, keys, lengths, config, increments=None, *, _span=None) -> None:
     """Add each valid key's increment (``increments``: ``uint32[B]`` on
     ``state``'s device; None for 1 a key) to its ``config.k`` counters of
     the count-min grid ``state`` (``uint32[k * m]``, row-major), mod 2^32,
     in place. On the card a batch whose positions cover enough of the grid
     (:func:`cms_takes_tiles`) takes the partitioned kernel, a smaller one
     the thread-a-key kernel; both give the same words."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.cms_update") as span:
+            return cms_update(state, keys, lengths, config, increments, _span=span)
     _check_sketch(state, keys, lengths, config, "cms")
     if increments is not None and (increments.dtype != torch.uint32
                                    or increments.device != state.device
@@ -978,9 +1101,12 @@ def cms_update(state, keys, lengths, config, increments=None) -> None:
         cms.cms_update_plain(state, keys, lengths, config, increments)
         return
     B = keys.shape[0]
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     scratch = (cms_tiled_scratch(config, B, state.device, weighted=increments is not None)
                if cms_takes_tiles(config, B) else None)
-    _cms_update_on(scratch is not None, state, keys, lengths, config, increments, scratch=scratch)
+    _cms_update_on(scratch is not None, state, keys, lengths, config, increments, scratch=scratch,
+                   span=_span)
 
 
 #: The count-min estimate's kernels (``csrc/cms.cu``), by their entries:
@@ -1007,35 +1133,43 @@ def cms_takes_rows(batch: int) -> bool:
     return batch >= CMS_ROWS_CROSSOVER
 
 
-def _cms_estimate_on(kernel: str, state, keys, lengths, config) -> torch.Tensor:
+def _cms_estimate_on(kernel: str, state, keys, lengths, config, span=None) -> torch.Tensor:
     """The count-min estimate of a checked CUDA state on the kernel named in
     :data:`CMS_ESTIMATES`: :func:`cms_estimate` picks it by batch,
     chip_smoke.py times them against each other, the card tests hold each.
     Every launch counts under ``cms_estimate``, a row-phased one also under
-    ``cms_estimate_rows``."""
+    ``cms_estimate_rows``. ``span``: the wrapper's range."""
     B, L = keys.shape
+    lib = _cms_library()
+    if span is not None:
+        span.child("tpubloom_torch.sweep.alloc")
     out = torch.empty((B,), dtype=torch.int32, device=state.device)
     if B:
-        _launch(_cms_library(), CMS_ESTIMATES[kernel], state, state.data_ptr(), keys.data_ptr(),
+        _launch(lib, CMS_ESTIMATES[kernel], state, state.data_ptr(), keys.data_ptr(),
                 lengths.data_ptr(), out.data_ptr(), B, L, config.m, config.k, config.seed,
-                counter="cms_estimate")
+                counter="cms_estimate", span=span)
         if kernel != "thread_a_key":
             LAUNCHES["cms_estimate_rows"] += 1
     return out.view(torch.uint32)
 
 
-def cms_estimate(state, keys, lengths, config) -> torch.Tensor:
+def cms_estimate(state, keys, lengths, config, *, _span=None) -> torch.Tensor:
     """Each key's count-min estimate, the minimum of its ``config.k``
     counters: ``uint32[B]``, 0 for padding. ``state`` is only read. On the
     card a batch of :data:`CMS_ROWS_CROSSOVER` keys or more takes the
     row-phased kernel, a smaller one a thread a key; both give the same
     estimates."""
+    if _span is None and obs.recording():
+        with obs.Range("tpubloom_torch.sweep.cms_estimate") as span:
+            return cms_estimate(state, keys, lengths, config, _span=span)
     _check_sketch(state, keys, lengths, config, "cms")
     if state.device.type == "cpu":
         return cms.cms_estimate_plain(state, keys, lengths, config)
     B = keys.shape[0]
+    if _span is not None:
+        _span.child("tpubloom_torch.sweep.plan")
     return _cms_estimate_on("rows" if cms_takes_rows(B) else "thread_a_key", state, keys, lengths,
-                            config)
+                            config, _span)
 
 
 def record_fence(device: torch.device):

@@ -31,6 +31,8 @@ from typing import Any, Callable, Iterator
 
 import torch
 
+from tpubloom_torch.obs.context import Range
+
 
 def _activities() -> list:
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -58,22 +60,22 @@ def trace(log_dir: str, *, create: bool = True) -> Iterator[str]:
         prof.stop()
 
 
-@contextlib.contextmanager
-def annotate(name: str, **attrs: Any) -> Iterator[None]:
-    """Named span in the profiler timeline (``record_function``).
+def annotate(name: str, **attrs: Any) -> Range:
+    """Named span in the profiler timeline: the port's
+    :class:`~tpubloom_torch.obs.context.Range` (a ``RecordFunction``
+    range while the profiler records, nothing otherwise).
 
     ``attrs`` are folded into the span name (the span carries no
     structured payload) — keep them short, e.g. ``batch=4096``.
     """
     if attrs:
         name = name + "[" + ",".join(f"{k}={v}" for k, v in attrs.items()) + "]"
-    with torch.profiler.record_function(name):
-        yield
+    return Range(name)
 
 
 def request_span(
     name: str, *, batch: int | None = None, rid: str | None = None
-) -> Iterator[None]:
+) -> Range:
     """Request-correlated :func:`annotate` span: folds the batch size and
     request id into the span name, silently dropping absent attrs (a
     library call without an active request has no rid)."""
